@@ -152,6 +152,41 @@ static __device__ void window_min(const int* src, int* dst, int H, int W,
   __syncthreads();
 }
 
+// Packed geodesic watershed to its fixpoint. `pk` holds (dist << 2) | label
+// on entry: labels 1..3 at distance 0 on the markers, kUnreachedPk elsewhere.
+// Bellman-Ford: pk = min over 4-neighbours of pk[nb] + ((|dq| * K + 1) << 2),
+// K the next power of two >= H + W, q the integer image. That is exactly
+// what the JAX line scans add up, and an integer min-plus fixpoint is
+// unique, so both reach the same values. Values only fall, and each stays a
+// real path value below 2^30 + 2^22, so int32 never overflows for sides
+// <= 512 and 8-bit q.
+constexpr int kUnreachedPk = 1 << 30;
+
+template <typename Q>
+static __device__ void packed_watershed(const Q* q, int* pk, int H, int W) {
+  const int n = H * W;
+  int K = 1;
+  while (K < H + W) K *= 2;
+  while (true) {
+    bool changed = false;
+    for (int p = threadIdx.x; p < n; p += blockDim.x) {
+      const int y = p / W, x = p - y * W;
+      const int qp = static_cast<int>(q[p]);
+      const int cur = pk[p];
+      int best = cur;
+      if (x > 0) best = min(best, pk[p - 1] + ((abs(qp - static_cast<int>(q[p - 1])) * K + 1) << 2));
+      if (x < W - 1) best = min(best, pk[p + 1] + ((abs(qp - static_cast<int>(q[p + 1])) * K + 1) << 2));
+      if (y > 0) best = min(best, pk[p - W] + ((abs(qp - static_cast<int>(q[p - W])) * K + 1) << 2));
+      if (y < H - 1) best = min(best, pk[p + W] + ((abs(qp - static_cast<int>(q[p + W])) * K + 1) << 2));
+      if (best < cur) {
+        pk[p] = best;
+        changed = true;
+      }
+    }
+    if (!__syncthreads_or(changed)) break;
+  }
+}
+
 // 0/1 plane erode (border 1) then dilate (border 0) with a k x k square
 // anchored at k / 2, in place in m; t1, t2 are scratch planes.
 static __device__ void opening(int* m, int* t1, int* t2, int H, int W, int k) {

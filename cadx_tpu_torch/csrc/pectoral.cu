@@ -8,7 +8,6 @@ namespace {
 using namespace cadx;
 
 constexpr int kPlanes = 6;        // scratch int32 planes per image
-constexpr int kUnreached = 1 << 30;
 
 __global__ void __launch_bounds__(kThreads)
 pectoral_kernel(const uint8_t* equ, const uint8_t* bin, const uint8_t* breast,
@@ -53,33 +52,12 @@ pectoral_kernel(const uint8_t* equ, const uint8_t* bin, const uint8_t* breast,
     if (m[p] > 0) s = 1;
     if (lab[p] == 1) s = 2;
     if (breast[p] == 0) s = 3;
-    pk[p] = s ? s : kUnreached;
+    pk[p] = s ? s : kUnreachedPk;
   }
   __syncthreads();
 
-  // 4. Bellman-Ford to the packed fixpoint: pk = min over 4-neighbours of
-  // pk[nb] + ((|dq| * K + 1) << 2). Values only fall, and each stays a
-  // real path value below 2^30 + 2^22, so int32 never overflows.
-  int K = 1;
-  while (K < H + W) K *= 2;
-  while (true) {
-    bool changed = false;
-    for (int p = threadIdx.x; p < n; p += blockDim.x) {
-      const int y = p / W, x = p - y * W;
-      const int q = equ[p];
-      const int cur = pk[p];
-      int best = cur;
-      if (x > 0) best = min(best, pk[p - 1] + ((abs(q - equ[p - 1]) * K + 1) << 2));
-      if (x < W - 1) best = min(best, pk[p + 1] + ((abs(q - equ[p + 1]) * K + 1) << 2));
-      if (y > 0) best = min(best, pk[p - W] + ((abs(q - equ[p - W]) * K + 1) << 2));
-      if (y < H - 1) best = min(best, pk[p + W] + ((abs(q - equ[p + W]) * K + 1) << 2));
-      if (best < cur) {
-        pk[p] = best;
-        changed = true;
-      }
-    }
-    if (!__syncthreads_or(changed)) break;
-  }
+  // 4. packed watershed to its fixpoint (components.cuh)
+  packed_watershed(equ, pk, H, W);
   for (int p = threadIdx.x; p < n; p += blockDim.x) {
     const int s = pk[p] & 3;
     labels[p] = s == 1 ? 255 : s == 2 ? 128 : s == 3 ? 64 : 0;

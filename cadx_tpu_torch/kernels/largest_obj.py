@@ -30,7 +30,7 @@ from __future__ import annotations
 import torch
 
 from cadx_tpu_torch.kernels import _build
-from cadx_tpu_torch.ops.components import fill_holes, largest_component
+from cadx_tpu_torch.ops.components import fill_holes, largest_component_plain
 from cadx_tpu_torch.ops.morphology import opening
 
 SOURCE = "cadx_tpu_torch/csrc/largest_obj.cu"
@@ -42,11 +42,13 @@ def largest_obj_reference(masks: torch.Tensor, connectivity: int = 8,
                           fill: bool = False, smooth_k: int = 0,
                           fill_first: bool = False,
                           max_iters: int = 128) -> torch.Tensor:
-    """Plain version: the composed ops the JAX cleaner uses off the TPU."""
+    """Plain version: the composed ops the JAX cleaner uses off the TPU,
+    plain on any device (the public `largest_component` would launch the
+    CCL and mode kernels on a CUDA tensor)."""
     m = masks.to(torch.bool)
     if fill_first:
         m = fill_holes(m, max_iters)
-    out = largest_component(m, connectivity, max_iters)
+    out = largest_component_plain(m, connectivity, max_iters)
     if fill and not fill_first:
         out = fill_holes(out, max_iters)
     if smooth_k:

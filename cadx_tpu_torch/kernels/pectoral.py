@@ -31,7 +31,7 @@ import torch
 from cadx_tpu_torch.kernels import _build
 from cadx_tpu_torch.kernels.largest_obj import largest_obj_reference
 from cadx_tpu_torch.ops.morphology import dilate, erode, opening
-from cadx_tpu_torch.ops.watershed import marker_watershed
+from cadx_tpu_torch.ops.watershed import marker_watershed_plain
 
 SOURCE = "cadx_tpu_torch/csrc/pectoral.cu"
 REPLACES = "cadx_tpu/kernels/pectoral.py:124"
@@ -43,8 +43,10 @@ def pectoral_tail_reference(img_equ: torch.Tensor, img_bin: torch.Tensor,
                             n_morph: int = 7, sm_k: int = 25,
                             max_iters: int = 128, ws_max_iters: int = 256,
                             max_scan: int = 8):
-    """Plain version: the composed ops of the JAX `remove_pectoral`.
-    Returns (labels int32, boundary bool, opened breast-only mask bool)."""
+    """Plain version: the composed ops of the JAX `remove_pectoral`, plain
+    on any device (the public `marker_watershed` would launch the watershed
+    kernel on a CUDA tensor). Returns (labels int32, boundary bool, opened
+    breast-only mask bool)."""
     pect = largest_obj_reference(img_bin > 0, 8, fill=True,
                                  max_iters=max_iters).to(torch.uint8)
     pect_eroded = erode(pect, morph_k, n_morph)
@@ -54,10 +56,10 @@ def pectoral_tail_reference(img_equ: torch.Tensor, img_bin: torch.Tensor,
     markers = torch.where(pect_eroded > 0, 255, markers)
     markers = torch.where(pect_dilated == 0, 128, markers)
     markers = torch.where(breast_mask == 0, 64, markers)
-    labels, boundary = marker_watershed(img_equ, markers,
-                                        max_iters=ws_max_iters,
-                                        max_scan=max_scan,
-                                        marker_label_values=(255, 128, 64))
+    labels, boundary = marker_watershed_plain(img_equ, markers,
+                                              max_iters=ws_max_iters,
+                                              max_scan=max_scan,
+                                              marker_label_values=(255, 128, 64))
     mask128 = (~boundary & (labels == 128)).to(torch.uint8)
     return labels, boundary, opening(mask128, sm_k) > 0
 

@@ -9,7 +9,7 @@ where a cap is hit. Their contract, which the CUDA kernels meet by other
 means, is the fixpoint:
 
 - a foreground pixel's label is the minimum raster index of its
-  component; background holds the sentinel (1 << label_bits) - 1;
+  component; background holds `background_label(H, W)`;
 - the largest component is chosen by area, the smallest label on ties;
 - holes are background pixels that a 4-connected flood from the image
   border cannot reach.
@@ -18,6 +18,13 @@ A sweep that changes nothing is a fixpoint, so running further sweeps on
 an image that has already converged leaves it as it is; the batched loops
 below therefore stop when no image of the batch changed, which is what a
 per-image loop gives.
+
+`label_components` and `largest_component` dispatch on the device: a CPU
+tensor takes the `*_plain` form, a CUDA tensor the kernels of
+`kernels/ccl.py` and `kernels/mode.py` (imported at the call, so the
+kernel modules, which build on these plain forms, import this module and
+not the other way round). The kernels' own plain versions call the
+`*_plain` forms, so they stay plain on the card.
 """
 
 from __future__ import annotations
@@ -26,6 +33,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+# background of the labels where H*W is too large to pack into int32
+_INF = 1 << 30
 
 
 def _label_bits(h: int, w: int) -> int:
@@ -69,19 +79,20 @@ def _run_to_fixpoint(sweep, state: torch.Tensor, max_iters: int) -> torch.Tensor
     return state
 
 
-def _make_packed_sweep(mask: torch.Tensor, connectivity: int, lbl_bits: int):
+def _make_packed_sweep(mask: torch.Tensor, connectivity: int, lbl_bits: int,
+                       dtype: torch.dtype = torch.int32):
     """One packed-cummin labelling sweep: rows both ways, then columns,
     then (8-connectivity) the 3x3 neighbour min. Values are packed as
     (segment_id << lbl_bits) | label; the segment order is inverted for
     the forward scans so a foreign segment never wins the min."""
     h, w = mask.shape[-2:]
     lbl_mask = (1 << lbl_bits) - 1
-    barriers = (~mask).to(torch.int32)
-    row_seg = torch.cumsum(barriers, dim=-1, dtype=torch.int32)
-    col_seg = torch.cumsum(barriers, dim=-2, dtype=torch.int32)
+    barriers = (~mask).to(dtype)
+    row_seg = torch.cumsum(barriers, dim=-1, dtype=dtype)
+    col_seg = torch.cumsum(barriers, dim=-2, dtype=dtype)
     row_f, row_b = (w + 1 - row_seg) << lbl_bits, row_seg << lbl_bits
     col_f, col_b = (h + 1 - col_seg) << lbl_bits, col_seg << lbl_bits
-    sentinel = torch.full((), lbl_mask, dtype=torch.int32, device=mask.device)
+    sentinel = torch.full((), lbl_mask, dtype=dtype, device=mask.device)
 
     def sweep(labels: torch.Tensor) -> torch.Tensor:
         vals = torch.where(mask, labels, sentinel)
@@ -97,25 +108,56 @@ def _make_packed_sweep(mask: torch.Tensor, connectivity: int, lbl_bits: int):
     return sweep, sentinel
 
 
+def _packs_int32(h: int, w: int) -> bool:
+    """Segment id and label fit 31 bits: JAX's packed form, else its
+    tuple-scan form."""
+    return _label_bits(h, w) + _seg_bits(h, w) <= 31
+
+
+def background_label(h: int, w: int) -> int:
+    """The background value of `label_components` at (h, w): the packed
+    form's (1 << label_bits) - 1, or JAX's 2**30 where the image is too
+    large to pack into int32 (its tuple-scan form)."""
+    return (1 << _label_bits(h, w)) - 1 if _packs_int32(h, w) else _INF
+
+
 def _label_core(mask: torch.Tensor, connectivity: int, max_iters: int,
                 init: torch.Tensor | None = None) -> torch.Tensor:
+    """Sweeps to the fixpoint. Up to 31 bits of segment id and label the
+    values pack into int32. Beyond, the same packed cummin runs on int64:
+    it computes the same segmented min as JAX's tuple scan, whose
+    background value 2**30 is put back at the end."""
     h, w = mask.shape[-2:]
     lbl_bits = _label_bits(h, w)
-    if lbl_bits + _seg_bits(h, w) > 31:
-        raise ValueError(
-            f"{h}x{w} is too large for the packed labelling form; the "
-            "tuple-scan form is not ported")
-    own = torch.arange(h * w, dtype=torch.int32, device=mask.device).view(h, w)
-    sweep, sentinel = _make_packed_sweep(mask, connectivity, lbl_bits)
-    start = own.expand_as(mask) if init is None else torch.minimum(own, init)
+    packed32 = _packs_int32(h, w)
+    dtype = torch.int32 if packed32 else torch.int64
+    own = torch.arange(h * w, dtype=dtype, device=mask.device).view(h, w)
+    sweep, sentinel = _make_packed_sweep(mask, connectivity, lbl_bits, dtype)
+    start = own.expand_as(mask) if init is None else torch.minimum(own, init.to(dtype))
     start = torch.where(mask, start, sentinel)
-    return _run_to_fixpoint(sweep, start, max_iters)
+    labels = _run_to_fixpoint(sweep, start, max_iters)
+    if packed32:
+        return labels
+    return torch.where(mask, labels, _INF).to(torch.int32)
 
 
 def label_components(mask: torch.Tensor, connectivity: int = 8,
                      max_iters: int = 128) -> torch.Tensor:
     """(B, H, W) bool -> int32 labels (component min raster index;
-    background holds a sentinel >= H*W). A 4x-coarse labelling of
+    background holds `background_label(H, W)`). A CPU tensor takes the
+    plain form (`label_components_plain`, with its sweep cap); a CUDA
+    tensor launches the CCL kernel, which runs to the fixpoint, or
+    raises."""
+    if mask.device.type == "cpu":
+        return label_components_plain(mask, connectivity, max_iters)
+    from cadx_tpu_torch.kernels.ccl import label_components as ccl_kernel
+
+    return ccl_kernel(mask.to(torch.bool).contiguous(), connectivity)
+
+
+def label_components_plain(mask: torch.Tensor, connectivity: int = 8,
+                           max_iters: int = 128) -> torch.Tensor:
+    """The JAX algorithm on any device: a 4x-coarse labelling of
     all-foreground blocks seeds the fine one, as in JAX."""
     mask = mask.to(torch.bool)
     b, h, w = mask.shape
@@ -144,9 +186,23 @@ def largest_from_labels(labels: torch.Tensor, mask: torch.Tensor) -> torch.Tenso
 
 def largest_component(mask: torch.Tensor, connectivity: int = 8,
                       max_iters: int = 128) -> torch.Tensor:
-    """Bool mask of the largest connected foreground object per image."""
+    """Bool mask of the largest connected foreground object per image. A
+    CPU tensor takes the plain form; a CUDA tensor launches the CCL
+    kernel and then the largest-component-mask kernel, as the JAX op
+    dispatches its two Pallas kernels, or raises."""
+    if mask.device.type == "cpu":
+        return largest_component_plain(mask, connectivity, max_iters)
+    from cadx_tpu_torch.kernels.mode import largest_component_mask
+
+    mask = mask.to(torch.bool).contiguous()
+    return largest_component_mask(label_components(mask, connectivity), mask)
+
+
+def largest_component_plain(mask: torch.Tensor, connectivity: int = 8,
+                            max_iters: int = 128) -> torch.Tensor:
+    """The plain form on any device: labels, then the most frequent one."""
     mask = mask.to(torch.bool)
-    labels = label_components(mask, connectivity, max_iters)
+    labels = label_components_plain(mask, connectivity, max_iters)
     return largest_from_labels(labels, mask)
 
 

@@ -1,22 +1,30 @@
-"""Packed int32 min-plus line scans for the geodesic watershed.
+"""Min-plus line scans for the geodesic watershed, in both of its forms.
 
-Port of the packed form of `cadx_tpu/ops/geodesic_scan.py`, batched over
-a leading B. The packed value of a pixel is (dist_q << 2) | label, where
-dist_q = K * sum|grad| + path length and K is the next power of two >=
-H + W, so the two keys never mix. Labels 1..3 stand for the caller's
-marker values; unreached pixels hold 1 << 30, whose label bits are 0.
-The fixpoint is the minimum, over the markers, of the packed path value:
-equal distances go to the smaller label index.
+Port of `cadx_tpu/ops/geodesic_scan.py`, batched over a leading B.
 
-The (distance, label) pair form is not ported: `relax_to_fixpoint_packed`
-is the only relaxation here, and callers gate it with `use_packed`.
+Pair form (`relax_to_fixpoint`): float32 distances and int32 labels. The
+edge cost between two neighbours is |dI| + 1e-3; `axis_costs` takes its
+prefix sums along rows and columns with the Hillis-Steele doubling order
+of JAX, and each directional pass of `sweep` takes the running min of
+d -/+ s over a window (`scan_min_carry`), carrying the argmin's label,
+ties to the nearest pixel. The float fixpoint depends on that order of
+arithmetic, so the port keeps it op for op.
+
+Packed form (`relax_to_fixpoint_packed`): the packed value of a pixel is
+(dist_q << 2) | label, where dist_q = K * sum|grad| + path length and K
+is the next power of two >= H + W, so the two keys never mix. Labels
+1..3 stand for the caller's marker values; unreached pixels hold 1 << 30,
+whose label bits are 0. The fixpoint is the minimum, over the markers, of
+the packed path value: equal distances go to the smaller label index.
 """
 
 from __future__ import annotations
 
 import torch
 
+BIG = 1e30
 BIG_PK = 1 << 30
+EDGE_EPS = 1e-3
 
 
 def shift(x: torch.Tensor, dy: int, dx: int, fill) -> torch.Tensor:
@@ -35,6 +43,83 @@ def doubling_steps(n: int) -> tuple[int, ...]:
         steps.append(k)
         k *= 2
     return tuple(steps)
+
+
+def _axis_shift(axis: int, k: int) -> tuple[int, int]:
+    """(dy, dx) of a shift by k along image axis 0 (rows) or 1 (columns)."""
+    return (k, 0) if axis == 0 else (0, k)
+
+
+def scan_min_carry(w: torch.Tensor, l: torch.Tensor, axis: int,
+                   reverse: bool, max_scan: int):
+    """Running min of w along image `axis` (prefix, or suffix if reverse)
+    over a window of up to max_scan, carrying the argmin's label. Strict
+    < keeps the nearest minimiser on ties."""
+    n = min(w.shape[-2 + axis], max_scan)
+    sgn = -1 if reverse else 1
+    for k in doubling_steps(n):
+        dy, dx = _axis_shift(axis, sgn * k)
+        w_sh = shift(w, dy, dx, BIG)
+        l_sh = shift(l, dy, dx, 0)
+        take = w_sh < w
+        w = torch.where(take, w_sh, w)
+        l = torch.where(take, l_sh, l)
+    return w, l
+
+
+def doubling_cumsum(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """Inclusive prefix sum along image `axis` by shift-doubling adds,
+    the association order of JAX's."""
+    for k in doubling_steps(x.shape[-2 + axis]):
+        dy, dx = _axis_shift(axis, k)
+        x = x + shift(x, dy, dx, 0.0)
+    return x
+
+
+def axis_costs(img: torch.Tensor):
+    """Prefix sums (srow, scol) of the float32 step costs |dI| + 1e-3 along
+    rows and columns; the first column / row costs nothing, so
+    srow[i, j] - srow[i, k] is the path cost k -> j along row i."""
+    crow = (img - shift(img, 0, 1, 0.0)).abs() + EDGE_EPS
+    crow[..., :, 0] = 0.0
+    ccol = (img - shift(img, 1, 0, 0.0)).abs() + EDGE_EPS
+    ccol[..., 0, :] = 0.0
+    return doubling_cumsum(crow, 1), doubling_cumsum(ccol, 0)
+
+
+def _relax(d, l, lw, cand):
+    take = cand < d
+    return torch.where(take, cand, d), torch.where(take, lw, l)
+
+
+def sweep(d: torch.Tensor, l: torch.Tensor, srow: torch.Tensor,
+          scol: torch.Tensor, max_scan: int):
+    """One Gauss-Seidel sweep: LR, RL, TB, BT line relaxations, each seeing
+    the previous one's output. Left-to-right relaxes d[i] to
+    min_{j<=i}(d[j] - s[j]) + s[i] where that is smaller; right-to-left
+    uses min_{j>=i}(d[j] + s[j]) - s[i]; then the same along columns."""
+    for axis, s in ((1, srow), (0, scol)):
+        w, lw = scan_min_carry(d - s, l, axis, False, max_scan)
+        d, l = _relax(d, l, lw, w + s)
+        w, lw = scan_min_carry(d + s, l, axis, True, max_scan)
+        d, l = _relax(d, l, lw, w - s)
+    return d, l
+
+
+def relax_to_fixpoint(img: torch.Tensor, markers: torch.Tensor,
+                      max_iters: int, max_scan: int) -> torch.Tensor:
+    """Pair-form sweeps until no distance changes (at most `max_iters`);
+    returns the labels, the markers' own values, 0 where unreached."""
+    labels = markers.to(torch.int32)
+    dist = torch.where(labels > 0, 0.0, BIG).to(torch.float32)
+    srow, scol = axis_costs(img.to(torch.float32))
+    for _ in range(max_iters):
+        new_d, new_l = sweep(dist, labels, srow, scol, max_scan)
+        changed = bool((new_d != dist).any())
+        dist, labels = new_d, new_l
+        if not changed:
+            break
+    return labels
 
 
 def _pack_params(h: int, w: int) -> tuple[int, int]:

@@ -8,13 +8,12 @@ blended onto the cleaned image.
 
 Convolutions and matmuls run in full float32 (no TF32) inside
 `run_pipeline`, as the JAX package runs them at HIGHEST precision; the
-setting is scoped to the call. Grad-CAM's one backward pass, through the
-dense head, is plain autograd.
+setting is scoped to the call (`precision.full_fp32`). Grad-CAM's one
+backward pass, through the dense head, is plain autograd.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import NamedTuple
 
@@ -23,6 +22,7 @@ import torch
 from cadx_tpu_torch.models import cnn, unet
 from cadx_tpu_torch.ops.colormap import apply_jet
 from cadx_tpu_torch.ops.resize import resize_linear, resize_linear_mxu
+from cadx_tpu_torch.precision import full_fp32
 from cadx_tpu_torch.preprocess import cleaner
 from cadx_tpu_torch.xai.gradcam import cam_from_acts_grads, conv_features, head_logits
 
@@ -68,22 +68,6 @@ def init_pipeline_params(generator: torch.Generator, config: PipelineConfig,
     )
 
 
-@contextlib.contextmanager
-def _full_fp32():
-    """No TF32 in cuDNN convolutions or matmuls for the duration."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        with torch.backends.cudnn.flags(
-                enabled=torch.backends.cudnn.enabled,
-                benchmark=torch.backends.cudnn.benchmark,
-                deterministic=torch.backends.cudnn.deterministic,
-                allow_tf32=False):
-            yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
-
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -103,7 +87,7 @@ def run_pipeline(params: PipelineParams, batch_u8: torch.Tensor,
                  config: PipelineConfig) -> PipelineOutput:
     """batch_u8: (B, H, W) uint8 at config.image_hw, on the device the
     params live on."""
-    with _full_fp32(), torch.no_grad():
+    with full_fp32(), torch.no_grad():
         clean01 = cleaner.clean_boundary_gray(batch_u8) / 255.0
         feats = unet.encoder_first_features(params.encoder, clean01[..., None])
         feats = feats.to(_DTYPES[config.feature_dtype])

@@ -5,9 +5,11 @@ equivalent): artifact suppression, breast segmentation, pectoral removal
 and the boundary-painted gray image. The kernels are called exactly where
 the JAX package dispatches its Pallas programs: `largest_obj` in
 `select_largest_obj` and `segment_breast_mask`, `equalize` through
-`ops.histogram.equalize_hist`, and `pectoral_tail` in `remove_pectoral`.
-Each wrapper launches its CUDA kernel for a CUDA tensor and runs the
-plain composition of the ported ops for a CPU tensor.
+`ops.histogram.equalize_hist`, and `pectoral_tail` in `remove_pectoral`
+for sides <= 512; beyond, `remove_pectoral` composes the ops as JAX does,
+with the watershed kernel behind `ops.watershed.marker_watershed`. Each
+wrapper launches its CUDA kernel for a CUDA tensor and runs the plain
+composition of the ported ops for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 
 from cadx_tpu_torch.kernels.largest_obj import largest_obj
 from cadx_tpu_torch.kernels.pectoral import pectoral_tail
+from cadx_tpu_torch.ops.geodesic_scan import use_packed
 from cadx_tpu_torch.ops.histogram import equalize_hist
 from cadx_tpu_torch.ops.morphology import dilate, erode, opening
 from cadx_tpu_torch.ops.threshold import (binary_threshold, max_pix_val,
@@ -101,7 +104,8 @@ def remove_pectoral(img: torch.Tensor, breast_mask: torch.Tensor,
     high_th = relative_threshold_value(img, high_int_threshold)
     img_bin = binary_threshold(img_equ, high_th, maxval)
 
-    if morph_kn_size % 2 == 1 or n_morph_op <= 1:
+    if (use_packed(img.shape[-2:], 3)
+            and (morph_kn_size % 2 == 1 or n_morph_op <= 1)):
         _, boundary, mask_b = pectoral_tail(
             img_equ, img_bin, breast_mask.to(torch.uint8), morph_kn_size,
             n_morph_op, sm_kn_size)
@@ -109,8 +113,10 @@ def remove_pectoral(img: torch.Tensor, breast_mask: torch.Tensor,
         return PectoralResult(img_equ & breast_only_mask, img_equ, boundary,
                               breast_only_mask)
 
-    # an even element with repeats anchors differently from the fused
-    # tail's centred window, so those settings compose the ops here
+    # the fused tail runs the packed watershed (sides <= 512), and its
+    # centred window does not anchor an even element with repeats as the
+    # composed erode/dilate do; every other case composes the ops, with
+    # the pair-form watershed beyond 512
     pect_mask_init = select_largest_obj(img_bin, maxval, fill_holes_=True)
     pect_eroded = erode(pect_mask_init, morph_kn_size, n_morph_op)
     pect_dilated = dilate(pect_mask_init, morph_kn_size, n_morph_op)

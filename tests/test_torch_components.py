@@ -148,6 +148,14 @@ def test_marker_watershed_packed_exact(rng, max_scan):
 
 
 def test_marker_watershed_pair_form_not_ported():
-    with pytest.raises(NotImplementedError):
-        TW.marker_watershed(torch.zeros((1, 8, 8)),
-                            torch.zeros((1, 8, 8), dtype=torch.int32))
+    """Without marker values the pair form runs (it raised before it was
+    ported) and agrees with JAX, here on an unmarked and a marked image."""
+    img = np.zeros((2, 8, 8), np.float32)
+    img[1, :, 4:] = 50.0
+    markers = np.zeros((2, 8, 8), np.int32)
+    markers[1, 0, 0], markers[1, 7, 7] = 2, 5
+    ref_l, ref_b = jax.vmap(lambda a, b: JW.marker_watershed(a, b))(
+        jnp.asarray(img), jnp.asarray(markers))
+    lab, bnd = TW.marker_watershed(torch.from_numpy(img), torch.from_numpy(markers))
+    np.testing.assert_array_equal(lab.numpy(), np.asarray(ref_l))
+    np.testing.assert_array_equal(bnd.numpy(), np.asarray(ref_b))

@@ -89,3 +89,79 @@ def test_kernels_reject_wrong_inputs(dev):
         KE.equalize(torch.zeros((1, 4, 4), dtype=torch.int32, device=dev))
     with pytest.raises(ValueError):
         KL.largest_obj(torch.zeros((4, 4), dtype=torch.bool, device=dev))
+
+
+# ---- the serving slice's kernels: ccl, mode, watershed ----------------------
+
+from cadx_tpu_torch.kernels import ccl as KC          # noqa: E402
+from cadx_tpu_torch.kernels import mode as KM         # noqa: E402
+from cadx_tpu_torch.kernels import watershed as KW    # noqa: E402
+from cadx_tpu_torch.ops import components as TC       # noqa: E402
+
+
+@pytest.mark.parametrize("conn", [4, 8])
+@pytest.mark.parametrize("shape", [(3, 6, 6), (2, 62, 62), (2, 45, 70),
+                                   (1, 1024, 1024)])
+def test_ccl_kernel(dev, rng, conn, shape):
+    h, w = shape[1:]
+    m = torch.from_numpy(rng.random(shape) > 0.55).to(dev)
+    m[0, : h // 3] = False
+    got = KC.label_components(m, conn)
+    _eq(got, KC.label_components_reference(m, conn, max_iters=h * w))
+    _eq(KM.largest_component_mask(got, m), KM.largest_component_mask_reference(got, m))
+
+
+def test_mode_kernel_ties_and_empty(dev):
+    m = torch.zeros((2, 12, 12), dtype=torch.bool, device=dev)
+    m[0, 1:3, 1:3] = True          # two components of area 4: the first wins
+    m[0, 8:10, 8:10] = True
+    labels = KC.label_components(m, 8)
+    out = KM.largest_component_mask(labels, m)
+    _eq(out, KM.largest_component_mask_reference(labels, m))
+    assert int(out[0].sum()) == 4 and bool(out[0, 1, 1]) and not bool(out[1].any())
+
+
+def _ws_inputs(rng, b, h, w, dev):
+    img = rng.integers(0, 256, (b, h, w)).astype(np.float32)
+    img[-1] = np.clip(np.add.outer(np.arange(h), np.arange(w)) * 2, 0, 255)
+    mk = np.zeros((b, h, w), np.int32)
+    mk[:, : h // 5, : w // 5] = 255
+    mk[:, -h // 5:, -w // 5:] = 128
+    mk[:, :3, -3:] = 64
+    return torch.from_numpy(img).to(dev), torch.from_numpy(mk).to(dev)
+
+
+@pytest.mark.parametrize("values", [(), (255, 128, 64)])
+@pytest.mark.parametrize("max_scan", [8, 256])
+@pytest.mark.parametrize("hw", [(64, 48), (96, 80), (520, 544)])
+def test_watershed_kernel(dev, rng, values, max_scan, hw):
+    """The packed form runs to its fixpoint, so its plain version runs
+    uncapped; the pair form's float32 sweeps may never settle at larger
+    sizes, so both run the same 256."""
+    img, mk = _ws_inputs(rng, 2, *hw, dev)
+    kw = dict(max_scan=max_scan, marker_label_values=values)
+    cap = hw[0] * hw[1] if values else 256
+    for a, b in zip(KW.marker_watershed(img, mk, **kw),
+                    KW.marker_watershed_reference(img, mk, max_iters=cap, **kw)):
+        _eq(a, b)
+
+
+def test_dispatching_ops_launch_kernels(dev, rng):
+    m = torch.from_numpy(rng.random((2, 20, 24)) > 0.5).to(dev)
+    before = (KC.label_components.launches, KM.largest_component_mask.launches)
+    _eq(TC.largest_component(m), TC.largest_component_plain(m))
+    assert (KC.label_components.launches, KM.largest_component_mask.launches) == (
+        before[0] + 1, before[1] + 1)
+    KL.largest_obj_reference(m, fill=True)   # plain on the card: no launch
+    assert KC.label_components.launches == before[0] + 1
+
+
+def test_remove_pectoral_composed_branch(dev):
+    from cadx_tpu_torch.synthetic import synthetic_native_mammogram
+
+    x = torch.from_numpy(synthetic_native_mammogram(600, 520, seed=3).astype(np.float32))
+    ref = cleaner.clean_boundary_gray(x[None])
+    before = KW.marker_watershed.launches
+    got = cleaner.clean_boundary_gray(x[None].to(dev))
+    _eq(got, ref)
+    assert KW.marker_watershed.launches == before + 1

@@ -114,8 +114,11 @@ def test_resize_area_integer_factor_exact(rng):
     for out_hw in ((32, 48), (16, 32), (64, 96)):
         np.testing.assert_array_equal(port(TR.resize_area, imgs, out_hw),
                                       jax_batched(JR.resize_area, imgs, out_hw))
-    with pytest.raises(NotImplementedError):
-        TR.resize_area(torch.zeros((1, 10, 10)), (3, 3))
+    # a non-integer factor takes the antialiased linear resize (it raised
+    # before it was ported), within 1e-4 of JAX's
+    np.testing.assert_allclose(port(TR.resize_area, imgs, (20, 30)),
+                               jax_batched(JR.resize_area, imgs, (20, 30)),
+                               rtol=0, atol=1e-4)
 
 
 @pytest.mark.parametrize("shape,out_hw", [((2, 128, 128, 5), (32, 32)),
