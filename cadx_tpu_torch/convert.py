@@ -1,11 +1,12 @@
-"""Turn the JAX package's pipeline and serving-engine parameters into the
-port's.
+"""Turn the JAX package's parameters and optimizer states into the port's.
 
 The input of `convert_pipeline_params` is a `PipelineParams(encoder=...,
 classifier=...)` pair (any pair with those two fields, or a 2-tuple); that
 of `convert_engine_params` is an engine's three parameter trees and its
-config. Leaves are numpy arrays, e.g.
-`jax.tree_util.tree_map(np.asarray, params)`. Conv kernels go from
+config; `convert_unet_params` and `convert_tiny_unet_params` take U-Net
+trees, and `convert_adam_state` an optax Adam state. Leaves are numpy
+arrays, e.g. `jax.tree_util.tree_map(np.asarray, params)`; configs and
+states are read by attribute, so jax is not needed. Conv kernels go from
 HWIO to OIHW; dense (in, out) weights are kept as they are. Only
 `encoder["conv1"]` runs on the ported slice; the rest of the encoder is
 carried as tensors, untouched, in `ResNetStem.rest`.
@@ -19,11 +20,16 @@ import torch
 from cadx_tpu_torch.models import cnn, unet
 from cadx_tpu_torch.pipeline.fused import PipelineConfig, PipelineParams
 from cadx_tpu_torch.serve.engine import EngineConfig, EngineState
+from cadx_tpu_torch.train.optim import AdamState
 
 
 def hwio_to_oihw(kernel) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(
-        np.asarray(kernel, np.float32).transpose(3, 2, 0, 1)))
+    return torch.from_numpy(np.array(
+        np.asarray(kernel, np.float32).transpose(3, 2, 0, 1), order="C"))
+
+
+def _vec(x) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(x, np.float32).copy())
 
 
 def _tensors(tree, device):
@@ -42,24 +48,22 @@ def convert_encoder(encoder: dict, device=None) -> unet.ResNetStem:
 
 def convert_classifier(params: dict, config: cnn.CNNConfig,
                        device=None) -> cnn.CNN:
-    def vec(x):
-        return torch.from_numpy(np.asarray(x, np.float32).copy())
-
-    conv = [(hwio_to_oihw(layer["kernel"]), vec(layer["bias"]))
+    conv = [(hwio_to_oihw(layer["kernel"]), _vec(layer["bias"]))
             for layer in params["conv"]]
-    dense = [(vec(layer["kernel"]), vec(layer["bias"]))
+    dense = [(_vec(layer["kernel"]), _vec(layer["bias"]))
              for layer in params["dense"]]
-    output = (vec(params["output"]["kernel"]), vec(params["output"]["bias"]))
+    output = (_vec(params["output"]["kernel"]), _vec(params["output"]["bias"]))
     return cnn.CNN(config, conv, dense, output).to(device)
 
 
 def convert_cnn_config(config) -> cnn.CNNConfig:
     """A JAX `CNNConfig` (read by attribute, so jax is not needed) -> the
-    port's; its training-only dropout_rate is dropped."""
+    port's."""
     return cnn.CNNConfig(
         input_shape=tuple(config.input_shape), num_classes=config.num_classes,
         conv_layers=tuple(tuple(c) for c in config.conv_layers),
         hidden_units=tuple(config.hidden_units),
+        dropout_rate=float(config.dropout_rate),
         leaky_alpha=config.leaky_alpha, conv_padding=config.conv_padding)
 
 
@@ -91,3 +95,41 @@ def convert_pipeline_params(params, config: PipelineConfig,
         encoder=convert_encoder(encoder, device),
         classifier=convert_classifier(classifier, config.classifier, device),
     )
+
+
+def _conv(layer: dict) -> unet.Conv:
+    return unet.Conv(hwio_to_oihw(layer["kernel"]), _vec(layer["bias"]))
+
+
+def convert_tiny_unet_params(params: dict, device=None) -> unet.TinyUNet:
+    """A JAX `init_tiny_unet` tree -> the port's TinyUNet."""
+    return unet.TinyUNet(*(_conv(params[k]) for k in
+                           ("c1", "c2", "bottleneck", "c3", "c4", "out"))).to(device)
+
+
+def convert_unet_params(params: dict, config: unet.UNetConfig,
+                        device=None) -> unet.UNet:
+    """A JAX `init_unet` tree -> the port's UNet."""
+    def double(p):
+        return unet.DoubleConv(_conv(p["conv1"]), _conv(p["conv2"]))
+
+    return unet.UNet(config, [double(p) for p in params["enc"]],
+                     double(params["bottleneck"]),
+                     [double(p) for p in params["dec"]],
+                     _conv(params["head"])).to(device)
+
+
+def convert_adam_state(state, convert_params, device=None) -> AdamState:
+    """An optax Adam state (`ScaleByAdamState`, or the tuple `optax.adam`
+    makes with it first) -> the port's AdamState. `convert_params` maps a
+    parameter-shaped tree to the port's module (e.g. `lambda t:
+    convert_classifier(t, config)`); mu and nu go through it, so each
+    moment lands in its parameter's layout and order."""
+    if not hasattr(state, "mu"):
+        state = state[0]
+
+    def moments(tree):
+        return [p.detach().to(device) for p in convert_params(tree).parameters()]
+
+    return AdamState(int(np.asarray(state.count)), moments(state.mu),
+                     moments(state.nu))

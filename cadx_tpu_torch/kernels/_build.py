@@ -4,8 +4,8 @@ Each of `csrc/*.cu` is compiled by its own nvcc process for sm_90a
 (Hopper), all at once, and the objects are linked into one shared
 library with a plain C interface, under
 `build/cadx_tpu_torch/` at the repository root, at first use (on an
-H100 host: ~3.3 s for the six sources, against ~12.3 s for one nvcc
-call over all of them). The
+H100 host ~5.6 s for the nine sources; one nvcc call over six of them
+took ~12.3 s). The
 library's name carries a hash of the sources and flags, so an edit
 rebuilds and an unchanged tree reuses it. It is loaded with ctypes;
 every pointer and the stream are passed as `c_void_p`, and every entry
@@ -33,7 +33,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cadx_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # entry point -> argument types (pointers, ints, the stream last)
 _SIGNATURES = {
     "cadx_equalize_hist": (_P, _P, _I, _I, _I, _P),
@@ -46,6 +46,9 @@ _SIGNATURES = {
                             _P),
     "cadx_watershed_packed": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _P),
+    "cadx_conv_leaky": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    "cadx_pool": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "cadx_upsample_nearest": (_P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

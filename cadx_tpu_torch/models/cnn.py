@@ -1,34 +1,39 @@
 """The reference "basic" CNN classifier.
 
-Port of `cadx_tpu/models/cnn.py` (inference): [conv + bias + LeakyReLU,
-2x2 max pool] blocks, a row-major (H, W, C) flatten, dense + LeakyReLU
-layers and the guarded softmax. Conv weights are He-normal (O, I, kh, kw);
-dense weights are Xavier-uniform and kept (in, out) as in JAX. The public
+Port of `cadx_tpu/models/cnn.py`: [conv + bias + LeakyReLU, 2x2 max pool]
+blocks, a row-major (H, W, C) flatten, dense + LeakyReLU (+ inverted
+dropout in training) layers and the guarded softmax, with the training
+loss and its gradients. Conv weights are He-normal (O, I, kh, kw); dense
+weights are Xavier-uniform and kept (in, out) as in JAX. The public
 functions take and return channel-last activations, as JAX does; the
-convolutions run channel-first inside.
+conv blocks run channel-first inside, through the conv_leaky and pool
+kernels (`ops.conv.conv2d_leaky`, `ops.pool.max_pool_ties`, whose
+backward is the reference's tie-broadcast).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any
 
 import torch
 from torch import nn
 
-from cadx_tpu_torch.ops.conv import conv2d, leaky_relu
+from cadx_tpu_torch.ops.conv import conv2d_leaky, leaky_relu
 from cadx_tpu_torch.ops.pool import max_pool_ties
 
 
 @dataclasses.dataclass(frozen=True)
 class CNNConfig:
-    """Architecture. The JAX config's dropout_rate is a training setting
-    and has no counterpart here yet."""
+    """Architecture and dropout; JSON round-trips to the reference npz
+    schema."""
 
     input_shape: tuple[int, int, int]  # (H, W, C)
     num_classes: int
     conv_layers: tuple[tuple[int, int], ...] = ((8, 3), (16, 3))  # (filters, k)
     hidden_units: tuple[int, ...] = (128, 64)
+    dropout_rate: float = 0.3
     leaky_alpha: float = 0.01
     conv_padding: str = "VALID"
 
@@ -46,6 +51,45 @@ class CNNConfig:
                     f"conv layer {i} ({f} filters, k={k}) and its pool reduce "
                     f"the input {self.input_shape} below 1x1")
 
+    def to_json_dict(self) -> dict[str, Any]:
+        """The reference save_model config keys, in its order, plus
+        leaky_alpha; conv_padding only for SAME models, so a VALID model
+        keeps the reference's exact key set."""
+        out = {
+            "input_shape": list(self.input_shape),
+            "num_classes": self.num_classes,
+            "conv_layers": [list(cl) for cl in self.conv_layers],
+            "hidden_units": list(self.hidden_units),
+            "dropout_rate": self.dropout_rate,
+            "leaky_alpha": self.leaky_alpha,
+        }
+        if self.conv_padding != "VALID":
+            out["conv_padding"] = self.conv_padding
+        return out
+
+    @classmethod
+    def from_json_dict(cls, d: dict[str, Any]) -> "CNNConfig":
+        return cls(
+            input_shape=tuple(d["input_shape"]),
+            num_classes=int(d["num_classes"]),
+            conv_layers=tuple(tuple(cl) for cl in d["conv_layers"]),
+            hidden_units=tuple(d["hidden_units"]),
+            dropout_rate=float(d["dropout_rate"]),
+            leaky_alpha=float(d.get("leaky_alpha", 0.01)),
+            conv_padding=d.get("conv_padding", "VALID"),
+        )
+
+    def conv_output_shapes(self) -> list[tuple[int, int, int]]:
+        """Post-conv (pre-pool) (h, w, filters) of each block."""
+        h, w, _ = self.input_shape
+        shapes = []
+        for f, k in self.conv_layers:
+            if self.conv_padding == "VALID":
+                h, w = h - k + 1, w - k + 1
+            shapes.append((h, w, f))
+            h, w = h // 2, w // 2
+        return shapes
+
     def flatten_size(self) -> int:
         h, w, c = self.input_shape
         for f, k in self.conv_layers:
@@ -53,6 +97,15 @@ class CNNConfig:
                 h, w = h - k + 1, w - k + 1
             h, w, c = h // 2, w // 2, f
         return h * w * c
+
+    def layer_indices(self) -> dict[str, Any]:
+        """The reference's `self.layers` indices (conv, pool pairs, then
+        dense, then output), which name its npz keys W{i}/b{i}."""
+        conv = [2 * i for i in range(len(self.conv_layers))]
+        first_dense = 2 * len(self.conv_layers)
+        dense = [first_dense + i for i in range(len(self.hidden_units))]
+        return {"conv": conv, "dense": dense,
+                "output": first_dense + len(self.hidden_units)}
 
 
 class CNN(nn.Module):
@@ -113,26 +166,72 @@ def conv_stack(model: CNN, x: torch.Tensor) -> torch.Tensor:
     cfg = model.config
     out = x.permute(0, 3, 1, 2)
     for w, b in zip(model.conv_w, model.conv_b):
-        out = max_pool_ties(leaky_relu(conv2d(out, w, b, padding=cfg.conv_padding),
-                                       cfg.leaky_alpha), 2)
+        out = max_pool_ties(conv2d_leaky(out, w, b, cfg.leaky_alpha,
+                                         cfg.conv_padding), 2)
     return out.permute(0, 2, 3, 1)
 
 
-def head_logits(model: CNN, feats: torch.Tensor) -> torch.Tensor:
-    """Row-major (h, w, F) flatten, dense + LeakyReLU chain, output logits."""
-    alpha = model.config.leaky_alpha
+def head_logits(model: CNN, feats: torch.Tensor, *, training: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+    """Row-major (h, w, F) flatten, dense + LeakyReLU chain, output logits.
+    In training, with dropout_rate > 0 and a generator, each hidden
+    activation keeps where uniform > rate, scaled by 1 / (1 - rate); the
+    uniforms are drawn from `generator` on the activations' device."""
+    alpha, rate = model.config.leaky_alpha, model.config.dropout_rate
+    drop = training and rate > 0.0 and generator is not None
     out = feats.reshape(feats.shape[0], -1)
     for w, b in zip(model.dense_w, model.dense_b):
         out = leaky_relu(out @ w + b, alpha)
+        if drop:
+            keep = torch.rand(out.shape, generator=generator, device=out.device) > rate
+            out = out * keep.to(out.dtype) / (1.0 - rate)
     return out @ model.out_w + model.out_b
+
+
+def apply(model: CNN, x: torch.Tensor, training: bool = False,
+          generator: torch.Generator | None = None) -> torch.Tensor:
+    """Batched forward -> logits (B, num_classes); x (B, H, W, C) float32."""
+    return head_logits(model, conv_stack(model, x), training=training,
+                       generator=generator)
 
 
 def forward(model: CNN, x: torch.Tensor) -> torch.Tensor:
     """(B, H, W, C) -> class probabilities (B, num_classes)."""
-    return reference_softmax(head_logits(model, conv_stack(model, x)))
+    return reference_softmax(apply(model, x))
 
 
 def predict(model: CNN, x: torch.Tensor):
     """(argmax class, probs) per sample."""
     probs = forward(model, x)
     return probs.argmax(dim=-1), probs
+
+
+def cross_entropy(probs: torch.Tensor, y_onehot: torch.Tensor) -> torch.Tensor:
+    """Reference loss (Classes/CNNModel.py:360-367): probs clipped to
+    [1e-12, 1], then the NLL; a scalar sum for one sample, the batch mean
+    otherwise."""
+    per_sample = -(y_onehot * torch.log(torch.clamp(probs, 1e-12, 1.0))).sum(dim=-1)
+    return per_sample if probs.ndim == 1 else per_sample.mean()
+
+
+def loss_fn(model: CNN, x: torch.Tensor, y_onehot: torch.Tensor, *,
+            training: bool = False,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """Mean softmax cross-entropy of the logits, whose gradient is exactly
+    (probs - y) / B, the reference's backward seed."""
+    logp = torch.log_softmax(apply(model, x, training, generator), dim=-1)
+    return -(y_onehot * logp).sum(dim=-1).mean()
+
+
+def grads_fn(model: CNN, x: torch.Tensor, y_onehot: torch.Tensor, *,
+             training: bool = False, generator: torch.Generator | None = None):
+    """(loss, grads): grads of the batch-averaged loss, unclipped, one per
+    tensor of `model.parameters()`."""
+    with torch.enable_grad():
+        loss = loss_fn(model, x, y_onehot, training=training, generator=generator)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+    return loss.detach(), list(grads)
+
+
+def num_params(model: CNN) -> int:
+    return sum(p.numel() for p in model.parameters())

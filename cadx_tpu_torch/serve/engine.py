@@ -20,8 +20,9 @@ raises; nothing falls back to a fixed box.
 
 Weights come from a seed (`torch.Generator`) or from a JAX engine's
 parameters through `convert.convert_engine_params`. Everything runs on one
-device, `device`; the weight-artifact loaders and the mesh data-parallel
-bulk path of the JAX engine are not ported.
+device, `device`: the card unless the caller passes `device="cpu"`
+(construction raises without a card). The weight-artifact loaders and the
+mesh data-parallel bulk path of the JAX engine are not ported.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from cadx_tpu_torch.device import resolve
 from cadx_tpu_torch.models import cnn, unet
 from cadx_tpu_torch.ops.resize import resize_area, resize_linear
 from cadx_tpu_torch.precision import full_fp32
@@ -83,11 +85,13 @@ class EngineConfig:
     basic_classifier: cnn.CNNConfig = dataclasses.field(
         default_factory=lambda: cnn.CNNConfig(
             input_shape=(32, 32, 64), num_classes=2,
-            conv_layers=((128, 3), (64, 3)), hidden_units=(256, 128)))
+            conv_layers=((128, 3), (64, 3)), hidden_units=(256, 128),
+            dropout_rate=0.3))
     advanced_classifier: cnn.CNNConfig = dataclasses.field(
         default_factory=lambda: cnn.CNNConfig(
             input_shape=(256, 256, 64), num_classes=2,
-            conv_layers=((32, 3), (64, 3)), hidden_units=(256, 128)))
+            conv_layers=((32, 3), (64, 3)), hidden_units=(256, 128),
+            dropout_rate=0.1))
 
 
 class EngineState(NamedTuple):
@@ -135,9 +139,10 @@ class InferenceEngine:
     def __init__(self, config: EngineConfig | None = None, seed: int = 0,
                  device=None, state: EngineState | None = None):
         """Weights: `state` (e.g. from `convert.convert_engine_params`), or
-        random weights from `seed`. Everything runs on `device`."""
+        random weights from `seed`. Everything runs on `device`, the card
+        when None; without a card that raises unless device="cpu"."""
         self.config = config or EngineConfig()
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve(device)
         if state is None:
             state = init_engine_state(torch.Generator().manual_seed(seed),
                                       self.config)

@@ -1,0 +1,166 @@
+"""Training-time benchmark of the port against the reference's wall clocks.
+
+Port of `cadx_tpu/tools/bench_train.py`, on the same synthetic data
+generator (CBIS-DDSM is not redistributable) and the same configurations:
+- advanced: (256, 256, 64), conv (32, 3), (64, 3) SAME, hidden (256, 128),
+  dropout 0.1, Adam 1e-3, batch 32, 220/25 split, the reference's full 60
+  epochs (it took 16m21s on a CPU);
+- basic: (32, 32, 64), conv (128, 3), (64, 3) VALID, hidden (256, 128),
+  dropout 0.3, SGD 0.01, batch 8, 196/49 split, 20 epochs (91h25m30s in
+  the reference's NumPy trainer);
+- 5-fold cross-validation of the basic configuration, 10 epochs a fold,
+  on one device.
+
+The advanced dataset is kept on the device in float32 (3.7 GB); the JAX
+package's bfloat16 storage and compute options are not ported, nor is its
+TPU tunnel preflight. Prints one JSON line with the JAX script's keys and
+the device it ran on. Runs on the card; `--device cpu` runs it on the CPU.
+
+    python3 -m cadx_tpu_torch.tools.bench_train
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+from cadx_tpu_torch.models import cnn
+from cadx_tpu_torch.models.unet import UNetConfig
+
+# the JAX script's configurations (training_summary_advanced.json:31-35,
+# training_summary_basic.json) and the U-Net trainer's default model
+ADVANCED = cnn.CNNConfig(
+    input_shape=(256, 256, 64), num_classes=2, conv_layers=((32, 3), (64, 3)),
+    hidden_units=(256, 128), dropout_rate=0.1, conv_padding="SAME")
+BASIC = cnn.CNNConfig(
+    input_shape=(32, 32, 64), num_classes=2, conv_layers=((128, 3), (64, 3)),
+    hidden_units=(256, 128), dropout_rate=0.3)
+UNET = UNetConfig()
+
+_T0 = time.time()
+
+
+def _progress(msg: str) -> None:
+    print(f"[bench_train +{time.time() - _T0:7.1f}s] {msg}", file=sys.stderr, flush=True)
+
+
+def synthetic_features(rng: np.random.Generator, n: int, shape, signal: float = 0.8,
+                       label_noise: float = 0.0):
+    """Stand-in for CBIS-DDSM features: (n, *shape) float32 noise with a
+    bright 16x16 square for class 1; signal and label_noise tune the
+    separability so accuracy lands strictly inside (0.5, 1.0)."""
+    y = rng.integers(0, 2, n)
+    X = rng.normal(0, 1, (n,) + tuple(shape)).astype(np.float32) * 0.1
+    X[y == 1, 8:24, 8:24, :] += signal
+    if label_noise:
+        flip = rng.random(n) < label_noise
+        y = np.where(flip, 1 - y, y)
+    return X, y
+
+
+def main(argv=None) -> dict:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: the CUDA card)")
+    args = parser.parse_args(argv)
+
+    from cadx_tpu_torch.device import resolve
+    from cadx_tpu_torch.train import crossval, step
+    from cadx_tpu_torch.train import summary as S
+
+    dev = resolve(args.device)
+    rng = np.random.default_rng(0)
+
+    results: dict = {"device": {"type": dev.type, "name": (
+        torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu")}}
+    _progress("synthesizing advanced dataset")
+
+    cfg_adv = ADVANCED
+    Xtr, ytr = synthetic_features(rng, 220, cfg_adv.input_shape, label_noise=0.12)
+    Xte, yte = synthetic_features(rng, 25, cfg_adv.input_shape, label_noise=0.12)
+    model = cnn.init_params(torch.Generator().manual_seed(0), cfg_adv)
+
+    epoch_times = []
+    n_epochs = 60
+    _progress(f"starting advanced fit ({n_epochs} epochs, full flow)")
+    t0 = time.time()
+    fit_adv = step.fit(model, Xtr, np.eye(2)[ytr], Xte, yte, epochs=n_epochs, lr=1e-3,
+                       batch_size=32, optimizer="adam", device_data=True,
+                       log_fn=lambda msg: epoch_times.append(time.time()), device=dev)
+    measured = time.time() - t0
+    _progress(f"advanced fit done in {measured:.1f}s")
+    # the first epoch carries the data upload and the kernel build; the
+    # steady state is the median of the later half
+    diffs = np.diff(epoch_times)
+    steady = float(np.median(diffs[len(diffs) // 2:])) if len(diffs) > 1 else measured
+    warmup = measured - steady * (n_epochs - 1)
+    ref_adv = 16 * 60 + 21
+    results["advanced"] = {
+        "measured_epochs": n_epochs,
+        "measured_60epoch_secs": round(measured, 1),
+        "warmup_secs_incl_compile": round(warmup, 1),
+        "steady_secs_per_epoch": round(steady, 2),
+        "best_val_acc": round(float(fit_adv.best_val_acc), 4),
+        "reference_cpu_secs": ref_adv,
+        "speedup_full_flow": round(ref_adv / measured, 1),
+        "speedup_steady_state": round(ref_adv / (60 * steady), 1),
+    }
+    del Xtr, Xte, fit_adv
+
+    cfg_basic = BASIC
+    Xtr, ytr = synthetic_features(rng, 196, cfg_basic.input_shape, signal=0.08, label_noise=0.1)
+    Xte, yte = synthetic_features(rng, 49, cfg_basic.input_shape, signal=0.08, label_noise=0.1)
+    model = cnn.init_params(torch.Generator().manual_seed(1), cfg_basic)
+    _progress("starting basic 20-epoch fit")
+    t0 = time.time()
+    fit_res = step.fit(model, Xtr, np.eye(2)[ytr], Xte, yte, epochs=20, lr=0.01,
+                       batch_size=8, optimizer="sgd", device=dev)
+    basic_secs = time.time() - t0
+    ref_basic = 91 * 3600 + 25 * 60 + 30
+    results["basic"] = {
+        "measured_20epoch_secs": round(basic_secs, 1),
+        "reference_cpu_secs": ref_basic,
+        "speedup": round(ref_basic / basic_secs, 1),
+    }
+
+    # --- 5-fold cross-validation (BASELINE.json config #5), one device ---
+    X = np.concatenate([Xtr, Xte])
+    y = np.concatenate([ytr, yte])
+    _progress("starting 5-fold crossval")
+    t0 = time.time()
+    cv = crossval.cross_validate(cfg_basic, X, y, n_splits=5, epochs=10, lr=0.01,
+                                 batch_size=8, optimizer="sgd", device=dev)
+    cv_secs = time.time() - t0
+    _progress(f"crossval done in {cv_secs:.1f}s")
+    results["crossval_5fold"] = {
+        "measured_secs": round(cv_secs, 1),
+        "n_devices": 1,
+        "mean_accuracy": round(cv.mean_accuracy, 4),
+        "std_accuracy": round(cv.std_accuracy, 4),
+    }
+
+    # --- the summary carries exactly the reference's block layout ---
+    preds = step.predict_classes(fit_res.model, Xte)
+    summ = S.build_summary(
+        config=cfg_basic, num_samples=245, train_split=196, test_split=49,
+        epochs=20, batch_size=8, learning_rate=0.01, device=dev.type,
+        best_val_acc=fit_res.best_val_acc, y_true=yte, y_pred=preds,
+        label_encoder={"BENIGN": 0, "MALIGNANT": 1}, train_seconds=basic_secs,
+    )
+    want_top = ["dataset", "model", "training", "evaluation", "label_encoder",
+                "Training Time"]
+    assert list(summ.keys()) == want_top, summ.keys()
+    assert set(summ["evaluation"]) == {"test_accuracy", "confusion_matrix",
+                                       "classification_report"}
+    results["summary_schema_ok"] = True
+    print(json.dumps(results), flush=True)
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,114 @@
+"""U-Net segmentation training.
+
+Port of `cadx_tpu/train/segmentation.py` (BASELINE.json "U-Net ROI
+segmentation"): Adam on Dice + BCE, batched, with IoU/Dice of the
+thresholded predictions on a validation set after every epoch. The
+forward runs the pool and upsample kernels on the card. The JAX
+package's mesh data-parallel step is not ported.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+
+from cadx_tpu_torch.device import resolve
+from cadx_tpu_torch.models import unet
+from cadx_tpu_torch.precision import full_fp32
+from cadx_tpu_torch.train import optim
+
+
+def dice_bce_loss(model: unet.UNet, x: torch.Tensor, y: torch.Tensor,
+                  bce_weight: float = 0.5, eps: float = 1e-6) -> torch.Tensor:
+    """Weighted BCE + soft Dice of the clipped sigmoid output."""
+    p = torch.clamp(unet.unet_apply(model, x), eps, 1 - eps)
+    bce = -(y * torch.log(p) + (1 - y) * torch.log(1 - p)).mean()
+    inter = (p * y).sum(dim=(1, 2, 3))
+    denom = p.sum(dim=(1, 2, 3)) + y.sum(dim=(1, 2, 3))
+    dice = 1.0 - ((2 * inter + eps) / (denom + eps)).mean()
+    return bce_weight * bce + (1 - bce_weight) * dice
+
+
+def iou_dice(pred_mask: torch.Tensor, true_mask: torch.Tensor, eps: float = 1e-6):
+    """Batch-mean IoU and Dice of thresholded predictions."""
+    p = pred_mask.to(torch.float32)
+    t = true_mask.to(torch.float32)
+    inter = (p * t).sum(dim=(1, 2, 3))
+    union = torch.maximum(p, t).sum(dim=(1, 2, 3))
+    denom = p.sum(dim=(1, 2, 3)) + t.sum(dim=(1, 2, 3))
+    return (((inter + eps) / (union + eps)).mean(),
+            ((2 * inter + eps) / (denom + eps)).mean())
+
+
+def make_seg_train_step(tx: optim.Adam):
+    """`step(model, opt_state, x, y)`: one Adam update of the Dice + BCE
+    loss in place; returns (opt_state, loss)."""
+
+    def step(model, opt_state, x, y):
+        params = list(model.parameters())
+        with torch.enable_grad(), full_fp32():
+            loss = dice_bce_loss(model, x, y)
+            grads = torch.autograd.grad(loss, params)
+        return tx.step(params, grads, opt_state), loss.detach()
+
+    return step
+
+
+@dataclasses.dataclass
+class SegFitResult:
+    model: unet.UNet
+    history: list[dict]   # {epoch, loss, val_iou, val_dice}
+
+
+def fit_segmentation(
+    model: unet.UNet, X, Y, X_val, Y_val, *,
+    epochs: int = 10, lr: float = 1e-3, batch_size: int = 8,
+    threshold: float = 0.5, seed: int = 0,
+    log_fn: Callable[[str], None] | None = None, device=None,
+) -> SegFitResult:
+    """Train a copy of a UNet on X (N, H, W, C) in [0, 1] and binary masks
+    Y (N, H, W, 1), on `device` (the card when None). A tail batch smaller
+    than batch_size wraps around to the start of the epoch's permutation,
+    as in JAX, so every step has batch_size samples."""
+    dev = resolve(device)
+    log = log_fn or (lambda s: None)
+    X = np.asarray(X, np.float32)
+    Y = np.asarray(Y, np.float32)
+    model = copy.deepcopy(model).to(dev)
+    tx = optim.adam(lr)
+    opt_state = tx.init(model.parameters())
+    train_step = make_seg_train_step(tx)
+    xv = torch.from_numpy(np.asarray(X_val, np.float32)).to(dev)
+    yv = torch.from_numpy(np.asarray(Y_val, np.float32)).to(dev)
+
+    rng = np.random.default_rng(seed)
+    n = len(X)
+    batch_size = min(batch_size, n)  # small datasets still train
+    history = []
+    with full_fp32():
+        for epoch in range(epochs):
+            perm = rng.permutation(n)
+            losses, weights = [], []
+            for i in range(0, n, batch_size):
+                idx = perm[i:i + batch_size]
+                if len(idx) < batch_size:
+                    idx = np.concatenate([idx, perm[:batch_size - len(idx)]])
+                opt_state, loss = train_step(model, opt_state,
+                                             torch.from_numpy(X[idx]).to(dev),
+                                             torch.from_numpy(Y[idx]).to(dev))
+                losses.append(loss)   # device scalars; one fetch an epoch
+                weights.append(float(len(idx)))
+            w = torch.tensor(weights, dtype=torch.float32, device=dev)
+            total = float(torch.stack(losses) @ w)
+            with torch.no_grad():
+                iou, dice = iou_dice(unet.unet_apply(model, xv) >= threshold, yv)
+            row = {"epoch": epoch + 1, "loss": total / max(sum(weights), 1.0),
+                   "val_iou": float(iou), "val_dice": float(dice)}
+            history.append(row)
+            log(f"[SEG {epoch+1}/{epochs}] loss={row['loss']:.4f} "
+                f"iou={row['val_iou']:.3f} dice={row['val_dice']:.3f}")
+    return SegFitResult(model=model, history=history)

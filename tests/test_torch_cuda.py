@@ -165,3 +165,126 @@ def test_remove_pectoral_composed_branch(dev):
     got = cleaner.clean_boundary_gray(x[None].to(dev))
     _eq(got, ref)
     assert KW.marker_watershed.launches == before + 1
+
+
+# ---- the training slice's kernels: conv_leaky, pool, upsample -----------------
+
+from cadx_tpu_torch import checkpoint as CK          # noqa: E402
+from cadx_tpu_torch.kernels import conv_leaky as KCL  # noqa: E402
+from cadx_tpu_torch.kernels import pool as KPool      # noqa: E402
+from cadx_tpu_torch.kernels import upsample as KUp    # noqa: E402
+from cadx_tpu_torch.models import cnn as TCNN         # noqa: E402
+from cadx_tpu_torch.ops import conv as TConv          # noqa: E402
+from cadx_tpu_torch.ops import pool as TPool          # noqa: E402
+from cadx_tpu_torch.train import step as TS           # noqa: E402
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 9, 11, 7, 3), (1, 64, 34, 34, 128, 3),
+                                   (3, 3, 20, 17, 33, 5), (2, 9, 16, 16, 16, 1)])
+@pytest.mark.parametrize("pad", ["VALID", "SAME"])
+def test_conv_leaky_kernel(dev, rng, shape, pad):
+    """f32 sums of <= C*k*k terms in another order than cuDNN's: max |d|
+    <= 1e-5 * max |plain| + 1e-6."""
+    b, c, h, w, f, k = shape
+    x = torch.from_numpy(rng.standard_normal((b, c, h, w)).astype(np.float32)).to(dev)
+    x[:, :, : h // 2] = 0.0
+    wt = torch.from_numpy((rng.standard_normal((f, c, k, k)) * 0.2).astype(np.float32)).to(dev)
+    bias = torch.from_numpy(rng.standard_normal(f).astype(np.float32)).to(dev)
+    bias[0] = 0.0
+    p = 0 if pad == "VALID" else k // 2
+    before = KCL.conv_leaky.launches
+    got = KCL.conv_leaky(x, wt, bias, 0.01, p)
+    assert KCL.conv_leaky.launches == before + 1
+    ref = KCL.conv_leaky_reference(x, wt, bias, 0.01, p)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape
+    err = float((got - ref).abs().max())
+    assert err <= 1e-5 * float(ref.abs().max()) + 1e-6, err
+    zero_rows = got[:, 0, : max(0, h // 2 - k + 1 - p)]
+    assert bool((zero_rows == 0).all())        # z == 0 -> 0 exactly
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("size", [2, 3])
+@pytest.mark.parametrize("hw", [(12, 12), (7, 11), (256, 256)])
+def test_pool_kernel(dev, rng, dtype, size, hw):
+    x = torch.from_numpy(rng.standard_normal((2, 5) + hw).astype(np.float32)).to(dev, dtype)
+    x[0, :, :4, :4] = 0.5
+    for mode in ("max", "mean"):
+        _eq(KPool.pool(x, size, mode), KPool.pool_reference(x, size, mode))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.uint8, torch.bool])
+def test_upsample_kernel(dev, rng, dtype):
+    x = torch.from_numpy(rng.standard_normal((2, 3, 9, 13)).astype(np.float32) > 0)
+    x = x.to(dev, dtype) if dtype == torch.bool else (x.to(dev, torch.float32) * 3).to(dtype)
+    for f in (1, 2, 3):
+        _eq(KUp.upsample_nearest(x, f), KUp.upsample_nearest_reference(x, f))
+
+
+@pytest.mark.parametrize("rule", ["ties", "first"])
+def test_pool_backward_card_vs_cpu(dev, rng, rule):
+    fn = TPool.max_pool_ties if rule == "ties" else TPool.max_pool_first
+    x = torch.from_numpy(np.maximum(rng.integers(-2, 3, (2, 3, 9, 10)), 0).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((2, 3, 4, 5)).astype(np.float32))
+    grads = []
+    for d in ("cpu", dev):
+        t = x.detach().to(d).requires_grad_(True)
+        fn(t, 2).backward(g.to(d))
+        grads.append(t.grad.cpu())
+    assert torch.equal(*grads)
+
+
+def test_conv_leaky_backward_card_vs_cpu(dev, rng):
+    x = torch.from_numpy(rng.standard_normal((2, 6, 12, 11)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((9, 6, 3, 3)) * 0.3).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(9).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((2, 9, 12, 11)).astype(np.float32))
+    out = []
+    for d in ("cpu", dev):
+        ts = [t.detach().to(d).requires_grad_(True) for t in (x, w, b)]
+        TConv.conv2d_leaky(*ts, 0.01, "SAME").backward(g.to(d))
+        out.append([t.grad.cpu() for t in ts])
+    for a, c in zip(*out):
+        assert float((a - c).abs().max()) <= 1e-5 * float(c.abs().max()) + 1e-6
+
+
+def test_sgd_step_and_fit_on_the_card(dev, rng, tmp_path):
+    cfg = TCNN.CNNConfig(input_shape=(16, 16, 8), num_classes=2, conv_layers=((12, 3),),
+                         hidden_units=(16,), dropout_rate=0.0)
+    model = TCNN.init_params(torch.Generator().manual_seed(0), cfg)
+    x = torch.from_numpy(rng.standard_normal((8, 16, 16, 8)).astype(np.float32))
+    y = torch.eye(2)[torch.from_numpy(rng.integers(0, 2, 8))]
+    mask = torch.ones(8)
+    models, losses = [], []
+    for d in ("cpu", dev):
+        m = TCNN.init_params(torch.Generator().manual_seed(0), cfg, device=d)
+        losses.append(float(TS.sgd_train_step(m, x.to(d), y.to(d), mask.to(d), 0.05, None)))
+        models.append(m)
+    assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[0])
+    for a, c in zip(models[0].parameters(), models[1].parameters()):
+        assert float((a - c.cpu()).abs().max()) <= 1e-5
+    before = (KCL.conv_leaky.launches, KPool.pool.launches)
+    X = rng.standard_normal((20, 16, 16, 8)).astype(np.float32)
+    labels = rng.integers(0, 2, 20)
+    res = TS.fit(model, X, np.eye(2)[labels], X[:6], labels[:6], epochs=2, batch_size=8,
+                 device=dev)
+    # 3 steps and one evaluation batch per epoch, one conv block each
+    assert (KCL.conv_leaky.launches - before[0], KPool.pool.launches - before[1]) == (8, 8)
+    assert res.model.out_w.device.type == "cuda" and model.out_w.device.type == "cpu"
+    CK.save_npz(res.model, str(tmp_path / "m.npz"))
+    _, back = CK.load_npz(str(tmp_path / "m.npz"), device=dev)
+    for a, c in zip(res.model.parameters(), back.parameters()):
+        assert torch.equal(a, c)
+
+
+def test_entry_points_default_to_the_card(dev):
+    from cadx_tpu_torch.serve.engine import EngineConfig, InferenceEngine
+
+    cfg = EngineConfig(segment_hw=(64, 64), feature_resize=(8, 8),
+                       basic_classifier=TCNN.CNNConfig(input_shape=(8, 8, 64), num_classes=2,
+                                                       conv_layers=((4, 3),), hidden_units=(8,)),
+                       advanced_classifier=TCNN.CNNConfig(input_shape=(32, 32, 64),
+                                                          num_classes=2, conv_layers=((4, 3),),
+                                                          hidden_units=(8,)))
+    assert InferenceEngine(cfg).device.type == "cuda"

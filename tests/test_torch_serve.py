@@ -48,7 +48,7 @@ def _port_of(jax_engine) -> TE.InferenceEngine:
     cfg, state = convert_engine_params(
         _numpy(jax_engine.encoder_params), _numpy(jax_engine.basic_params),
         _numpy(jax_engine.advanced_params), jax_engine.config)
-    return TE.InferenceEngine(cfg, state=state)
+    return TE.InferenceEngine(cfg, state=state, device="cpu")
 
 
 def _fullres_jax_engine():
