@@ -2,7 +2,8 @@
 
 The JAX package (`cadx_tpu`) is the reference; this package mirrors its
 module paths (`ops/`, `kernels/`, `preprocess/`, `models/`, `xai/`,
-`pipeline/`, `serve/`, `train/`, `tools/`, `utils/`, `checkpoint.py`) so
+`pipeline/`, `serve/`, `train/`, `tools/`, `utils/`, `compat/`,
+`checkpoint.py`) so
 each counterpart is easy to find. It imports torch and numpy only, never
 jax and never `cadx_tpu`.
 
@@ -18,11 +19,16 @@ Slices ported so far:
 - training: `train/step.py::fit` (SGD or Adam), `train/crossval.py`,
   `checkpoint.py` (the reference npz schema and resumable train states),
   `train/metrics.py`, `train/summary.py`, the U-Nets of `models/unet.py`
-  and `train/segmentation.py::fit_segmentation`, `tools/bench_train.py`.
+  and `train/segmentation.py::fit_segmentation`, `tools/bench_train.py`;
+- explainability and the weight artifacts: the reference resnet50
+  Grad-CAM (`models/resnet.py`, `xai/gradcam.py`), saliency
+  (`xai/saliency.py`), and the engine's `.npz`/`.pth` loaders
+  (`compat/adcnnm.py` for the advanced model).
 
-The nine TPU kernels on those paths (`kernels/largest_obj.py`,
+The twelve TPU kernels on those paths (`kernels/largest_obj.py`,
 `equalize.py`, `pectoral.py`, `ccl.py`, `mode.py`, `watershed.py`,
-`conv_leaky.py`, `pool.py`, `upsample.py`) are hand-written CUDA for
+`conv_leaky.py`, `pool.py`, `upsample.py`, `batchnorm.py`, `overlay.py`,
+`gradcam_tail.py`) are hand-written CUDA for
 Hopper (`csrc/`); on a CUDA tensor they always run, on a CPU tensor their
 plain PyTorch version runs. The entry points run on the card unless given
 `device="cpu"` (`device.py`).

@@ -7,9 +7,12 @@ config; `convert_unet_params` and `convert_tiny_unet_params` take U-Net
 trees, and `convert_adam_state` an optax Adam state. Leaves are numpy
 arrays, e.g. `jax.tree_util.tree_map(np.asarray, params)`; configs and
 states are read by attribute, so jax is not needed. Conv kernels go from
-HWIO to OIHW; dense (in, out) weights are kept as they are. Only
-`encoder["conv1"]` runs on the ported slice; the rest of the encoder is
-carried as tensors, untouched, in `ResNetStem.rest`.
+HWIO to OIHW; dense (in, out) weights are kept as they are. The serving
+stem (`convert_encoder`) runs `encoder["conv1"]` only and carries the rest
+of the encoder as tensors, untouched, in `ResNetStem.rest`;
+`convert_resnet_encoder` turns the whole encoder, and
+`convert_resnet_params` any `models/resnet.py` tree, into the port's
+`ResNet` (torchvision layout: fc (in, out) becomes (out, in)).
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from cadx_tpu_torch.models import cnn, unet
+from cadx_tpu_torch.models import cnn, resnet, unet
 from cadx_tpu_torch.pipeline.fused import PipelineConfig, PipelineParams
 from cadx_tpu_torch.serve.engine import EngineConfig, EngineState
 from cadx_tpu_torch.train.optim import AdamState
@@ -44,6 +47,51 @@ def convert_encoder(encoder: dict, device=None) -> unet.ResNetStem:
     rest = {k: _tensors(v, device) for k, v in encoder.items() if k != "conv1"}
     return unet.ResNetStem(hwio_to_oihw(encoder["conv1"]["kernel"]).to(device),
                            rest)
+
+
+def _resnet_state_dict(params: dict) -> dict:
+    """A JAX resnet tree -> torchvision state-dict keys and layouts."""
+    sd = {}
+
+    def bn(prefix, p):
+        sd.update({f"{prefix}.weight": _vec(p["scale"]), f"{prefix}.bias": _vec(p["bias"]),
+                   f"{prefix}.running_mean": _vec(p["mean"]),
+                   f"{prefix}.running_var": _vec(p["var"])})
+
+    sd["conv1.weight"] = hwio_to_oihw(params["conv1"]["kernel"])
+    bn("bn1", params["bn1"])
+    for si, stage in enumerate(params["stages"], start=1):
+        for bi, block in enumerate(stage):
+            p = f"layer{si}.{bi}"
+            for name in ("conv1", "conv2", "conv3"):
+                if name in block:
+                    sd[f"{p}.{name}.weight"] = hwio_to_oihw(block[name]["kernel"])
+                    bn(f"{p}.bn{name[-1]}", block[f"bn{name[-1]}"])
+            if "downsample" in block:
+                sd[f"{p}.downsample.0.weight"] = hwio_to_oihw(block["downsample"]["kernel"])
+                bn(f"{p}.downsample.1", block["downsample"]["bn"])
+    if "fc" in params:
+        sd["fc.weight"] = _vec(np.asarray(params["fc"]["kernel"]).T)
+        sd["fc.bias"] = _vec(params["fc"]["bias"])
+    return sd
+
+
+def convert_resnet_params(params: dict, config=None, device=None) -> resnet.ResNet:
+    """A JAX `models.resnet` tree (`init_resnet`, `params_from_state_dict`)
+    -> the port's ResNet. `config` (a JAX or port ResNetConfig, read by
+    attribute) or, when None, the one the weights' shapes give."""
+    if config is not None:
+        config = resnet.ResNetConfig(
+            block=config.block, layers=tuple(config.layers), widths=tuple(config.widths),
+            in_channels=config.in_channels, num_classes=config.num_classes)
+    return resnet.params_from_state_dict(_resnet_state_dict(params), config,
+                                         device=device)[1]
+
+
+def convert_resnet_encoder(encoder: dict, device=None) -> resnet.ResNet:
+    """The full-encoder counterpart of `convert_encoder`: a JAX
+    `unet.init_resnet_encoder` tree -> the port's resnet34 encoder."""
+    return convert_resnet_params(encoder, None, device)
 
 
 def convert_classifier(params: dict, config: cnn.CNNConfig,

@@ -2,13 +2,12 @@
 
 Each of `csrc/*.cu` is compiled by its own nvcc process for sm_90a
 (Hopper), all at once, and the objects are linked into one shared
-library with a plain C interface, under
-`build/cadx_tpu_torch/` at the repository root, at first use (on an
-H100 host ~5.6 s for the nine sources; one nvcc call over six of them
-took ~12.3 s). The
-library's name carries a hash of the sources and flags, so an edit
-rebuilds and an unchanged tree reuses it. It is loaded with ctypes;
-every pointer and the stream are passed as `c_void_p`, and every entry
+library with a plain C interface, under `build/cadx_tpu_torch/` at the
+repository root, at first use (on an H100 host ~5.6 s for nine sources;
+one nvcc call over six of them took ~12.3 s). The library's name carries
+a hash of the sources and flags, so an edit rebuilds and an unchanged
+tree reuses it. It is loaded with ctypes; every pointer and the stream
+are passed as `c_void_p`, element strides as `c_longlong`, and every entry
 point returns `cudaGetLastError()`, which `check` turns into an error.
 
 Nothing here runs at import time: the CPU tests import every module on a
@@ -33,7 +32,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cadx_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # entry point -> argument types (pointers, ints, the stream last)
 _SIGNATURES = {
     "cadx_equalize_hist": (_P, _P, _I, _I, _I, _P),
@@ -49,6 +48,10 @@ _SIGNATURES = {
     "cadx_conv_leaky": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "cadx_pool": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     "cadx_upsample_nearest": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "cadx_batchnorm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    "cadx_jet_blend": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "cadx_gradcam_tail": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _F, _P),
 }
 
 
@@ -126,13 +129,15 @@ def check(rc: int, name: str) -> None:
                            f"cudaError {rc}")
 
 
-def check_input(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:
-    """A kernel takes a contiguous (B, H, W) CUDA tensor of one dtype."""
+def check_input(t: torch.Tensor, dtype: torch.dtype, name: str, ndim: int = 3) -> None:
+    """A kernel takes a contiguous CUDA tensor of one dtype and rank: (B, H,
+    W) unless `ndim` says otherwise."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != dtype or t.ndim != 3 or not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous (B, H, W) {dtype} "
-                         f"tensor, got {t.dtype} {tuple(t.shape)}")
+    if t.dtype != dtype or t.ndim != ndim or not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous {ndim}-dimensional {dtype} "
+                         f"tensor, got {t.dtype} {tuple(t.shape)}"
+                         f"{'' if t.is_contiguous() else ', not contiguous'}")
 
 
 def stream_ptr(device) -> int:

@@ -10,8 +10,12 @@ Port of `cadx_tpu/models/unet.py`:
   ROI segmentation"), trained by `train/segmentation.py`.
 - ResNetStem: conv1 of the resnet encoder, 7x7, stride 2, pad 3, no bias,
   1 -> 64 channels, the serving path's feature extractor
-  (`encoder_first_features`); the rest of a converted encoder is carried
-  untouched in `ResNetStem.rest`.
+  (`encoder_first_features`); the rest of a converted or imported encoder
+  is carried untouched in `ResNetStem.rest`.
+- the full resnet34 encoder (`init_resnet_encoder`,
+  `resnet_encoder_features`, built on `models/resnet.py`), and the pieces
+  the resnets share: `BatchNorm` (torchvision's BatchNorm2d keys),
+  `bn_apply` through the batchnorm kernel, and `max_pool_plain`.
 
 The public functions take and return channel-last (B, H, W, C) tensors,
 as JAX does, and run channel-first inside. Convolutions are SAME + ReLU
@@ -33,8 +37,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cadx_tpu_torch.kernels.batchnorm import batchnorm
 from cadx_tpu_torch.ops.conv import conv2d
 from cadx_tpu_torch.ops.pool import max_pool_first, upsample_nearest
+
+RESNET34_LAYERS = (3, 4, 6, 3)
+RESNET34_WIDTHS = (64, 128, 256, 512)
 
 
 class ResNetStem(nn.Module):
@@ -64,9 +72,59 @@ def encoder_first_features(stem: ResNetStem, img: torch.Tensor) -> torch.Tensor:
     return stem(img)
 
 
+def init_resnet_encoder(generator: torch.Generator, in_channels: int = 1,
+                        layers=RESNET34_LAYERS, widths=RESNET34_WIDTHS, device=None):
+    """The full resnet34 encoder (basic blocks, no fc head) as a
+    `models.resnet.ResNet`, He-normal convs drawn on the CPU from
+    `generator`, batch norms at scale 1, bias 0, mean 0, var 1."""
+    from cadx_tpu_torch.models import resnet
+
+    config = resnet.ResNetConfig(block="basic", layers=tuple(layers), widths=tuple(widths),
+                                 in_channels=in_channels)
+    return resnet.init_resnet(generator, config, device=device)
+
+
+def resnet_encoder_features(model, x: torch.Tensor) -> list[torch.Tensor]:
+    """Outputs after each encoder child, [conv1, bn1, relu, maxpool,
+    layer1..layer4], channel-last, as the app's extract_encoder_features
+    loop (app.py:89-94) collects them. x: (B, H, W, C)."""
+    from cadx_tpu_torch.models import resnet
+
+    return resnet.stage_features(model, x)
+
+
 # ---------------------------------------------------------------------------
 # shared pieces
 # ---------------------------------------------------------------------------
+
+class BatchNorm(nn.Module):
+    """Inference batch norm parameters under torchvision's BatchNorm2d
+    state-dict keys (weight, bias, running_mean, running_var,
+    num_batches_tracked)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+        self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+
+
+def bn_apply(bn: BatchNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """(x - mean) / sqrt(var + eps) * scale + bias over channel-first x (B,
+    C, H, W): the batchnorm kernel on a CUDA tensor (inference only), its
+    plain version on a CPU tensor."""
+    return batchnorm(x, bn.weight, bn.bias, bn.running_mean, bn.running_var, eps)
+
+
+def max_pool_plain(x: torch.Tensor, size: int = 2, stride: int | None = None,
+                   pad: int = 0) -> torch.Tensor:
+    """torch MaxPool2d semantics (-inf padding) over channel-first x: the
+    resnets' stem pool, which JAX runs as `reduce_window` outside any
+    Pallas kernel."""
+    return F.max_pool2d(x, size, stride or size, pad)
+
 
 class Conv(nn.Module):
     """A stride-1 SAME conv, weight (F, C, k, k), bias (F,)."""

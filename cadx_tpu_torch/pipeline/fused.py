@@ -4,7 +4,9 @@ Port of `cadx_tpu/pipeline/fused.py::run_pipeline`: uint8 (B, H, W) ->
 clean (suppress, segment, pectoral removal, boundary gray) -> resnet
 conv1 (7x7/2, 64 channels) -> bilinear resize to the classifier input ->
 CNN -> guarded softmax -> Grad-CAM per explained class -> JET overlay
-blended onto the cleaned image.
+blended onto the cleaned image. The Grad-CAM tail of each class (CAM,
+upsample, heatmap, JET, blend) is one launch of the gradcam_tail kernel
+(`kernels/gradcam_tail.py`) on the card, its plain version on the CPU.
 
 Convolutions and matmuls run in full float32 (no TF32) inside
 `run_pipeline`, as the JAX package runs them at HIGHEST precision; the
@@ -19,12 +21,12 @@ from typing import NamedTuple
 
 import torch
 
+from cadx_tpu_torch.kernels.gradcam_tail import gradcam_tail
 from cadx_tpu_torch.models import cnn, unet
-from cadx_tpu_torch.ops.colormap import apply_jet
-from cadx_tpu_torch.ops.resize import resize_linear, resize_linear_mxu
+from cadx_tpu_torch.ops.resize import resize_linear
 from cadx_tpu_torch.precision import full_fp32
 from cadx_tpu_torch.preprocess import cleaner
-from cadx_tpu_torch.xai.gradcam import cam_from_acts_grads, conv_features, head_logits
+from cadx_tpu_torch.xai.gradcam import conv_features, head_logits
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,14 +75,8 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def _gradcam_tail(acts, grads, clean01, config: PipelineConfig):
     """CAM -> matmul upsample -> clip -> truncating u8 -> JET -> blend
-    with a joint max-normalise per sample."""
-    cam_big = resize_linear_mxu(cam_from_acts_grads(acts, grads),
-                                config.image_hw)
-    heat_u8 = (torch.clamp(cam_big, 0.0, 1.0) * 255).to(torch.uint8)
-    jet_rgb = (apply_jet(heat_u8).to(torch.float32) / 255.0).flip(-1)
-    over = jet_rgb + clean01[..., None]
-    over = over / torch.clamp_min(over.amax(dim=(1, 2, 3), keepdim=True), 1e-7)
-    return (over * 255).to(torch.uint8), heat_u8
+    with a joint max-normalise per sample: (overlays, heatmaps)."""
+    return gradcam_tail(acts, grads, clean01, config.image_hw)
 
 
 def run_pipeline(params: PipelineParams, batch_u8: torch.Tensor,

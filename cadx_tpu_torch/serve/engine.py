@@ -18,17 +18,23 @@ into one small vector that is fetched to the host once. `dispatch_count`
 and `fetch_count` expose that contract. A failure of the CAM/ROI tail
 raises; nothing falls back to a fixed box.
 
-Weights come from a seed (`torch.Generator`) or from a JAX engine's
-parameters through `convert.convert_engine_params`. Everything runs on one
-device, `device`: the card unless the caller passes `device="cpu"`
-(construction raises without a card). The weight-artifact loaders and the
-mesh data-parallel bulk path of the JAX engine are not ported.
+Weights come from a seed (`torch.Generator`), from a JAX engine's
+parameters through `convert.convert_engine_params`, or from the reference
+deployment's artifacts: a cnn_model `.npz` for the basic classifier, a
+training-summary JSON and `.pth` for the advanced one, an smp/torchvision
+resnet34 `.pth` for the encoder, and a torchvision resnet50 `.pth` for the
+reference Grad-CAM, which `write_gradcam_overlays` then runs in place of
+the explain-own-classifier CAM. A missing artifact keeps its seeded
+weights. Everything runs on one device, `device`: the card unless the
+caller passes `device="cpu"` (construction raises without a card). The
+mesh data-parallel bulk path of the JAX engine is not ported.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import os
 import tempfile
 import threading
 from typing import NamedTuple
@@ -37,8 +43,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from cadx_tpu_torch import checkpoint
 from cadx_tpu_torch.device import resolve
-from cadx_tpu_torch.models import cnn, unet
+from cadx_tpu_torch.models import cnn, resnet, unet
 from cadx_tpu_torch.ops.resize import resize_area, resize_linear
 from cadx_tpu_torch.precision import full_fp32
 from cadx_tpu_torch.preprocess import cleaner
@@ -137,18 +144,54 @@ class InferenceEngine:
     _FEATS_CACHE_SLOTS = 4
 
     def __init__(self, config: EngineConfig | None = None, seed: int = 0,
-                 device=None, state: EngineState | None = None):
+                 device=None, state: EngineState | None = None,
+                 basic_npz: str | None = None,
+                 advanced_summary_json: str | None = None,
+                 advanced_pth: str | None = None,
+                 encoder_pth: str | None = None,
+                 gradcam_pth: str | None = None):
         """Weights: `state` (e.g. from `convert.convert_engine_params`), or
-        random weights from `seed`. Everything runs on `device`, the card
-        when None; without a card that raises unless device="cpu"."""
+        random weights from `seed`; then each artifact that exists replaces
+        its part, as the reference deployment loads them: `basic_npz` the
+        basic classifier (CNNM.py:658), `advanced_summary_json` with
+        `advanced_pth` the advanced one (app.py:571-575), `encoder_pth`
+        (an smp or torchvision resnet34 state dict) the encoder's conv1
+        (app.py:78-94). `gradcam_pth`, a torchvision resnet50 state dict
+        with its fc head, switches the overlays to the reference's own
+        Grad-CAM (GRADCAM.py:16-53); one without a head raises ValueError
+        here rather than on every request. Everything runs on `device`,
+        the card when None; without a card that raises unless
+        device="cpu"."""
         self.config = config or EngineConfig()
         self.device = resolve(device)
         if state is None:
             state = init_engine_state(torch.Generator().manual_seed(seed),
                                       self.config)
-        self.encoder_params = state.encoder.to(self.device)
-        self.basic_params = state.basic.to(self.device)
-        self.advanced_params = state.advanced.to(self.device)
+        encoder, basic, advanced = state
+        if encoder_pth and os.path.exists(encoder_pth):
+            enc = resnet.encoder_params_from_state_dict(encoder_pth)[1].state_dict()
+            encoder = unet.ResNetStem(enc.pop("conv1.weight"), rest=enc)
+        self.gradcam_resnet = None
+        if gradcam_pth and os.path.exists(gradcam_pth):
+            cfg50, model50 = resnet.encoder_params_from_state_dict(gradcam_pth)
+            if model50.fc is None:
+                raise ValueError(
+                    f"gradcam_pth {gradcam_pth!r} has no 'fc' head: it looks like an "
+                    "encoder-only state dict (pass that as encoder_pth); the reference "
+                    "Grad-CAM needs a full classifier resnet50 .pth")
+            self.gradcam_resnet = (cfg50, model50.to(self.device))
+        if basic_npz and os.path.exists(basic_npz):
+            cfg, basic = checkpoint.load_npz(basic_npz)
+            self.config = dataclasses.replace(self.config, basic_classifier=cfg)
+        if (advanced_summary_json and advanced_pth and os.path.exists(advanced_summary_json)
+                and os.path.exists(advanced_pth)):
+            from cadx_tpu_torch.compat.adcnnm import load_trained_model
+
+            cfg, advanced = load_trained_model(advanced_summary_json, advanced_pth)
+            self.config = dataclasses.replace(self.config, advanced_classifier=cfg)
+        self.encoder_params = encoder.to(self.device)
+        self.basic_params = basic.to(self.device)
+        self.advanced_params = advanced.to(self.device)
         # per-request cost observability: one device program and one host
         # fetch per classify request (tested)
         self.dispatch_count = 0
@@ -327,7 +370,8 @@ class InferenceEngine:
     def warmup(self, native_shapes=()) -> None:
         """Run every serving path once on dummy inputs: segment at
         segment_hw and at each of `native_shapes`, both classifiers with
-        their CAM/ROI tails, the micro-batchers and the overlay writer."""
+        their CAM/ROI tails, the micro-batchers and the overlay writer
+        (the reference resnet50 Grad-CAM where `gradcam_pth` gave one)."""
         h, w = self.config.segment_hw
         feats = None
         for hw_ in [(h, w)] + [tuple(s) for s in native_shapes]:
@@ -345,8 +389,13 @@ class InferenceEngine:
     def write_gradcam_overlays(self, features, display_img: np.ndarray,
                                save_folder: str, classes=(0, 1),
                                pipeline: str = "basic") -> dict:
-        """Per-class Grad-CAM overlays of the active classifier, with the
-        reference's filenames."""
+        """Per-class Grad-CAM overlays with the reference's filenames. With
+        an imported resnet50 (`gradcam_pth`), the reference's own CAM over
+        the display image; otherwise the active classifier's (a redesign,
+        PARITY.md)."""
+        if self.gradcam_resnet is not None:
+            return gradcam.generate_reference_gradcam_overlays(
+                self.gradcam_resnet[1], display_img, classes, save_folder)
         if pipeline == "basic":
             feats = self.process_bottleneck_features(features)
             model = self.basic_params

@@ -6,7 +6,7 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a):
     python3 chip_smoke.py
 
 Phases, each of which raises on failure (the script then exits nonzero):
-1. build the nine CUDA kernels from `cadx_tpu_torch/csrc` (one nvcc per
+1. build the twelve CUDA kernels from `cadx_tpu_torch/csrc` (one nvcc per
    source, all at once);
 2. hold each kernel bit-exact against its plain PyTorch version on the
    card (the plain versions run uncapped, max_iters = H*W, since the
@@ -29,10 +29,17 @@ Phases, each of which raises on failure (the script then exits nonzero):
      bfloat16) and upsample (factor 2) bit-exact; both max-pool backward
      rules (tie-broadcast, first maximum) on the card against the CPU,
      bit-exact;
+   - batchnorm at every distinct input shape of the ResNet-50 at a 512²
+     display (the path's own inputs) and jet_blend at 256² B=64 and 512²
+     B=1, gray and RGB, bit-exact; gradcam_tail at the pipeline's shapes,
+     (64, 6, 6, 64) -> 256², heat +-1 and overlay +-2 where the heat
+     agrees, within the heatmap-step bound of phase 6 where it does not
+     (its GAP and channel sums round otherwise than torch's reductions);
 3. the fused pipeline: `run_pipeline` at 256² with the full-width
    classifier on seeded weights, three batches of B=64; launches 2
-   (largest_obj), 1 (equalize), 1 (pectoral_tail), 4 (conv_leaky) and 4
-   (pool) per batch and none of the serving kernels or upsample;
+   (largest_obj), 1 (equalize), 1 (pectoral_tail), 4 (conv_leaky), 4
+   (pool) and 2 (gradcam_tail, one per explained class) per batch and
+   none of the other kernels;
 4. the fused pipeline on a B=2 batch on the card and on the CPU: clean_u8
    exact, probs 2e-5, features 1e-5, heatmaps and overlays +-2 u8;
 5. serving at full width, `EngineConfig()` defaults, seeded weights:
@@ -42,12 +49,26 @@ Phases, each of which raises on failure (the script then exits nonzero):
    (fused tail); per pipeline classify, classify_and_roi (0, 1) and the
    overlay PNGs; eight concurrent micro-batched classify calls;
    classify_batch on B=8 at 512². The exact launch count of each of the
-   nine kernels is asserted;
+   twelve kernels is asserted (jet_blend once per overlay class);
 6. one 640x544 request on the card and on a CPU engine with the same
    weights: clean exact, features 1e-5, probs 2e-5, ROI boxes within one
    CAM cell, heatmaps +-2 u8, overlays +-2 u8 where the heatmaps agree,
    within the bound the JET table's slope gives at a heatmap step, and
    +-2 u8 at the 99th percentile of all overlay values;
+6b. the reference Grad-CAM and the weight loaders: seeded torchvision-
+   layout files (a ResNet-50 with its 1000-class fc and randomised batch
+   norms, a resnet34 under smp's `encoder.` prefix, a basic cnn_model
+   npz, an ADCNNM summary JSON and `.pth`) in a temporary directory; an
+   engine built from them on the card (the fc-less file as gradcam_pth
+   raises; each loaded weight equals the saved one); one
+   `write_gradcam_overlays` at the 512² display for classes (0, 1) with
+   exact launch counts (53 batchnorm for its one ResNet-50 forward, 2
+   jet_blend); card against a CPU engine built from the same files:
+   features 1e-5, probs 2e-5, layer4 activations to 1e-4 of their
+   largest, CAMs 2e-3, heatmaps +-2 u8, overlays under phase 6's rule;
+6c. saliency (`xai/saliency.py::generate_dual_class_overlays`) of both
+   engine classifiers at the 512² display, card against CPU: heatmaps and
+   overlays +-1 u8;
 7. training at full width through `fit` and `fit_segmentation` on the
    card: the basic classifier (SGD, batch 8) and the advanced one (Adam,
    batch 32), 2 epochs each on 64 train / 16 test samples of bench_train's
@@ -67,15 +88,20 @@ Phases, each of which raises on failure (the script then exits nonzero):
    the gap Adam makes of the two gradients where they agree in sign and
    to 2 lr where they straddle 0; a save_npz -> load_npz round trip;
 8. times with CUDA events: each kernel beside its plain version (256²
-   B=64 for the fused-pipeline kernels, the serving shapes for ccl, mode
-   and watershed, the training shapes for conv_leaky, pool and upsample)
-   and, for the last three, beside the one PyTorch call that computes
-   the same function; each kernel's bound on this card (the larger of
+   B=64 for the fused-pipeline kernels and gradcam_tail, the serving
+   shapes for ccl, mode and watershed, the training shapes for
+   conv_leaky, pool and upsample, the ResNet-50 stem for batchnorm, the
+   512² display for jet_blend) and, for conv_leaky, pool, upsample and
+   batchnorm, beside the one PyTorch call that computes the same
+   function, and the device time of each from torch.profiler (a small
+   kernel's back-to-back calls are bound by the host); each kernel's
+   bound on this card (the larger of
    its bytes over 3.35 TB/s and its operations over 67 TFLOP/s, the
    H100 SXM's HBM3 rate and float32 peak); ms per training step of each
    configuration; the pipeline's images per second; and the p50 of
-   process_single_image per upload shape and of classify_and_roi per
-   pipeline over 10 requests after warmup.
+   process_single_image per upload shape, of classify_and_roi per
+   pipeline and of the reference `write_gradcam_overlays` over 10
+   requests after warmup.
 
 The last line of standard output is {"ok": true, "device": {...}}; the
 line before it is the per-kernel JSON record. Imports torch, numpy and
@@ -133,6 +159,22 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int) -> float:
+    """Mean device milliseconds per call: the kernel time torch.profiler
+    records on the card (host overhead, which bounds a small kernel's
+    back-to-back calls, excluded)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / iters
 
 
 def turns_ms(kernel_fn, plain_fn, k_iters: int, p_iters: int, library_fn=None):
@@ -255,6 +297,79 @@ def pinned_grads(model, x: torch.Tensor, y_onehot: torch.Tensor, switches):
     return loss.detach(), list(grads)
 
 
+def randomize_bn(model, generator: torch.Generator):
+    """Seeded batch-norm statistics and affine terms, as a trained network
+    has them (the init's are the identity)."""
+    from cadx_tpu_torch.models.unet import BatchNorm
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                c = m.weight.shape[0]
+                m.running_mean.copy_(torch.randn(c, generator=generator) * 0.3)
+                m.running_var.copy_(torch.rand(c, generator=generator) + 0.5)
+                m.weight.copy_(1.0 + torch.randn(c, generator=generator) * 0.2)
+                m.bias.copy_(torch.randn(c, generator=generator) * 0.2)
+    return model
+
+
+def adcnnm_state_dict(model) -> dict:
+    """A port CNN as the reference ADCNNM torch state dict: convs.{i}, and
+    fc.{3 j} Linear layers (out, in) whose first takes torch's (C, H, W)
+    flatten order."""
+    h, w, f = model.config.conv_output_shapes()[-1]
+    h, w = h // 2, w // 2
+    sd = {}
+    for i, (wt, b) in enumerate(zip(model.conv_w, model.conv_b)):
+        sd[f"convs.{i}.weight"] = wt.detach().cpu().clone()
+        sd[f"convs.{i}.bias"] = b.detach().cpu().clone()
+    dense = list(zip(model.dense_w, model.dense_b)) + [(model.out_w, model.out_b)]
+    for pos, (wt, b) in enumerate(dense):
+        wt = wt.detach().cpu().T
+        if pos == 0:
+            wt = wt.reshape(-1, h, w, f).permute(0, 3, 1, 2).reshape(wt.shape[0], -1)
+        sd[f"fc.{3 * pos}.weight"] = wt.contiguous().clone()
+        sd[f"fc.{3 * pos}.bias"] = b.detach().cpu().clone()
+    return sd
+
+
+def overlay_checks(what: str, ov_a, hm_a, ov_b, hm_b, img_u8, heat_tol: int,
+                   jet_slope: int):
+    """Checks (name, err, tolerance) of overlays and heatmaps made on two
+    devices or by two implementations, CPU tensors, (B, H, W, 3) and (B, H,
+    W), of gray images `img_u8` (B, H, W). Heatmaps within heat_tol. The
+    overlay is trunc((jet + img) * 255 / peak), peak the largest jet + img
+    of its image, so where the heatmaps differ by dh levels it may move by
+    floor(jet_slope * dh * 255 / peak) + 1 counts; where they agree it is
+    held to +-2, and so is the 99th percentile of all its values
+    (tests/test_xai.py:78-81)."""
+    from cadx_tpu_torch.ops.colormap import apply_jet
+
+    dhm = (hm_a.int() - hm_b.int()).abs()
+    dov = (ov_a.int() - ov_b.int()).abs()
+    same = (dhm == 0)[..., None].expand(dov.shape)
+    checks = [(f"{what} heatmap", float(dhm.max()), heat_tol),
+              (f"{what} overlay where heatmaps agree",
+               float(dov[same].max()) if bool(same.any()) else 0.0, 2),
+              (f"{what} overlay, 99th percentile",
+               float(torch.quantile(dov.double().flatten()[:1 << 24], 0.99)), 2)]
+    steps = int((dhm > 0).sum())
+    worst = None      # (err, tol, dh, peak) of the image with the least margin
+    for i in range(dhm.shape[0]):
+        if not bool((dhm[i] > 0).any()):
+            continue
+        peak = int((apply_jet(hm_b[i]).int() + img_u8[i].int()[..., None]).max())
+        dh = int(dhm[i].max())
+        tol = jet_slope * dh * 255 // peak + 1
+        err = float(dov[i][~same[i]].max())
+        if worst is None or err - tol > worst[0] - worst[1]:
+            worst = (err, tol, dh, peak)
+    err, tol, dh, peak = worst or (0.0, 1, 0, 0)
+    checks.append((f"{what} overlay at the {steps} heatmap pixels that differ (slope "
+                   f"{jet_slope}, least-margin image dh {dh}, peak {peak})", err, tol))
+    return checks
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -263,17 +378,22 @@ def main() -> int:
     import torch.nn.functional as F
 
     from cadx_tpu_torch import checkpoint
+    from cadx_tpu_torch.compat import adcnnm
     from cadx_tpu_torch.kernels import _build
+    from cadx_tpu_torch.kernels import batchnorm as KBN
     from cadx_tpu_torch.kernels import ccl as KC
     from cadx_tpu_torch.kernels import conv_leaky as KCL
     from cadx_tpu_torch.kernels import equalize as KE
+    from cadx_tpu_torch.kernels import gradcam_tail as KGT
     from cadx_tpu_torch.kernels import largest_obj as KL
     from cadx_tpu_torch.kernels import mode as KM
+    from cadx_tpu_torch.kernels import overlay as KOv
     from cadx_tpu_torch.kernels import pectoral as KP
     from cadx_tpu_torch.kernels import pool as KPool
     from cadx_tpu_torch.kernels import upsample as KUp
     from cadx_tpu_torch.kernels import watershed as KW
     from cadx_tpu_torch.models import cnn, unet
+    from cadx_tpu_torch.models import resnet as TR
     from cadx_tpu_torch.ops import pool as TPool
     from cadx_tpu_torch.ops.colormap import apply_jet
     from cadx_tpu_torch.ops.morphology import dilate, erode
@@ -288,6 +408,8 @@ def main() -> int:
                                           synthetic_native_mammogram)
     from cadx_tpu_torch.tools import bench_train as BT
     from cadx_tpu_torch.train import optim, segmentation, step
+    from cadx_tpu_torch.xai import gradcam as TG
+    from cadx_tpu_torch.xai import saliency as TS
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -296,12 +418,14 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
     modules = {"largest_obj": KL, "equalize": KE, "pectoral_tail": KP,
                "ccl": KC, "mode": KM, "watershed": KW, "conv_leaky": KCL,
-               "pool": KPool, "upsample": KUp}
+               "pool": KPool, "upsample": KUp, "batchnorm": KBN, "jet_blend": KOv,
+               "gradcam_tail": KGT}
     wrappers = {"largest_obj": KL.largest_obj, "equalize": KE.equalize,
                 "pectoral_tail": KP.pectoral_tail, "ccl": KC.label_components,
                 "mode": KM.largest_component_mask, "watershed": KW.marker_watershed,
                 "conv_leaky": KCL.conv_leaky, "pool": KPool.pool,
-                "upsample": KUp.upsample_nearest}
+                "upsample": KUp.upsample_nearest, "batchnorm": KBN.batchnorm,
+                "jet_blend": KOv.jet_blend, "gradcam_tail": KGT.gradcam_tail}
 
     def zero_counts():
         for fn in wrappers.values():
@@ -545,6 +669,54 @@ def main() -> int:
         if err != 0.0:
             raise AssertionError(f"the {rule} pool backward differs between card and CPU")
 
+    # the explainability slice's kernels. batchnorm: the inputs of every
+    # distinct shape that phase 6b's ResNet-50 (seeded, batch norms
+    # randomised) gives it at a 512² display, recorded on the way through
+    # `resnet.bn_apply`
+    r50 = randomize_bn(TR.init_resnet(torch.Generator().manual_seed(50),
+                                      TR.RESNET50_CLASSIFIER), torch.Generator().manual_seed(51))
+    display = torch.from_numpy(synthetic_mammograms(1, seg_h, seed=5)[0]).to(dev)
+    bn_inputs = {}
+    bn_apply = TR.bn_apply
+
+    def recording_bn_apply(bn, x, eps=1e-5):
+        bn_inputs.setdefault(tuple(x.shape), (x.clone(), bn))
+        return bn_apply(bn, x, eps)
+
+    TR.bn_apply = recording_bn_apply
+    try:
+        TR.layer4_features(copy.deepcopy(r50).to(dev), TG.imagenet_input_from_gray(display))
+    finally:
+        TR.bn_apply = bn_apply
+    with torch.no_grad():
+        for shape, (x, bn) in bn_inputs.items():
+            vec = (bn.weight, bn.bias, bn.running_mean, bn.running_var)
+            agree("batchnorm", KBN.batchnorm(x, *vec), KBN.batchnorm_reference(x, *vec),
+                  f"ResNet-50 input {shape} at a {seg_h}x{seg_w} display")
+    for b, side in ((BATCH, HW), (1, seg_h)):
+        heat = torch.from_numpy(rng.integers(0, 256, (b, side, side)).astype(np.uint8)).to(dev)
+        for shape, kind in (((b, side, side), "gray"), ((b, side, side, 3), "RGB")):
+            img01 = torch.from_numpy(rng.integers(0, 256, shape).astype(np.float32)).to(dev) / 255.0
+            agree("jet_blend", KOv.jet_blend(heat, img01), KOv.jet_blend_reference(heat, img01),
+                  f"B={b} {side}x{side} {kind}")
+    # gradcam_tail at the pipeline's shapes: channel-last views of
+    # channel-first activations, as conv_stack returns them
+    jet_levels = apply_jet(torch.arange(256, dtype=torch.uint8)).int()
+    jet_slope = int((jet_levels[1:] - jet_levels[:-1]).abs().max())
+    tail_img = torch.from_numpy(synthetic_mammograms(BATCH, HW, seed=3)).to(dev)
+    tail_in = (torch.relu(randn(BATCH, 64, 6, 6)).permute(0, 2, 3, 1), randn(BATCH, 6, 6, 64),
+               tail_img.to(torch.float32) / 255.0)
+    tail_k = KGT.gradcam_tail(*tail_in, (HW, HW))
+    tail_p = KGT.gradcam_tail_reference(*tail_in, (HW, HW))
+    torch.cuda.synchronize()
+    errs["gradcam_tail"] = max(max_abs_err(a, b) for a, b in zip(tail_k, tail_p))
+    for name, err, tol in overlay_checks(
+            f"B={BATCH} (6, 6, 64) -> {HW}x{HW}", tail_k[0].cpu(), tail_k[1].cpu(),
+            tail_p[0].cpu(), tail_p[1].cpu(), tail_img.cpu(), 1, jet_slope):
+        print(f"check gradcam_tail [{name}]: max_abs_err {err} (tolerance {tol})", flush=True)
+        if err > tol:
+            raise AssertionError(f"gradcam_tail [{name}] disagrees with its plain version")
+
     phase_done("2")
 
     # ---- 3. the fused pipeline, with launch counts ----------------------------
@@ -561,7 +733,8 @@ def main() -> int:
     expected = {"largest_obj": 2 * N_MAIN_BATCHES, "equalize": N_MAIN_BATCHES,
                 "pectoral_tail": N_MAIN_BATCHES, "ccl": 0, "mode": 0, "watershed": 0,
                 "conv_leaky": 4 * N_MAIN_BATCHES, "pool": 4 * N_MAIN_BATCHES,
-                "upsample": 0}
+                "upsample": 0, "batchnorm": 0, "jet_blend": 0,
+                "gradcam_tail": 2 * N_MAIN_BATCHES}
     print(f"fused pipeline: {N_MAIN_BATCHES} batches of B={BATCH} at {HW}x{HW}, "
           f"launches {pipe_launches}", flush=True)
     if pipe_launches != expected:
@@ -641,11 +814,12 @@ def main() -> int:
     serve_launches = read_counts()
     # conv stacks (two conv blocks each): per pipeline 2 for classify, 2
     # for classify_and_roi, 1 per overlay class; 2 per micro-batch flush;
-    # 1 for classify_batch
+    # 1 for classify_batch. jet_blend: one per overlay class and pipeline
     stacks = 2 * (2 + 2 + 2) + 2 * n_flushes + 1
     expected = {"largest_obj": 3 + 3 + 2 + 2, "equalize": 4, "pectoral_tail": 2,
                 "watershed": 2, "ccl": 4 + n_flushes, "mode": 4 + n_flushes,
-                "conv_leaky": 2 * stacks, "pool": 2 * stacks, "upsample": 0}
+                "conv_leaky": 2 * stacks, "pool": 2 * stacks, "upsample": 0,
+                "batchnorm": 0, "jet_blend": 2 * 2, "gradcam_tail": 0}
     print(f"serving path: 3 uploads, 2 pipelines, {N_BATCHED} batched requests in "
           f"{n_flushes} flushes, classify_batch B={N_BATCHED}; launches {serve_launches}",
           flush=True)
@@ -664,8 +838,6 @@ def main() -> int:
                           copy.deepcopy(eng.basic_params).cpu(),
                           copy.deepcopy(eng.advanced_params).cpu())
     cpu_eng = E.InferenceEngine(eng.config, state=state, device="cpu")
-    jet_levels = apply_jet(torch.arange(256, dtype=torch.uint8)).int()
-    jet_slope = int((jet_levels[1:] - jet_levels[:-1]).abs().max())
     img = synthetic_native_mammogram(640, 544, seed=11)
     fg, cg = eng.process_single_image(img)
     fc, cc = cpu_eng.process_single_image(img)
@@ -685,36 +857,159 @@ def main() -> int:
             og = eng.write_gradcam_overlays(fg, cg, os.path.join(tmp, "g"), (0, 1), pipeline)
             oc = cpu_eng.write_gradcam_overlays(fc, cc, os.path.join(tmp, "c"), (0, 1), pipeline)
             # The CAMs differ by float ulps between the devices, so a
-            # heatmap pixel may truncate to the next level. The overlay is
-            # trunc((jet + img) * 255 / peak), peak the largest jet + img
-            # of the image, so where the heatmaps differ by dh levels it
-            # may move by floor(jet_slope * dh * 255 / peak) + 1 counts;
-            # where they agree it is held to +-2, and so is the 99th
-            # percentile of all its values (tests/test_xai.py:78-81).
+            # heatmap pixel may truncate to the next level (overlay_checks)
             for c in (0, 1):
-                (ov_g, hm_g), (ov_c, hm_c) = og[c], oc[c]
-                hm_c_t = torch.from_numpy(hm_c)
-                dhm = (torch.from_numpy(hm_g).int() - hm_c_t.int()).abs()
-                dov = (torch.from_numpy(ov_g).int() - torch.from_numpy(ov_c).int()).abs()
-                same = (dhm == 0)[..., None].expand(dov.shape)
-                checks.append((f"{pipeline} heatmap {c}", float(dhm.max()), 2))
-                checks.append((f"{pipeline} overlay {c} where heatmaps agree",
-                               float(dov[same].max()), 2))
-                checks.append((f"{pipeline} overlay {c}, 99th percentile",
-                               float(torch.quantile(dov.double().flatten(), 0.99)), 2))
-                peak = int((apply_jet(hm_c_t).int() + torch.from_numpy(cc).int()[..., None]).max())
-                dh = int(dhm.max())
-                steps = int((dhm > 0).sum())
-                checks.append((f"{pipeline} overlay {c} at the {steps} heatmap steps "
-                               f"(slope {jet_slope}, dh {dh}, peak {peak})",
-                               float(dov[~same].max()) if steps else 0.0,
-                               jet_slope * dh * 255 // peak + 1))
+                checks += overlay_checks(
+                    f"{pipeline} class {c}", *(torch.from_numpy(a)[None] for a in og[c]),
+                    *(torch.from_numpy(a)[None] for a in oc[c]), torch.from_numpy(cc)[None], 2,
+                    jet_slope)
     for name, err, tol in checks:
         print(f"serving cuda vs cpu {name}: max_abs_err {err} (tolerance {tol})", flush=True)
         if err > tol:
             raise AssertionError(f"serving {name}: card and CPU differ by {err} > {tol}")
 
     phase_done("6")
+
+    # ---- 6b. the reference Grad-CAM and the weight loaders ------------------------
+    cfg0 = E.EngineConfig()
+    summary = {"dataset": {"input_shape": list(cfg0.advanced_classifier.input_shape),
+                           "num_classes": cfg0.advanced_classifier.num_classes},
+               "model": {"conv_layers": [list(c) for c in cfg0.advanced_classifier.conv_layers],
+                         "hidden_units": list(cfg0.advanced_classifier.hidden_units),
+                         "dropout_rate": cfg0.advanced_classifier.dropout_rate}}
+    r34 = randomize_bn(TR.init_resnet(torch.Generator().manual_seed(34),
+                                      dataclasses.replace(TR.RESNET34, in_channels=1)),
+                       torch.Generator().manual_seed(35))
+    basic_src = cnn.init_params(torch.Generator().manual_seed(60), cfg0.basic_classifier)
+    adv_src = cnn.init_params(torch.Generator().manual_seed(61),
+                              adcnnm.advanced_config_from_summary(summary))
+    with tempfile.TemporaryDirectory() as art:
+        files = {k: os.path.join(art, n) for k, n in (
+            ("gradcam_pth", "resnet50.pth"), ("encoder_pth", "unet_resnet34.pth"),
+            ("basic_npz", "cnn_model.npz"),
+            ("advanced_summary_json", "training_summary_advanced.json"),
+            ("advanced_pth", "best_model.pth"))}
+        torch.save(r50.state_dict(), files["gradcam_pth"])
+        torch.save({f"encoder.{k}": v for k, v in r34.state_dict().items()},
+                   files["encoder_pth"])
+        checkpoint.save_npz(basic_src, files["basic_npz"])
+        with open(files["advanced_summary_json"], "w") as fh:
+            json.dump(summary, fh)
+        torch.save(adcnnm_state_dict(adv_src), files["advanced_pth"])
+        try:
+            E.InferenceEngine(cfg0, device=dev, gradcam_pth=files["encoder_pth"])
+        except ValueError as e:
+            print(f"loaders: an fc-less gradcam_pth raises ValueError: {e}", flush=True)
+        else:
+            raise AssertionError("an fc-less gradcam_pth did not raise")
+        ref_eng = E.InferenceEngine(cfg0, seed=0, device=dev, **files)
+        cpu_ref = E.InferenceEngine(cfg0, seed=0, device="cpu", **files)
+    loaded = {
+        "encoder conv1": torch.equal(ref_eng.encoder_params.conv1.cpu(), r34.conv1.weight),
+        "resnet50": all(torch.equal(a.cpu(), b) for a, b in zip(
+            ref_eng.gradcam_resnet[1].state_dict().values(), r50.state_dict().values())),
+        "basic": all(torch.equal(a.cpu(), b) for a, b in zip(ref_eng.basic_params.parameters(),
+                                                             basic_src.parameters())),
+        "advanced": all(torch.equal(a.cpu(), b) for a, b in zip(
+            ref_eng.advanced_params.parameters(), adv_src.parameters())),
+        "advanced padding SAME": ref_eng.config.advanced_classifier.conv_padding == "SAME"}
+    print(f"loaders: loaded weights equal the saved ones {loaded}", flush=True)
+    if not all(loaded.values()):
+        raise AssertionError(f"a loaded artifact differs from the saved weights: {loaded}")
+    ref_upload = uploads["512x512 u8"]
+    fg, cg = ref_eng.process_single_image(ref_upload)
+    fc, cc = cpu_ref.process_single_image(ref_upload)
+    with tempfile.TemporaryDirectory() as tmp:
+        zero_counts()
+        ref_g = ref_eng.write_gradcam_overlays(fg, cg, os.path.join(tmp, "g"), (0, 1))
+        ref_launches = read_counts()
+        ref_c = cpu_ref.write_gradcam_overlays(fc, cg, os.path.join(tmp, "c"), (0, 1))
+    # one ResNet-50 forward for both classes: 53 batch norms; one jet_blend
+    # a class
+    expected = {name: 0 for name in wrappers}
+    expected.update(batchnorm=53, jet_blend=2)
+    print(f"reference Grad-CAM: write_gradcam_overlays at {seg_h}x{seg_w}, classes (0, 1), "
+          f"ResNet-50 (fc 1000) from gradcam_pth; launches {ref_launches}", flush=True)
+    if ref_launches != expected:
+        raise AssertionError(f"reference launches {ref_launches}, expected {expected}")
+    x_g = TG.imagenet_input_from_gray(torch.from_numpy(cg).to(dev))
+    x_c = TG.imagenet_input_from_gray(torch.from_numpy(cg))
+    l4_g = TR.layer4_features(ref_eng.gradcam_resnet[1], x_g).cpu()
+    l4_c = TR.layer4_features(cpu_ref.gradcam_resnet[1], x_c)
+    cams_g = TG.resnet_gradcam_cams(ref_eng.gradcam_resnet[1], x_g, (0, 1)).cpu()
+    cams_c = TG.resnet_gradcam_cams(cpu_ref.gradcam_resnet[1], x_c, (0, 1))
+    checks = [("clean", max_abs_err(torch.from_numpy(cg), torch.from_numpy(cc)), 0),
+              ("features (encoder_pth)", max_abs_err(torch.from_numpy(fg),
+                                                     torch.from_numpy(fc)), 1e-5),
+              (f"layer4 activations {tuple(l4_c.shape)}, relative to their largest "
+               f"{float(l4_c.abs().max()):.4g}",
+               max_abs_err(l4_g, l4_c) / float(l4_c.abs().max()), 1e-4),
+              ("CAMs (16x16)", max_abs_err(cams_g, cams_c), 2e-3)]
+    for pipeline in ("basic", "advanced"):
+        pg = ref_eng.classify(fg, pipeline)["prediction_probabilities"]
+        pc = cpu_ref.classify(fg, pipeline)["prediction_probabilities"]
+        checks.append((f"{pipeline} probs (loaded classifier)",
+                       float(np.abs(np.subtract(pg, pc)).max()), 2e-5))
+    for c in (0, 1):
+        checks += overlay_checks(f"reference class {c}",
+                                 *(torch.from_numpy(a)[None] for a in ref_g[c]),
+                                 *(torch.from_numpy(a)[None] for a in ref_c[c]),
+                                 torch.from_numpy(cg)[None], 2, jet_slope)
+    for name, err, tol in checks:
+        print(f"reference cuda vs cpu {name}: max_abs_err {err} (tolerance {tol})", flush=True)
+        if err > tol:
+            raise AssertionError(f"reference {name}: card and CPU differ by {err} > {tol}")
+
+    phase_done("6b")
+
+    # ---- 6c. saliency of both classifiers ------------------------------------------
+    # A saliency level is a truncation of the normalised gradient, so an
+    # ulp between the devices may move a pixel to the next level, and JET
+    # then moves its colour by up to jet_slope counts: heatmaps +-1 and
+    # overlays +-1 outside the bilinear footprint of the saliency pixels
+    # that differ, within jet_slope * dsal + 1 (heatmap) and half of that
+    # + 1 (overlay, a 0.5 / 0.5 blend) inside it.
+    checks = []
+    # cuDNN's deterministic algorithms, so that the saliency maps taken
+    # apart below are the ones the entry point drew
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    with tempfile.TemporaryDirectory() as tmp:
+        for pipeline in ("basic", "advanced"):
+            sal, maps = {}, {}
+            for d, engine in ((dev, ref_eng), ("cpu", cpu_ref)):
+                if pipeline == "basic":
+                    x_in, model = engine.process_bottleneck_features(fc), engine.basic_params
+                else:
+                    x_in, model = engine._to_hwc(np.array(fc)), engine.advanced_params
+                sal[d] = TS.generate_dual_class_overlays(model, x_in, cg, (0, 1),
+                                                         os.path.join(tmp, f"{pipeline}{d}"))
+                xt = torch.as_tensor(x_in, device=d)
+                maps[d] = [TS.saliency_map_u8(TS.input_gradient(model, xt, c)).cpu()
+                           for c in (0, 1)]
+            for c in (0, 1):
+                dsal = (maps[dev][c].int() - maps["cpu"][c].int()).abs()
+                foot = torch.nn.functional.interpolate(
+                    (dsal > 0).to(torch.float32)[None, None], size=(seg_h, seg_w),
+                    mode="bilinear", align_corners=False)[0, 0] > 0
+                foot = foot[..., None].expand(seg_h, seg_w, 3)
+                inner = jet_slope * int(dsal.max()) + 1
+                for i, kind in enumerate(("overlay", "heatmap")):
+                    diff = (torch.from_numpy(sal[dev][c][i]).int()
+                            - torch.from_numpy(sal["cpu"][c][i]).int()).abs()
+                    checks.append((f"{pipeline} class {c} {kind} outside the footprint of the "
+                                   f"{int((dsal > 0).sum())} saliency pixels that differ",
+                                   float(diff[~foot].max()) if bool((~foot).any()) else 0.0, 1))
+                    checks.append((f"{pipeline} class {c} {kind} inside it",
+                                   float(diff[foot].max()) if bool(foot.any()) else 0.0,
+                                   inner if kind == "heatmap" else inner // 2 + 1))
+    torch.backends.cudnn.deterministic = deterministic
+    for name, err, tol in checks:
+        print(f"saliency cuda vs cpu {name}: max_abs_err {err} (tolerance {tol})", flush=True)
+        if err > tol:
+            raise AssertionError(f"saliency {name}: card and CPU differ by {err} > {tol}")
+
+    phase_done("6c")
 
     # ---- 7. training at full width ----------------------------------------------
     trng = np.random.default_rng(0)
@@ -887,6 +1182,14 @@ def main() -> int:
         with full_fp32():
             return F.conv2d(xa, wa, ba, padding=1)
 
+    # the explainability kernels at their paths' shapes: the ResNet-50
+    # stem's batch norm, one reference overlay, the pipeline's tail
+    bn_x, bn_m = bn_inputs[(1, 64, seg_h // 2, seg_w // 2)]
+    bn_vec = tuple(t.detach() for t in (bn_m.weight, bn_m.bias, bn_m.running_mean,
+                                        bn_m.running_var))
+    jb_heat = torch.from_numpy(ref_g[0][1])[None].to(dev)
+    jb_img = torch.from_numpy(cg)[None].to(dev).to(torch.float32) / 255.0
+
     # name -> (kernel call, plain call, shape, inputs, operations, library call)
     timed = {
         "equalize": (lambda: KE.equalize(seg), lambda: KE.equalize_reference(seg),
@@ -918,6 +1221,22 @@ def main() -> int:
                      lambda: KUp.upsample_nearest_reference(ua, 2),
                      f"U-Net last upsample, B=8 32x{HW // 2}x{HW // 2} x2", (ua,), 0,
                      lambda: F.interpolate(ua, scale_factor=2, mode="nearest")),
+        # 4 operations an element
+        "batchnorm": (lambda: KBN.batchnorm(bn_x, *bn_vec),
+                      lambda: KBN.batchnorm_reference(bn_x, *bn_vec),
+                      f"ResNet-50 stem, {tuple(bn_x.shape)}", (bn_x,) + bn_vec,
+                      4 * bn_x.numel(), lambda: F.batch_norm(
+                          bn_x, bn_vec[2], bn_vec[3], bn_vec[0], bn_vec[1], training=False,
+                          eps=1e-5)),
+        # mul, add, div, mul a channel
+        "jet_blend": (lambda: KOv.jet_blend(jb_heat, jb_img), lambda: KOv.jet_blend_reference(
+            jb_heat, jb_img), f"reference overlay, B=1 {seg_h}x{seg_w} gray", (jb_heat, jb_img),
+            12 * jb_heat.numel(), None),
+        # the two resize products (2 operations a multiply-add) and the blend
+        "gradcam_tail": (lambda: KGT.gradcam_tail(*tail_in, (HW, HW)),
+                         lambda: KGT.gradcam_tail_reference(*tail_in, (HW, HW)),
+                         f"pipeline, B={BATCH} (6, 6, 64) -> {HW}x{HW}", tail_in,
+                         BATCH * (2 * HW * 6 * 6 + 2 * HW * HW * 6 + 12 * HW * HW), None),
     }
     watershed_fns = {}   # upload -> the same fields, for the pair-form watershed
     for name, (equ_, markers, what) in composed.items():
@@ -928,7 +1247,7 @@ def main() -> int:
                 e, m, max_scan=8, marker_label_values=(255, 128, 64)),
             f"pair form, {what}", (equ_, markers), None, None)
     timed["watershed"] = watershed_fns.pop(token)
-    times, bounds = {}, {}
+    times, bounds, dev_times = {}, {}, {}
     heavy = {"conv_leaky": (10, 2), "pool": (20, 3), "upsample": (20, 3)}
     for name, (kernel_fn, plain_fn, shape, inputs, ops, library_fn) in timed.items():
         outputs = kernel_fn()
@@ -939,11 +1258,16 @@ def main() -> int:
         k_iters, p_iters = heavy.get(name, (20, 3))
         k, p, lib, runs = turns_ms(kernel_fn, plain_fn, k_iters, p_iters, library_fn)
         times[name] = (k, p, lib)
+        dev_times[name] = (device_ms(kernel_fn, k_iters), device_ms(plain_fn, p_iters),
+                           device_ms(library_fn, k_iters) if library_fn else None)
         lib_text = (f", library {lib:.4f} ms (runs {runs[4]:.4f}, {runs[5]:.4f})"
                     if lib is not None else "")
+        dk, dp, dl = dev_times[name]
+        dl_text = f", library {dl:.4f}" if dl is not None else ""
         print(f"time {name} {shape}: kernel {k:.4f} ms (runs {runs[0]:.4f}, "
               f"{runs[1]:.4f}), plain {p:.4f} ms (runs {runs[2]:.4f}, {runs[3]:.4f})"
-              f"{lib_text}, bound {bounds[name][0]:.4f} ms by {bounds[name][1]} on {card}",
+              f"{lib_text}, bound {bounds[name][0]:.4f} ms by {bounds[name][1]}; device "
+              f"time (profiler) kernel {dk:.4f}, plain {dp:.4f}{dl_text} ms on {card}",
               flush=True)
     cam6 = torch.from_numpy(rng.random((1, 6, 6)).astype(np.float32)).to(dev)
     hot6 = cam6 >= 0.6 * cam6.amax(dim=(1, 2), keepdim=True)
@@ -952,6 +1276,10 @@ def main() -> int:
                      randn(128, scale=0.1))
     xp64 = randn(64, 64, 32, 32)
     pu = torch.relu(randn(8, 16, HW, HW))
+    l4_shape = (1, 2048, seg_h // 32, seg_w // 32)
+    l4_x, l4_m = bn_inputs[l4_shape]
+    l4_vec = tuple(t.detach() for t in (l4_m.weight, l4_m.bias, l4_m.running_mean,
+                                        l4_m.running_var))
     extra = [
         ("ccl", lambda: KC.label_components(hot6, 8),
          lambda: KC.label_components_reference(hot6, 8), "B=1 6x6 (basic classify)", None),
@@ -969,14 +1297,25 @@ def main() -> int:
          f"mean 2x2, B=32 32x{HW}x{HW}", lambda: F.avg_pool2d(pa, 2)),
         ("pool", lambda: KPool.pool(pu, 2, "max"), lambda: KPool.pool_reference(pu, 2, "max"),
          f"max 2x2, U-Net first level B=8 16x{HW}x{HW}", lambda: F.max_pool2d(pu, 2)),
+        ("batchnorm", lambda: KBN.batchnorm(l4_x, *l4_vec),
+         lambda: KBN.batchnorm_reference(l4_x, *l4_vec), f"ResNet-50 layer4, {l4_shape}",
+         lambda: F.batch_norm(l4_x, l4_vec[2], l4_vec[3], l4_vec[0], l4_vec[1],
+                              training=False, eps=1e-5)),
+        ("jet_blend", lambda: KOv.jet_blend(tail_k[1], tail_in[2]),
+         lambda: KOv.jet_blend_reference(tail_k[1], tail_in[2]),
+         f"B={BATCH} {HW}x{HW} gray (the pipeline's heatmaps)", None),
     ] + [("watershed",) + fns[:3] + (None,) for fns in watershed_fns.values()]
     for name, kernel_fn, plain_fn, shape, library_fn in extra:
         with full_fp32():
             k, p, lib, runs = turns_ms(kernel_fn, plain_fn, 20, 3, library_fn)
+            dk, dp = device_ms(kernel_fn, 20), device_ms(plain_fn, 3)
+            dl = device_ms(library_fn, 20) if library_fn else None
         lib_text = f", library {lib:.4f} ms" if lib is not None else ""
+        dl_text = f", library {dl:.4f}" if dl is not None else ""
         print(f"time {name} {shape}: kernel {k:.4f} ms (runs {runs[0]:.4f}, "
               f"{runs[1]:.4f}), plain {p:.4f} ms (runs {runs[2]:.4f}, {runs[3]:.4f})"
-              f"{lib_text} on {card}", flush=True)
+              f"{lib_text}; device time (profiler) kernel {dk:.4f}, plain {dp:.4f}{dl_text} "
+              f"ms on {card}", flush=True)
 
     # ms per training step of each configuration, after warmup
     step_cases = {}
@@ -1023,13 +1362,32 @@ def main() -> int:
                                                  cache_token=token), N_TIMED)
         print(f"time classify_and_roi {pipeline} (0, 1), cached features: p50 "
               f"{ms:.3f} ms over {N_TIMED} requests on {card}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        ms = p50_ms(lambda: ref_eng.write_gradcam_overlays(fg, cg, tmp, (0, 1)), N_TIMED)
+    print(f"time write_gradcam_overlays, reference ResNet-50 Grad-CAM (fc 1000), "
+          f"{seg_h}x{seg_w} display, classes (0, 1), PNGs included: p50 {ms:.3f} ms over "
+          f"{N_TIMED} requests on {card}", flush=True)
+    # the same request's device work alone (forward, head backwards,
+    # resizes, jet_blends; no host fetch, no PNG)
+    r50_dev, disp_dev = ref_eng.gradcam_resnet[1], torch.from_numpy(cg).to(dev)
+
+    def reference_compute():
+        cams = TG.resnet_gradcam_cams(r50_dev, TG.imagenet_input_from_gray(disp_dev), (0, 1))
+        return [TG._reference_tail(cam, disp_dev, (seg_h, seg_w)) for cam in cams]
+
+    ms = p50_ms(reference_compute, N_TIMED)
+    print(f"time reference Grad-CAM compute only (no fetch, no PNG): p50 {ms:.3f} ms, "
+          f"device time (profiler) {device_ms(reference_compute, N_TIMED):.3f} ms on {card}",
+          flush=True)
     for b in eng._batchers.values():
         b.close()
 
     phase_done("8")
     by_path = {"pipeline": pipe_launches, "serving": serve_launches,
-               "training": train_launches}
-    own_path = {"conv_leaky": "training", "pool": "training", "upsample": "training"}
+               "reference_gradcam": ref_launches, "training": train_launches}
+    own_path = {"conv_leaky": "training", "pool": "training", "upsample": "training",
+                "batchnorm": "reference_gradcam", "jet_blend": "reference_gradcam",
+                "gradcam_tail": "pipeline"}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": modules[name].SOURCE,
          "replaces": modules[name].REPLACES,
@@ -1037,7 +1395,8 @@ def main() -> int:
          "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
          "max_abs_err": errs[name], "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-         "library_ms": times[name][2]}
+         "library_ms": times[name][2], "device_ms": dev_times[name][0],
+         "plain_device_ms": dev_times[name][1], "library_device_ms": dev_times[name][2]}
         for name in wrappers]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

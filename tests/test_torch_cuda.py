@@ -288,3 +288,127 @@ def test_entry_points_default_to_the_card(dev):
                                                           num_classes=2, conv_layers=((4, 3),),
                                                           hidden_units=(8,)))
     assert InferenceEngine(cfg).device.type == "cuda"
+
+
+# ---- the explainability slice's kernels: batchnorm, jet_blend, gradcam_tail ----
+
+from cadx_tpu_torch.kernels import batchnorm as KBN       # noqa: E402
+from cadx_tpu_torch.kernels import gradcam_tail as KGT    # noqa: E402
+from cadx_tpu_torch.kernels import overlay as KOv         # noqa: E402
+from cadx_tpu_torch.models import resnet as TR            # noqa: E402
+
+
+def _bn_vectors(rng, c, dev):
+    vec = [rng.standard_normal(c) * 0.3 + 1, rng.standard_normal(c) * 0.2,
+           rng.standard_normal(c) * 0.3, rng.uniform(0.5, 1.5, c)]
+    return [torch.from_numpy(v.astype(np.float32)).to(dev) for v in vec]
+
+
+@pytest.mark.parametrize("shape", [(1, 64, 256, 256), (2, 2048, 16, 16), (3, 5, 7, 9),
+                                   (1, 3, 1, 1)])
+def test_batchnorm_kernel(dev, rng, shape):
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    vec = _bn_vectors(rng, shape[1], dev)
+    before = KBN.batchnorm.launches
+    _eq(KBN.batchnorm(x, *vec), KBN.batchnorm_reference(x, *vec))
+    assert KBN.batchnorm.launches == before + 1
+    # a contiguous view that starts off a 16-byte boundary takes the scalar path
+    big = torch.from_numpy(rng.standard_normal((shape[0] + 1,) + shape[1:]).astype(np.float32))
+    big = big.to(dev)
+    view = big.flatten()[1:1 + x.numel()].view(shape)
+    _eq(KBN.batchnorm(view, *vec), KBN.batchnorm_reference(view, *vec))
+
+
+def test_batchnorm_kernel_rejects_wrong_inputs(dev, rng):
+    x = torch.zeros((1, 4, 8, 8), device=dev)
+    vec = _bn_vectors(rng, 4, dev)
+    before = KBN.batchnorm.launches
+    for bad in (x.to(memory_format=torch.channels_last), x.double(), x[0]):
+        with pytest.raises(ValueError):
+            KBN.batchnorm(bad, *vec)
+    with pytest.raises(ValueError):
+        KBN.batchnorm(x, vec[0][:3], *vec[1:])
+    with pytest.raises(ValueError):
+        KBN.batchnorm(x.requires_grad_(True), *vec)        # no backward
+    assert KBN.batchnorm.launches == before
+
+
+@pytest.mark.parametrize("shape", [(64, 256, 256), (1, 512, 512), (3, 37, 53)])
+@pytest.mark.parametrize("rgb", [False, True])
+def test_jet_blend_kernel(dev, rng, shape, rgb):
+    heat = torch.from_numpy(rng.integers(0, 256, shape).astype(np.uint8)).to(dev)
+    img = rng.integers(0, 256, shape + ((3,) if rgb else ())).astype(np.float32)
+    img01 = torch.from_numpy(img).to(dev) / 255.0
+    before = KOv.jet_blend.launches
+    _eq(KOv.jet_blend(heat, img01), KOv.jet_blend_reference(heat, img01))
+    assert KOv.jet_blend.launches == before + 1
+    dark = torch.zeros_like(img01)                         # peak from the table alone
+    _eq(KOv.jet_blend(heat, dark), KOv.jet_blend_reference(heat, dark))
+
+
+def test_jet_blend_kernel_rejects_wrong_inputs(dev):
+    heat = torch.zeros((2, 8, 8), dtype=torch.uint8, device=dev)
+    img = torch.zeros((2, 8, 8), device=dev)
+    before = KOv.jet_blend.launches
+    for h, i in ((heat.int(), img), (heat, img.double()), (heat, img.transpose(1, 2)),
+                 (heat, torch.zeros((2, 8, 8, 3), device=dev).transpose(1, 2)),
+                 (heat, torch.zeros((2, 8, 9), device=dev))):
+        with pytest.raises(ValueError):
+            KOv.jet_blend(h, i)
+    assert KOv.jet_blend.launches == before
+
+
+@pytest.mark.parametrize("acts_shape,out_hw", [((64, 6, 6, 64), (256, 256)),
+                                               ((2, 6, 6, 64), (256, 256)),
+                                               ((2, 16, 16, 32), (512, 512)),
+                                               ((3, 5, 7, 8), (37, 53))])
+def test_gradcam_tail_kernel(dev, rng, acts_shape, out_hw):
+    """The pipeline's layout (channel-first activations, channel-last
+    gradients): the kernel adds in torch's reduction order, heat +-1 and
+    overlay +-2 where the heat agrees (the Pallas kernel's own
+    tolerances), bit for bit at the pipeline's (B, 6, 6, 64) -> 256²;
+    contiguous activations add in another order, within the same
+    tolerances."""
+    b, h, w, f = acts_shape
+    acts = torch.from_numpy(np.abs(rng.standard_normal((b, f, h, w))).astype(np.float32))
+    acts = acts.to(dev).permute(0, 2, 3, 1)                 # the pipeline's strides
+    grads = torch.from_numpy(rng.standard_normal(acts_shape).astype(np.float32)).to(dev)
+    img01 = torch.from_numpy(rng.integers(0, 256, (b,) + out_hw).astype(np.float32)).to(dev) / 255
+    before = KGT.gradcam_tail.launches
+    ov, hm = KGT.gradcam_tail(acts, grads, img01, out_hw)
+    assert KGT.gradcam_tail.launches == before + 1
+    ov_p, hm_p = KGT.gradcam_tail_reference(acts, grads, img01, out_hw)
+    if (h, w, f) == (6, 6, 64):
+        _eq(ov, ov_p)
+        _eq(hm, hm_p)
+    for a in (acts, acts.contiguous()):
+        ov, hm = KGT.gradcam_tail(a, grads, img01, out_hw)
+        torch.cuda.synchronize()
+        dh = (hm.int() - hm_p.int()).abs().cpu()
+        assert int(dh.max()) <= 1
+        same = (dh == 0)[..., None].expand(ov.shape)
+        assert int((ov.int() - ov_p.int()).abs().cpu()[same].max()) <= 2
+
+
+def test_gradcam_tail_kernel_rejects_wrong_inputs(dev):
+    acts = torch.zeros((2, 6, 6, 4), device=dev)
+    img = torch.zeros((2, 32, 32), device=dev)
+    before = KGT.gradcam_tail.launches
+    for a, g, i in ((acts.double(), acts, img), (acts, acts.half(), img),
+                    (acts, acts, img.transpose(1, 2)), (acts, acts[:1], img),
+                    (acts, acts, torch.zeros((2, 32, 31), device=dev))):
+        with pytest.raises(ValueError):
+            KGT.gradcam_tail(a, g, i, (32, 32))
+    assert KGT.gradcam_tail.launches == before
+
+
+def test_resnet_card_vs_cpu(dev, rng):
+    cfg = TR.ResNetConfig("bottleneck", (1, 2, 1, 1), (8, 16, 16, 32), 3, 5)
+    model = TR.init_resnet(torch.Generator().manual_seed(0), cfg)
+    x = torch.from_numpy(rng.standard_normal((2, 64, 64, 3)).astype(np.float32))
+    before = KBN.batchnorm.launches
+    got = TR.stage_features(model.to(dev), x.to(dev))
+    assert KBN.batchnorm.launches == before + 1 + 3 * 5 + 4
+    ref = TR.stage_features(model.cpu(), x)
+    for a, c in zip(got, ref):
+        assert float((a.cpu() - c).abs().max()) <= 1e-4 * max(float(c.abs().max()), 1.0)
