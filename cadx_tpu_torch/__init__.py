@@ -23,13 +23,19 @@ Slices ported so far:
 - explainability and the weight artifacts: the reference resnet50
   Grad-CAM (`models/resnet.py`, `xai/gradcam.py`), saliency
   (`xai/saliency.py`), and the engine's `.npz`/`.pth` loaders
-  (`compat/adcnnm.py` for the advanced model).
+  (`compat/adcnnm.py` for the advanced model);
+- the rest of the cleaner (`preprocess/cleaner.py::process`,
+  `clean_for_unet`, `ops/morphology.py::median_blur`), the data layer
+  (`data/dicom.py` for the uncompressed transfer syntaxes,
+  `data/dataset.py`) and the training CLI, `tools/train.py`, whose
+  encoder-features mode cleans each image at its native shape.
 
-The twelve TPU kernels on those paths (`kernels/largest_obj.py`,
-`equalize.py`, `pectoral.py`, `ccl.py`, `mode.py`, `watershed.py`,
-`conv_leaky.py`, `pool.py`, `upsample.py`, `batchnorm.py`, `overlay.py`,
-`gradcam_tail.py`) are hand-written CUDA for
-Hopper (`csrc/`); on a CUDA tensor they always run, on a CPU tensor their
-plain PyTorch version runs. The entry points run on the card unless given
-`device="cpu"` (`device.py`).
+Every TPU kernel of the JAX package has its counterpart here
+(`kernels/largest_obj.py`, `equalize.py`, `pectoral.py`, `ccl.py`,
+`mode.py`, `watershed.py`, `conv_leaky.py`, `pool.py`, `upsample.py`,
+`batchnorm.py`, `overlay.py`, `gradcam_tail.py`, `cleaner_front.py` and
+the density-seeded component in `largest_obj.py`, which no path runs, as
+in JAX): hand-written CUDA for Hopper (`csrc/`); on a CUDA tensor they
+always run, on a CPU tensor their plain PyTorch version runs. The entry
+points run on the card unless given `device="cpu"` (`device.py`).
 """

@@ -3,12 +3,13 @@
 Each of `csrc/*.cu` is compiled by its own nvcc process for sm_90a
 (Hopper), all at once, and the objects are linked into one shared
 library with a plain C interface, under `build/cadx_tpu_torch/` at the
-repository root, at first use (on an H100 host ~5.6 s for nine sources;
-one nvcc call over six of them took ~12.3 s). The library's name carries
-a hash of the sources and flags, so an edit rebuilds and an unchanged
-tree reuses it. It is loaded with ctypes; every pointer and the stream
-are passed as `c_void_p`, element strides as `c_longlong`, and every entry
-point returns `cudaGetLastError()`, which `check` turns into an error.
+repository root, at first use (on an H100 host ~7.3 s for fourteen
+sources; one nvcc call over six of them took ~12.3 s). The library's
+name carries a hash of the sources and flags, so an edit rebuilds and an
+unchanged tree reuses it. It is loaded with ctypes; every pointer and the
+stream are passed as `c_void_p`, element strides as `c_longlong`, and
+every entry point returns `cudaGetLastError()`, which `check` turns into
+an error.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine without nvcc.
@@ -52,6 +53,8 @@ _SIGNATURES = {
     "cadx_jet_blend": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "cadx_gradcam_tail": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _F, _P),
+    "cadx_cleaner_front": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "cadx_largest_component_seeded": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -59,13 +59,14 @@ def _cummax(x: torch.Tensor, dim: int, reverse: bool = False) -> torch.Tensor:
     return torch.cummax(x, dim).values
 
 
-def _min3(x: torch.Tensor, dim: int, fill: int) -> torch.Tensor:
-    """Min over the 3-window centred on each pixel along `dim`."""
+def _window3(x: torch.Tensor, dim: int, fill: int, op=torch.minimum) -> torch.Tensor:
+    """`op` (min or max) over the 3-window centred on each pixel along
+    `dim`, `fill` outside the image."""
     pad = (0, 0, 1, 1) if dim == -2 else (1, 1)
     xp = F.pad(x, pad, value=fill)
     n = x.shape[dim]
     a, b, c = (xp.narrow(dim, s, n) for s in range(3))
-    return torch.minimum(torch.minimum(a, b), c)
+    return op(op(a, b), c)
 
 
 def _run_to_fixpoint(sweep, state: torch.Tensor, max_iters: int) -> torch.Tensor:
@@ -101,7 +102,7 @@ def _make_packed_sweep(mask: torch.Tensor, connectivity: int, lbl_bits: int,
             b = _cummin(seg_b | vals, dim, reverse=True) & lbl_mask
             vals = torch.where(mask, torch.minimum(f, b), sentinel)
         if connectivity == 8:
-            nb = _min3(_min3(vals, -2, lbl_mask), -1, lbl_mask)
+            nb = _window3(_window3(vals, -2, lbl_mask), -1, lbl_mask)
             vals = torch.where(mask, torch.minimum(vals, nb), sentinel)
         return vals
 
@@ -206,10 +207,14 @@ def largest_component_plain(mask: torch.Tensor, connectivity: int = 8,
     return largest_from_labels(labels, mask)
 
 
-def flood_from(mask: torch.Tensor, seed: torch.Tensor,
-               max_iters: int = 128) -> torch.Tensor:
-    """Pixels of `mask` 4-connected to `seed`: one payload bit packed under
-    the segment id, spread by cummax scans along rows and columns."""
+def flood_from(mask: torch.Tensor, seed: torch.Tensor, max_iters: int = 128,
+               connectivity: int = 4) -> torch.Tensor:
+    """Pixels of `mask` connected to `seed`: one payload bit packed under
+    the segment id, spread by cummax scans along rows and columns; the
+    8-connected form adds a 3x3 max pass to each sweep, as JAX's
+    `flood_relax` does."""
+    if connectivity not in (4, 8):
+        raise ValueError(f"connectivity must be 4 or 8, got {connectivity}")
     mask = mask.to(torch.bool)
     h, w = mask.shape[-2:]
     barriers = (~mask).to(torch.int32)
@@ -226,7 +231,10 @@ def flood_from(mask: torch.Tensor, seed: torch.Tensor,
         bit = ((f & 1) | (b & 1)) & m
         f = _cummax(cf | bit, -2)
         b = _cummax(cb | bit, -2, reverse=True)
-        return (((f & 1) | (b & 1)) == 1) & mask
+        bit = ((f & 1) | (b & 1)) & m
+        if connectivity == 8:
+            bit = _window3(_window3(bit, -2, 0, torch.maximum), -1, 0, torch.maximum) & m
+        return (bit == 1) & mask
 
     return _run_to_fixpoint(sweep, seed.to(torch.bool) & mask, max_iters)
 

@@ -30,10 +30,12 @@ def _per_image(v, ndim: int):
 
 def binary_threshold(img: torch.Tensor, thresh, maxval=255) -> torch.Tensor:
     """cv2.THRESH_BINARY: maxval where img > thresh (strict), else 0.
-    `thresh` is a scalar or one value per image."""
+    `thresh` is a scalar or one value per image. uint16 is compared
+    widened, as torch has no uint16 comparison on the CPU."""
     t = _per_image(thresh, img.ndim)
     on = torch.full((), maxval, dtype=img.dtype, device=img.device)
-    return torch.where(img > t, on, torch.zeros((), dtype=img.dtype, device=img.device))
+    wide = img.to(torch.int32) if img.dtype == torch.uint16 else img
+    return torch.where(wide > t, on, torch.zeros((), dtype=img.dtype, device=img.device))
 
 
 def relative_threshold_value(img: torch.Tensor, frac) -> torch.Tensor:

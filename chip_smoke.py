@@ -6,20 +6,28 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a):
     python3 chip_smoke.py
 
 Phases, each of which raises on failure (the script then exits nonzero):
-1. build the twelve CUDA kernels from `cadx_tpu_torch/csrc` (one nvcc per
-   source, all at once);
+1. build the fourteen CUDA kernels from `cadx_tpu_torch/csrc` (one nvcc
+   per source, all at once);
 2. hold each kernel bit-exact against its plain PyTorch version on the
    card (the plain versions run uncapped, max_iters = H*W, since the
    kernels run to the fixpoint; the pair-form watershed, which has no
    float32 fixpoint at real sizes, runs the same 256 sweeps in both):
    - equalize, largest_obj, pectoral_tail: synthetic mammograms (B=16,
-     256²) and random masks;
+     256²) and random masks; cleaner_front on B=16 256² (synthetic
+     mammograms, noise, dark images);
    - the cleaner's inputs at every shape the serving phase gives the
      kernels, made from the same images: the 3328x2560 upload bucketed to
-     1536x1280 and the 1024x832 upload (B=1; equalize, largest_obj at its
-     three sites, pair-form watershed, ccl and mode), the 512² upload
-     (B=1) and the classify_batch batch (B=8, 512²; equalize, largest_obj
-     at its two sites, pectoral_tail);
+     1536x1280 and the 1024x832 upload (B=1; cleaner_front, equalize,
+     largest_obj at its three sites, pair-form watershed, ccl and mode),
+     the 512² upload (B=1) and the classify_batch batch (B=8, 512²;
+     cleaner_front, equalize, largest_obj at its two sites,
+     pectoral_tail); at the training CLI's native shapes (3328x2560 and
+     4608x2656) each kernel its path launches there: cleaner_front,
+     equalize, largest_obj at the pectoral select, pair-form watershed;
+   - the density-seeded largest component (off every path, as in JAX)
+     against its plain version and `largest_component_plain` on blobs,
+     ties, random and empty masks at 256² B=16 and 1536x1280, with the
+     count that took the flood and the fallback by the kernel's own seed;
    - ccl, mode and watershed (packed and pair form) on random masks and
      markers at 256² (B=16), and ccl and mode at the serving CAM shapes;
    - conv_leaky at the shapes of the training, pipeline and serving
@@ -36,8 +44,8 @@ Phases, each of which raises on failure (the script then exits nonzero):
      agrees, within the heatmap-step bound of phase 6 where it does not
      (its GAP and channel sums round otherwise than torch's reductions);
 3. the fused pipeline: `run_pipeline` at 256² with the full-width
-   classifier on seeded weights, three batches of B=64; launches 2
-   (largest_obj), 1 (equalize), 1 (pectoral_tail), 4 (conv_leaky), 4
+   classifier on seeded weights, three batches of B=64; launches 1
+   (cleaner_front), 1 (equalize), 1 (pectoral_tail), 4 (conv_leaky), 4
    (pool) and 2 (gradcam_tail, one per explained class) per batch and
    none of the other kernels;
 4. the fused pipeline on a B=2 batch on the card and on the CPU: clean_u8
@@ -49,7 +57,9 @@ Phases, each of which raises on failure (the script then exits nonzero):
    (fused tail); per pipeline classify, classify_and_roi (0, 1) and the
    overlay PNGs; eight concurrent micro-batched classify calls;
    classify_batch on B=8 at 512². The exact launch count of each of the
-   twelve kernels is asserted (jet_blend once per overlay class);
+   fourteen kernels is asserted (cleaner_front once per cleaned batch,
+   largest_obj once per composed pectoral branch, jet_blend once per
+   overlay class);
 6. one 640x544 request on the card and on a CPU engine with the same
    weights: clean exact, features 1e-5, probs 2e-5, ROI boxes within one
    CAM cell, heatmaps +-2 u8, overlays +-2 u8 where the heatmaps agree,
@@ -87,17 +97,33 @@ Phases, each of which raises on failure (the script then exits nonzero):
    for Adam (whose first update is lr * g / (|g| + eps)), to 1e-5 above
    the gap Adam makes of the two gradients where they agree in sign and
    to 2 lr where they straddle 0; a save_npz -> load_npz round trip;
+7b. the training CLI at full width: 12 synthetic uint16 DICOMs in two
+   classes at two native full-field shapes (3328x2560 and 4608x2656),
+   written by the port's `dcmwrite_minimal` with a mapping CSV in a
+   temporary directory; `tools.train.main` on the card with `--features
+   encoder --feature-size 32 --conv-layers 128x3,64x3 --hidden-units
+   256,128` (bench.py's full-width classifier), 2 epochs, batch 8: the
+   artifacts exist; per image cleaner_front 1, equalize 1, largest_obj 1
+   (the composed pectoral branch), watershed 1 (pair form), ccl, mode and
+   pectoral_tail 0; conv_leaky and pool 2 per conv stack of `fit` and the
+   final prediction; one 640x544 image's `clean_for_unet` and features on
+   the card against the CPU (clean exact, features 1e-5); the featurize
+   p50 per native shape and the CLI's wall time;
 8. times with CUDA events: each kernel beside its plain version (256²
    B=64 for the fused-pipeline kernels and gradcam_tail, the serving
    shapes for ccl, mode and watershed, the training shapes for
    conv_leaky, pool and upsample, the ResNet-50 stem for batchnorm, the
-   512² display for jet_blend) and, for conv_leaky, pool, upsample and
-   batchnorm, beside the one PyTorch call that computes the same
-   function, and the device time of each from torch.profiler (a small
-   kernel's back-to-back calls are bound by the host); each kernel's
-   bound on this card (the larger of
-   its bytes over 3.35 TB/s and its operations over 67 TFLOP/s, the
-   H100 SXM's HBM3 rate and float32 peak); ms per training step of each
+   512² display for jet_blend, 256² B=64, 1536x1280 and the training
+   CLI's native shapes for cleaner_front, also beside the old front it
+   replaces (suppress_artifacts + segment_breast_mask: two largest_obj
+   launches and the glue), phase 2's
+   256² B=16 masks for the seeded component, also beside the ccl + mode
+   pair) and, for conv_leaky, pool, upsample and batchnorm, beside the one
+   PyTorch call that computes the same function, and the device time of
+   each from torch.profiler (a small kernel's back-to-back calls are bound
+   by the host); each kernel's bound on this card (the larger of its
+   bytes over 3.35 TB/s and its operations over 67 TFLOP/s, the H100
+   SXM's HBM3 rate and float32 peak); ms per training step of each
    configuration; the pipeline's images per second; and the p50 of
    process_single_image per upload shape, of classify_and_roi per
    pipeline and of the reference `write_gradcam_overlays` over 10
@@ -133,6 +159,12 @@ UPLOADS = {"3328x2560 u16": (3328, 2560, np.uint16),
            "512x512 u8": (512, 512, np.uint8)}
 N_BATCHED = 8
 N_TIMED = 10
+# the training CLI phase: native full-field shapes (the serving phase's
+# 3328x2560 upload and a taller one), images in all, and the command
+CLI_SHAPES = ((3328, 2560), (4608, 2656))
+N_CLI = 12
+CLI_ARGS = ["--features", "encoder", "--feature-size", "32", "--conv-layers", "128x3,64x3",
+            "--hidden-units", "256,128", "--epochs", "2", "--batch-size", "8"]
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM3 bytes/s and float32
 # FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -161,10 +193,13 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int) -> float:
+def device_ms(fn, iters: int) -> float | None:
     """Mean device milliseconds per call: the kernel time torch.profiler
     records on the card (host overhead, which bounds a small kernel's
-    back-to-back calls, excluded)."""
+    back-to-back calls, excluded). None where the window lost records:
+    every call launches the same kernels, so each kernel's record count is
+    a multiple of iters; late in a long run the profiler has kept only
+    some of the port's own launches (1 of 10 of a 3 ms kernel)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -173,8 +208,15 @@ def device_ms(fn, iters: int) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / iters
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels or any(e.count % iters for e in kernels):
+        return None
+    return sum(e.self_device_time_total for e in kernels) / 1e3 / iters
+
+
+def ms_text(ms: float | None) -> str:
+    return "not captured" if ms is None else f"{ms:.4f}"
 
 
 def turns_ms(kernel_fn, plain_fn, k_iters: int, p_iters: int, library_fn=None):
@@ -236,6 +278,29 @@ def blobs(rng, n: int, hw: int):
         X[i, disk, 0] += 0.6
         Y[i, disk, 0] = 1.0
     return X, Y
+
+
+def seeded_masks(rng, h: int, w: int) -> np.ndarray:
+    """Masks for the density-seeded largest component: two disc blobs with
+    a small extra component (a strict majority: the flood), two exact ties
+    of two squares (the fallback), random masks at densities 0.3, 0.45
+    (256² only: near the percolation threshold the plain CCL needs
+    hundreds of sweeps) and 0.7, and an empty mask."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    out = []
+    for cy, cx, r in ((h // 2, 3 * w // 4, min(h, w) // 3), (h // 3, w // 3, min(h, w) // 4)):
+        blob = (yy - cy) ** 2 + (xx - cx) ** 2 < r * r
+        blob[2:6, 2:6] = True
+        out.append(blob)
+    for s in (5, 9):
+        tie = np.zeros((h, w), bool)
+        tie[s:s + 10, s:s + 10] = True
+        tie[h - s - 10:h - s, w - s - 10:w - s] = True
+        out.append(tie)
+    for density in ((0.3, 0.45, 0.7) if h * w <= 1 << 16 else (0.3, 0.7)):
+        out.append(rng.random((h, w)) < density)
+    out.append(np.zeros((h, w), bool))
+    return np.stack(out)
 
 
 def classifier_switches(model, x: torch.Tensor):
@@ -379,9 +444,11 @@ def main() -> int:
 
     from cadx_tpu_torch import checkpoint
     from cadx_tpu_torch.compat import adcnnm
+    from cadx_tpu_torch.data import dicom as TDicom
     from cadx_tpu_torch.kernels import _build
     from cadx_tpu_torch.kernels import batchnorm as KBN
     from cadx_tpu_torch.kernels import ccl as KC
+    from cadx_tpu_torch.kernels import cleaner_front as KF
     from cadx_tpu_torch.kernels import conv_leaky as KCL
     from cadx_tpu_torch.kernels import equalize as KE
     from cadx_tpu_torch.kernels import gradcam_tail as KGT
@@ -394,6 +461,7 @@ def main() -> int:
     from cadx_tpu_torch.kernels import watershed as KW
     from cadx_tpu_torch.models import cnn, unet
     from cadx_tpu_torch.models import resnet as TR
+    from cadx_tpu_torch.ops import components as TC
     from cadx_tpu_torch.ops import pool as TPool
     from cadx_tpu_torch.ops.colormap import apply_jet
     from cadx_tpu_torch.ops.morphology import dilate, erode
@@ -407,6 +475,7 @@ def main() -> int:
     from cadx_tpu_torch.synthetic import (synthetic_mammograms,
                                           synthetic_native_mammogram)
     from cadx_tpu_torch.tools import bench_train as BT
+    from cadx_tpu_torch.tools import train as TT
     from cadx_tpu_torch.train import optim, segmentation, step
     from cadx_tpu_torch.xai import gradcam as TG
     from cadx_tpu_torch.xai import saliency as TS
@@ -419,13 +488,18 @@ def main() -> int:
     modules = {"largest_obj": KL, "equalize": KE, "pectoral_tail": KP,
                "ccl": KC, "mode": KM, "watershed": KW, "conv_leaky": KCL,
                "pool": KPool, "upsample": KUp, "batchnorm": KBN, "jet_blend": KOv,
-               "gradcam_tail": KGT}
+               "gradcam_tail": KGT, "cleaner_front": KF}
+    # kernel -> (source, the TPU kernel it replaces)
+    sources = {name: (mod.SOURCE, mod.REPLACES) for name, mod in modules.items()}
+    sources["largest_component_seeded"] = (KL.SEEDED_SOURCE, KL.SEEDED_REPLACES)
     wrappers = {"largest_obj": KL.largest_obj, "equalize": KE.equalize,
                 "pectoral_tail": KP.pectoral_tail, "ccl": KC.label_components,
                 "mode": KM.largest_component_mask, "watershed": KW.marker_watershed,
                 "conv_leaky": KCL.conv_leaky, "pool": KPool.pool,
                 "upsample": KUp.upsample_nearest, "batchnorm": KBN.batchnorm,
-                "jet_blend": KOv.jet_blend, "gradcam_tail": KGT.gradcam_tail}
+                "jet_blend": KOv.jet_blend, "gradcam_tail": KGT.gradcam_tail,
+                "cleaner_front": KF.cleaner_front,
+                "largest_component_seeded": KL.largest_component_seeded}
 
     def zero_counts():
         for fn in wrappers.values():
@@ -444,7 +518,11 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.load()
-    print(f"build: {time.perf_counter() - t0:.2f} s -> {lib_path.name}", flush=True)
+    n_sources = len(list(_build.CSRC.glob("*.cu")))
+    print(f"build: {n_sources} sources in {time.perf_counter() - t0:.2f} s -> {lib_path.name}",
+          flush=True)
+    if n_sources != len(wrappers):
+        raise AssertionError(f"{n_sources} kernel sources for {len(wrappers)} kernels")
 
     phase_done("1")
 
@@ -510,6 +588,17 @@ def main() -> int:
     for name, a, b in zip(("labels", "boundary", "mask"), kern, plain):
         agree("pectoral_tail", a, b, f"{name}, cleaner inputs B=16")
 
+    def agree_front(raw8, what):
+        """cleaner_front on the uint8 batch clean_boundary_gray hands it."""
+        h, w = raw8.shape[1:]
+        for part, a, b in zip(("breast_only", "breast_mask", "contour_fill"),
+                              KF.cleaner_front(raw8),
+                              KF.cleaner_front_reference(raw8, max_iters=h * w)):
+            agree("cleaner_front", a, b, f"{part}, {what}, plain uncapped")
+
+    agree_front(to_uint8(torch.cat([small[:12], rand_u8[:2], torch.zeros_like(small[:2])])),
+                f"12 synthetic mammograms, 2 noise, 2 dark, B=16 {HW}x{HW}")
+
     # the serving shapes: the cleaner's inputs of the serving phase's own
     # uploads (as process_single_image hands them over) and of its
     # classify_batch batch; every plain version runs uncapped except the
@@ -528,6 +617,26 @@ def main() -> int:
                             E.bucket_clean_hw(*x.shape, clean_cap))[0]
         return x[None]
 
+    def agree_pectoral_select(high_, what):
+        """largest_obj at the composed pectoral branch's select (sides > 512),
+        plain uncapped."""
+        cap = high_.shape[1] * high_.shape[2]
+        agree("largest_obj", KL.largest_obj(high_ > 0, 8, fill=True),
+              KL.largest_obj_reference(high_ > 0, 8, fill=True, max_iters=cap),
+              f"pectoral site, {what}, plain uncapped")
+
+    def agree_pair_watershed(equ_, markers, what):
+        # The pair form has no float32 fixpoint at these sizes (rounding of
+        # d - s + s drifts distances down every sweep), so kernel and plain
+        # version run the same max_iters sweeps, as the cleaner calls them.
+        for a, b_, part in zip(
+                KW.marker_watershed(equ_, markers, max_scan=8,
+                                    marker_label_values=(255, 128, 64)),
+                KW.marker_watershed_reference(equ_, markers, max_scan=8,
+                                              marker_label_values=(255, 128, 64)),
+                ("labels", "boundary")):
+            agree("watershed", a, b_, f"pair form {part}, {what}, 256 sweeps each")
+
     serving_inputs = {name: upload_cleaner_input(img) for name, img in uploads.items()}
     serving_inputs[f"classify_batch B={N_BATCHED}"] = torch.from_numpy(bulk).to(dev)
     composed = {}   # upload -> (equalized image, watershed markers, label)
@@ -536,6 +645,7 @@ def main() -> int:
         s_bin_, g_bin_, seg_, equ_, high_, breast_ = clean_stage_inputs(x)
         cap = h * w
         what = f"cleaner inputs of {name}, {h}x{w} B={b}"
+        agree_front(to_uint8(x), what)
         agree("equalize", KE.equalize(seg_), KE.equalize_reference(seg_), what)
         agree("largest_obj", KL.largest_obj(s_bin_, 8, fill=True, smooth_k=15),
               KL.largest_obj_reference(s_bin_, 8, fill=True, smooth_k=15, max_iters=cap),
@@ -550,27 +660,68 @@ def main() -> int:
             for part, a, b_ in zip(("labels", "boundary", "mask"), kern, plain):
                 agree("pectoral_tail", a, b_, f"{part}, {what}, plain uncapped")
             continue
-        agree("largest_obj", KL.largest_obj(high_ > 0, 8, fill=True),
-              KL.largest_obj_reference(high_ > 0, 8, fill=True, max_iters=cap),
-              f"pectoral site, {what}, plain uncapped")
+        agree_pectoral_select(high_, what)
         for m, site in ((s_bin_, "suppress mask"), (high_ > 0, "pectoral mask")):
             labels = KC.label_components(m, 8)
             agree("ccl", labels, KC.label_components_reference(m, 8, max_iters=cap),
                   f"{site}, {what}")
             agree("mode", KM.largest_component_mask(labels, m),
                   KM.largest_component_mask_reference(labels, m), f"{site}, {what}")
-        # The pair form has no float32 fixpoint at these sizes (rounding of
-        # d - s + s drifts distances down every sweep), so kernel and plain
-        # version run the same max_iters sweeps, as the cleaner calls them.
         markers = pectoral_markers(equ_, high_, breast_)
         composed[name] = (equ_, markers, what)
-        for a, b_, part in zip(
-                KW.marker_watershed(equ_, markers, max_scan=8,
-                                    marker_label_values=(255, 128, 64)),
-                KW.marker_watershed_reference(equ_, markers, max_scan=8,
-                                              marker_label_values=(255, 128, 64)),
-                ("labels", "boundary")):
-            agree("watershed", a, b_, f"pair form {part}, {what}, 256 sweeps each")
+        agree_pair_watershed(equ_, markers, what)
+
+    # the training CLI's native shapes, cleaned at full size: each kernel
+    # its path launches there (the front, equalize, the composed pectoral
+    # branch's select and pair-form watershed)
+    cli_front = {}   # native shape -> the uint8 image cleaner_front is handed
+    for h, w in CLI_SHAPES:
+        x = torch.from_numpy(synthetic_native_mammogram(h, w, seed=21).astype(np.float32))
+        x = x.to(dev)[None]
+        what = f"training CLI upload {h}x{w} u16"
+        cli_front[(h, w)] = to_uint8(x)
+        agree_front(cli_front[(h, w)], what)
+        _, _, seg_, equ_, high_, breast_ = clean_stage_inputs(x)
+        agree("equalize", KE.equalize(seg_), KE.equalize_reference(seg_), what)
+        agree_pectoral_select(high_, what)
+        agree_pair_watershed(equ_, pectoral_markers(equ_, high_, breast_), what)
+        del x, seg_, equ_, high_, breast_
+
+    # the density-seeded largest component, off every path: against its
+    # plain version and the plain CCL + largest label, both uncapped
+    def seeded_paths(m):
+        """(flood, fallback) image counts of the 8-connected kernel, by its
+        own seed: the densest mask pixel, the smallest raster index on ties
+        (its 64-bit key; the plain version's 20-bit packing is exact only
+        up to 2**20 pixels)."""
+        b, h, w = m.shape
+        k = KL._DENSITY_K
+        dens = KL._axis_window_sum(KL._axis_window_sum(m.to(torch.int32), k, -2), k, -1)
+        idx = torch.arange(h * w, dtype=torch.int64, device=m.device).view(h, w)
+        key = torch.where(m, (dens.to(torch.int64) << 32) | (0xFFFFFFFF - idx), -1)
+        seed = (key == key.amax(dim=(1, 2), keepdim=True)) & m
+        comp = TC.flood_from(m, seed, h * w, 8)
+        flood = comp.sum(dim=(1, 2)) * 2 > m.sum(dim=(1, 2))
+        return int(flood.sum()), int((~flood).sum())
+
+    seeded_in = torch.from_numpy(np.concatenate([
+        seeded_masks(rng, HW, HW), s_bin[:8].cpu().numpy()])).to(dev)
+    seeded_big = torch.from_numpy(seeded_masks(rng, 1536, 1280)).to(dev)
+    for m, conns, what in ((seeded_in, (8, 4), f"8 generated + 8 suppress-site masks, B=16 "
+                                               f"{HW}x{HW}"),
+                           (seeded_big, (8,), f"generated masks, B={seeded_big.shape[0]} "
+                                              f"1536x1280")):
+        cap = m.shape[1] * m.shape[2]
+        for conn in conns:
+            got = KL.largest_component_seeded(m, conn)
+            agree("largest_component_seeded", got,
+                  KL.largest_component_seeded_reference(m, conn, cap),
+                  f"{what}, {conn}-conn, plain uncapped")
+            agree("largest_component_seeded", got, TC.largest_component_plain(m, conn, cap),
+                  f"{what}, {conn}-conn, against largest_component_plain uncapped")
+        flood, fallback = seeded_paths(m)
+        print(f"seeded component [{what}, 8-conn, by the kernel's seed]: {flood} took the "
+              f"flood, {fallback} fell back to the CCL + largest label", flush=True)
 
     # random masks and markers at 256², B=16, and the CAM shapes
     for conn in (4, 8):
@@ -730,11 +881,12 @@ def main() -> int:
     pipe_launches = read_counts()
     # conv_leaky and pool: two conv blocks in each of two conv stacks a
     # batch (the forward and the Grad-CAM activations)
-    expected = {"largest_obj": 2 * N_MAIN_BATCHES, "equalize": N_MAIN_BATCHES,
+    expected = {"largest_obj": 0, "equalize": N_MAIN_BATCHES,
                 "pectoral_tail": N_MAIN_BATCHES, "ccl": 0, "mode": 0, "watershed": 0,
                 "conv_leaky": 4 * N_MAIN_BATCHES, "pool": 4 * N_MAIN_BATCHES,
                 "upsample": 0, "batchnorm": 0, "jet_blend": 0,
-                "gradcam_tail": 2 * N_MAIN_BATCHES}
+                "gradcam_tail": 2 * N_MAIN_BATCHES, "cleaner_front": N_MAIN_BATCHES,
+                "largest_component_seeded": 0}
     print(f"fused pipeline: {N_MAIN_BATCHES} batches of B={BATCH} at {HW}x{HW}, "
           f"launches {pipe_launches}", flush=True)
     if pipe_launches != expected:
@@ -814,12 +966,16 @@ def main() -> int:
     serve_launches = read_counts()
     # conv stacks (two conv blocks each): per pipeline 2 for classify, 2
     # for classify_and_roi, 1 per overlay class; 2 per micro-batch flush;
-    # 1 for classify_batch. jet_blend: one per overlay class and pipeline
+    # 1 for classify_batch. jet_blend: one per overlay class and pipeline.
+    # One cleaner_front per cleaned batch (3 uploads, classify_batch);
+    # largest_obj once in each composed pectoral branch (the two uploads
+    # cleaned beyond 512)
     stacks = 2 * (2 + 2 + 2) + 2 * n_flushes + 1
-    expected = {"largest_obj": 3 + 3 + 2 + 2, "equalize": 4, "pectoral_tail": 2,
+    expected = {"largest_obj": 2, "equalize": 4, "pectoral_tail": 2,
                 "watershed": 2, "ccl": 4 + n_flushes, "mode": 4 + n_flushes,
                 "conv_leaky": 2 * stacks, "pool": 2 * stacks, "upsample": 0,
-                "batchnorm": 0, "jet_blend": 2 * 2, "gradcam_tail": 0}
+                "batchnorm": 0, "jet_blend": 2 * 2, "gradcam_tail": 0, "cleaner_front": 4,
+                "largest_component_seeded": 0}
     print(f"serving path: 3 uploads, 2 pipelines, {N_BATCHED} batched requests in "
           f"{n_flushes} flushes, classify_batch B={N_BATCHED}; launches {serve_launches}",
           flush=True)
@@ -1165,6 +1321,88 @@ def main() -> int:
 
     phase_done("7")
 
+    # ---- 7b. the training CLI at full width --------------------------------------
+    featurize = TT.featurize
+    feat_ms = {}    # native shape -> wall ms of each featurize (ends in a host fetch)
+
+    def timed_featurize(stem, img, feature_hw, device):
+        t = time.perf_counter()
+        out = featurize(stem, img, feature_hw, device)
+        feat_ms.setdefault(f"{img.shape[0]}x{img.shape[1]}", []).append(
+            (time.perf_counter() - t) * 1e3)
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rows = []
+        for i in range(N_CLI):
+            h, w = CLI_SHAPES[i % 2]
+            label = (i // 2) % 2
+            img = synthetic_native_mammogram(h, w, seed=40 + i)
+            if label:   # a bright mass inside the breast
+                yy, xx = np.ogrid[0:h, 0:w]
+                disk = (yy - h // 2) ** 2 + (xx - 3 * w // 4) ** 2 < (min(h, w) // 12) ** 2
+                img[disk] = np.maximum(img[disk], 52000)
+            path = os.path.join(tmp, f"case{i}.dcm")
+            TDicom.dcmwrite_minimal(path, img, f"P{i}")
+            rows.append(f"{path},{'MALIGNANT' if label else 'BENIGN'}")
+        csv_path = os.path.join(tmp, "mapping.csv")
+        with open(csv_path, "w") as fh:
+            fh.write("dicom_file_path,pathology\n" + "\n".join(rows) + "\n")
+        out_dir = os.path.join(tmp, "out")
+        zero_counts()
+        TT.featurize = timed_featurize
+        t0 = time.perf_counter()
+        try:
+            cli_summary = TT.main(["--csv", csv_path, "--out-dir", out_dir] + CLI_ARGS)
+        finally:
+            TT.featurize = featurize
+        cli_s = time.perf_counter() - t0
+        cli_launches = read_counts()
+        artifacts = {n: os.path.exists(os.path.join(out_dir, n)) for n in (
+            "cnn_model_basic.npz", "train_state.pkl", "training_History_basic.json",
+            "training_summary_basic.json")}
+    n_train = cli_summary["dataset"]["train_split"]
+    n_test = cli_summary["dataset"]["test_split"]
+    # a conv stack (two conv blocks) per training step and per test batch of
+    # each of the 2 epochs, and one for the final prediction
+    eval_batches = -(-n_test // 64)
+    cli_stacks = 2 * (-(-n_train // 8) + eval_batches) + eval_batches
+    expected = {name: 0 for name in wrappers}
+    expected.update(cleaner_front=N_CLI, equalize=N_CLI, largest_obj=N_CLI, watershed=N_CLI,
+                    conv_leaky=2 * cli_stacks, pool=2 * cli_stacks)
+    print(f"training CLI: {N_CLI} DICOMs at {CLI_SHAPES}, {' '.join(CLI_ARGS)}; "
+          f"{n_train} train / {n_test} test, {cli_s:.1f} s wall on {card}; input shape "
+          f"{cli_summary['dataset']['input_shape']}, device {cli_summary['training']['device']}, "
+          f"history best_val_acc {cli_summary['training']['best_val_acc']}; artifacts "
+          f"{artifacts}; launches {cli_launches}", flush=True)
+    if cli_launches != expected:
+        raise AssertionError(f"training CLI launches {cli_launches}, expected {expected}")
+    if not all(artifacts.values()) or cli_summary["training"]["device"] != "cuda":
+        raise AssertionError("the training CLI's artifacts or summary are wrong")
+    if cli_summary["dataset"]["input_shape"] != [32, 32, 64]:
+        raise AssertionError("the CLI's encoder features have the wrong shape")
+    for shape, ms in feat_ms.items():
+        print(f"time training CLI featurize {shape} u16 (clean_for_unet at native size, conv1, "
+              f"resize): p50 {statistics.median(ms):.1f} ms over {len(ms)} images on {card}",
+              flush=True)
+    # one image's clean_for_unet and features, card against CPU
+    img = torch.from_numpy(synthetic_native_mammogram(640, 544, seed=11).astype(np.float32))[None]
+    stem = unet.init_resnet_stem(torch.Generator().manual_seed(0))
+    with full_fp32(), torch.no_grad():
+        clean_g = cleaner.clean_for_unet(img.to(dev)).cpu()
+    clean_c = cleaner.clean_for_unet(img)
+    feat_g = TT.featurize(copy.deepcopy(stem).to(dev), img[0].numpy(), (32, 32), dev)
+    feat_c = TT.featurize(stem, img[0].numpy(), (32, 32), "cpu")
+    checks = [("clean_for_unet", max_abs_err(clean_g, clean_c), 0),
+              ("features", max_abs_err(torch.from_numpy(feat_g), torch.from_numpy(feat_c)), 1e-5)]
+    for name, err, tol in checks:
+        print(f"training CLI cuda vs cpu, 640x544 u16 {name}: max_abs_err {err} (tolerance "
+              f"{tol})", flush=True)
+        if err > tol:
+            raise AssertionError(f"training CLI {name}: card and CPU differ by {err} > {tol}")
+
+    phase_done("7b")
+
     # ---- 8. times -----------------------------------------------------------
     big_batch = batches[0]
     s_bin, g_bin, seg, equ, high, breast = clean_stage_inputs(big_batch)
@@ -1189,6 +1427,18 @@ def main() -> int:
                                         bn_m.running_var))
     jb_heat = torch.from_numpy(ref_g[0][1])[None].to(dev)
     jb_img = torch.from_numpy(cg)[None].to(dev).to(torch.float32) / 255.0
+
+    raw8_64 = to_uint8(big_batch)
+    raw8_big = to_uint8(serving_inputs[token])
+
+    def old_front(raw8):
+        """The front clean_boundary_gray ran before cleaner_front: two
+        largest_obj launches and the plain glue around them."""
+        sup, mask = cleaner.suppress_artifacts(raw8, 0.05, 15)
+        return cleaner.segment_breast_mask(sup, 0.05), mask
+
+    def ccl_mode(m):
+        return KM.largest_component_mask(KC.label_components(m, 8), m)
 
     # name -> (kernel call, plain call, shape, inputs, operations, library call)
     timed = {
@@ -1248,6 +1498,48 @@ def main() -> int:
             f"pair form, {what}", (equ_, markers), None, None)
     timed["watershed"] = watershed_fns.pop(token)
     times, bounds, dev_times = {}, {}, {}
+    # this slice's two kernels first, while the profiler still keeps every
+    # record (see device_ms), each beside its plain version and the launches it
+    # replaces on the same inputs, in turns plain, other, kernel, kernel,
+    # other, plain; a kernel's first row is its record's
+    def kernel_rows(name, fn, plain_fn, other, other_fn):
+        return [(name, shape, (x,), iters, lambda x=x: fn(x), lambda x=x: plain_fn(x), other,
+                 lambda x=x: other_fn(x)) for shape, x, iters in cases[name]]
+
+    # (shape, input, calls a timing of the kernel and of the launches it
+    # replaces; 3 of the plain version)
+    cases = {"cleaner_front": [(f"B={BATCH} {HW}x{HW} (run_pipeline's front)", raw8_64, 10),
+                               ("B=1 1536x1280 (the 3328x2560 upload's bucket)", raw8_big, 10)]
+             + [(f"B=1 {h}x{w} (training CLI native)", x, 3) for (h, w), x in cli_front.items()],
+             "largest_component_seeded": [
+                 (f"phase 2's B=16 {HW}x{HW} masks (blobs, ties, random, empty, "
+                  f"suppress-site)", seeded_in, 10),
+                 (f"B={BATCH} {HW}x{HW} suppress-site masks (majority blobs: the flood)", s_bin,
+                  10),
+                 (f"B=16 {HW}x{HW} random masks, density 0.45", rand_masks, 10)]}
+    compared = {}
+    for name, shape, inputs, iters, kernel_fn, plain_fn, other, other_fn in (
+            kernel_rows("cleaner_front", KF.cleaner_front, KF.cleaner_front_reference,
+                        "old front", old_front)
+            + kernel_rows("largest_component_seeded", KL.largest_component_seeded,
+                          KL.largest_component_seeded_reference, "ccl + mode", ccl_mode)):
+        outputs = kernel_fn()
+        b_ms, b_by = bound(nbytes(inputs) + nbytes(outputs), numel(outputs))
+        k, p, o, runs = turns_ms(kernel_fn, plain_fn, iters, 3, other_fn)
+        dk, dp, do = (device_ms(kernel_fn, iters), device_ms(plain_fn, 3),
+                      device_ms(other_fn, iters))
+        if name not in compared:
+            times[name], bounds[name], dev_times[name] = (k, p, None), (b_ms, b_by), (dk, dp, None)
+        compared.setdefault(name, []).append({
+            "shape": shape, "ms": k, "plain_ms": p, "bound_ms": b_ms, "bound_by": b_by,
+            "other": other, "other_ms": o, "device_ms": dk, "plain_device_ms": dp,
+            "other_device_ms": do})
+        print(f"time {name} {shape}: kernel {k:.4f} ms (runs {runs[0]:.4f}, {runs[1]:.4f}), "
+              f"plain {p:.4f} ms (runs {runs[2]:.4f}, {runs[3]:.4f}), {other} {o:.4f} ms (runs "
+              f"{runs[4]:.4f}, {runs[5]:.4f}), bound {b_ms:.4f} ms by {b_by}; device time "
+              f"(profiler) kernel {ms_text(dk)}, plain {ms_text(dp)}, {other} {ms_text(do)} ms "
+              f"on {card}", flush=True)
+
     heavy = {"conv_leaky": (10, 2), "pool": (20, 3), "upsample": (20, 3)}
     for name, (kernel_fn, plain_fn, shape, inputs, ops, library_fn) in timed.items():
         outputs = kernel_fn()
@@ -1263,11 +1555,11 @@ def main() -> int:
         lib_text = (f", library {lib:.4f} ms (runs {runs[4]:.4f}, {runs[5]:.4f})"
                     if lib is not None else "")
         dk, dp, dl = dev_times[name]
-        dl_text = f", library {dl:.4f}" if dl is not None else ""
+        dl_text = f", library {ms_text(dl)}" if library_fn else ""
         print(f"time {name} {shape}: kernel {k:.4f} ms (runs {runs[0]:.4f}, "
               f"{runs[1]:.4f}), plain {p:.4f} ms (runs {runs[2]:.4f}, {runs[3]:.4f})"
               f"{lib_text}, bound {bounds[name][0]:.4f} ms by {bounds[name][1]}; device "
-              f"time (profiler) kernel {dk:.4f}, plain {dp:.4f}{dl_text} ms on {card}",
+              f"time (profiler) kernel {ms_text(dk)}, plain {ms_text(dp)}{dl_text} ms on {card}",
               flush=True)
     cam6 = torch.from_numpy(rng.random((1, 6, 6)).astype(np.float32)).to(dev)
     hot6 = cam6 >= 0.6 * cam6.amax(dim=(1, 2), keepdim=True)
@@ -1311,11 +1603,11 @@ def main() -> int:
             dk, dp = device_ms(kernel_fn, 20), device_ms(plain_fn, 3)
             dl = device_ms(library_fn, 20) if library_fn else None
         lib_text = f", library {lib:.4f} ms" if lib is not None else ""
-        dl_text = f", library {dl:.4f}" if dl is not None else ""
+        dl_text = f", library {ms_text(dl)}" if library_fn else ""
         print(f"time {name} {shape}: kernel {k:.4f} ms (runs {runs[0]:.4f}, "
               f"{runs[1]:.4f}), plain {p:.4f} ms (runs {runs[2]:.4f}, {runs[3]:.4f})"
-              f"{lib_text}; device time (profiler) kernel {dk:.4f}, plain {dp:.4f}{dl_text} "
-              f"ms on {card}", flush=True)
+              f"{lib_text}; device time (profiler) kernel {ms_text(dk)}, plain {ms_text(dp)}"
+              f"{dl_text} ms on {card}", flush=True)
 
     # ms per training step of each configuration, after warmup
     step_cases = {}
@@ -1377,26 +1669,30 @@ def main() -> int:
 
     ms = p50_ms(reference_compute, N_TIMED)
     print(f"time reference Grad-CAM compute only (no fetch, no PNG): p50 {ms:.3f} ms, "
-          f"device time (profiler) {device_ms(reference_compute, N_TIMED):.3f} ms on {card}",
+          f"device time (profiler) {ms_text(device_ms(reference_compute, N_TIMED))} ms on {card}",
           flush=True)
     for b in eng._batchers.values():
         b.close()
 
     phase_done("8")
     by_path = {"pipeline": pipe_launches, "serving": serve_launches,
-               "reference_gradcam": ref_launches, "training": train_launches}
+               "reference_gradcam": ref_launches, "training": train_launches,
+               "training_cli": cli_launches}
+    # the seeded component lies on no path (as in JAX): 0 on each
     own_path = {"conv_leaky": "training", "pool": "training", "upsample": "training",
                 "batchnorm": "reference_gradcam", "jet_blend": "reference_gradcam",
-                "gradcam_tail": "pipeline"}
+                "gradcam_tail": "pipeline", "cleaner_front": "training_cli",
+                "largest_component_seeded": "training_cli"}
     record = {"kernels": [
-        {"name": name, "route": "cuda", "source": modules[name].SOURCE,
-         "replaces": modules[name].REPLACES,
+        {"name": name, "route": "cuda", "source": sources[name][0],
+         "replaces": sources[name][1],
          "launches": by_path[own_path.get(name, "serving")][name],
          "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
          "max_abs_err": errs[name], "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": times[name][2], "device_ms": dev_times[name][0],
-         "plain_device_ms": dev_times[name][1], "library_device_ms": dev_times[name][2]}
+         "plain_device_ms": dev_times[name][1], "library_device_ms": dev_times[name][2],
+         **({"compared_with": compared[name]} if name in compared else {})}
         for name in wrappers]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from cadx_tpu_torch.kernels import _build
+from cadx_tpu_torch.kernels import cleaner_front as KF
 from cadx_tpu_torch.kernels import equalize as KE
 from cadx_tpu_torch.kernels import largest_obj as KL
 from cadx_tpu_torch.kernels import pectoral as KP
@@ -154,6 +155,13 @@ def test_dispatching_ops_launch_kernels(dev, rng):
         before[0] + 1, before[1] + 1)
     KL.largest_obj_reference(m, fill=True)   # plain on the card: no launch
     assert KC.label_components.launches == before[0] + 1
+    # the cleaner's front is one cleaner_front launch, no largest_obj, at
+    # sides <= 512 (the fused pectoral tail)
+    x = torch.from_numpy(synthetic_mammograms(2, 128, seed=4)).to(dev)
+    counts = (KF.cleaner_front.launches, KL.largest_obj.launches, KP.pectoral_tail.launches)
+    _eq(cleaner.clean_boundary_gray(x), cleaner.clean_boundary_gray(x.cpu()))
+    assert (KF.cleaner_front.launches, KL.largest_obj.launches,
+            KP.pectoral_tail.launches) == (counts[0] + 1, counts[1], counts[2] + 1)
 
 
 def test_remove_pectoral_composed_branch(dev):
@@ -412,3 +420,76 @@ def test_resnet_card_vs_cpu(dev, rng):
     ref = TR.stage_features(model.cpu(), x)
     for a, c in zip(got, ref):
         assert float((a.cpu() - c).abs().max()) <= 1e-4 * max(float(c.abs().max()), 1.0)
+
+
+# ---- the last two TPU kernels: cleaner_front and the seeded component ---------
+
+from cadx_tpu_torch.synthetic import synthetic_native_mammogram  # noqa: E402
+
+
+def _front_batch(rng, h, w, dev):
+    """Mammograms at (h, w), uniform noise and an all-dark image."""
+    mammos = [synthetic_native_mammogram(h, w, seed=s, dtype=np.uint8, top=250)
+              for s in (1, 2)]
+    noise = rng.integers(0, 256, (h, w)).astype(np.uint8)
+    return torch.from_numpy(np.stack(mammos + [noise, np.zeros((h, w), np.uint8)])).to(dev)
+
+
+@pytest.mark.parametrize("hw", [(128, 128), (200, 136)])
+@pytest.mark.parametrize("smooth_k", [15, 4])
+def test_cleaner_front_kernel(dev, rng, hw, smooth_k):
+    x = _front_batch(rng, *hw, dev)
+    before = KF.cleaner_front.launches
+    got = KF.cleaner_front(x, smooth_k)
+    assert KF.cleaner_front.launches == before + 1
+    want = KF.cleaner_front_reference(x, smooth_k, max_iters=hw[0] * hw[1])
+    assert KF.cleaner_front.launches == before + 1
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        _eq(a, b)
+    # an absolute threshold (the constant table)
+    for a, b in zip(KF.cleaner_front(x, smooth_k, 30.0),
+                    KF.cleaner_front_reference(x, smooth_k, 30.0, max_iters=hw[0] * hw[1])):
+        _eq(a, b)
+
+
+def test_cleaner_front_kernel_rejects_wrong_inputs(dev):
+    before = KF.cleaner_front.launches
+    for bad in (torch.zeros((1, 8, 8), dtype=torch.int32, device=dev),
+                torch.zeros((8, 8), dtype=torch.uint8, device=dev),
+                torch.zeros((1, 8, 9), dtype=torch.uint8, device=dev).transpose(1, 2)):
+        with pytest.raises(ValueError):
+            KF.cleaner_front(bad)
+    with pytest.raises(ValueError):
+        KF.cleaner_front(torch.zeros((1, 8, 8), dtype=torch.uint8, device=dev), -1)
+    assert KF.cleaner_front.launches == before
+
+
+@pytest.mark.parametrize("conn", [4, 8])
+@pytest.mark.parametrize("shape", [(4, 64, 64), (3, 200, 136)])
+def test_seeded_component_kernel(dev, rng, conn, shape):
+    b, h, w = shape
+    yy, xx = np.mgrid[0:h, 0:w]
+    blob = ((yy - h // 2) ** 2 + (xx - 3 * w // 4) ** 2) < (min(h, w) // 2 - 4) ** 2
+    blob[2:5, 2:5] = True
+    tie = np.zeros((h, w), bool)
+    tie[5:10, 5:10] = tie[40:45, 40:45] = True
+    masks = np.stack([blob, tie, rng.random((h, w)) > 0.55, np.zeros((h, w), bool)][:b])
+    m = torch.from_numpy(masks).to(dev)
+    before = KL.largest_component_seeded.launches
+    got = KL.largest_component_seeded(m, conn)
+    assert KL.largest_component_seeded.launches == before + 1
+    _eq(got, KL.largest_component_seeded_reference(m, conn, max_iters=h * w))
+    _eq(got, TC.largest_component_plain(m, conn, max_iters=h * w))
+    assert KL.largest_component_seeded.launches == before + 1
+
+
+def test_seeded_component_kernel_rejects_wrong_inputs(dev):
+    before = KL.largest_component_seeded.launches
+    for bad in (torch.zeros((1, 8, 8), dtype=torch.uint8, device=dev),
+                torch.zeros((8, 8), dtype=torch.bool, device=dev)):
+        with pytest.raises(ValueError):
+            KL.largest_component_seeded(bad)
+    with pytest.raises(ValueError):
+        KL.largest_component_seeded(torch.zeros((1, 8, 8), dtype=torch.bool, device=dev), 6)
+    assert KL.largest_component_seeded.launches == before
