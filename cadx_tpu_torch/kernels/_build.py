@@ -3,8 +3,9 @@
 Each of `csrc/*.cu` is compiled by its own nvcc process for sm_90a
 (Hopper), all at once, and the objects are linked into one shared
 library with a plain C interface, under `build/cadx_tpu_torch/` at the
-repository root, at first use (on an H100 host ~7.3 s for fourteen
-sources; one nvcc call over six of them took ~12.3 s). The library's
+repository root, at first use (on an H100 host ~11 s for fifteen sources,
+the longest conv_leaky's template instances; one nvcc call over six
+sources took ~12.3 s). The library's
 name carries a hash of the sources and flags, so an edit rebuilds and an
 unchanged tree reuses it. It is loaded with ctypes; every pointer and the
 stream are passed as `c_void_p`, element strides as `c_longlong`, and
@@ -46,7 +47,7 @@ _SIGNATURES = {
                             _P),
     "cadx_watershed_packed": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _P),
-    "cadx_conv_leaky": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    "cadx_conv_leaky": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "cadx_pool": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     "cadx_upsample_nearest": (_P, _P, _I, _I, _I, _I, _I, _P),
     "cadx_batchnorm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
@@ -55,6 +56,7 @@ _SIGNATURES = {
                           _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _F, _P),
     "cadx_cleaner_front": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "cadx_largest_component_seeded": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "cadx_flood_from": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -5,20 +5,32 @@ Replaces `cadx_tpu/kernels/nn_kernels.py::conv2d_leaky_pallas` (its
 `pl.pallas_call` at :63), the classifier's conv blocks. Source:
 `csrc/conv_leaky.cu`.
 
-Layout: the port's, x (B, C, H, W) and w (F, C, k, k), float32 (the
-wrapper casts, as the TPU kernel does). A block of 256 threads computes a
-16x16 output tile for 16 filters, one pixel and 16 accumulators a thread;
-it stages 8 input channels at a time of the (16 + k - 1)^2 input window in
-shared memory, zero outside the image (that is the SAME padding, so no
-padded copy is made), and the weights of its filters laid out [channel]
-[tap][filter], so one float4 broadcast load feeds four FMAs. Float32 FMAs
-on the CUDA cores, no TF32 and no tensor cores: the contract is float32,
-as HIGHEST is in the TPU kernel. The sums run over (channel, tap) in
-order, then the bias is added; the plain version sums in cuDNN's or
-oneDNN's order, so the two agree to float32 rounding of <= C*k*k terms.
-Bound: 2*B*OH*OW*F*C*k*k operations at the card's float32 peak (67
-TFLOP/s on an H100 SXM); e.g. the advanced classifier's first layer at
-B=32 (77.3 GFLOP) cannot take less than 1.15 ms.
+Contract: x (B, C, H, W), w (F, C, k, k), b (F,), float32 (the wrapper
+casts, as the TPU kernel does); the output is NCHW float32, bias and
+LeakyReLU fused, z == 0 taking the alpha branch. Float32 FMAs on the CUDA
+cores, no TF32 and no tensor cores: the contract is float32, as HIGHEST is
+in the TPU kernel.
+
+Design: a direct implicit GEMM, M = B*OH*OW pixels by N = F filters over
+K = C*k*k. A thread holds 8 consecutive pixels of a row by 8 filters in
+registers (64 accumulators), fed per (channel, kernel row) by the 8 + k - 1
+input values of its row, slid across the taps, and per tap by two float4
+weight loads: a shared word loaded serves 12-19 FMAs at k = 3. A block
+covers 32 pixels by PY rows by BN filters (BN the smallest of 32, 64 and
+128 that holds F; PY halved where the taller tile gives fewer than two
+blocks an SM), so a layer of F <= 128 stages its input once. The input
+window and the weights of a few channels go by cp.async into a ring of 3
+stages of dynamic shared memory, one barrier a stage; the kernel stages
+the (F, C, k, k) weights transposed, K-major with F contiguous, so no
+weight copy is made either. x is read in place in either layout the port gives: NCHW contiguous (the
+pool's output) or the channels-last view of NHWC features that
+`models/cnn.py::conv_stack` hands the first layer; no copy is made. Each
+output sums its C*k*k terms in one thread over (channel, kernel row, kernel
+column), then adds the bias; the plain version sums in cuDNN's or oneDNN's
+order, so the two agree to float32 rounding of <= C*k*k terms. Bound:
+2*B*OH*OW*F*C*k*k operations at the card's float32 peak (67 TFLOP/s on an
+H100 SXM); e.g. the advanced classifier's first layer at B=32 (77.3 GFLOP)
+cannot take less than 1.15 ms, the basic one's at B=64 (8.49 GFLOP) 0.127.
 """
 
 from __future__ import annotations
@@ -42,25 +54,38 @@ def conv_leaky_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return torch.where(z > 0, z, alpha * z)
 
 
+def _layout(x: torch.Tensor) -> int:
+    """0 for NCHW contiguous, 1 for the channels-last (NHWC) view; raises
+    on any other stride pattern. A size-1 dimension's stride is free."""
+    bsz, c, h, w = x.shape
+    for layout, strides in ((0, (c * h * w, h * w, w, 1)), (1, (h * w * c, 1, w * c, c))):
+        if all(n == 1 or s == t for n, s, t in zip(x.shape, x.stride(), strides)):
+            return layout
+    raise ValueError(f"conv_leaky: x must be NCHW contiguous or the NHWC view, got "
+                     f"strides {x.stride()} for shape {tuple(x.shape)}")
+
+
 def conv_leaky(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                alpha: float = 0.01, pad: int = 0) -> torch.Tensor:
     """x (B, C, H, W), w (F, C, k, k), b (F,) -> (B, F, H + 2 pad - k + 1,
-    W + 2 pad - k + 1) float32, zeros padded `pad` on each side. A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel or
-    raises."""
+    W + 2 pad - k + 1) float32, zeros padded `pad` on each side. x may be
+    NCHW contiguous or the NHWC view (`t.permute(0, 3, 1, 2)` of a
+    contiguous (B, H, W, C) t), read in place. A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises."""
     if x.device.type == "cpu":
         return conv_leaky_reference(x, w, b, alpha, pad)
     if x.device.type != "cuda" or w.device != x.device or b.device != x.device:
         raise ValueError(f"conv_leaky: expected CUDA tensors on one device, got "
                          f"{x.device}, {w.device}, {b.device}")
-    x = x.to(torch.float32).contiguous()
-    w = w.to(torch.float32).contiguous()
-    b = b.to(torch.float32).contiguous()
     if x.ndim != 4 or w.ndim != 4 or w.shape[1] != x.shape[1] or (
             w.shape[2] != w.shape[3]) or tuple(b.shape) != (w.shape[0],):
         raise ValueError(f"conv_leaky: expected x (B, C, H, W), w (F, C, k, k), "
                          f"b (F,), got {tuple(x.shape)}, {tuple(w.shape)}, "
                          f"{tuple(b.shape)}")
+    x = x.to(torch.float32)
+    layout = _layout(x)
+    w = w.to(torch.float32).contiguous()
+    b = b.to(torch.float32).contiguous()
     bsz, c, h, wd = x.shape
     f, _, k, _ = w.shape
     oh, ow = h + 2 * pad - k + 1, wd + 2 * pad - k + 1
@@ -71,7 +96,7 @@ def conv_leaky(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if out.numel():
         lib = _build.load()
         rc = lib.cadx_conv_leaky(x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                                 out.data_ptr(), bsz, c, h, wd, f, k, pad,
+                                 out.data_ptr(), bsz, c, h, wd, f, k, pad, layout,
                                  float(alpha), _build.stream_ptr(x.device))
         _build.check(rc, "cadx_conv_leaky")
         conv_leaky.launches += 1

@@ -40,7 +40,7 @@ from __future__ import annotations
 import torch
 
 from cadx_tpu_torch.kernels import _build
-from cadx_tpu_torch.ops.components import (fill_holes, flood_from,
+from cadx_tpu_torch.ops.components import (fill_holes_plain, flood_from_plain,
                                            largest_component_plain)
 from cadx_tpu_torch.ops.morphology import opening
 
@@ -59,13 +59,13 @@ def largest_obj_reference(masks: torch.Tensor, connectivity: int = 8,
                           max_iters: int = 128) -> torch.Tensor:
     """Plain version: the composed ops the JAX cleaner uses off the TPU,
     plain on any device (the public `largest_component` would launch the
-    CCL and mode kernels on a CUDA tensor)."""
+    CCL, mode and flood kernels on a CUDA tensor)."""
     m = masks.to(torch.bool)
     if fill_first:
-        m = fill_holes(m, max_iters)
+        m = fill_holes_plain(m, max_iters)
     out = largest_component_plain(m, connectivity, max_iters)
     if fill and not fill_first:
-        out = fill_holes(out, max_iters)
+        out = fill_holes_plain(out, max_iters)
     if smooth_k:
         out = opening(out.to(torch.uint8), smooth_k) > 0
     return out
@@ -131,7 +131,7 @@ def largest_component_seeded_reference(masks: torch.Tensor, connectivity: int = 
     the density seed where it holds a strict majority of the mask, else
     the CCL + largest label."""
     m = masks.to(torch.bool)
-    comp = flood_from(m, _density_seed(m), max_iters, connectivity)
+    comp = flood_from_plain(m, _density_seed(m), max_iters, connectivity)
     area = comp.sum(dim=(-2, -1), dtype=torch.int64)
     total = m.sum(dim=(-2, -1), dtype=torch.int64)
     fast = (area * 2 > total).view(-1, 1, 1)

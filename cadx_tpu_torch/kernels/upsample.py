@@ -6,14 +6,18 @@ Replaces `cadx_tpu/kernels/nn_kernels.py::upsample_nearest_pallas` (its
 `csrc/upsample.cu`.
 
 Layout: (..., h, w) planes, contiguous (NCHW in the port), output (...,
-h*f, w*f). One block per output row; its threads stride along the row,
-each copying the raw bits of its source element, so neighbouring threads
-write neighbouring addresses, the f threads of a source element read the
-same address, and the index math per element is one 32-bit division.
-Bound: bytes, the input read once and the f^2 times larger output written
-once, at the card's memory rate (3.35 TB/s on an H100 SXM); e.g. the
-U-Net's last upsample at B=8 (8x32x128x128 float32, 16.8 MB in, 67.1 MB
-out) cannot take less than 25 us.
+h*f, w*f). The grid runs over the source, so each source element is read
+once. Factor 2 on rows of a multiple of 16 bytes, the U-Net's case, is the
+fast path: a thread loads 16 bytes of consecutive source elements, builds
+their doubled copies in registers and writes them with 16-byte stores to
+both output rows (one 64-bit division a 16-byte vector, none an element).
+Other factors, and rows that are not 16-byte aligned (odd widths, narrow
+types), take a scalar path: a thread a source element, f x f stores. Values
+are copied as raw bits of 1, 2, 4 or 8 bytes. Bound: bytes, the input read
+once and the f^2 times larger output written once, at the card's memory
+rate (3.35 TB/s on an H100 SXM); e.g. the U-Net's last upsample at B=8
+(8x32x128x128 float32, 16.8 MB in, 67.1 MB out) cannot take less than 25
+us.
 """
 
 from __future__ import annotations

@@ -19,9 +19,10 @@ an image that has already converged leaves it as it is; the batched loops
 below therefore stop when no image of the batch changed, which is what a
 per-image loop gives.
 
-`label_components` and `largest_component` dispatch on the device: a CPU
-tensor takes the `*_plain` form, a CUDA tensor the kernels of
-`kernels/ccl.py` and `kernels/mode.py` (imported at the call, so the
+`label_components`, `largest_component`, `flood_from` and `fill_holes`
+dispatch on the device: a CPU tensor takes the `*_plain` form, a CUDA
+tensor the kernels of `kernels/ccl.py`, `kernels/mode.py` and
+`kernels/flood.py` (imported at the call, so the
 kernel modules, which build on these plain forms, import this module and
 not the other way round). The kernels' own plain versions call the
 `*_plain` forms, so they stay plain on the card.
@@ -209,8 +210,22 @@ def largest_component_plain(mask: torch.Tensor, connectivity: int = 8,
 
 def flood_from(mask: torch.Tensor, seed: torch.Tensor, max_iters: int = 128,
                connectivity: int = 4) -> torch.Tensor:
-    """Pixels of `mask` connected to `seed`: one payload bit packed under
-    the segment id, spread by cummax scans along rows and columns; the
+    """(B, H, W) bool: the pixels of `mask` connected to `seed`. A CPU
+    tensor takes the plain form (`flood_from_plain`, with its sweep cap);
+    a CUDA tensor launches the flood kernel, which sweeps as the plain form
+    does and stops at the same cap, or raises."""
+    if mask.device.type == "cpu":
+        return flood_from_plain(mask, seed, max_iters, connectivity)
+    from cadx_tpu_torch.kernels.flood import flood_from as flood_kernel
+
+    return flood_kernel(mask.to(torch.bool).contiguous(),
+                        seed.to(torch.bool).contiguous(), max_iters, connectivity)
+
+
+def flood_from_plain(mask: torch.Tensor, seed: torch.Tensor, max_iters: int = 128,
+                     connectivity: int = 4) -> torch.Tensor:
+    """The JAX algorithm on any device: one payload bit packed under the
+    segment id, spread by cummax scans along rows and columns; the
     8-connected form adds a 3x3 max pass to each sweep, as JAX's
     `flood_relax` does."""
     if connectivity not in (4, 8):
@@ -249,7 +264,17 @@ def _border(h: int, w: int, device) -> torch.Tensor:
 def fill_holes(mask: torch.Tensor, max_iters: int = 128) -> torch.Tensor:
     """Fill background regions that the border flood (4-connected) cannot
     reach. An image whose every row, or every column, is a single run has
-    no holes and keeps its mask (the JAX single-run certificate)."""
+    no holes and keeps its mask (the JAX single-run certificate). The
+    flood is `flood_from`'s: the kernel on a CUDA tensor."""
+    return _fill_holes(mask, max_iters, flood_from)
+
+
+def fill_holes_plain(mask: torch.Tensor, max_iters: int = 128) -> torch.Tensor:
+    """`fill_holes` through `flood_from_plain`, plain on any device."""
+    return _fill_holes(mask, max_iters, flood_from_plain)
+
+
+def _fill_holes(mask: torch.Tensor, max_iters: int, flood) -> torch.Tensor:
     mask = mask.to(torch.bool)
     h, w = mask.shape[-2:]
     m = mask.to(torch.int32)
@@ -261,5 +286,5 @@ def fill_holes(mask: torch.Tensor, max_iters: int = 128) -> torch.Tensor:
     if bool(cert.all()):
         return mask
     inv = ~mask
-    reach = flood_from(inv, _border(h, w, mask.device) & inv, max_iters)
+    reach = flood(inv, _border(h, w, mask.device) & inv, max_iters)
     return torch.where(cert, mask, mask | (inv & ~reach))

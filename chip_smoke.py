@@ -6,7 +6,7 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a):
     python3 chip_smoke.py
 
 Phases, each of which raises on failure (the script then exits nonzero):
-1. build the fourteen CUDA kernels from `cadx_tpu_torch/csrc` (one nvcc
+1. build the fifteen CUDA kernels from `cadx_tpu_torch/csrc` (one nvcc
    per source, all at once);
 2. hold each kernel bit-exact against its plain PyTorch version on the
    card (the plain versions run uncapped, max_iters = H*W, since the
@@ -28,13 +28,24 @@ Phases, each of which raises on failure (the script then exits nonzero):
      against its plain version and `largest_component_plain` on blobs,
      ties, random and empty masks at 256² B=16 and 1536x1280, with the
      count that took the flood and the fallback by the kernel's own seed;
+   - the flood: fill_holes' border flood on suppress-site backgrounds
+     (256² B=12, the 1536x1280 bucket and the 3328x2560 native, B=1) and
+     serpentines (256² B=4), 4- and 8-connected, uncapped and capped (2 and
+     40 sweeps, which the serpentines hit), bit-exact; the dispatching
+     `ops.components.fill_holes` and `flood_from` launch it; the plain
+     versions of largest_obj, the seeded component, cleaner_front and
+     pectoral_tail launch no kernel on the card;
    - ccl, mode and watershed (packed and pair form) on random masks and
      markers at 256² (B=16), and ccl and mode at the serving CAM shapes;
    - conv_leaky at the shapes of the training, pipeline and serving
-     classifiers' conv layers (VALID and SAME), to max |d| <= 1e-5 *
-     max |plain| + 1e-6 (float32 sums of <= 1,152 terms in another order);
-     the pool kernel (max and mean, sizes 2 and 3, odd sides, float32 and
-     bfloat16) and upsample (factor 2) bit-exact; both max-pool backward
+     classifiers' conv layers (VALID and SAME), layer 1 also through the
+     NHWC view conv_stack hands it, and at ragged shapes (C = 3, F = 5 and
+     40, k = 1, 5, 7, B = 1), to max |d| <= 1e-5 * max |plain| + 1e-6
+     (float32 sums of <= 1,152 terms in another order); on the advanced
+     B=32 NHWC view the call raises the peak device memory by no more than
+     its output; the pool kernel (max and mean, sizes 2 and 3, odd sides,
+     float32 and bfloat16) and upsample (factors 2 and 3, elements of 1, 2,
+     4 and 8 bytes) bit-exact; both max-pool backward
      rules (tie-broadcast, first maximum) on the card against the CPU,
      bit-exact;
    - batchnorm at every distinct input shape of the ResNet-50 at a 512²
@@ -47,7 +58,7 @@ Phases, each of which raises on failure (the script then exits nonzero):
    classifier on seeded weights, three batches of B=64; launches 1
    (cleaner_front), 1 (equalize), 1 (pectoral_tail), 4 (conv_leaky), 4
    (pool) and 2 (gradcam_tail, one per explained class) per batch and
-   none of the other kernels;
+   none of the other kernels (the flood lies on no path);
 4. the fused pipeline on a B=2 batch on the card and on the CPU: clean_u8
    exact, probs 2e-5, features 1e-5, heatmaps and overlays +-2 u8;
 5. serving at full width, `EngineConfig()` defaults, seeded weights:
@@ -57,7 +68,7 @@ Phases, each of which raises on failure (the script then exits nonzero):
    (fused tail); per pipeline classify, classify_and_roi (0, 1) and the
    overlay PNGs; eight concurrent micro-batched classify calls;
    classify_batch on B=8 at 512². The exact launch count of each of the
-   fourteen kernels is asserted (cleaner_front once per cleaned batch,
+   fifteen kernels is asserted (cleaner_front once per cleaned batch,
    largest_obj once per composed pectoral branch, jet_blend once per
    overlay class);
 6. one 640x544 request on the card and on a CPU engine with the same
@@ -112,19 +123,22 @@ Phases, each of which raises on failure (the script then exits nonzero):
 8. times with CUDA events: each kernel beside its plain version (256²
    B=64 for the fused-pipeline kernels and gradcam_tail, the serving
    shapes for ccl, mode and watershed, the training shapes for
-   conv_leaky, pool and upsample, the ResNet-50 stem for batchnorm, the
+   conv_leaky (all six path shapes, layer 1 on the NHWC view), pool and
+   upsample, fill_holes' border flood at 256² B=64 and 1536x1280 for the
+   flood, the ResNet-50 stem for batchnorm, the
    512² display for jet_blend, 256² B=64, 1536x1280 and the training
    CLI's native shapes for cleaner_front, also beside the old front it
    replaces (suppress_artifacts + segment_breast_mask: two largest_obj
    launches and the glue), phase 2's
    256² B=16 masks for the seeded component, also beside the ccl + mode
-   pair) and, for conv_leaky, pool, upsample and batchnorm, beside the one
+   pair) and, for conv_leaky (under full float32), pool, upsample and
+   batchnorm, beside the one
    PyTorch call that computes the same function, and the device time of
    each from torch.profiler (a small kernel's back-to-back calls are bound
    by the host); each kernel's bound on this card (the larger of its
    bytes over 3.35 TB/s and its operations over 67 TFLOP/s, the H100
    SXM's HBM3 rate and float32 peak); ms per training step of each
-   configuration; the pipeline's images per second; and the p50 of
+   configuration; the pipeline's images per second and device time; and the p50 of
    process_single_image per upload shape, of classify_and_roi per
    pipeline and of the reference `write_gradcam_overlays` over 10
    requests after warmup.
@@ -451,6 +465,7 @@ def main() -> int:
     from cadx_tpu_torch.kernels import cleaner_front as KF
     from cadx_tpu_torch.kernels import conv_leaky as KCL
     from cadx_tpu_torch.kernels import equalize as KE
+    from cadx_tpu_torch.kernels import flood as KFl
     from cadx_tpu_torch.kernels import gradcam_tail as KGT
     from cadx_tpu_torch.kernels import largest_obj as KL
     from cadx_tpu_torch.kernels import mode as KM
@@ -488,7 +503,7 @@ def main() -> int:
     modules = {"largest_obj": KL, "equalize": KE, "pectoral_tail": KP,
                "ccl": KC, "mode": KM, "watershed": KW, "conv_leaky": KCL,
                "pool": KPool, "upsample": KUp, "batchnorm": KBN, "jet_blend": KOv,
-               "gradcam_tail": KGT, "cleaner_front": KF}
+               "gradcam_tail": KGT, "cleaner_front": KF, "flood": KFl}
     # kernel -> (source, the TPU kernel it replaces)
     sources = {name: (mod.SOURCE, mod.REPLACES) for name, mod in modules.items()}
     sources["largest_component_seeded"] = (KL.SEEDED_SOURCE, KL.SEEDED_REPLACES)
@@ -499,7 +514,8 @@ def main() -> int:
                 "upsample": KUp.upsample_nearest, "batchnorm": KBN.batchnorm,
                 "jet_blend": KOv.jet_blend, "gradcam_tail": KGT.gradcam_tail,
                 "cleaner_front": KF.cleaner_front,
-                "largest_component_seeded": KL.largest_component_seeded}
+                "largest_component_seeded": KL.largest_component_seeded,
+                "flood": KFl.flood_from}
 
     def zero_counts():
         for fn in wrappers.values():
@@ -638,11 +654,14 @@ def main() -> int:
             agree("watershed", a, b_, f"pair form {part}, {what}, 256 sweeps each")
 
     serving_inputs = {name: upload_cleaner_input(img) for name, img in uploads.items()}
+    border_masks = {}   # (h, w) -> a B=1 suppress-site mask, for the flood
     serving_inputs[f"classify_batch B={N_BATCHED}"] = torch.from_numpy(bulk).to(dev)
     composed = {}   # upload -> (equalized image, watershed markers, label)
     for name, x in serving_inputs.items():
         b, h, w = x.shape
         s_bin_, g_bin_, seg_, equ_, high_, breast_ = clean_stage_inputs(x)
+        if b == 1:
+            border_masks[(h, w)] = s_bin_
         cap = h * w
         what = f"cleaner inputs of {name}, {h}x{w} B={b}"
         agree_front(to_uint8(x), what)
@@ -681,7 +700,7 @@ def main() -> int:
         what = f"training CLI upload {h}x{w} u16"
         cli_front[(h, w)] = to_uint8(x)
         agree_front(cli_front[(h, w)], what)
-        _, _, seg_, equ_, high_, breast_ = clean_stage_inputs(x)
+        border_masks[(h, w)], _, seg_, equ_, high_, breast_ = clean_stage_inputs(x)
         agree("equalize", KE.equalize(seg_), KE.equalize_reference(seg_), what)
         agree_pectoral_select(high_, what)
         agree_pair_watershed(equ_, pectoral_markers(equ_, high_, breast_), what)
@@ -722,6 +741,66 @@ def main() -> int:
         flood, fallback = seeded_paths(m)
         print(f"seeded component [{what}, 8-conn, by the kernel's seed]: {flood} took the "
               f"flood, {fallback} fell back to the CCL + largest label", flush=True)
+
+    # the flood: the border flood of fill_holes (the background of a
+    # suppress-site mask, seeded on the image border) and serpentines (a
+    # corridor that doubles back every `step` rows, one sweep a turn), 4- and
+    # 8-connected, uncapped (H*W sweeps bound any flood) and capped short of
+    # the serpentines' fixpoints; bit-exact, the state after a capped run too
+    def serpentine(h, w, step):
+        m = np.zeros((h, w), bool)
+        for r in range(0, h, step):
+            m[r, :] = True
+            m[r + 1:r + step, w - 1 if (r // step) % 2 == 0 else 0] = True
+        return m
+
+    def border_flood(masks):
+        """(mask, seed) of fill_holes' flood: the background, seeded where
+        it meets the image border."""
+        inv = ~masks
+        edge = torch.zeros_like(inv)
+        edge[:, 0], edge[:, -1], edge[:, :, 0], edge[:, :, -1] = True, True, True, True
+        return inv.contiguous(), (edge & inv).contiguous()
+
+    serp = torch.from_numpy(np.stack([serpentine(HW, HW, st) for st in (2, 3, 4, 8)])).to(dev)
+    serp_seed = torch.zeros_like(serp)
+    serp_seed[:, 0, 0] = True
+    inv12, seed12 = border_flood(s_bin[:12])
+    flood_cases = [(torch.cat([inv12, serp]), torch.cat([seed12, serp_seed]),
+                    f"12 suppress-site backgrounds + 4 serpentines, B=16 {HW}x{HW}", (2, 40))]
+    for (h, w) in ((1536, 1280), CLI_SHAPES[0]):
+        flood_cases.append(border_flood(border_masks[(h, w)])
+                           + (f"suppress-site background, B=1 {h}x{w}", (2,)))
+    for m, seed, what, caps in flood_cases:
+        for conn in (4, 8):
+            for cap in (m.shape[1] * m.shape[2],) + caps:
+                agree("flood", KFl.flood_from(m, seed, cap, conn),
+                      KFl.flood_from_reference(m, seed, cap, conn),
+                      f"{what}, {conn}-conn, max_iters {cap}")
+    # the dispatching ops launch the flood kernel on the card
+    before = KFl.flood_from.launches
+    agree("flood", TC.fill_holes(rand_masks), TC.fill_holes_plain(rand_masks, uncapped),
+          f"ops.components.fill_holes, random masks B=16 {HW}x{HW}, plain uncapped")
+    agree("flood", TC.flood_from(serp, serp_seed, uncapped),
+          TC.flood_from_plain(serp, serp_seed, uncapped),
+          f"ops.components.flood_from, serpentines B=4 {HW}x{HW}, uncapped")
+    dispatched = KFl.flood_from.launches - before
+    print(f"flood: ops.components.fill_holes and flood_from on the card launched the kernel "
+          f"{dispatched} times (expected 2)", flush=True)
+    if dispatched != 2:
+        raise AssertionError("the dispatching flood ops did not launch the flood kernel")
+    # the plain versions launch nothing on the card
+    zero_counts()
+    KL.largest_obj_reference(s_bin, 8, fill=True, smooth_k=15)
+    KL.largest_obj_reference(g_bin, 8, fill_first=True)
+    KL.largest_component_seeded_reference(s_bin, 8)
+    KF.cleaner_front_reference(to_uint8(small))
+    KP.pectoral_tail_reference(equ, high, breast)
+    plain_launches = read_counts()
+    print(f"plain versions on the card (largest_obj, largest_component_seeded, cleaner_front, "
+          f"pectoral_tail): launches {plain_launches}", flush=True)
+    if any(plain_launches.values()):
+        raise AssertionError(f"a plain version launched a kernel: {plain_launches}")
 
     # random masks and markers at 256², B=16, and the CAM shapes
     for conn in (4, 8):
@@ -768,16 +847,31 @@ def main() -> int:
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=tgen, device=dev) * scale
 
-    conv_cases = [((8, 64, 32, 32), 128, 0, "basic layer 1, training B=8"),
-                  ((8, 128, 15, 15), 64, 0, "basic layer 2, training B=8"),
-                  ((64, 64, 32, 32), 128, 0, "basic layer 1, pipeline B=64"),
-                  ((32, 64, 256, 256), 32, 1, "advanced layer 1, training B=32"),
-                  ((32, 32, 128, 128), 64, 1, "advanced layer 2, training B=32"),
-                  ((1, 64, 256, 256), 32, 1, "advanced layer 1, serving B=1")]
-    for (b, c, h, w), f, pad, what in conv_cases:
-        x = randn(b, c, h, w)
+    # (x shape, F, pad, k, NHWC view, what): the six path shapes, layer 1
+    # also as conv_stack hands it over (the channels-last view of NHWC
+    # features, read in place), and ragged shapes (C = 3, F = 5 and 40, k =
+    # 1, 5, 7, sides that are multiples of no tile, B = 1)
+    conv_cases = [((8, 64, 32, 32), 128, 0, 3, False, "basic layer 1, training B=8"),
+                  ((8, 128, 15, 15), 64, 0, 3, False, "basic layer 2, training B=8"),
+                  ((64, 64, 32, 32), 128, 0, 3, False, "basic layer 1, pipeline B=64"),
+                  ((32, 64, 256, 256), 32, 1, 3, False, "advanced layer 1, training B=32"),
+                  ((32, 32, 128, 128), 64, 1, 3, False, "advanced layer 2, training B=32"),
+                  ((1, 64, 256, 256), 32, 1, 3, False, "advanced layer 1, serving B=1"),
+                  ((8, 64, 32, 32), 128, 0, 3, True, "basic layer 1, training B=8, NHWC view"),
+                  ((64, 64, 32, 32), 128, 0, 3, True, "basic layer 1, pipeline B=64, NHWC view"),
+                  ((32, 64, 256, 256), 32, 1, 3, True,
+                   "advanced layer 1, training B=32, NHWC view"),
+                  ((1, 64, 256, 256), 32, 1, 3, True, "advanced layer 1, serving B=1, NHWC view"),
+                  ((1, 3, 37, 53), 5, 0, 1, False, "ragged C=3 F=5 k=1, B=1"),
+                  ((1, 3, 37, 53), 40, 2, 5, True, "ragged C=3 F=40 k=5, B=1, NHWC view"),
+                  ((2, 3, 45, 29), 40, 3, 7, False, "ragged C=3 F=40 k=7"),
+                  ((1, 5, 19, 70), 5, 0, 5, True, "ragged C=5 F=5 k=5, B=1, NHWC view"),
+                  ((3, 3, 33, 35), 40, 1, 3, False, "ragged C=3 F=40 k=3"),
+                  ((2, 7, 30, 33), 5, 3, 7, True, "ragged C=7 F=5 k=7, NHWC view")]
+    for (b, c, h, w), f, pad, k, nhwc, what in conv_cases:
+        x = randn(b, h, w, c).permute(0, 3, 1, 2) if nhwc else randn(b, c, h, w)
         x[:, :, : h // 4] = 0.0                       # z == 0 rows
-        wt, bias = randn(f, c, 3, 3, scale=(2.0 / (9 * c)) ** 0.5), randn(f, scale=0.1)
+        wt, bias = randn(f, c, k, k, scale=(2.0 / (k * k * c)) ** 0.5), randn(f, scale=0.1)
         bias[0] = 0.0
         kern = KCL.conv_leaky(x, wt, bias, 0.01, pad)
         plain = KCL.conv_leaky_reference(x, wt, bias, 0.01, pad)
@@ -785,11 +879,25 @@ def main() -> int:
         err = max_abs_err(kern, plain)
         tol = 1e-5 * float(plain.abs().max()) + 1e-6
         errs["conv_leaky"] = max(errs["conv_leaky"], err)
-        print(f"check conv_leaky [{what}, pad {pad}]: max_abs_err {err} (tolerance {tol:.3g})",
-              flush=True)
+        print(f"check conv_leaky [{what}, {tuple(x.shape)} -> F={f}, k={k}, pad {pad}]: "
+              f"max_abs_err {err} (tolerance {tol:.3g})", flush=True)
         if err > tol:
             raise AssertionError(f"conv_leaky [{what}] disagrees with its plain version")
         del x, kern, plain
+    # no copy of the NHWC view: the call allocates its output and nothing else
+    xv = randn(32, HW, HW, 64).permute(0, 3, 1, 2)
+    wv, bv = randn(32, 64, 3, 3, scale=(2.0 / 576) ** 0.5), randn(32, scale=0.1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    yv = KCL.conv_leaky(xv, wv, bv, 0.01, 1)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    print(f"conv_leaky on the NHWC view {tuple(xv.shape)} (advanced layer 1, B=32): peak "
+          f"device memory rose by {rise} bytes, the output holds {nbytes(yv)}", flush=True)
+    if rise > nbytes(yv):
+        raise AssertionError("conv_leaky copied its NHWC input")
+    del xv, yv
     for shape, dtype, size in (((32, 32, 256, 256), torch.float32, 2),
                                ((8, 16, 256, 256), torch.float32, 2),
                                ((8, 64, 30, 30), torch.float32, 2),
@@ -800,11 +908,20 @@ def main() -> int:
         for mode in ("max", "mean"):
             agree("pool", KPool.pool(x, size, mode), KPool.pool_reference(x, size, mode),
                   f"{mode} size {size}, {tuple(shape)} {dtype}")
-    for shape, dtype in (((8, 128, 32, 32), torch.float32), ((8, 32, 128, 128), torch.float32),
-                         ((3, 5, 37, 53), torch.bfloat16)):
-        x = randn(*shape).to(dtype)
-        agree("upsample", KUp.upsample_nearest(x, 2), KUp.upsample_nearest_reference(x, 2),
-              f"factor 2, {tuple(shape)} {dtype}")
+    # the U-Net's shapes, then factor 3 and 1- and 8-byte elements (both the
+    # 16-byte path and the scalar one: rows of 16, 32 and odd widths)
+    for shape, dtype, fac in (((8, 128, 32, 32), torch.float32, 2),
+                              ((8, 32, 128, 128), torch.float32, 2),
+                              ((3, 5, 37, 53), torch.bfloat16, 2),
+                              ((4, 8, 64, 64), torch.float32, 3),
+                              ((3, 5, 37, 53), torch.bfloat16, 3),
+                              ((2, 3, 16, 32), torch.uint8, 2), ((2, 3, 9, 13), torch.uint8, 2),
+                              ((2, 3, 9, 13), torch.uint8, 3), ((2, 3, 16, 8), torch.float64, 2),
+                              ((2, 3, 9, 13), torch.float64, 2),
+                              ((2, 3, 9, 13), torch.float64, 3)):
+        x = (randn(*shape).abs() * 60).to(dtype)
+        agree("upsample", KUp.upsample_nearest(x, fac), KUp.upsample_nearest_reference(x, fac),
+              f"factor {fac}, {tuple(shape)} {dtype}")
     ties = torch.relu(torch.round(randn(8, 16, 64, 63)))
     g = randn(8, 16, 32, 31)
     for rule, fn in (("tie-broadcast", TPool.max_pool_ties),
@@ -886,7 +1003,7 @@ def main() -> int:
                 "conv_leaky": 4 * N_MAIN_BATCHES, "pool": 4 * N_MAIN_BATCHES,
                 "upsample": 0, "batchnorm": 0, "jet_blend": 0,
                 "gradcam_tail": 2 * N_MAIN_BATCHES, "cleaner_front": N_MAIN_BATCHES,
-                "largest_component_seeded": 0}
+                "largest_component_seeded": 0, "flood": 0}
     print(f"fused pipeline: {N_MAIN_BATCHES} batches of B={BATCH} at {HW}x{HW}, "
           f"launches {pipe_launches}", flush=True)
     if pipe_launches != expected:
@@ -975,7 +1092,7 @@ def main() -> int:
                 "watershed": 2, "ccl": 4 + n_flushes, "mode": 4 + n_flushes,
                 "conv_leaky": 2 * stacks, "pool": 2 * stacks, "upsample": 0,
                 "batchnorm": 0, "jet_blend": 2 * 2, "gradcam_tail": 0, "cleaner_front": 4,
-                "largest_component_seeded": 0}
+                "largest_component_seeded": 0, "flood": 0}
     print(f"serving path: 3 uploads, 2 pipelines, {N_BATCHED} batched requests in "
           f"{n_flushes} flushes, classify_batch B={N_BATCHED}; launches {serve_launches}",
           flush=True)
@@ -1416,9 +1533,17 @@ def main() -> int:
     pa = torch.relu(randn(32, 32, HW, HW))
     ua = randn(8, 32, HW // 2, HW // 2)
 
+    # layer 1 as conv_stack hands it over: the channels-last view of NHWC
+    # features
+    xa_v = xa.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+
     def library_conv():
         with full_fp32():
-            return F.conv2d(xa, wa, ba, padding=1)
+            return F.conv2d(xa_v, wa, ba, padding=1)
+
+    # the flood of fill_holes: the suppress-site masks' background, seeded
+    # on the border
+    fl_mask, fl_seed = border_flood(s_bin)
 
     # the explainability kernels at their paths' shapes: the ResNet-50
     # stem's batch norm, one reference overlay, the pipeline's tail
@@ -1460,10 +1585,14 @@ def main() -> int:
                  lambda: KM.largest_component_mask_reference(lab3, hot3),
                  "B=3 62x62 CAM labels (advanced classify_and_roi)", (lab3, hot3), None,
                  None),
-        "conv_leaky": (lambda: KCL.conv_leaky(xa, wa, ba, 0.01, 1),
-                       lambda: KCL.conv_leaky_reference(xa, wa, ba, 0.01, 1),
-                       f"advanced layer 1, B=32 {HW}x{HW}x64 -> 32, SAME", (xa, wa, ba),
-                       2 * 32 * HW * HW * 32 * 64 * 9, library_conv),
+        "conv_leaky": (lambda: KCL.conv_leaky(xa_v, wa, ba, 0.01, 1),
+                       lambda: KCL.conv_leaky_reference(xa_v, wa, ba, 0.01, 1),
+                       f"advanced layer 1, B=32 {HW}x{HW}x64 -> 32, SAME, NHWC view (training)",
+                       (xa_v, wa, ba), 2 * 32 * HW * HW * 32 * 64 * 9, library_conv),
+        "flood": (lambda: KFl.flood_from(fl_mask, fl_seed),
+                  lambda: KFl.flood_from_reference(fl_mask, fl_seed),
+                  f"border flood of fill_holes, B={BATCH} {HW}x{HW} suppress-site backgrounds",
+                  (fl_mask, fl_seed), None, None),
         "pool": (lambda: KPool.pool(pa, 2, "max"), lambda: KPool.pool_reference(pa, 2, "max"),
                  f"max 2x2 after advanced layer 1, B=32 32x{HW}x{HW}", (pa,), pa.numel(),
                  lambda: F.max_pool2d(pa, 2)),
@@ -1564,9 +1693,22 @@ def main() -> int:
     cam6 = torch.from_numpy(rng.random((1, 6, 6)).astype(np.float32)).to(dev)
     hot6 = cam6 >= 0.6 * cam6.amax(dim=(1, 2), keepdim=True)
     lab6 = KC.label_components(hot6, 8)
-    xb8, wb8, bb8 = (randn(8, 64, 32, 32), randn(128, 64, 3, 3, scale=(2.0 / 576) ** 0.5),
-                     randn(128, scale=0.1))
-    xp64 = randn(64, 64, 32, 32)
+    # conv_leaky at the other path shapes: (x, w, b, pad, what)
+    conv_rows = []
+    for (b, c, h, w), f, pad, nhwc, what in (
+            ((8, 64, 32, 32), 128, 0, True, "basic layer 1, B=8, NHWC view (training)"),
+            ((8, 64, 32, 32), 128, 0, False, "basic layer 1, B=8, NCHW"),
+            ((8, 128, 15, 15), 64, 0, False, "basic layer 2, B=8 (training)"),
+            ((64, 64, 32, 32), 128, 0, True, "basic layer 1, B=64, NHWC view (run_pipeline)"),
+            ((64, 64, 32, 32), 128, 0, False, "basic layer 1, B=64, NCHW"),
+            ((64, 128, 15, 15), 64, 0, False, "basic layer 2, B=64 (run_pipeline)"),
+            ((32, 64, HW, HW), 32, 1, False, "advanced layer 1, B=32, SAME, NCHW"),
+            ((32, 32, HW // 2, HW // 2), 64, 1, False, "advanced layer 2, B=32, SAME (training)"),
+            ((1, 64, HW, HW), 32, 1, True, "advanced layer 1, B=1, SAME, NHWC view (serving)")):
+        x = randn(b, h, w, c).permute(0, 3, 1, 2) if nhwc else randn(b, c, h, w)
+        conv_rows.append((x, randn(f, c, 3, 3, scale=(2.0 / (9 * c)) ** 0.5),
+                          randn(f, scale=0.1), pad, what))
+    fl_big = border_flood(border_masks[(1536, 1280)])
     pu = torch.relu(randn(8, 16, HW, HW))
     l4_shape = (1, 2048, seg_h // 32, seg_w // 32)
     l4_x, l4_m = bn_inputs[l4_shape]
@@ -1578,13 +1720,18 @@ def main() -> int:
         ("mode", lambda: KM.largest_component_mask(lab6, hot6),
          lambda: KM.largest_component_mask_reference(lab6, hot6), "B=1 6x6 (basic classify)",
          None),
-        ("conv_leaky", lambda: KCL.conv_leaky(xb8, wb8, bb8, 0.01, 0),
-         lambda: KCL.conv_leaky_reference(xb8, wb8, bb8, 0.01, 0),
-         "basic layer 1, B=8 32x32x64 -> 128, VALID (training)",
-         lambda: F.conv2d(xb8, wb8, bb8)),
-        ("conv_leaky", lambda: KCL.conv_leaky(xp64, wb8, bb8, 0.01, 0),
-         lambda: KCL.conv_leaky_reference(xp64, wb8, bb8, 0.01, 0),
-         "basic layer 1, B=64 (run_pipeline)", lambda: F.conv2d(xp64, wb8, bb8)),
+    ] + [
+        ("conv_leaky", lambda r=r: KCL.conv_leaky(r[0], r[1], r[2], 0.01, r[3]),
+         lambda r=r: KCL.conv_leaky_reference(r[0], r[1], r[2], 0.01, r[3]),
+         f"{r[4]}, {tuple(r[0].shape)} -> {r[1].shape[0]}",
+         lambda r=r: F.conv2d(r[0], r[1], r[2], padding=r[3]), r[:3],
+         2 * r[0].shape[0] * r[0].shape[1] * 9 * r[1].shape[0]
+         * (r[0].shape[2] + 2 * r[3] - 2) * (r[0].shape[3] + 2 * r[3] - 2))
+        for r in conv_rows
+    ] + [
+        ("flood", lambda: KFl.flood_from(*fl_big), lambda: KFl.flood_from_reference(*fl_big),
+         "border flood of fill_holes, B=1 1536x1280 suppress-site background", None,
+         fl_big, None),
         ("pool", lambda: KPool.pool(pa, 2, "mean"), lambda: KPool.pool_reference(pa, 2, "mean"),
          f"mean 2x2, B=32 32x{HW}x{HW}", lambda: F.avg_pool2d(pa, 2)),
         ("pool", lambda: KPool.pool(pu, 2, "max"), lambda: KPool.pool_reference(pu, 2, "max"),
@@ -1597,17 +1744,24 @@ def main() -> int:
          lambda: KOv.jet_blend_reference(tail_k[1], tail_in[2]),
          f"B={BATCH} {HW}x{HW} gray (the pipeline's heatmaps)", None),
     ] + [("watershed",) + fns[:3] + (None,) for fns in watershed_fns.values()]
-    for name, kernel_fn, plain_fn, shape, library_fn in extra:
+    # a row of 7 fields also gives its inputs and operations, for its bound
+    for name, kernel_fn, plain_fn, shape, library_fn, *bound_of in extra:
         with full_fp32():
             k, p, lib, runs = turns_ms(kernel_fn, plain_fn, 20, 3, library_fn)
             dk, dp = device_ms(kernel_fn, 20), device_ms(plain_fn, 3)
             dl = device_ms(library_fn, 20) if library_fn else None
         lib_text = f", library {lib:.4f} ms" if lib is not None else ""
         dl_text = f", library {ms_text(dl)}" if library_fn else ""
+        bound_text = ""
+        if bound_of:
+            outputs = kernel_fn()
+            b_ms, b_by = bound(nbytes(bound_of[0]) + nbytes(outputs),
+                               numel(outputs) if bound_of[1] is None else bound_of[1])
+            bound_text = f", bound {b_ms:.4f} ms by {b_by}"
         print(f"time {name} {shape}: kernel {k:.4f} ms (runs {runs[0]:.4f}, "
               f"{runs[1]:.4f}), plain {p:.4f} ms (runs {runs[2]:.4f}, {runs[3]:.4f})"
-              f"{lib_text}; device time (profiler) kernel {ms_text(dk)}, plain {ms_text(dp)}"
-              f"{dl_text} ms on {card}", flush=True)
+              f"{lib_text}{bound_text}; device time (profiler) kernel {ms_text(dk)}, plain "
+              f"{ms_text(dp)}{dl_text} ms on {card}", flush=True)
 
     # ms per training step of each configuration, after warmup
     step_cases = {}
@@ -1643,8 +1797,10 @@ def main() -> int:
               flush=True)
 
     pipe_ms = cuda_ms(lambda: fused.run_pipeline(params, big_batch, config), 5)
+    pipe_dev = device_ms(lambda: fused.run_pipeline(params, big_batch, config), 5)
     print(f"time run_pipeline B={BATCH} {HW}x{HW}: {pipe_ms:.3f} ms/batch, "
-          f"{BATCH / (pipe_ms / 1e3):.1f} img/s on {card}", flush=True)
+          f"{BATCH / (pipe_ms / 1e3):.1f} img/s, device time (profiler) {ms_text(pipe_dev)} "
+          f"ms/batch on {card}", flush=True)
     for name, img in uploads.items():
         ms = p50_ms(lambda: eng.process_single_image(img, cache_token=name), N_TIMED)
         print(f"time process_single_image {name}: p50 {ms:.3f} ms over {N_TIMED} "

@@ -493,3 +493,108 @@ def test_seeded_component_kernel_rejects_wrong_inputs(dev):
     with pytest.raises(ValueError):
         KL.largest_component_seeded(torch.zeros((1, 8, 8), dtype=torch.bool, device=dev), 6)
     assert KL.largest_component_seeded.launches == before
+
+
+# ---- the flood kernel; conv_leaky's layouts and ragged shapes; upsample ------
+
+from cadx_tpu_torch.kernels import flood as KFl       # noqa: E402
+
+
+def _serpentine(h, w, step):
+    m = np.zeros((h, w), bool)
+    for r in range(0, h, step):
+        m[r, :] = True
+        m[r + 1:r + step, w - 1 if (r // step) % 2 == 0 else 0] = True
+    return m
+
+
+@pytest.mark.parametrize("conn", [4, 8])
+@pytest.mark.parametrize("shape", [(3, 37, 53), (2, 256, 256), (2, 600, 520)])
+def test_flood_kernel(dev, rng, conn, shape):
+    """Bit-exact to the fixpoint and after a capped run; 600x520 keeps its
+    planes in the global scratch, the others in shared memory."""
+    b, h, w = shape
+    masks = rng.random(shape) < 0.6
+    masks[0] = _serpentine(h, w, 3)
+    seed = np.zeros(shape, bool)
+    seed[:, 0, :] = True
+    m, s = torch.from_numpy(masks).to(dev), torch.from_numpy(seed).to(dev)
+    for cap in (0, 1, 2, 9, h * w):
+        before = KFl.flood_from.launches
+        got = KFl.flood_from(m, s, cap, conn)
+        assert KFl.flood_from.launches == before + 1
+        _eq(got, KFl.flood_from_reference(m, s, cap, conn))
+
+
+def test_flood_dispatch_and_plain_versions(dev, rng):
+    m = torch.from_numpy(rng.random((2, 40, 36)) > 0.3).to(dev)
+    before = KFl.flood_from.launches
+    _eq(TC.fill_holes(m), TC.fill_holes_plain(m, 40 * 36))
+    s = m & torch.from_numpy(rng.random((2, 40, 36)) < 0.01).to(dev)
+    _eq(TC.flood_from(m, s), TC.flood_from_plain(m, s, 40 * 36))
+    assert KFl.flood_from.launches == before + 2
+    KL.largest_obj_reference(m, fill=True)
+    KL.largest_obj_reference(m, fill_first=True)
+    KL.largest_component_seeded_reference(m)
+    assert KFl.flood_from.launches == before + 2
+
+
+def test_flood_kernel_rejects_wrong_inputs(dev):
+    m = torch.zeros((1, 8, 8), dtype=torch.bool, device=dev)
+    before = KFl.flood_from.launches
+    for mask, seed in ((m.to(torch.uint8), m), (m[0], m[0]), (m, m[:, :4]),
+                       (m, m.to(torch.uint8))):
+        with pytest.raises(ValueError):
+            KFl.flood_from(mask, seed)
+    with pytest.raises(ValueError):
+        KFl.flood_from(m, m, connectivity=6)
+    assert KFl.flood_from.launches == before
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 32, 32, 128, 3, 0), (1, 64, 40, 36, 32, 3, 1),
+                                   (1, 3, 37, 53, 40, 5, 2), (2, 7, 30, 33, 5, 7, 3),
+                                   (1, 5, 19, 70, 5, 1, 0)])
+def test_conv_leaky_kernel_nhwc_view(dev, rng, shape):
+    """The channels-last view of NHWC features, as conv_stack hands layer 1
+    over, read in place: the same tolerance as the contiguous input, and no
+    allocation but the output."""
+    b, c, h, w, f, k, pad = shape
+    x = torch.from_numpy(rng.standard_normal((b, h, w, c)).astype(np.float32)).to(dev)
+    xv = x.permute(0, 3, 1, 2)
+    wt = torch.from_numpy((rng.standard_normal((f, c, k, k)) * 0.2).astype(np.float32)).to(dev)
+    bias = torch.from_numpy(rng.standard_normal(f).astype(np.float32)).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = KCL.conv_leaky(xv, wt, bias, 0.01, pad)
+    torch.cuda.synchronize()
+    # the caching allocator rounds a block up to 512 bytes
+    assert torch.cuda.max_memory_allocated() - base <= -(-got.numel() * 4 // 512) * 512
+    ref = KCL.conv_leaky_reference(xv.contiguous(), wt, bias, 0.01, pad)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max()) + 1e-6
+    _eq(got, KCL.conv_leaky(xv.contiguous(), wt, bias, 0.01, pad))
+
+
+def test_conv_leaky_kernel_rejects_other_strides(dev):
+    x = torch.zeros((1, 4, 9, 10), device=dev)
+    w, b = torch.zeros((3, 4, 3, 3), device=dev), torch.zeros(3, device=dev)
+    before = KCL.conv_leaky.launches
+    for bad in (x[:, :, ::2], x.transpose(2, 3), torch.zeros((1, 9, 4, 10), device=dev)
+                .permute(0, 2, 1, 3)):
+        with pytest.raises(ValueError):
+            KCL.conv_leaky(bad, w, b)
+    assert KCL.conv_leaky.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.float32, torch.float64])
+@pytest.mark.parametrize("w", [13, 16, 32])
+def test_upsample_kernel_element_sizes(dev, rng, dtype, w):
+    """Every element size at factors 2 (16-byte path where a row is a
+    multiple of 16 bytes) and 3 (scalar path), raw bits."""
+    x = torch.from_numpy(rng.integers(0, 120, (2, 3, 9, w))).to(dev, dtype)
+    for f in (2, 3):
+        _eq(KUp.upsample_nearest(x, f), KUp.upsample_nearest_reference(x, f))
+    with pytest.raises(ValueError):
+        KUp.upsample_nearest(x, 0)
+    with pytest.raises(ValueError):
+        KUp.upsample_nearest(x.transpose(2, 3), 2)
