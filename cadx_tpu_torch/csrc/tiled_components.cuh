@@ -1,0 +1,361 @@
+// Tiled device code for connected components spread over the whole card:
+// a block-based union-find CCL (Playne & Hawick, IEEE TPDS 2018; Allegretti,
+// Bolelli & Grana, IEEE TPDS 2020), the per-image reductions it feeds, and
+// the separable window pass of a 0/1 opening.
+//
+// A batch of (B, H, W) planes is cut into kTile x kTile tiles, and the grid
+// covers tiles x images in one flat dimension, so any B runs and at B = 1 a
+// large image still fills every SM. Each phase is one launch; phases that
+// need a whole image finished (the joins across tiles, the per-image keys)
+// follow in the next launch on the same stream, so nothing waits on the
+// host. Masks are uint8 planes; labels are int32 pixel indices within the
+// image (any H * W below 2^31).
+//
+// The CCL runs in three launches:
+//   ccl_local   a block labels its tile in shared memory (union-find with
+//               atomicMin-linked roots), then writes each pixel the global
+//               index of its tile root;
+//   ccl_merge   one thread per pixel of a tile's bottom row and right
+//               column joins it with its neighbours in the next tiles
+//               (atomicMin on the roots in global memory);
+//   ccl_flatten every pixel points at its root, and the block adds its
+//               pixels to their roots' areas (one atomic per root a block)
+//               or marks the roots that reach the image border.
+// Every link goes from a larger root to a smaller index of the same
+// component, so each root ends as its component's smallest raster index,
+// whatever order the atomics run in: the labels, and everything chosen by
+// them, are the same on every run.
+#pragma once
+
+#include <climits>
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+namespace cadx_tiled {
+
+constexpr int kTile = 32;                     // tile side in pixels
+constexpr int kTileThreads = kTile * kTile;   // one thread a pixel of a tile
+constexpr int kEdgeThreads = 2 * kTile;       // ccl_merge: bottom row, right column
+constexpr int kCountSlots = 256;              // ccl_flatten's per-block root table
+
+// Tiles of a (B, H, W) batch.
+struct Tiles {
+  int H, W, tiles_x, per_image;
+  long long n;  // H * W
+};
+
+inline Tiles make_tiles(int H, int W) {
+  const int tx = (W + kTile - 1) / kTile, ty = (H + kTile - 1) / kTile;
+  return Tiles{H, W, tx, tx * ty, static_cast<long long>(H) * W};
+}
+
+// This block's tile: its image and its top-left pixel.
+struct Tile {
+  long long img;
+  int y0, x0;
+};
+
+static __device__ __forceinline__ Tile this_tile(const Tiles& g) {
+  const unsigned b = blockIdx.x, per = g.per_image, tx = g.tiles_x;  // 32-bit division
+  const unsigned img = b / per, t = b - img * per, ty = t / tx;
+  return Tile{img, static_cast<int>(ty) * kTile, static_cast<int>(t - ty * tx) * kTile};
+}
+
+// The pixel of thread threadIdx.x in a kTile x kTile block.
+struct Pixel {
+  int y, x, p;  // p = y * W + x, within the image
+  bool inside;
+};
+
+static __device__ __forceinline__ Pixel tile_pixel(const Tiles& g, const Tile& t) {
+  const int y = t.y0 + static_cast<int>(threadIdx.x) / kTile;
+  const int x = t.x0 + static_cast<int>(threadIdx.x) % kTile;
+  const bool inside = y < g.H && x < g.W;
+  return Pixel{y, x, inside ? y * g.W + x : 0, inside};
+}
+
+// A pixel is foreground where its mask byte is nonzero, or zero when
+// `inv` (the background components of a hole fill).
+static __device__ __forceinline__ bool is_fg(const uint8_t* m, int p, bool inv) {
+  return (m[p] != 0) != inv;
+}
+
+// ---- union-find ---------------------------------------------------------
+
+static __device__ __forceinline__ int find_shared(volatile int* par, int a) {
+  int b;
+  while ((b = par[a]) != a) a = b;
+  return a;
+}
+
+// Join the sets of a and b: the larger root is linked to the smaller one.
+// A link that lost a race (the root was linked meanwhile) retries from the
+// value it found.
+static __device__ void unite_shared(int* par, int a, int b) {
+  while (true) {
+    a = find_shared(par, a);
+    b = find_shared(par, b);
+    if (a == b) return;
+    if (a > b) {
+      const int t = a;
+      a = b;
+      b = t;
+    }
+    const int old = atomicMin(par + b, a);
+    if (old == b) return;
+    b = old;
+  }
+}
+
+// Labels in global memory change under other blocks' atomics during the
+// merge, so they are read from L2 (__ldcg), never from a stale L1 line.
+// Path halving with atomicMin: a pointer only ever moves to an ancestor.
+static __device__ int find_global(int* lab, int a) {
+  while (true) {
+    const int b = __ldcg(lab + a);
+    if (b == a) return a;
+    const int c = __ldcg(lab + b);
+    if (c == b) return b;
+    atomicMin(lab + a, c);
+    a = c;
+  }
+}
+
+static __device__ void unite_global(int* lab, int a, int b) {
+  while (true) {
+    a = find_global(lab, a);
+    b = find_global(lab, b);
+    if (a == b) return;
+    if (a > b) {
+      const int t = a;
+      a = b;
+      b = t;
+    }
+    const int old = atomicMin(lab + b, a);
+    if (old == b) return;
+    b = old;
+  }
+}
+
+// ---- per-block reductions -----------------------------------------------
+
+// The block's largest v, maxed atomically into *dst. Every thread of the
+// block calls it once a kernel.
+static __device__ void block_max_into(unsigned long long* dst, unsigned long long v) {
+  __shared__ unsigned long long warp_best[32];
+  for (int o = 16; o > 0; o >>= 1) {
+    const unsigned long long u = __shfl_xor_sync(0xffffffffu, v, o);
+    v = u > v ? u : v;
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) warp_best[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < static_cast<int>(blockDim.x >> 5) ? warp_best[lane] : 0ull;
+    for (int o = 16; o > 0; o >>= 1) {
+      const unsigned long long u = __shfl_xor_sync(0xffffffffu, v, o);
+      v = u > v ? u : v;
+    }
+    if (lane == 0 && v) atomicMax(dst, v);
+  }
+}
+
+// Add each thread's pixel (root r >= 0; r < 0 counts nothing) to area[r]:
+// a warp's pixels of one root are counted together (__match_any_sync), the
+// warps' counts gathered in a shared table, and each root the block holds
+// gets one global atomicAdd (a root the full table has no room for gets
+// the warp's). Every thread of the block calls it.
+static __device__ void block_count(int* area, int r) {
+  __shared__ int keys[kCountSlots];
+  __shared__ int counts[kCountSlots];
+  for (int s = threadIdx.x; s < kCountSlots; s += blockDim.x) {
+    keys[s] = -1;
+    counts[s] = 0;
+  }
+  __syncthreads();
+  const unsigned peers = __match_any_sync(0xffffffffu, r);
+  if (r >= 0 && static_cast<int>(threadIdx.x & 31) == __ffs(peers) - 1) {
+    const int c = __popc(peers);
+    int s = static_cast<int>((static_cast<unsigned>(r) * 2654435761u) >> 24);
+    bool placed = false;
+    for (int probe = 0; probe < kCountSlots; ++probe) {
+      const int k = atomicCAS(keys + s, -1, r);
+      if (k == -1 || k == r) {
+        atomicAdd(counts + s, c);
+        placed = true;
+        break;
+      }
+      s = (s + 1) & (kCountSlots - 1);
+    }
+    if (!placed) atomicAdd(area + r, c);
+  }
+  __syncthreads();
+  for (int s = threadIdx.x; s < kCountSlots; s += blockDim.x)
+    if (keys[s] >= 0) atomicAdd(area + keys[s], counts[s]);
+}
+
+// The key of a component: (area << 32) | ~label. The largest key has the
+// largest area and, among equal areas, the smallest label.
+static __device__ __forceinline__ unsigned long long component_key(int area, int label) {
+  return (static_cast<unsigned long long>(area) << 32) |
+         (0xFFFFFFFFu - static_cast<unsigned>(label));
+}
+
+// The label a key names; -1 for the empty key 0 (no component).
+static __device__ __forceinline__ int key_label(unsigned long long key) {
+  return key ? static_cast<int>(0xFFFFFFFFu - static_cast<unsigned>(key & 0xFFFFFFFFull)) : -1;
+}
+
+// ---- the CCL's three launches ---------------------------------------------
+
+// Label each tile in shared memory; lab[p] = the image index of p's tile
+// root for a foreground p (background is left as it was). `aux` is zeroed at
+// the tile roots, which include every final root, for ccl_flatten's counts
+// or marks. kConn is 4 or 8.
+//
+// A warp is a tile row: a ballot gives each pixel its run's first pixel as
+// its parent, with no atomics. Then only the first pixel of a run joins
+// the runs above it, and a later pixel only the run up and to its right
+// that the pixels before it cannot reach (4-connected: the run above it
+// where the pixel to its left had none), so each pair of touching runs is
+// joined about once and the trees stay shallow.
+template <int kConn>
+__global__ void __launch_bounds__(kTileThreads)
+ccl_local(const uint8_t* __restrict__ mask, bool inv, int* __restrict__ lab,
+          int* __restrict__ aux, Tiles g) {
+  __shared__ int par[kTileThreads];
+  __shared__ unsigned rows[kTile];  // each row's foreground bits
+  const Tile tile = this_tile(g);
+  const Pixel px = tile_pixel(g, tile);
+  const long long base = tile.img * g.n;
+  const int t = threadIdx.x, lx = t % kTile, ly = t / kTile;
+  const bool f = px.inside && is_fg(mask + base, px.p, inv);
+  const unsigned bits = __ballot_sync(0xffffffffu, f);
+  // the run's first pixel: one past the highest background bit at or below lx
+  const unsigned below = ~bits & (lx == 31 ? 0xffffffffu : (2u << lx) - 1u);
+  const int start = below ? 32 - __clz(below) : 0;
+  par[t] = f ? ly * kTile + start : t;
+  if (lx == 0) rows[ly] = bits;
+  __syncthreads();
+  if (f && ly > 0) {
+    const unsigned up = rows[ly - 1];
+    auto bit = [&](int x) { return x >= 0 && x < kTile && ((up >> x) & 1u); };
+    const int above = t - kTile;
+    if (kConn == 4) {
+      if (bit(lx) && !(lx > start && bit(lx - 1))) unite_shared(par, t, above);
+    } else if (lx == start) {
+      // the first pixel: each run among up-left, up and up-right
+      if (bit(lx - 1)) unite_shared(par, t, above - 1);
+      if (bit(lx) && !bit(lx - 1)) unite_shared(par, t, above);
+      if (bit(lx + 1) && !bit(lx)) unite_shared(par, t, above + 1);
+    } else if (bit(lx + 1) && !bit(lx)) {
+      unite_shared(par, t, above + 1);
+    }
+  }
+  __syncthreads();
+  if (!f) return;
+  // a tile's raster order is the image's, so the tile root (the smallest
+  // local index) is the smallest image index of its piece
+  const int r = find_shared(par, t);
+  lab[base + px.p] = (tile.y0 + r / kTile) * g.W + tile.x0 + r % kTile;
+  if (r == t) aux[base + px.p] = 0;
+}
+
+// Join each tile with its neighbours: a bottom-row pixel with the three
+// (4-connected: one) below it, a right-column pixel with the three (one) to
+// its right. Every pair of neighbours in two tiles is one of these.
+template <int kConn>
+__global__ void __launch_bounds__(kEdgeThreads)
+ccl_merge(const uint8_t* __restrict__ mask, bool inv, int* lab, Tiles g) {
+  const Tile tile = this_tile(g);
+  const int i = threadIdx.x % kTile;
+  const bool bottom = threadIdx.x < kTile;
+  const int y = bottom ? tile.y0 + kTile - 1 : tile.y0 + i;
+  const int x = bottom ? tile.x0 + i : tile.x0 + kTile - 1;
+  if (y >= g.H || x >= g.W) return;
+  const uint8_t* m = mask + tile.img * g.n;
+  int* l = lab + tile.img * g.n;
+  const int p = y * g.W + x;
+  if (!is_fg(m, p, inv)) return;
+  if (bottom) {
+    if (y + 1 >= g.H) return;
+    for (int dx = (kConn == 8 ? -1 : 0); dx <= (kConn == 8 ? 1 : 0); ++dx) {
+      const int xx = x + dx;
+      if (xx < 0 || xx >= g.W) continue;
+      const int q = p + g.W + dx;
+      if (is_fg(m, q, inv)) unite_global(l, p, q);
+    }
+  } else {
+    if (x + 1 >= g.W) return;
+    for (int dy = (kConn == 8 ? -1 : 0); dy <= (kConn == 8 ? 1 : 0); ++dy) {
+      const int yy = y + dy;
+      if (yy < 0 || yy >= g.H) continue;
+      const int q = p + dy * g.W + 1;
+      if (is_fg(m, q, inv)) unite_global(l, p, q);
+    }
+  }
+}
+
+// Point every foreground pixel at its root. kCount: add the pixels to
+// their roots' areas in aux; otherwise mark in aux the roots of the
+// components that reach the image border.
+template <bool kCount>
+__global__ void __launch_bounds__(kTileThreads)
+ccl_flatten(const uint8_t* __restrict__ mask, bool inv, int* lab, int* aux, Tiles g) {
+  const Tile tile = this_tile(g);
+  const Pixel px = tile_pixel(g, tile);
+  const long long base = tile.img * g.n;
+  int* l = lab + base;
+  int r = -1;
+  if (px.inside && is_fg(mask + base, px.p, inv)) {
+    r = find_global(l, px.p);
+    l[px.p] = r;
+  }
+  if (kCount) {
+    block_count(aux + base, r);
+  } else if (r >= 0 && (px.y == 0 || px.y == g.H - 1 || px.x == 0 || px.x == g.W - 1)) {
+    aux[base + r] = 1;
+  }
+}
+
+// The largest component's key of each image into stats[img * stride + slot]
+// (zeroed before): every root offers its (area, label) key.
+__global__ void __launch_bounds__(kTileThreads)
+largest_key(const uint8_t* __restrict__ mask, bool inv, const int* __restrict__ lab,
+            const int* __restrict__ area, unsigned long long* stats, int stride, int slot,
+            Tiles g) {
+  const Tile tile = this_tile(g);
+  const Pixel px = tile_pixel(g, tile);
+  const long long base = tile.img * g.n;
+  unsigned long long key = 0ull;
+  if (px.inside && is_fg(mask + base, px.p, inv) && lab[base + px.p] == px.p)
+    key = component_key(area[base + px.p], px.p);
+  block_max_into(stats + tile.img * stride + slot, key);
+}
+
+// ---- the opening's window pass ----------------------------------------------
+
+// One axis of a 0/1 erosion (kAnd) or dilation: dst = AND (OR) of src over
+// the window [c - k/2, c + k - 1 - k/2] along y (kAlongY) or x, cut to the
+// image (a window that leaves the image takes 1 for the erosion and 0 for
+// the dilation there, so only its pixels inside count). Reads go through
+// the read-only cache, where a warp's windows overlap.
+template <bool kAlongY, bool kAnd>
+static __device__ __forceinline__ bool window_pass_at(const uint8_t* __restrict__ src,
+                                                      const Tiles& g, const Pixel& px,
+                                                      int k) {
+  const int lo = k / 2;
+  const int c = kAlongY ? px.y : px.x;
+  const int len = kAlongY ? g.H : g.W;
+  const int stride = kAlongY ? g.W : 1;
+  const uint8_t* line = src + (px.p - static_cast<long long>(c) * stride);
+  const int a = max(c - lo, 0), b = min(c + k - 1 - lo, len - 1);
+  for (int j = a; j <= b; ++j) {
+    const bool s = __ldg(line + static_cast<long long>(j) * stride) != 0;
+    if (s != kAnd) return !kAnd;
+  }
+  return kAnd;
+}
+
+}  // namespace cadx_tiled

@@ -7,9 +7,15 @@ the batch norm after every convolution of the resnets
 
 Layout: the port runs the resnets channel-first, so the kernel takes a
 contiguous NCHW float32 tensor (the Pallas kernel's NHWC blocks were the
-TPU's layout). A block takes one chunk of 1,024 elements of one (image,
-channel) plane and computes that channel's factor once; its threads read
-and write float4s, neighbouring threads on neighbouring addresses. Both
+TPU's layout). A block's work is sized by elements, not by planes: it
+takes 1,024 V consecutive elements of the flat tensor (V float4s a thread,
+V = 4, 2 or 1, the most that still gives every SM two blocks), several
+whole planes where a plane is small (ResNet-50's layer4: 4 planes of 256
+at V = 1) or a chunk of one where it is large, so every thread has work.
+The block computes the factors of the planes it spans once, into shared
+memory, and each thread issues all its float4 loads (scalars where hw % 4
+!= 0 or a pointer is off a 16-byte boundary) before its stores; at V = 1
+the loads go out before the factors, so their latencies overlap. Both
 versions compute inv = 1 / sqrt(var + eps) with IEEE square root and
 division, then ((x - mean) * inv) * scale + bias, each operation rounded
 on its own (`--fmad=false`, and the kernel's `__f*_rn` intrinsics), so

@@ -1,9 +1,9 @@
 """The cleaner's front, artifact suppression then breast segmentation, in
-one launch — CUDA kernel and its plain PyTorch version.
+one call — CUDA kernel and its plain PyTorch version.
 
 Replaces `cadx_tpu/kernels/cleaner_front.py::cleaner_front_pallas` (its
 `pl.pallas_call` at :122). Source: `csrc/cleaner_front.cu`, with the
-shared device code in `csrc/components.cuh`. On a raw uint8 batch:
+tiled device code in `csrc/tiled_components.cuh`. On a raw uint8 batch:
 
 - stage 1 (`suppress_artifacts(raw, low_frac, smooth_k)`): threshold at
   table[max], the largest 8-connected component, its holes filled, an
@@ -26,11 +26,28 @@ where XLA overlapped the glue of two smaller programs; on the card the
 glue is ~10 separate launches a call, so `clean_boundary_gray` runs this
 kernel.
 
-Layout: one block of 1024 threads per image over a scratch of 5 int32
-planes in global memory, the phases of `csrc/largest_obj.cu` chained
-(two CCLs, two hole fills, one opening). Bound: the latency of the
-union-find's dependent L2 accesses and the opening's k-wide window
-passes; one block per image leaves SMs idle below 132 images.
+Layout (redesigned for the whole card): the grid covers 32 x 32 tiles x
+images, flattened, so any B runs and one large image fills every SM. One
+C call issues ~25 launches on one stream with no host sync: per-image
+maxima and component keys go through warp shuffles and one atomic a block
+into a (B, 8) uint64 scratch that a memset clears first, and the next
+launch reads table[max] and the chosen label on the device. Each CCL is a
+tiled union-find (`csrc/tiled_components.cuh`): a block labels its tile
+in shared memory, edge threads join the tiles with atomicMin-linked
+roots, a flatten pass points every pixel at its root, which ends as its
+component's smallest raster index whatever order the atomics took, so
+the outputs are the same on every run. Component areas are gathered per
+block (`__match_any_sync`, a shared table), one global atomic a (block,
+root). The opening is four separable window passes over uint8 planes.
+Scratch: B * 64 + B * H * W * 11 bytes (two int32 planes, labels and
+areas or border marks at the roots; three uint8 mask planes), 94 MB at
+3328 x 2560, near the 50 MB L2.
+
+Bound: bytes. The least the card can move is the raw image in and three
+planes out (4 bytes a pixel, 10 us at 3328 x 2560 over 3.35 TB/s); the
+kernel moves ~50 bytes a pixel through L2 (four CCLs of a label plane
+written, merged, flattened and read), plus the union-find's dependent
+accesses along each chain of tile roots.
 """
 
 from __future__ import annotations
@@ -44,7 +61,19 @@ from cadx_tpu_torch.ops.threshold import _trunc_table
 
 SOURCE = "cadx_tpu_torch/csrc/cleaner_front.cu"
 REPLACES = "cadx_tpu/kernels/cleaner_front.py:122"
-_SCRATCH_PLANES = 5
+
+TILE = 32   # the side of a tile, kTile in csrc/tiled_components.cuh
+
+
+def tiles_per_image(h: int, w: int) -> int:
+    """The blocks each tiled launch gives one image."""
+    return -(-h // TILE) * -(-w // TILE)
+
+
+def _scratch_bytes(b: int, h: int, w: int) -> int:
+    """The kernel's scratch: 8 uint64 statistics an image, two int32
+    planes and three uint8 planes (`csrc/cleaner_front.cu`)."""
+    return b * 64 + b * h * w * 11
 
 
 def cleaner_front_reference(raw_u8: torch.Tensor, smooth_k: int = 15,
@@ -87,7 +116,7 @@ def cleaner_front(raw_u8: torch.Tensor, smooth_k: int = 15, low_frac: float = 0.
     contour = torch.empty_like(mask1)
     if b:
         table = _threshold_table(float(low_frac), raw_u8.device)
-        scratch = torch.empty((b, _SCRATCH_PLANES, h, w), dtype=torch.int32,
+        scratch = torch.empty(_scratch_bytes(b, h, w), dtype=torch.uint8,
                               device=raw_u8.device)
         rc = _build.load().cadx_cleaner_front(
             raw_u8.data_ptr(), table.data_ptr(), breast_only.data_ptr(),

@@ -4,7 +4,8 @@
 images with a textured breast disc at the right edge, a bright pectoral
 wedge in the top-right corner and one saturated square artifact.
 `synthetic_native_mammogram` makes one upload at native depth and any
-shape, for the serving path.
+shape, for the serving path. `tile_edge_cases` makes the 0/200 images
+that break a CCL which labels tiles first and joins them afterwards.
 """
 
 from __future__ import annotations
@@ -49,3 +50,76 @@ def synthetic_native_mammogram(h: int, w: int, seed: int = 0,
     wedge = ((w - 1 - xx) / w + yy / h) < 0.25
     img[wedge] = np.maximum(img[wedge], dtype(top * 0.9))
     return img
+
+
+def tile_edge_cases(h: int, w: int, tile: int = 32, seed: int = 0) -> np.ndarray:
+    """(12, h, w) uint8 images of 0/200 shapes placed on the edges of
+    `tile` x `tile` tiles, each clipped to the image (so 1 x n and n x 1
+    shapes and sides that are multiples of no tile keep what fits):
+
+    0. a serpentine: a row every third row, joined at alternate ends, so
+       the one component crosses every tile edge;
+    1. two equal squares, the one whose first pixel has the smaller raster
+       index lying in a later tile (the second tile of the top row) than
+       the other's first tile (the first): the tie goes to the first;
+    2. the same squares joined by a 1-pixel bridge, which an opening of
+       3 or more removes, leaving the tie to the second stage;
+    3. a ring whose hole straddles a tile corner;
+    4. two blocks that touch only diagonally across a tile corner: one
+       8-connected component;
+    5. a block holding two background pockets that touch only diagonally
+       across a tile corner: a channel to the border reaches the first,
+       the second stays a (4-connected) hole;
+    6. a frame whose background reaches the border only through a
+       1-pixel gap on a tile edge (no hole);
+    7. runs of 33 and gaps of 2 along rows and columns, crossing every
+       tile edge at a different offset;
+    8-9. random 0/200 noise at densities 0.45 and 0.6;
+    10. a dark image; 11. an all-200 image.
+    """
+    rng = np.random.default_rng(seed)
+    t = tile
+    out = np.zeros((12, h, w), np.uint8)
+
+    def box(img, y0, y1, x0, x1, v=200):
+        img[max(y0, 0):max(min(y1, h), 0), max(x0, 0):max(min(x1, w), 0)] = v
+
+    s = out[0]
+    for r in range(0, h, 3):
+        s[r, :] = 200
+        end = w - 1 if (r // 3) % 2 == 0 else 0
+        s[r + 1:r + 3, end] = 200
+    # 1, 2: square A's first pixel (0, t + 8) has raster index t + 8; square
+    # B starts in tile 0 at row 4, a larger index
+    for img in (out[1], out[2]):
+        box(img, 0, 10, t + 8, t + 18)
+        box(img, 4, 14, 2, 12)
+    box(out[2], 8, 9, 12, t + 8)
+    # 3: a ring round the tile corner (t, t)
+    box(out[3], t - 9, t + 9, t - 9, t + 9)
+    box(out[3], t - 4, t + 4, t - 4, t + 4, 0)
+    # 4: blocks [t - 14, t) and [t, t + 14) meeting at the corner pixels
+    # (t - 1, t - 1) and (t, t)
+    box(out[4], t - 14, t, t - 14, t)
+    box(out[4], t, t + 14, t, t + 14)
+    # 5: pockets [t - 4, t) and [t, t + 4) in a block round the corner (t,
+    # t), the first opened to the top border by a 1-pixel channel
+    d = out[5]
+    box(d, t - 10, t + 10, t - 10, t + 10)
+    box(d, t - 4, t, t - 4, t, 0)
+    box(d, t, t + 4, t, t + 4, 0)
+    box(d, 0, t - 4, t - 2, t - 1, 0)
+    # 6: a frame 3 wide with a gap at column t in its top side
+    f = out[6]
+    box(f, 2, t + 20, 2, t + 20)
+    box(f, 5, t + 17, 5, t + 17, 0)
+    box(f, 2, 5, t, t + 1, 0)
+    g = out[7]
+    pos = np.arange(max(h, w))
+    runs = (pos % 35) < 33
+    g[runs[:h], :] = 200
+    g[:, ~runs[:w]] = 0
+    out[8] = np.where(rng.random((h, w)) < 0.45, 200, 0)
+    out[9] = np.where(rng.random((h, w)) < 0.6, 200, 0)
+    out[11] = 200
+    return out

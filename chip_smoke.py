@@ -14,7 +14,12 @@ Phases, each of which raises on failure (the script then exits nonzero):
    float32 fixpoint at real sizes, runs the same 256 sweeps in both):
    - equalize, largest_obj, pectoral_tail: synthetic mammograms (B=16,
      256²) and random masks; cleaner_front on B=16 256² (synthetic
-     mammograms, noise, dark images);
+     mammograms, noise, dark images) and on `synthetic.tile_edge_cases`
+     (shapes on the edges and corners of its 32x32 tiles, ties across
+     tiles, border gaps; B=12 at 64², 256², 45x70, 1x70, 70x1, 333x257)
+     with smooth_k 0, 3 and 15; every cleaner_front case runs twice and
+     must give the same bytes, and at B=1 its CCL's grid (from a profiler
+     trace) must be the image's tile count;
    - the cleaner's inputs at every shape the serving phase gives the
      kernels, made from the same images: the 3328x2560 upload bucketed to
      1536x1280 and the 1024x832 upload (B=1; cleaner_front, equalize,
@@ -49,7 +54,9 @@ Phases, each of which raises on failure (the script then exits nonzero):
      rules (tie-broadcast, first maximum) on the card against the CPU,
      bit-exact;
    - batchnorm at every distinct input shape of the ResNet-50 at a 512²
-     display (the path's own inputs) and jet_blend at 256² B=64 and 512²
+     display (the path's own inputs) and at planes of 1, 3, 4, 256 and
+     65,536 elements (B=2, C up to 2048, contiguous and 4 bytes off a
+     16-byte boundary), and jet_blend at 256² B=64 and 512²
      B=1, gray and RGB, bit-exact; gradcam_tail at the pipeline's shapes,
      (64, 6, 6, 64) -> 256², heat +-1 and overlay +-2 where the heat
      agrees, within the heatmap-step bound of phase 6 where it does not
@@ -120,7 +127,13 @@ Phases, each of which raises on failure (the script then exits nonzero):
    final prediction; one 640x544 image's `clean_for_unet` and features on
    the card against the CPU (clean exact, features 1e-5); the featurize
    p50 per native shape and the CLI's wall time;
-8. times with CUDA events: each kernel beside its plain version (256²
+8. batchnorm's device time (profiler) at every distinct input shape of
+   the ResNet-50 forward at the 512² display beside F.batch_norm's, with
+   each bound and the sums over the forward's 53 launches; largest_obj
+   and the pair-form watershed at the training CLI's 3328x2560; the CLI's
+   featurize p50 split by stage (cleaner_front, pectoral removal with its
+   largest_obj and watershed, the resizes, conv1); then times with CUDA
+   events: each kernel beside its plain version (256²
    B=64 for the fused-pipeline kernels and gradcam_tail, the serving
    shapes for ccl, mode and watershed, the training shapes for
    conv_leaky (all six path shapes, layer 1 on the NHWC view), pool and
@@ -227,6 +240,32 @@ def device_ms(fn, iters: int) -> float | None:
     if not kernels or any(e.count % iters for e in kernels):
         return None
     return sum(e.self_device_time_total for e in kernels) / 1e3 / iters
+
+
+def kernel_grids(fn, name_part: str) -> list:
+    """The grid ([x, y, z]) of each launch, in one call of fn, of a kernel
+    whose name holds name_part, from a torch.profiler trace; empty where
+    the trace kept none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh).get("traceEvents", [])
+    return [e["args"]["grid"] for e in events
+            if e.get("cat") == "kernel" and name_part in e.get("name", "")
+            and "grid" in e.get("args", {})]
+
+
+def captured_mean(*runs):
+    """The mean of the runs the profiler captured (None where it kept none)."""
+    kept = [ms for ms in runs if ms is not None]
+    return sum(kept) / len(kept) if kept else None
 
 
 def ms_text(ms: float | None) -> str:
@@ -449,6 +488,91 @@ def overlay_checks(what: str, ov_a, hm_a, ov_b, hm_b, img_u8, heat_tol: int,
     return checks
 
 
+def resnet50_bn_inputs(dev, side: int):
+    """The seeded ResNet-50 (fc 1000, batch norms randomised) and, for each
+    distinct batch-norm input shape of one forward at a side x side
+    display, (an input, its batch-norm module) and how many of the
+    forward's batch norms take that shape, recorded on the way through
+    `resnet.bn_apply`."""
+    from cadx_tpu_torch.models import resnet as TR
+    from cadx_tpu_torch.synthetic import synthetic_mammograms
+    from cadx_tpu_torch.xai import gradcam as TG
+
+    r50 = randomize_bn(TR.init_resnet(torch.Generator().manual_seed(50),
+                                      TR.RESNET50_CLASSIFIER), torch.Generator().manual_seed(51))
+    display = torch.from_numpy(synthetic_mammograms(1, side, seed=5)[0]).to(dev)
+    inputs, calls = {}, {}
+    bn_apply = TR.bn_apply
+
+    def recording_bn_apply(bn, x, eps=1e-5):
+        inputs.setdefault(tuple(x.shape), (x.clone(), bn))
+        calls[tuple(x.shape)] = calls.get(tuple(x.shape), 0) + 1
+        return bn_apply(bn, x, eps)
+
+    TR.bn_apply = recording_bn_apply
+    try:
+        TR.layer4_features(copy.deepcopy(r50).to(dev), TG.imagenet_input_from_gray(display))
+    finally:
+        TR.bn_apply = bn_apply
+    return r50, inputs, calls
+
+
+def batchnorm_device_times() -> int:
+    """`--batchnorm-device-times`: batchnorm's and F.batch_norm's device
+    time (torch.profiler) at every distinct input shape of one ResNet-50
+    forward at the serving display, in turns kernel, library, library,
+    kernel, with each shape's bound and the sums over the forward's
+    launches. Phase 8 runs it in a fresh process: late in a long run the
+    profiler keeps only some records of small kernels (and now and then
+    drops a window even here, so each time is the mean of the runs it
+    kept). Prints one line a shape, then one JSON line."""
+    if not torch.cuda.is_available():
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch.nn.functional as F
+
+    from cadx_tpu_torch.kernels import batchnorm as KBN
+    from cadx_tpu_torch.serve import engine as E
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    side = E.EngineConfig().segment_hw[0]
+    _, inputs, calls = resnet50_bn_inputs(dev, side)
+    rows, sums = [], {"device_ms": 0.0, "library_device_ms": 0.0, "bound_ms": 0.0}
+    with torch.no_grad():
+        for shape, (x, bn) in inputs.items():
+            vec = tuple(t.detach() for t in (bn.weight, bn.bias, bn.running_mean,
+                                             bn.running_var))
+
+            def kernel(x=x, vec=vec):
+                return KBN.batchnorm(x, *vec)
+
+            def library(x=x, vec=vec):
+                return F.batch_norm(x, vec[2], vec[3], vec[0], vec[1], training=False, eps=1e-5)
+
+            k1, l1, l2, k2 = (device_ms(kernel, 20), device_ms(library, 20),
+                              device_ms(library, 20), device_ms(kernel, 20))
+            b_ms, b_by = bound(nbytes((x,) + vec) + nbytes(x), 4 * x.numel())
+            row = {"shape": list(shape), "launches_per_forward": calls[shape],
+                   "device_ms": captured_mean(k1, k2),
+                   "library_device_ms": captured_mean(l1, l2),
+                   "bound_ms": b_ms, "bound_by": b_by}
+            rows.append(row)
+            for key in sums:
+                sums[key] = None if row[key] is None or sums[key] is None else \
+                    sums[key] + calls[shape] * row[key]
+            print(f"time batchnorm ResNet-50 input {shape}, {calls[shape]} of the forward's "
+                  f"launches: device time (profiler) kernel {ms_text(k1)} / {ms_text(k2)} ms, "
+                  f"F.batch_norm {ms_text(l1)} / {ms_text(l2)} ms, bound {b_ms:.4f} ms by "
+                  f"{b_by} on {card}", flush=True)
+    print(f"time batchnorm, the sum over one ResNet-50 forward's {sum(calls.values())} "
+          f"launches at a {side}x{side} display: device time (profiler) kernel "
+          f"{ms_text(sums['device_ms'])} ms, F.batch_norm {ms_text(sums['library_device_ms'])} "
+          f"ms, bound {sums['bound_ms']:.4f} ms on {card}", flush=True)
+    print(json.dumps({"rows": rows, "sums": sums, "launches": sum(calls.values())}), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -488,7 +612,7 @@ def main() -> int:
     from cadx_tpu_torch.preprocess import cleaner
     from cadx_tpu_torch.serve import engine as E
     from cadx_tpu_torch.synthetic import (synthetic_mammograms,
-                                          synthetic_native_mammogram)
+                                          synthetic_native_mammogram, tile_edge_cases)
     from cadx_tpu_torch.tools import bench_train as BT
     from cadx_tpu_torch.tools import train as TT
     from cadx_tpu_torch.train import optim, segmentation, step
@@ -604,16 +728,31 @@ def main() -> int:
     for name, a, b in zip(("labels", "boundary", "mask"), kern, plain):
         agree("pectoral_tail", a, b, f"{name}, cleaner inputs B=16")
 
-    def agree_front(raw8, what):
-        """cleaner_front on the uint8 batch clean_boundary_gray hands it."""
+    def agree_front(raw8, what, smooth_k=15):
+        """cleaner_front on the uint8 batch clean_boundary_gray hands it,
+        against its plain version uncapped; a second run on the same batch
+        gives the same bytes."""
         h, w = raw8.shape[1:]
-        for part, a, b in zip(("breast_only", "breast_mask", "contour_fill"),
-                              KF.cleaner_front(raw8),
-                              KF.cleaner_front_reference(raw8, max_iters=h * w)):
-            agree("cleaner_front", a, b, f"{part}, {what}, plain uncapped")
+        first = KF.cleaner_front(raw8, smooth_k)
+        second = KF.cleaner_front(raw8, smooth_k)
+        for part, a, b, c in zip(("breast_only", "breast_mask", "contour_fill"), first,
+                                 KF.cleaner_front_reference(raw8, smooth_k, max_iters=h * w),
+                                 second):
+            agree("cleaner_front", a, b, f"{part}, {what}, smooth_k {smooth_k}, plain uncapped")
+            torch.cuda.synchronize()
+            if not torch.equal(a, c):
+                raise AssertionError(f"cleaner_front [{part}, {what}]: two runs differ")
+        print(f"check cleaner_front [{what}, smooth_k {smooth_k}]: two runs gave identical "
+              f"bytes", flush=True)
 
     agree_front(to_uint8(torch.cat([small[:12], rand_u8[:2], torch.zeros_like(small[:2])])),
                 f"12 synthetic mammograms, 2 noise, 2 dark, B=16 {HW}x{HW}")
+    # the inputs that break a tiled CCL: shapes on tile edges and corners,
+    # ties across tiles, border gaps, sides that are multiples of no tile
+    for h, w in ((64, 64), (HW, HW), (45, 70), (1, 70), (70, 1), (333, 257)):
+        edge_cases = torch.from_numpy(tile_edge_cases(h, w)).to(dev)
+        for k in (0, 3, 15):
+            agree_front(edge_cases, f"tile_edge_cases B={edge_cases.shape[0]} {h}x{w}", k)
 
     # the serving shapes: the cleaner's inputs of the serving phase's own
     # uploads (as process_single_image hands them over) and of its
@@ -703,8 +842,22 @@ def main() -> int:
         border_masks[(h, w)], _, seg_, equ_, high_, breast_ = clean_stage_inputs(x)
         agree("equalize", KE.equalize(seg_), KE.equalize_reference(seg_), what)
         agree_pectoral_select(high_, what)
-        agree_pair_watershed(equ_, pectoral_markers(equ_, high_, breast_), what)
-        del x, seg_, equ_, high_, breast_
+        markers = pectoral_markers(equ_, high_, breast_)
+        agree_pair_watershed(equ_, markers, what)
+        if (h, w) == CLI_SHAPES[0]:   # phase 8 times the pectoral branch's kernels here
+            cli_pectoral = (high_ > 0, equ_, markers)
+        del x, seg_, equ_, high_, breast_, markers
+
+    # at B=1 the front spreads one image over many blocks: the grid of its
+    # CCL launches, from a profiler trace of one call at the serving bucket
+    bucket = to_uint8(serving_inputs["3328x2560 u16"])
+    tiles = KF.tiles_per_image(*bucket.shape[1:])
+    grids = kernel_grids(lambda: KF.cleaner_front(bucket), "ccl_local")
+    print(f"cleaner_front at B=1 {tuple(bucket.shape[1:])}: {tiles} tiles of "
+          f"{KF.TILE}x{KF.TILE}; ccl_local grids in the profiler trace "
+          f"{grids if grids else 'not captured'}", flush=True)
+    if grids and any(g[0] != tiles for g in grids):
+        raise AssertionError(f"cleaner_front's CCL ran grids {grids}, not {tiles} blocks")
 
     # the density-seeded largest component, off every path: against its
     # plain version and the plain CCL + largest label, both uncapped
@@ -941,26 +1094,24 @@ def main() -> int:
     # distinct shape that phase 6b's ResNet-50 (seeded, batch norms
     # randomised) gives it at a 512² display, recorded on the way through
     # `resnet.bn_apply`
-    r50 = randomize_bn(TR.init_resnet(torch.Generator().manual_seed(50),
-                                      TR.RESNET50_CLASSIFIER), torch.Generator().manual_seed(51))
-    display = torch.from_numpy(synthetic_mammograms(1, seg_h, seed=5)[0]).to(dev)
-    bn_inputs = {}
-    bn_apply = TR.bn_apply
-
-    def recording_bn_apply(bn, x, eps=1e-5):
-        bn_inputs.setdefault(tuple(x.shape), (x.clone(), bn))
-        return bn_apply(bn, x, eps)
-
-    TR.bn_apply = recording_bn_apply
-    try:
-        TR.layer4_features(copy.deepcopy(r50).to(dev), TG.imagenet_input_from_gray(display))
-    finally:
-        TR.bn_apply = bn_apply
+    r50, bn_inputs, _ = resnet50_bn_inputs(dev, seg_h)
     with torch.no_grad():
         for shape, (x, bn) in bn_inputs.items():
             vec = (bn.weight, bn.bias, bn.running_mean, bn.running_var)
             agree("batchnorm", KBN.batchnorm(x, *vec), KBN.batchnorm_reference(x, *vec),
                   f"ResNet-50 input {shape} at a {seg_h}x{seg_w} display")
+        # planes of 1, 3, 4, 256 and 65,536 elements, B=2, C up to 2048, on
+        # a contiguous tensor and on a view 4 bytes off a 16-byte boundary
+        for c in (3, 64, 2048):
+            for hh, ww in ((1, 1), (1, 3), (2, 2), (16, 16)) + (((HW, HW),) if c <= 64 else ()):
+                shape, n = (2, c, hh, ww), 2 * c * hh * ww
+                flat = randn(n + 1)
+                vec = (1.0 + randn(c, scale=0.2), randn(c, scale=0.2), randn(c, scale=0.3),
+                       0.5 + torch.rand(c, generator=tgen, device=dev))
+                for x, how in ((flat[:n].view(shape), "contiguous"),
+                               (flat[1:].view(shape), "a view 4 bytes off 16")):
+                    agree("batchnorm", KBN.batchnorm(x, *vec), KBN.batchnorm_reference(x, *vec),
+                          f"B=2 C={c} {hh}x{ww}, {how}")
     for b, side in ((BATCH, HW), (1, seg_h)):
         heat = torch.from_numpy(rng.integers(0, 256, (b, side, side)).astype(np.uint8)).to(dev)
         for shape, kind in (((b, side, side), "gray"), ((b, side, side, 3), "RGB")):
@@ -1627,10 +1778,25 @@ def main() -> int:
             f"pair form, {what}", (equ_, markers), None, None)
     timed["watershed"] = watershed_fns.pop(token)
     times, bounds, dev_times = {}, {}, {}
-    # this slice's two kernels first, while the profiler still keeps every
-    # record (see device_ms), each beside its plain version and the launches it
-    # replaces on the same inputs, in turns plain, other, kernel, kernel,
-    # other, plain; a kernel's first row is its record's
+    compared = {}
+    # batchnorm at every distinct input shape of one ResNet-50 forward at the
+    # display: device times from a fresh process (batchnorm_device_times)
+    bn_run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                             "--batchnorm-device-times"], capture_output=True, text=True,
+                            timeout=600)
+    if bn_run.returncode != 0:
+        raise AssertionError(f"the batchnorm device-time run failed:\n{bn_run.stderr[-4000:]}")
+    bn_lines = bn_run.stdout.strip().splitlines()
+    print("\n".join(bn_lines[:-1]), flush=True)
+    bn_table = json.loads(bn_lines[-1])
+    compared["batchnorm"] = bn_table["rows"] + [{"shape": f"sum over the ResNet-50 forward's "
+                                                          f"{bn_table['launches']} launches",
+                                                 **bn_table["sums"]}]
+
+    # cleaner_front and the seeded component, each beside its plain version
+    # and the launches it replaces on the same inputs, in turns plain,
+    # other, kernel, kernel, other, plain; a kernel's first row is its
+    # record's
     def kernel_rows(name, fn, plain_fn, other, other_fn):
         return [(name, shape, (x,), iters, lambda x=x: fn(x), lambda x=x: plain_fn(x), other,
                  lambda x=x: other_fn(x)) for shape, x, iters in cases[name]]
@@ -1646,7 +1812,6 @@ def main() -> int:
                  (f"B={BATCH} {HW}x{HW} suppress-site masks (majority blobs: the flood)", s_bin,
                   10),
                  (f"B=16 {HW}x{HW} random masks, density 0.45", rand_masks, 10)]}
-    compared = {}
     for name, shape, inputs, iters, kernel_fn, plain_fn, other, other_fn in (
             kernel_rows("cleaner_front", KF.cleaner_front, KF.cleaner_front_reference,
                         "old front", old_front)
@@ -1668,6 +1833,85 @@ def main() -> int:
               f"{runs[4]:.4f}, {runs[5]:.4f}), bound {b_ms:.4f} ms by {b_by}; device time "
               f"(profiler) kernel {ms_text(dk)}, plain {ms_text(dp)}, {other} {ms_text(do)} ms "
               f"on {card}", flush=True)
+
+    # the pectoral branch's two kernels at the training CLI's 3328x2560,
+    # where its 12 images run them: twice each, the plain version once
+    pect_m, pect_equ, pect_markers = cli_pectoral
+    for name, kernel_fn, plain_fn, shape, inputs in (
+            ("largest_obj", lambda: KL.largest_obj(pect_m, 8, fill=True),
+             lambda: KL.largest_obj_reference(pect_m, 8, fill=True),
+             f"pectoral select, B=1 {CLI_SHAPES[0][0]}x{CLI_SHAPES[0][1]} (training CLI)",
+             (pect_m,)),
+            ("watershed", lambda: KW.marker_watershed(pect_equ, pect_markers, max_scan=8,
+                                                      marker_label_values=(255, 128, 64)),
+             lambda: KW.marker_watershed_reference(pect_equ, pect_markers, max_scan=8,
+                                                   marker_label_values=(255, 128, 64)),
+             f"pair form, B=1 {CLI_SHAPES[0][0]}x{CLI_SHAPES[0][1]} (training CLI), 256 "
+             f"sweeps", (pect_equ, pect_markers))):
+        outputs = kernel_fn()
+        b_ms, b_by = bound(nbytes(inputs) + nbytes(outputs), numel(outputs))
+        k, p, _, runs = turns_ms(kernel_fn, plain_fn, 2, 1)
+        dk = device_ms(kernel_fn, 2)
+        compared.setdefault(name, []).append({
+            "shape": shape, "ms": k, "plain_ms": p, "bound_ms": b_ms, "bound_by": b_by,
+            "device_ms": dk})
+        print(f"time {name} {shape}: kernel {k:.4f} ms (runs {runs[0]:.4f}, {runs[1]:.4f}), "
+              f"plain {p:.4f} ms (runs {runs[2]:.4f}, {runs[3]:.4f}), bound {b_ms:.4f} ms by "
+              f"{b_by}; device time (profiler) kernel {ms_text(dk)} ms on {card}", flush=True)
+    del outputs
+
+    # the training CLI's featurize split by stage: each stage's function
+    # wrapped by a synchronised host clock, 5 images a native shape after a
+    # warmup, p50 of each; "the rest" is the total's p50 less the stages'
+    from cadx_tpu_torch.ops import resize as TResize
+
+    stage_ms = {}
+
+    def staged(module, attr, stage):
+        fn = getattr(module, attr)
+
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            stage_ms.setdefault(stage, []).append((time.perf_counter() - t) * 1e3)
+            return out
+        setattr(module, attr, wrapped)
+        return module, attr, fn
+
+    stem_dev = unet.init_resnet_stem(torch.Generator().manual_seed(0)).to(dev)
+    top_stages = ("cleaner_front", "pectoral removal", "resize_area to 512x512", "conv1",
+                  "resize to 32x32")
+    for h, w in CLI_SHAPES:
+        img = synthetic_native_mammogram(h, w, seed=40)
+        TT.featurize(stem_dev, img, (32, 32), dev)
+        stage_ms.clear()
+        totals = []
+        patched = [staged(cleaner, "cleaner_front", "cleaner_front"),
+                   staged(cleaner, "remove_pectoral", "pectoral removal"),
+                   staged(cleaner, "select_largest_obj", "pectoral removal: largest_obj"),
+                   staged(cleaner, "marker_watershed", "pectoral removal: pair-form watershed"),
+                   staged(cleaner, "resize_area", "resize_area to 512x512"),
+                   staged(unet, "encoder_first_features", "conv1"),
+                   staged(TResize, "resize_linear", "resize to 32x32")]
+        try:
+            for _ in range(5):
+                t = time.perf_counter()
+                TT.featurize(stem_dev, img, (32, 32), dev)
+                totals.append((time.perf_counter() - t) * 1e3)
+        finally:
+            for module, attr, fn in reversed(patched):
+                setattr(module, attr, fn)
+        p50 = {stage: statistics.median(ms) for stage, ms in stage_ms.items()}
+        total = statistics.median(totals)
+        rest = total - sum(p50[stage] for stage in top_stages)
+        # each stage, then the stages inside it ("stage: part")
+        parts = ", ".join(f"{stage} {p50[stage]:.2f}" for stage in sorted(
+            p50, key=lambda st: (top_stages.index(st.split(":")[0]), st)))
+        print(f"time training CLI featurize {h}x{w} u16 by stage (p50 ms over 5 images, "
+              f"synchronised at each stage): total {total:.2f}; {parts}; the rest (uint8 "
+              f"rescale, boundary gray, fetch, host) {rest:.2f} on {card}", flush=True)
 
     heavy = {"conv_leaky": (10, 2), "pool": (20, 3), "upsample": (20, 3)}
     for name, (kernel_fn, plain_fn, shape, inputs, ops, library_fn) in timed.items():
@@ -1858,4 +2102,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--batchnorm-device-times"]:
+        sys.exit(batchnorm_device_times())
     sys.exit(main())

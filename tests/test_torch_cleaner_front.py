@@ -27,7 +27,7 @@ from cadx_tpu_torch.kernels import largest_obj as KL
 from cadx_tpu_torch.ops import components as TC
 from cadx_tpu_torch.ops import morphology as TM
 from cadx_tpu_torch.preprocess import cleaner as TCl
-from cadx_tpu_torch.synthetic import synthetic_mammograms
+from cadx_tpu_torch.synthetic import synthetic_mammograms, tile_edge_cases
 from synthetic_mammo import make_mammo
 
 
@@ -80,6 +80,49 @@ def test_cleaner_front_plain_matches_composed_stages(kind, shape):
     np.testing.assert_array_equal(m1.numpy(), np.asarray(breast) == 255)
     assert _rects(contour) == [tuple(int(np.asarray(v)[i]) for v in rect)
                                for i in range(x.shape[0])]
+
+
+@pytest.mark.parametrize("smooth_k", [0, 3])
+def test_cleaner_front_plain_matches_pallas_on_tile_edge_cases(smooth_k):
+    """The inputs that break a tiled CCL (`synthetic.tile_edge_cases`: tile
+    edges, corners, ties across tiles, border gaps) through JAX's Pallas
+    front in interpret mode and the port's plain version, at 64² (2 x 2
+    tiles of the card's kernel)."""
+    x = tile_edge_cases(64, 64)
+    bo, m1, contour = cleaner_front_pallas(jnp.asarray(x), smooth_k=smooth_k, interpret=True)
+    t_bo, t_m1, t_contour = KF.cleaner_front_reference(torch.from_numpy(x), smooth_k)
+    np.testing.assert_array_equal(t_bo.numpy().astype(np.int32), np.asarray(bo))
+    np.testing.assert_array_equal(t_m1.numpy(), np.asarray(m1))
+    np.testing.assert_array_equal(t_contour.numpy(), np.asarray(contour))
+    # what each case is for: the tie goes to the square whose first pixel
+    # has the smaller raster index (in the later tile); blocks that meet
+    # only at a tile corner are one component; the pocket the channel does
+    # not reach is a 4-connected hole; the frame's gap on a tile edge keeps
+    # its inside open
+    assert bool(t_m1[1, 0, 40]) and not bool(t_m1[1, 4, 2])
+    assert int(t_m1[4].sum()) == 2 * 14 * 14
+    assert bool(t_m1[5, 33, 33]) and not bool(t_m1[5, 30, 30])
+    assert not bool(t_m1[6, 20, 20])
+    if smooth_k == 3:   # the opening cut the bridge: the tie falls to stage 2
+        assert int(t_m1[2].sum()) == 200 and int(t_contour[2].sum()) == 100
+        assert bool(t_contour[2, 0, 40])
+
+
+@pytest.mark.parametrize("shape", [(45, 70), (1, 70), (70, 1)])
+def test_cleaner_front_plain_on_tile_edge_cases_at_odd_shapes(shape):
+    """Sides that are multiples of no tile, 1 x n and n x 1: the plain
+    version against JAX's composed cleaner stages (the Pallas front takes
+    powers of two only)."""
+    x = tile_edge_cases(*shape)
+    sup, breast = jax.vmap(lambda v: JCl.suppress_artifacts(v, 0.05, 3))(jnp.asarray(x))
+    seg, rect = jax.vmap(lambda v: JCl.segment_breast_mask(v, 0.05))(sup)
+    bo, m1, contour = KF.cleaner_front_reference(torch.from_numpy(x), 3)
+    np.testing.assert_array_equal(bo.numpy(), np.asarray(seg))
+    np.testing.assert_array_equal(m1.numpy(), np.asarray(breast) == 255)
+    assert _rects(contour) == [tuple(int(np.asarray(v)[i]) for v in rect)
+                               for i in range(x.shape[0])]
+    assert x.shape == (12,) + shape and x.dtype == np.uint8
+    assert set(np.unique(x)) <= {0, 200}
 
 
 def test_cleaner_front_threshold_table():

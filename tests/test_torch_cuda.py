@@ -327,6 +327,21 @@ def test_batchnorm_kernel(dev, rng, shape):
     _eq(KBN.batchnorm(view, *vec), KBN.batchnorm_reference(view, *vec))
 
 
+@pytest.mark.parametrize("shape", [(2, c, h, w) for c in (3, 64, 2048)
+                                   for h, w in ((1, 1), (1, 3), (2, 2), (16, 16))]
+                         + [(2, 3, 256, 256), (2, 64, 256, 256)])
+def test_batchnorm_kernel_plane_sizes(dev, rng, shape):
+    """Planes of 1, 3, 4, 256 and 65,536 elements (a block spans up to
+    1,024 planes or a chunk of one), on a contiguous tensor and on a view
+    4 bytes off a 16-byte boundary (the scalar path)."""
+    vec = _bn_vectors(rng, shape[1], dev)
+    n = int(np.prod(shape))
+    flat = torch.from_numpy(rng.standard_normal(n + 1).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        for x in (flat[:n].view(shape), flat[1:].view(shape)):
+            _eq(KBN.batchnorm(x, *vec), KBN.batchnorm_reference(x, *vec))
+
+
 def test_batchnorm_kernel_rejects_wrong_inputs(dev, rng):
     x = torch.zeros((1, 4, 8, 8), device=dev)
     vec = _bn_vectors(rng, 4, dev)
@@ -424,7 +439,7 @@ def test_resnet_card_vs_cpu(dev, rng):
 
 # ---- the last two TPU kernels: cleaner_front and the seeded component ---------
 
-from cadx_tpu_torch.synthetic import synthetic_native_mammogram  # noqa: E402
+from cadx_tpu_torch.synthetic import synthetic_native_mammogram, tile_edge_cases  # noqa: E402
 
 
 def _front_batch(rng, h, w, dev):
@@ -451,6 +466,21 @@ def test_cleaner_front_kernel(dev, rng, hw, smooth_k):
     for a, b in zip(KF.cleaner_front(x, smooth_k, 30.0),
                     KF.cleaner_front_reference(x, smooth_k, 30.0, max_iters=hw[0] * hw[1])):
         _eq(a, b)
+
+
+@pytest.mark.parametrize("smooth_k", [0, 3, 15])
+@pytest.mark.parametrize("hw", [(64, 64), (256, 256), (45, 70), (1, 70), (70, 1)])
+def test_cleaner_front_kernel_tile_edge_cases(dev, hw, smooth_k):
+    """The tiled kernel on the inputs that break a tiled CCL, a batch of
+    twelve different images, against the plain version uncapped; a second
+    run gives the same bytes."""
+    x = torch.from_numpy(tile_edge_cases(*hw)).to(dev)
+    got = KF.cleaner_front(x, smooth_k)
+    again = KF.cleaner_front(x, smooth_k)
+    want = KF.cleaner_front_reference(x, smooth_k, max_iters=hw[0] * hw[1])
+    for a, b, c in zip(got, want, again):
+        _eq(a, b)
+        _eq(a, c)
 
 
 def test_cleaner_front_kernel_rejects_wrong_inputs(dev):

@@ -165,6 +165,37 @@ def test_engine_single_image_requests(engines, upload):
     _close(t.process_bottleneck_features(fj), j.process_bottleneck_features(fj), 1e-6)
 
 
+@pytest.mark.parametrize("pipeline", ["basic", "advanced"])
+def test_classify_and_roi_raises_when_the_cam_roi_tail_fails(engines, upload, monkeypatch,
+                                                             pipeline):
+    """A failing fused CAM/ROI tail: the port raises and answers nothing,
+    for classify_and_roi and the calls built on it. The JAX engine, under
+    the same injected failure, answers a plain forward with the reference's
+    fixed box; the port departs from it on purpose (a fallback would hide a
+    failed kernel on the card)."""
+    j, t = engines
+    fj, _ = j.process_single_image(upload)
+
+    def failing_tail(*args, **kwargs):
+        raise RuntimeError("injected CAM/ROI tail failure")
+
+    monkeypatch.setattr(TE, "_fused_request", failing_tail)
+    before = t.fetch_count
+    for call in (lambda: t.classify_and_roi(fj, pipeline), lambda: t.classify(fj, pipeline),
+                 lambda: t.roi_coords_per_class(fj, pipeline)):
+        with pytest.raises(RuntimeError, match="injected CAM/ROI tail failure"):
+            call()
+    assert t.fetch_count == before
+
+    fixed = {"top": 0.20, "left": 0.30, "width": 0.40, "height": 0.35}
+    healthy, _ = j.classify_and_roi(fj, pipeline)
+    monkeypatch.setattr(JE, "_fused_request", failing_tail)
+    rj, coords_j = j.classify_and_roi(fj, pipeline)
+    assert rj["roiCoords"] == fixed and coords_j == [fixed, fixed]
+    assert rj["predicted_class"] == healthy["predicted_class"]
+    _close(rj["prediction_probabilities"], healthy["prediction_probabilities"], 1e-5)
+
+
 def test_engine_bucketed_uint16_upload():
     """A 2080x1696 uint16 native is area-downscaled to the 256 bucket, then
     cleaned and classified. The downscale agrees with JAX's within 1e-4 on
