@@ -57,53 +57,6 @@ threshold(const uint8_t* __restrict__ src, const int* __restrict__ table,
   dst[q] = src[q] > table[stats[tile.img * kStats + slot]];
 }
 
-// dst = mask & (lab == the label of the key in stats[slot])
-__global__ void __launch_bounds__(kTileThreads)
-select_label(const uint8_t* __restrict__ mask, const int* __restrict__ lab,
-             const unsigned long long* __restrict__ stats, int slot,
-             uint8_t* __restrict__ dst, Tiles g) {
-  const Tile tile = this_tile(g);
-  const Pixel px = tile_pixel(g, tile);
-  if (!px.inside) return;
-  const long long q = tile.img * g.n + px.p;
-  dst[q] = mask[q] && lab[q] == key_label(stats[tile.img * kStats + slot]);
-}
-
-// dst = m | holes, a hole being background whose 4-connected component
-// (labelled in lab) is not marked as reaching the border. With raw, dst is
-// stage 1's final mask, and the suppressed image's max (raw where dst
-// holds) goes into stats.
-__global__ void __launch_bounds__(kTileThreads)
-fill_unmarked(const uint8_t* __restrict__ m, const int* __restrict__ lab,
-              const int* __restrict__ marks, uint8_t* __restrict__ dst,
-              const uint8_t* __restrict__ raw, unsigned long long* stats, Tiles g) {
-  const Tile tile = this_tile(g);
-  const Pixel px = tile_pixel(g, tile);
-  const long long base = tile.img * g.n, q = base + px.p;
-  bool v = false;
-  if (px.inside) {
-    v = m[q] || !marks[base + lab[q]];
-    dst[q] = v;
-  }
-  if (raw) block_max_into(stats + tile.img * kStats + kSuppressedMax, v ? raw[q] : 0u);
-}
-
-// One axis of the opening (see window_pass_at); with raw, as fill_unmarked.
-template <bool kAlongY, bool kAnd>
-__global__ void __launch_bounds__(kTileThreads)
-window_pass(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst, int k,
-            const uint8_t* __restrict__ raw, unsigned long long* stats, Tiles g) {
-  const Tile tile = this_tile(g);
-  const Pixel px = tile_pixel(g, tile);
-  const long long base = tile.img * g.n, q = base + px.p;
-  bool v = false;
-  if (px.inside) {
-    v = window_pass_at<kAlongY, kAnd>(src + base, g, px, k);
-    dst[q] = v;
-  }
-  if (raw) block_max_into(stats + tile.img * kStats + kSuppressedMax, v ? raw[q] : 0u);
-}
-
 // to_uint8 of the suppressed image (raw where mask1 holds): (s / max) * 255
 // truncated, the division and the product each rounded to float32; its
 // max into stats
@@ -140,16 +93,6 @@ front_outputs(const uint8_t* __restrict__ filled, const int* __restrict__ lab,
   breast_only[q] = c && mask1[q] ? raw[q] : 0;
 }
 
-// The CCL of mask (its zeros where inv) into lab, in three launches; kCount:
-// component areas at the roots in aux, else border marks.
-template <int kConn, bool kCount>
-void ccl(const uint8_t* mask, bool inv, int* lab, int* aux, const Tiles& g, unsigned grid,
-         cudaStream_t s) {
-  ccl_local<kConn><<<grid, kTileThreads, 0, s>>>(mask, inv, lab, aux, g);
-  ccl_merge<kConn><<<grid, kEdgeThreads, 0, s>>>(mask, inv, lab, g);
-  ccl_flatten<kCount><<<grid, kTileThreads, 0, s>>>(mask, inv, lab, aux, g);
-}
-
 }  // namespace
 
 // raw, breast_only, mask1, contour: (B, H, W) bytes; table: 256 int32
@@ -182,24 +125,29 @@ extern "C" int cadx_cleaner_front(const void* raw_, const void* table_, void* br
   threshold<<<grid, kTileThreads, 0, s>>>(raw, table, stats, kRawMax, a, g);
   ccl<8, true>(a, false, lab, aux, g, grid, s);
   largest_key<<<grid, kTileThreads, 0, s>>>(a, false, lab, aux, stats, kStats, kKey1, g);
-  select_label<<<grid, kTileThreads, 0, s>>>(a, lab, stats, kKey1, b, g);
+  select_label<<<grid, kTileThreads, 0, s>>>(a, lab, stats, kStats, kKey1, b, g);
   ccl<4, false>(b, true, lab, aux, g, grid, s);  // the background of b
   if (smooth_k > 0) {
-    fill_unmarked<<<grid, kTileThreads, 0, s>>>(b, lab, aux, a, nullptr, nullptr, g);
+    fill_unmarked<<<grid, kTileThreads, 0, s>>>(b, lab, aux, a, nullptr, nullptr, 0, 0, g);
     // erode (AND) then dilate (OR), each along y then x
-    window_pass<true, true><<<grid, kTileThreads, 0, s>>>(a, c, smooth_k, nullptr, nullptr, g);
-    window_pass<false, true><<<grid, kTileThreads, 0, s>>>(c, a, smooth_k, nullptr, nullptr, g);
-    window_pass<true, false><<<grid, kTileThreads, 0, s>>>(a, c, smooth_k, nullptr, nullptr, g);
-    window_pass<false, false><<<grid, kTileThreads, 0, s>>>(c, mask1, smooth_k, raw, stats, g);
+    window_pass<true, true><<<grid, kTileThreads, 0, s>>>(a, c, smooth_k, nullptr, nullptr,
+                                                          0, 0, g);
+    window_pass<false, true><<<grid, kTileThreads, 0, s>>>(c, a, smooth_k, nullptr, nullptr,
+                                                           0, 0, g);
+    window_pass<true, false><<<grid, kTileThreads, 0, s>>>(a, c, smooth_k, nullptr, nullptr,
+                                                           0, 0, g);
+    window_pass<false, false><<<grid, kTileThreads, 0, s>>>(c, mask1, smooth_k, raw, stats,
+                                                            kStats, kSuppressedMax, g);
   } else {
-    fill_unmarked<<<grid, kTileThreads, 0, s>>>(b, lab, aux, mask1, raw, stats, g);
+    fill_unmarked<<<grid, kTileThreads, 0, s>>>(b, lab, aux, mask1, raw, stats, kStats,
+                                                 kSuppressedMax, g);
   }
 
   // ---- stage 2: segment_breast ----
   rescale_u8<<<grid, kTileThreads, 0, s>>>(raw, mask1, stats, c, g);
   threshold<<<grid, kTileThreads, 0, s>>>(c, table, stats, kU8Max, a, g);
   ccl<4, false>(a, true, lab, aux, g, grid, s);  // the background of a
-  fill_unmarked<<<grid, kTileThreads, 0, s>>>(a, lab, aux, b, nullptr, nullptr, g);
+  fill_unmarked<<<grid, kTileThreads, 0, s>>>(a, lab, aux, b, nullptr, nullptr, 0, 0, g);
   ccl<8, true>(b, false, lab, aux, g, grid, s);
   largest_key<<<grid, kTileThreads, 0, s>>>(b, false, lab, aux, stats, kStats, kKey2, g);
   front_outputs<<<grid, kTileThreads, 0, s>>>(b, lab, stats, raw, mask1,

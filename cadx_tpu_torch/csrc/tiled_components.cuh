@@ -1,7 +1,8 @@
 // Tiled device code for connected components spread over the whole card:
 // a block-based union-find CCL (Playne & Hawick, IEEE TPDS 2018; Allegretti,
-// Bolelli & Grana, IEEE TPDS 2020), the per-image reductions it feeds, and
-// the separable window pass of a 0/1 opening.
+// Bolelli & Grana, IEEE TPDS 2020), the per-image reductions it feeds, the
+// selection and hole fill built on it, and the separable window pass of a
+// 0/1 opening. cleaner_front.cu and largest_obj.cu launch these kernels.
 //
 // A batch of (B, H, W) planes is cut into kTile x kTile tiles, and the grid
 // covers tiles x images in one flat dimension, so any B runs and at B = 1 a
@@ -25,6 +26,9 @@
 // component, so each root ends as its component's smallest raster index,
 // whatever order the atomics run in: the labels, and everything chosen by
 // them, are the same on every run.
+//
+// The kernels have internal linkage (static), so each source that includes
+// this header holds its own instances.
 #pragma once
 
 #include <climits>
@@ -221,7 +225,7 @@ static __device__ __forceinline__ int key_label(unsigned long long key) {
 // where the pixel to its left had none), so each pair of touching runs is
 // joined about once and the trees stay shallow.
 template <int kConn>
-__global__ void __launch_bounds__(kTileThreads)
+static __global__ void __launch_bounds__(kTileThreads)
 ccl_local(const uint8_t* __restrict__ mask, bool inv, int* __restrict__ lab,
           int* __restrict__ aux, Tiles g) {
   __shared__ int par[kTileThreads];
@@ -266,7 +270,7 @@ ccl_local(const uint8_t* __restrict__ mask, bool inv, int* __restrict__ lab,
 // (4-connected: one) below it, a right-column pixel with the three (one) to
 // its right. Every pair of neighbours in two tiles is one of these.
 template <int kConn>
-__global__ void __launch_bounds__(kEdgeThreads)
+static __global__ void __launch_bounds__(kEdgeThreads)
 ccl_merge(const uint8_t* __restrict__ mask, bool inv, int* lab, Tiles g) {
   const Tile tile = this_tile(g);
   const int i = threadIdx.x % kTile;
@@ -301,7 +305,7 @@ ccl_merge(const uint8_t* __restrict__ mask, bool inv, int* lab, Tiles g) {
 // their roots' areas in aux; otherwise mark in aux the roots of the
 // components that reach the image border.
 template <bool kCount>
-__global__ void __launch_bounds__(kTileThreads)
+static __global__ void __launch_bounds__(kTileThreads)
 ccl_flatten(const uint8_t* __restrict__ mask, bool inv, int* lab, int* aux, Tiles g) {
   const Tile tile = this_tile(g);
   const Pixel px = tile_pixel(g, tile);
@@ -321,7 +325,7 @@ ccl_flatten(const uint8_t* __restrict__ mask, bool inv, int* lab, int* aux, Tile
 
 // The largest component's key of each image into stats[img * stride + slot]
 // (zeroed before): every root offers its (area, label) key.
-__global__ void __launch_bounds__(kTileThreads)
+static __global__ void __launch_bounds__(kTileThreads)
 largest_key(const uint8_t* __restrict__ mask, bool inv, const int* __restrict__ lab,
             const int* __restrict__ area, unsigned long long* stats, int stride, int slot,
             Tiles g) {
@@ -334,7 +338,48 @@ largest_key(const uint8_t* __restrict__ mask, bool inv, const int* __restrict__ 
   block_max_into(stats + tile.img * stride + slot, key);
 }
 
-// ---- the opening's window pass ----------------------------------------------
+// The CCL of mask (its zeros where inv) into lab, in three launches; kCount:
+// component areas at the roots in aux, else border marks.
+template <int kConn, bool kCount>
+static void ccl(const uint8_t* mask, bool inv, int* lab, int* aux, const Tiles& g,
+                unsigned grid, cudaStream_t s) {
+  ccl_local<kConn><<<grid, kTileThreads, 0, s>>>(mask, inv, lab, aux, g);
+  ccl_merge<kConn><<<grid, kEdgeThreads, 0, s>>>(mask, inv, lab, g);
+  ccl_flatten<kCount><<<grid, kTileThreads, 0, s>>>(mask, inv, lab, aux, g);
+}
+
+// ---- selection, hole fill and the opening's window pass -----------------------
+
+// dst = mask & (lab == the label of the key in stats[img * stride + slot])
+static __global__ void __launch_bounds__(kTileThreads)
+select_label(const uint8_t* __restrict__ mask, const int* __restrict__ lab,
+             const unsigned long long* __restrict__ stats, int stride, int slot,
+             uint8_t* __restrict__ dst, Tiles g) {
+  const Tile tile = this_tile(g);
+  const Pixel px = tile_pixel(g, tile);
+  if (!px.inside) return;
+  const long long q = tile.img * g.n + px.p;
+  dst[q] = mask[q] && lab[q] == key_label(stats[tile.img * stride + slot]);
+}
+
+// dst = m | holes, a hole being background whose 4-connected component
+// (labelled in lab) is not marked as reaching the border. With raw, the
+// image's max of raw where dst holds goes into stats[img * stride + slot].
+static __global__ void __launch_bounds__(kTileThreads)
+fill_unmarked(const uint8_t* __restrict__ m, const int* __restrict__ lab,
+              const int* __restrict__ marks, uint8_t* __restrict__ dst,
+              const uint8_t* __restrict__ raw, unsigned long long* stats, int stride,
+              int slot, Tiles g) {
+  const Tile tile = this_tile(g);
+  const Pixel px = tile_pixel(g, tile);
+  const long long base = tile.img * g.n, q = base + px.p;
+  bool v = false;
+  if (px.inside) {
+    v = m[q] || !marks[base + lab[q]];
+    dst[q] = v;
+  }
+  if (raw) block_max_into(stats + tile.img * stride + slot, v ? raw[q] : 0u);
+}
 
 // One axis of a 0/1 erosion (kAnd) or dilation: dst = AND (OR) of src over
 // the window [c - k/2, c + k - 1 - k/2] along y (kAlongY) or x, cut to the
@@ -356,6 +401,23 @@ static __device__ __forceinline__ bool window_pass_at(const uint8_t* __restrict_
     if (s != kAnd) return !kAnd;
   }
   return kAnd;
+}
+
+// One axis of the opening (see window_pass_at); with raw, as fill_unmarked.
+template <bool kAlongY, bool kAnd>
+static __global__ void __launch_bounds__(kTileThreads)
+window_pass(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst, int k,
+            const uint8_t* __restrict__ raw, unsigned long long* stats, int stride, int slot,
+            Tiles g) {
+  const Tile tile = this_tile(g);
+  const Pixel px = tile_pixel(g, tile);
+  const long long base = tile.img * g.n, q = base + px.p;
+  bool v = false;
+  if (px.inside) {
+    v = window_pass_at<kAlongY, kAnd>(src + base, g, px, k);
+    dst[q] = v;
+  }
+  if (raw) block_max_into(stats + tile.img * stride + slot, v ? raw[q] : 0u);
 }
 
 }  // namespace cadx_tiled

@@ -43,8 +43,8 @@ _SIGNATURES = {
                            _I, _P),
     "cadx_ccl": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "cadx_largest_component_mask": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "cadx_watershed_pair": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _P),
+    "cadx_watershed_pair": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _P),
     "cadx_watershed_packed": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _P),
     "cadx_conv_leaky": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),

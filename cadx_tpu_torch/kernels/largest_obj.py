@@ -4,8 +4,8 @@ CUDA kernel and its plain PyTorch version.
 Replaces `cadx_tpu/kernels/largest_obj.py::largest_obj_pallas` (its
 `pl.pallas_call` at :238), which chains `ccl_relax`,
 `largest_mask_from_labels`, the border-flood hole fill and the opening in
-one program. Source: `csrc/largest_obj.cu`, with the shared device code
-in `csrc/components.cuh`.
+one program. Source: `csrc/largest_obj.cu`, with the tiled device code
+it shares with cleaner_front in `csrc/tiled_components.cuh`.
 
 Two orderings, as at the cleaner's two call sites:
 - default: largest 8-connected component, then (fill) its holes, then
@@ -22,17 +22,29 @@ it the unique largest component; otherwise it takes the CCL + largest
 label. Its result is therefore `largest_component_plain`'s at the
 fixpoint whatever the seed. Source: `csrc/seeded_component.cu`.
 
-Layout: one block of 1024 threads per image, looping to convergence
-inside the block (a shared "changed" flag and __syncthreads), so no sweep
-returns to the host. A 256x256 int32 plane is 256 KiB, more than a
-block's 227 KB of shared memory, so the label, area and temporary planes
-live in global memory (a per-image scratch of 5 int32 planes), where the
-50 MB L2 holds them at these sizes. CCL is union-find that always links
-to the smaller root, so a label is its component's minimum raster index;
-areas are atomicAdd counts; holes are background components (4-connected)
-that touch no border pixel. Bound: latency of the dependent L2 accesses
-in the union-find and the k-wide window passes of the opening; one block
-per image leaves SMs idle below 132 images.
+Layout (redesigned for the whole card): the grid covers 32 x 32 tiles x
+images, flattened, so any B runs and one large image fills every SM. One
+C call issues a short sequence of launches on one stream with no host
+sync: the conn-connected tiled union-find CCL with areas (`ccl_local`
+labels a tile in shared memory from warp-ballot row runs, `ccl_merge`
+joins tile edges with atomicMin-linked roots, `ccl_flatten` points
+pixels at roots and counts areas once a block and root), `largest_key`
+(each image's (area << 32 | ~label) max, one 64-bit atomicMax a block,
+into a uint64 a memset clears first), `select_label`; the hole fill is
+the background's 4-connected CCL with border marks and `fill_unmarked`
+(before the selection with fill_first); the opening is four separable
+window passes over byte planes. Roots end as each component's smallest
+raster index whatever order the atomics take, so ties go to the smallest
+index across tiles too, and the bytes are the same on every run. 9
+launches at the pectoral select (fill) and with fill_first, 13 with fill
+and an opening, plus the memset. Scratch: 8 * B + 10 * B * H * W bytes
+(two int32 planes, two uint8 masks), 85 MB at 3328 x 2560.
+
+Bound: bytes. The least the card can move is the mask in and out (2
+bytes a pixel, 5 us at 3328 x 2560 over 3.35 TB/s); the kernel moves
+~30-40 bytes a pixel through L2 and HBM (each CCL writes, merges,
+flattens and reads a label plane), plus the union-find's dependent
+accesses along each chain of tile roots.
 """
 
 from __future__ import annotations
@@ -48,9 +60,14 @@ SOURCE = "cadx_tpu_torch/csrc/largest_obj.cu"
 REPLACES = "cadx_tpu/kernels/largest_obj.py:238"
 SEEDED_SOURCE = "cadx_tpu_torch/csrc/seeded_component.cu"
 SEEDED_REPLACES = "cadx_tpu/kernels/largest_obj.py:131"
-_SCRATCH_PLANES = 5
 _SEEDED_PLANES = 4
 _DENSITY_K = 17
+
+
+def _scratch_bytes(b: int, h: int, w: int) -> int:
+    """The kernel's scratch: a uint64 key an image, two int32 planes and
+    two uint8 planes (`csrc/largest_obj.cu`)."""
+    return 8 * b + 10 * b * h * w
 
 
 def largest_obj_reference(masks: torch.Tensor, connectivity: int = 8,
@@ -85,10 +102,9 @@ def largest_obj(masks: torch.Tensor, connectivity: int = 8,
     b, h, w = masks.shape
     out = torch.empty_like(masks)
     if b:
-        scratch = torch.empty((b, _SCRATCH_PLANES, h, w), dtype=torch.int32,
+        scratch = torch.empty(_scratch_bytes(b, h, w), dtype=torch.uint8,
                               device=masks.device)
-        lib = _build.load()
-        rc = lib.cadx_largest_obj(
+        rc = _build.load().cadx_largest_obj(
             masks.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, h, w,
             connectivity, int(fill), int(smooth_k), int(fill_first),
             _build.stream_ptr(masks.device))

@@ -13,19 +13,61 @@ arithmetic, so a relaxation over neighbours would not reach the plain
 version's values; the kernel repeats its arithmetic instead: srow/scol
 are built in the Hillis-Steele order of `doubling_cumsum` (one block per
 line, two shared-memory buffers); each directional pass takes, per pixel,
-the min of d -/+ s over the window 1 + sum(doubling_steps(min(len,
+the min of d -/+ s over the window win = 1 + sum(doubling_steps(min(len,
 max_scan))) of the pre-pass planes, nearest first with strict < (the
 doubling min's tie rule), then cand = w +/- s where cand < d. Passes LR,
-RL, TB, BT each read the previous pass's output (ping-pong planes), and
-the sweeps stop when one changes no distance or after `max_iters`.
-Layout: each pass is one grid-wide launch with a thread per pixel, so a
-single 1536x1280 request fills the card; neighbouring threads read
-neighbouring addresses along rows and, for column passes, along the row
-of each window step. Bound: the window's 2*win loads a pixel per pass
-(from L1/L2), and one stream synchronisation a sweep to read the changed
-flag. At serving sizes the float32 sweeps never settle (rounding of
-d - s + s keeps lowering distances once s passes ~1e4), so a request
-runs all `max_iters` sweeps, as the plain version and JAX do.
+RL, TB, BT each read the previous pass's output, and the sweeps stop when
+one changes no distance or after `max_iters`.
+
+Layout (redesigned for the whole card): a sweep is one launch over
+2-D tiles x images, 64 x 64 (512 threads, two blocks an SM) or, where
+those would fill no more than one wave of the card, 64 x 128 (1024
+threads; `tile_for`). A block copies its tile and a halo of win - 1
+pixels on every side (7 at the cleaner's max_scan 8), cut to the image,
+into shared memory with cp.async (16 bytes a pixel, 99 KB at 64 x 64):
+srow and scol (at the tile's columns), which no sweep changes, as soon as
+it starts, and the (d, l) pairs once the previous sweep has finished; the
+sweeps are programmatic dependent launches, so the next sweep's blocks
+copy their costs on the SMs the last blocks of a sweep leave idle. It
+runs the four passes there, each leaving valid a region smaller by its
+halo on the side it reads from, and writes d and l back for its own
+pixels only, ping-ponging two global plane pairs. A pass is walked
+by threads, one line a lane, 16 outputs a walk after 7 pixels that fill
+the doubling steps 1, 2, 4 of `scan_min_carry` (three nearest-first
+steps a pixel, from registers); a walk writes its outputs in place at
+once but for the last 7, which the next walk along the line reads first
+and which wait for a barrier. Indices are 32-bit and 2-D. Windows too
+wide for a halo tile (a halo above `MAX_HALO` = 7, i.e. max_scan above
+8, or a region beyond the block's 227 KB) take one launch a pass over a
+2-D grid, reading global memory.
+
+Stopping rule: no sweep waits on the host. Each sweep launch reads the
+previous sweep's flag on the device and returns at once if it changed no
+distance (a sweep that changes nothing leaves d and l as they are, so
+every later one would too, and both plane pairs then hold the result);
+the host copies every `CHECK_EVERY`-th flag to pinned memory, waits for
+it only after queuing the next `CHECK_EVERY` sweeps, and stops launching
+once one reads 0: ceil(max_iters / CHECK_EVERY) - 1 host
+synchronisations for a call that runs them all, one more when it stops
+early. `max_iters` caps the sweeps exactly. A relaxed pixel, halo or
+not, reads only pixels the previous pass left valid, so a distance that
+falls anywhere in a block falls in the sweep: the block's flag is exact.
+
+Bound: operations. The function reads its inputs and writes its outputs
+once, 13 bytes a pixel (0.03 ms at 3328 x 2560 over 3.35 TB/s), and does
+the plain version's 56 operations a pixel a sweep at max_scan 8 (four
+passes of d -/+ s, three doubling steps of a compare and two selects,
+w +/- s, a compare and two selects). At the serving and CLI sizes the
+float32 sweeps never settle (rounding of d - s + s keeps lowering
+distances once s passes ~1e4), so a call runs all `max_iters` sweeps, as
+the plain version and JAX do: 1.8 ms for 256 at 3328 x 2560 over 67
+TFLOP/s. This design reads and writes its planes once a sweep, 24 bytes a
+pixel (d, l, srow and scol read, d and l written: 61 us a sweep, 15.6 ms
+for 256 at 3328 x 2560); that is its own floor, not the function's, since
+a launch that ran several sweeps on a wider halo would move fewer bytes.
+The tiles re-read their halos (1.5x the pixels at 64 x 64, partly from
+L2), and the walks' loads and doubling steps hit shared memory and
+registers.
 
 Packed form. An integer min-plus fixpoint is unique, so the block-level
 Bellman-Ford shared with the pectoral tail (`csrc/components.cuh`)
@@ -37,6 +79,8 @@ version gets there.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from cadx_tpu_torch.kernels import _build
@@ -47,6 +91,9 @@ SOURCE = "cadx_tpu_torch/csrc/watershed.cu"
 REPLACES = "cadx_tpu/kernels/watershed_kernel.py:83"
 _PAIR_PLANES = 5     # srow, scol, d0, d1 (float32) and l1 (int32)
 _PACKED_PLANES = 2   # q, pk (int32)
+TILES = ((64, 64), (64, 128))   # the tiled sweep's tiles (rows, columns)
+MAX_HALO = 7              # the widest halo a tiled sweep takes (max_scan <= 8)
+CHECK_EVERY = 16          # sweeps between two host reads of the changed flags
 
 
 def marker_watershed_reference(image: torch.Tensor, markers: torch.Tensor,
@@ -59,6 +106,23 @@ def marker_watershed_reference(image: torch.Tensor, markers: torch.Tensor,
 
 def _scan_window(length: int, max_scan: int) -> int:
     return 1 + sum(G.doubling_steps(min(length, max_scan)))
+
+
+def halo(length: int, max_scan: int) -> int:
+    """The pixels a pass along a line of `length` reads on one side: the
+    scan window less one."""
+    return _scan_window(length, max_scan) - 1
+
+
+def tile_for(b: int, h: int, w: int, sms: int = 132) -> tuple[int, int]:
+    """The tiled sweep's tile for a (b, h, w) batch on a card of `sms` SMs:
+    64 x 64 (two blocks an SM), or 64 x 128 (one) where the 64 x 64 tiles
+    would fill no more than one wave of the card, so that no SM runs two
+    tiles while another runs one."""
+    small = TILES[0]
+    if b * -(-h // small[0]) * -(-w // small[1]) <= 2 * sms:
+        return TILES[1]
+    return small
 
 
 def marker_watershed(image: torch.Tensor, markers: torch.Tensor,
@@ -100,15 +164,22 @@ def marker_watershed(image: torch.Tensor, markers: torch.Tensor,
     else:
         scratch = torch.empty((_PAIR_PLANES, b, h, w), dtype=torch.float32,
                               device=dev)
-        flag = torch.empty((1,), dtype=torch.int32, device=dev)
+        flags = torch.empty((max(max_iters, 1),), dtype=torch.int32, device=dev)
+        host_flags = torch.empty((max(-(-max_iters // CHECK_EVERY), 1),),
+                                 dtype=torch.int32, pin_memory=True)
+        syncs = ctypes.c_int(0)
         rc = lib.cadx_watershed_pair(
             img.data_ptr(), mk.data_ptr(), labels.data_ptr(),
-            boundary.data_ptr(), scratch.data_ptr(), flag.data_ptr(), b, h, w,
-            max_iters, _scan_window(w, max_scan), _scan_window(h, max_scan),
-            _build.stream_ptr(dev))
+            boundary.data_ptr(), scratch.data_ptr(), flags.data_ptr(),
+            host_flags.data_ptr(), ctypes.addressof(syncs), b, h, w, max_iters,
+            _scan_window(w, max_scan), _scan_window(h, max_scan),
+            *tile_for(b, h, w, torch.cuda.get_device_properties(dev).multi_processor_count),
+            CHECK_EVERY, _build.stream_ptr(dev))
         _build.check(rc, "cadx_watershed_pair")
+        marker_watershed.host_syncs = syncs.value
     marker_watershed.launches += 1
     return labels, boundary
 
 
 marker_watershed.launches = 0
+marker_watershed.host_syncs = 0   # host synchronisations of the last pair-form call

@@ -106,20 +106,36 @@ def sweep(d: torch.Tensor, l: torch.Tensor, srow: torch.Tensor,
     return d, l
 
 
-def relax_to_fixpoint(img: torch.Tensor, markers: torch.Tensor,
-                      max_iters: int, max_scan: int) -> torch.Tensor:
-    """Pair-form sweeps until no distance changes (at most `max_iters`);
-    returns the labels, the markers' own values, 0 where unreached."""
+def _pair_fixpoint(img: torch.Tensor, markers: torch.Tensor,
+                   max_iters: int, max_scan: int) -> tuple[torch.Tensor, int]:
+    """(labels, sweeps run): pair-form sweeps until one changes no distance
+    (that sweep counted) or `max_iters` ran."""
     labels = markers.to(torch.int32)
     dist = torch.where(labels > 0, 0.0, BIG).to(torch.float32)
     srow, scol = axis_costs(img.to(torch.float32))
+    sweeps = 0
     for _ in range(max_iters):
         new_d, new_l = sweep(dist, labels, srow, scol, max_scan)
+        sweeps += 1
         changed = bool((new_d != dist).any())
         dist, labels = new_d, new_l
         if not changed:
             break
-    return labels
+    return labels, sweeps
+
+
+def relax_to_fixpoint(img: torch.Tensor, markers: torch.Tensor,
+                      max_iters: int, max_scan: int) -> torch.Tensor:
+    """Pair-form sweeps until no distance changes (at most `max_iters`);
+    returns the labels, the markers' own values, 0 where unreached."""
+    return _pair_fixpoint(img, markers, max_iters, max_scan)[0]
+
+
+def sweeps_to_fixpoint(img: torch.Tensor, markers: torch.Tensor,
+                       max_iters: int, max_scan: int) -> int:
+    """The sweeps `relax_to_fixpoint` runs on these inputs: up to the first
+    that changes no distance, at most `max_iters`."""
+    return _pair_fixpoint(img, markers, max_iters, max_scan)[1]
 
 
 def _pack_params(h: int, w: int) -> tuple[int, int]:

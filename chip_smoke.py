@@ -17,9 +17,18 @@ Phases, each of which raises on failure (the script then exits nonzero):
      mammograms, noise, dark images) and on `synthetic.tile_edge_cases`
      (shapes on the edges and corners of its 32x32 tiles, ties across
      tiles, border gaps; B=12 at 64², 256², 45x70, 1x70, 70x1, 333x257)
-     with smooth_k 0, 3 and 15; every cleaner_front case runs twice and
-     must give the same bytes, and at B=1 its CCL's grid (from a profiler
-     trace) must be the image's tile count;
+     with smooth_k 0, 3 and 15; largest_obj on the same cases, 4- and
+     8-connected, in five orderings (plain, fill, fill + opening 15,
+     fill_first, fill_first + opening 4), and the pair-form watershed on
+     them with max_scan 8 (the halo-tiled sweep) and 256 (a launch a
+     pass), capped at 1, 2, 17 and 256 sweeps; every cleaner_front,
+     largest_obj and pair-form watershed case runs twice and must give
+     the same bytes; at B=1 the front's CCL grid and every largest_obj
+     launch at the CLI's 3328x2560 (from profiler traces) must cover the
+     image's tile count, and a 256-sweep pair-form watershed call there
+     may synchronise the host at most ceil(256 / CHECK_EVERY) + 1 times
+     (its own count, and the trace's synchronising runtime calls where
+     the trace holds them);
    - the cleaner's inputs at every shape the serving phase gives the
      kernels, made from the same images: the 3328x2560 upload bucketed to
      1536x1280 and the 1024x832 upload (B=1; cleaner_front, equalize,
@@ -130,7 +139,14 @@ Phases, each of which raises on failure (the script then exits nonzero):
 8. batchnorm's device time (profiler) at every distinct input shape of
    the ResNet-50 forward at the 512² display beside F.batch_norm's, with
    each bound and the sums over the forward's 53 launches; largest_obj
-   and the pair-form watershed at the training CLI's 3328x2560; the CLI's
+   at the pectoral select of every B=1 shape beyond 512 (1536x1280,
+   1024x832, 3328x2560, 4608x2656) and the pair-form watershed at both
+   serving shapes and the CLI's native shapes, each beside its plain
+   version (the watershed 10 calls a timing after 5, also with each tile
+   of its sweep kernel, checked bit-exact; its bound: its inputs and
+   outputs once against the plain version's operations for the sweeps its
+   inputs need, counted by the plain sweeps; beside it the floor of one
+   read and write of the planes a sweep, 24 bytes a pixel); the CLI's
    featurize p50 split by stage (cleaner_front, pectoral removal with its
    largest_obj and watershed, the resizes, conv1); then times with CUDA
    events: each kernel beside its plain version (256²
@@ -242,24 +258,34 @@ def device_ms(fn, iters: int) -> float | None:
     return sum(e.self_device_time_total for e in kernels) / 1e3 / iters
 
 
-def kernel_grids(fn, name_part: str) -> list:
-    """The grid ([x, y, z]) of each launch, in one call of fn, of a kernel
-    whose name holds name_part, from a torch.profiler trace; empty where
-    the trace kept none."""
+def trace_events(fn) -> list:
+    """The events of a torch.profiler trace (host and card) of one call of
+    fn."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as fh:
-            events = json.load(fh).get("traceEvents", [])
-    return [e["args"]["grid"] for e in events
+            return json.load(fh).get("traceEvents", [])
+
+
+def kernel_grids(fn, name_part: str) -> list:
+    """The grid ([x, y, z]) of each launch, in one call of fn, of a kernel
+    whose name holds name_part, from a torch.profiler trace; empty where
+    the trace kept none."""
+    return [e["args"]["grid"] for e in trace_events(fn)
             if e.get("cat") == "kernel" and name_part in e.get("name", "")
             and "grid" in e.get("args", {})]
+
+
+def runtime_calls(events: list, names: tuple) -> int:
+    """How many CUDA runtime calls of the given names a trace holds."""
+    return sum(1 for e in events if e.get("cat") == "cuda_runtime" and e.get("name") in names)
 
 
 def captured_mean(*runs):
@@ -272,14 +298,15 @@ def ms_text(ms: float | None) -> str:
     return "not captured" if ms is None else f"{ms:.4f}"
 
 
-def turns_ms(kernel_fn, plain_fn, k_iters: int, p_iters: int, library_fn=None):
+def turns_ms(kernel_fn, plain_fn, k_iters: int, p_iters: int, library_fn=None, warmup=1):
     """Kernel, plain and library times, in turns plain, library, kernel,
-    kernel, library, plain (library None where there is no library_fn)."""
+    kernel, library, plain (library None where there is no library_fn);
+    the kernel and library timings after `warmup` calls."""
     p1 = cuda_ms(plain_fn, p_iters)
-    l1 = cuda_ms(library_fn, k_iters) if library_fn else None
-    k1 = cuda_ms(kernel_fn, k_iters)
-    k2 = cuda_ms(kernel_fn, k_iters)
-    l2 = cuda_ms(library_fn, k_iters) if library_fn else None
+    l1 = cuda_ms(library_fn, k_iters, warmup) if library_fn else None
+    k1 = cuda_ms(kernel_fn, k_iters, warmup)
+    k2 = cuda_ms(kernel_fn, k_iters, warmup)
+    l2 = cuda_ms(library_fn, k_iters, warmup) if library_fn else None
     p2 = cuda_ms(plain_fn, p_iters)
     lib = (l1 + l2) / 2 if library_fn else None
     return (k1 + k2) / 2, (p1 + p2) / 2, lib, (k1, k2, p1, p2, l1, l2)
@@ -601,6 +628,7 @@ def main() -> int:
     from cadx_tpu_torch.models import cnn, unet
     from cadx_tpu_torch.models import resnet as TR
     from cadx_tpu_torch.ops import components as TC
+    from cadx_tpu_torch.ops import geodesic_scan as TGS
     from cadx_tpu_torch.ops import pool as TPool
     from cadx_tpu_torch.ops.colormap import apply_jet
     from cadx_tpu_torch.ops.morphology import dilate, erode
@@ -700,6 +728,19 @@ def main() -> int:
         if err != 0.0:
             raise AssertionError(f"{name} [{what}] disagrees with its plain version")
 
+    def agree_twice(name, kernel_fn, plain_out, what, parts=("",)):
+        """The kernel's outputs (named by parts) against its plain version's,
+        and a second run of the kernel giving the same bytes."""
+        first, second = kernel_fn(), kernel_fn()
+        if len(parts) == 1:
+            first, second, plain_out = (first,), (second,), (plain_out,)
+        for part, a, b, c in zip(parts, first, plain_out, second):
+            label = f"{part}, {what}" if part else what
+            agree(name, a, b, label)
+            if not torch.equal(a, c):
+                raise AssertionError(f"{name} [{label}]: two runs differ")
+        print(f"check {name} [{what}]: two runs gave identical bytes", flush=True)
+
     rng = np.random.default_rng(0)
     small = torch.from_numpy(synthetic_mammograms(16, HW, seed=1)).to(dev)
     rand_masks = torch.from_numpy(rng.random((16, HW, HW)) > 0.55).to(dev)
@@ -715,14 +756,14 @@ def main() -> int:
     uncapped = HW * HW
     for m, what, cap in ((s_bin, "suppress-site synthetic", 128),
                          (rand_masks, "random masks, plain uncapped", uncapped)):
-        agree("largest_obj", KL.largest_obj(m, 8, fill=True, smooth_k=15),
-              KL.largest_obj_reference(m, 8, fill=True, smooth_k=15, max_iters=cap),
-              f"fill + opening(15), {what}")
+        agree_twice("largest_obj", lambda m=m: KL.largest_obj(m, 8, fill=True, smooth_k=15),
+                    KL.largest_obj_reference(m, 8, fill=True, smooth_k=15, max_iters=cap),
+                    f"fill + opening(15), {what}")
     for m, what, cap in ((g_bin, "segment-site synthetic", 128),
                          (rand_masks, "random masks, plain uncapped", uncapped)):
-        agree("largest_obj", KL.largest_obj(m, 8, fill_first=True),
-              KL.largest_obj_reference(m, 8, fill_first=True, max_iters=cap),
-              f"fill_first, {what}")
+        agree_twice("largest_obj", lambda m=m: KL.largest_obj(m, 8, fill_first=True),
+                    KL.largest_obj_reference(m, 8, fill_first=True, max_iters=cap),
+                    f"fill_first, {what}")
     kern = KP.pectoral_tail(equ, high, breast)
     plain = KP.pectoral_tail_reference(equ, high, breast)
     for name, a, b in zip(("labels", "boundary", "mask"), kern, plain):
@@ -730,29 +771,46 @@ def main() -> int:
 
     def agree_front(raw8, what, smooth_k=15):
         """cleaner_front on the uint8 batch clean_boundary_gray hands it,
-        against its plain version uncapped; a second run on the same batch
-        gives the same bytes."""
+        against its plain version uncapped, twice."""
         h, w = raw8.shape[1:]
-        first = KF.cleaner_front(raw8, smooth_k)
-        second = KF.cleaner_front(raw8, smooth_k)
-        for part, a, b, c in zip(("breast_only", "breast_mask", "contour_fill"), first,
-                                 KF.cleaner_front_reference(raw8, smooth_k, max_iters=h * w),
-                                 second):
-            agree("cleaner_front", a, b, f"{part}, {what}, smooth_k {smooth_k}, plain uncapped")
-            torch.cuda.synchronize()
-            if not torch.equal(a, c):
-                raise AssertionError(f"cleaner_front [{part}, {what}]: two runs differ")
-        print(f"check cleaner_front [{what}, smooth_k {smooth_k}]: two runs gave identical "
-              f"bytes", flush=True)
+        agree_twice("cleaner_front", lambda: KF.cleaner_front(raw8, smooth_k),
+                    KF.cleaner_front_reference(raw8, smooth_k, max_iters=h * w),
+                    f"{what}, smooth_k {smooth_k}, plain uncapped",
+                    ("breast_only", "breast_mask", "contour_fill"))
 
     agree_front(to_uint8(torch.cat([small[:12], rand_u8[:2], torch.zeros_like(small[:2])])),
                 f"12 synthetic mammograms, 2 noise, 2 dark, B=16 {HW}x{HW}")
     # the inputs that break a tiled CCL: shapes on tile edges and corners,
     # ties across tiles, border gaps, sides that are multiples of no tile
+    # largest_obj in each ordering and connectivity, and the pair-form
+    # watershed on the same images (markers at their corners and centre)
+    # capped at 1, 2, 17 and 256 sweeps with the halo tile (max_scan 8) and
+    # a launch a pass (256), at the same shapes
+    orderings = (dict(), dict(fill=True), dict(fill=True, smooth_k=15),
+                 dict(fill_first=True), dict(fill_first=True, smooth_k=4))
     for h, w in ((64, 64), (HW, HW), (45, 70), (1, 70), (70, 1), (333, 257)):
         edge_cases = torch.from_numpy(tile_edge_cases(h, w)).to(dev)
+        what = f"tile_edge_cases B={edge_cases.shape[0]} {h}x{w}"
         for k in (0, 3, 15):
-            agree_front(edge_cases, f"tile_edge_cases B={edge_cases.shape[0]} {h}x{w}", k)
+            agree_front(edge_cases, what, k)
+        m = edge_cases > 0
+        for conn in (4, 8):
+            for opts in orderings:
+                agree_twice("largest_obj", lambda o=opts, c=conn: KL.largest_obj(m, c, **o),
+                            KL.largest_obj_reference(m, conn, **opts, max_iters=h * w),
+                            f"{what}, {conn}-conn, {opts or 'default'}, plain uncapped")
+        ws_marks = torch.zeros(edge_cases.shape, dtype=torch.int32, device=dev)
+        ws_marks[:, :max(h // 5, 1), :max(w // 5, 1)] = 255
+        ws_marks[:, -max(h // 5, 1):, -max(w // 5, 1):] = 128
+        ws_marks[:, h // 2, w // 2] = 64
+        for max_scan in (8, 256):
+            for cap in (1, 2, 17, 256):
+                agree_twice("watershed", lambda s=max_scan, c=cap: KW.marker_watershed(
+                                edge_cases, ws_marks, max_iters=c, max_scan=s),
+                            KW.marker_watershed_reference(edge_cases, ws_marks, max_iters=cap,
+                                                          max_scan=max_scan),
+                            f"pair form, {what}, max_scan {max_scan}, max_iters {cap} each",
+                            ("labels", "boundary"))
 
     # the serving shapes: the cleaner's inputs of the serving phase's own
     # uploads (as process_single_image hands them over) and of its
@@ -772,25 +830,28 @@ def main() -> int:
                             E.bucket_clean_hw(*x.shape, clean_cap))[0]
         return x[None]
 
+    pect_masks = {}   # (h, w) -> the B=1 pectoral select's mask, for phase 8
+
     def agree_pectoral_select(high_, what):
         """largest_obj at the composed pectoral branch's select (sides > 512),
-        plain uncapped."""
+        plain uncapped, twice."""
         cap = high_.shape[1] * high_.shape[2]
-        agree("largest_obj", KL.largest_obj(high_ > 0, 8, fill=True),
-              KL.largest_obj_reference(high_ > 0, 8, fill=True, max_iters=cap),
-              f"pectoral site, {what}, plain uncapped")
+        m = high_ > 0
+        if m.shape[0] == 1:
+            pect_masks[tuple(m.shape[1:])] = m
+        agree_twice("largest_obj", lambda: KL.largest_obj(m, 8, fill=True),
+                    KL.largest_obj_reference(m, 8, fill=True, max_iters=cap),
+                    f"pectoral site, {what}, plain uncapped")
 
     def agree_pair_watershed(equ_, markers, what):
         # The pair form has no float32 fixpoint at these sizes (rounding of
         # d - s + s drifts distances down every sweep), so kernel and plain
         # version run the same max_iters sweeps, as the cleaner calls them.
-        for a, b_, part in zip(
-                KW.marker_watershed(equ_, markers, max_scan=8,
-                                    marker_label_values=(255, 128, 64)),
-                KW.marker_watershed_reference(equ_, markers, max_scan=8,
-                                              marker_label_values=(255, 128, 64)),
-                ("labels", "boundary")):
-            agree("watershed", a, b_, f"pair form {part}, {what}, 256 sweeps each")
+        agree_twice("watershed", lambda: KW.marker_watershed(
+                        equ_, markers, max_scan=8, marker_label_values=(255, 128, 64)),
+                    KW.marker_watershed_reference(equ_, markers, max_scan=8,
+                                                  marker_label_values=(255, 128, 64)),
+                    f"pair form, {what}, 256 sweeps each", ("labels", "boundary"))
 
     serving_inputs = {name: upload_cleaner_input(img) for name, img in uploads.items()}
     border_masks = {}   # (h, w) -> a B=1 suppress-site mask, for the flood
@@ -805,12 +866,13 @@ def main() -> int:
         what = f"cleaner inputs of {name}, {h}x{w} B={b}"
         agree_front(to_uint8(x), what)
         agree("equalize", KE.equalize(seg_), KE.equalize_reference(seg_), what)
-        agree("largest_obj", KL.largest_obj(s_bin_, 8, fill=True, smooth_k=15),
-              KL.largest_obj_reference(s_bin_, 8, fill=True, smooth_k=15, max_iters=cap),
-              f"suppress site, {what}, plain uncapped")
-        agree("largest_obj", KL.largest_obj(g_bin_, 8, fill_first=True),
-              KL.largest_obj_reference(g_bin_, 8, fill_first=True, max_iters=cap),
-              f"segment site, {what}, plain uncapped")
+        agree_twice("largest_obj",
+                    lambda m=s_bin_: KL.largest_obj(m, 8, fill=True, smooth_k=15),
+                    KL.largest_obj_reference(s_bin_, 8, fill=True, smooth_k=15, max_iters=cap),
+                    f"suppress site, {what}, plain uncapped")
+        agree_twice("largest_obj", lambda m=g_bin_: KL.largest_obj(m, 8, fill_first=True),
+                    KL.largest_obj_reference(g_bin_, 8, fill_first=True, max_iters=cap),
+                    f"segment site, {what}, plain uncapped")
         if cleaner.use_packed((h, w), 3):
             kern = KP.pectoral_tail(equ_, high_, breast_)
             plain = KP.pectoral_tail_reference(equ_, high_, breast_, max_iters=cap,
@@ -833,6 +895,7 @@ def main() -> int:
     # its path launches there (the front, equalize, the composed pectoral
     # branch's select and pair-form watershed)
     cli_front = {}   # native shape -> the uint8 image cleaner_front is handed
+    cli_pectoral = {}   # native shape -> the pair-form watershed's inputs
     for h, w in CLI_SHAPES:
         x = torch.from_numpy(synthetic_native_mammogram(h, w, seed=21).astype(np.float32))
         x = x.to(dev)[None]
@@ -844,8 +907,7 @@ def main() -> int:
         agree_pectoral_select(high_, what)
         markers = pectoral_markers(equ_, high_, breast_)
         agree_pair_watershed(equ_, markers, what)
-        if (h, w) == CLI_SHAPES[0]:   # phase 8 times the pectoral branch's kernels here
-            cli_pectoral = (high_ > 0, equ_, markers)
+        cli_pectoral[(h, w)] = (equ_, markers)   # phase 8 times the watershed here
         del x, seg_, equ_, high_, breast_, markers
 
     # at B=1 the front spreads one image over many blocks: the grid of its
@@ -858,6 +920,34 @@ def main() -> int:
           f"{grids if grids else 'not captured'}", flush=True)
     if grids and any(g[0] != tiles for g in grids):
         raise AssertionError(f"cleaner_front's CCL ran grids {grids}, not {tiles} blocks")
+    # largest_obj at the CLI's B=1 3328x2560 pectoral select: every launch
+    # of the call covers the image's tiles
+    pect_big = pect_masks[CLI_SHAPES[0]]
+    tiles = KF.tiles_per_image(*pect_big.shape[1:])
+    events = trace_events(lambda: KL.largest_obj(pect_big, 8, fill=True))
+    lo_grids = [e["args"]["grid"] for e in events
+                if e.get("cat") == "kernel" and "grid" in e.get("args", {})]
+    print(f"largest_obj at B=1 {tuple(pect_big.shape[1:])}: {tiles} tiles of {KF.TILE}x{KF.TILE}; "
+          f"{len(lo_grids)} kernel launches in the profiler trace, grids "
+          f"{sorted(set(str(g) for g in lo_grids)) if lo_grids else 'not captured'}",
+          flush=True)
+    if lo_grids and any(g[0] * g[1] * g[2] != tiles for g in lo_grids):
+        raise AssertionError(f"largest_obj launched grids {lo_grids}, not {tiles} blocks each")
+    # a 256-sweep pair-form watershed call at the same shape waits on the
+    # host once every CHECK_EVERY sweeps, not once a sweep
+    ws_equ, ws_markers = cli_pectoral[CLI_SHAPES[0]]
+    events = trace_events(lambda: KW.marker_watershed(ws_equ, ws_markers, max_scan=8,
+                                                      marker_label_values=(255, 128, 64)))
+    most = -(-256 // KW.CHECK_EVERY) + 1
+    launched = runtime_calls(events, ("cudaLaunchKernel", "cudaLaunchKernelExC"))
+    waits = runtime_calls(events, ("cudaEventSynchronize", "cudaStreamSynchronize", "cudaMemcpy"))
+    print(f"watershed pair form, B=1 {tuple(ws_equ.shape[1:])}, 256 sweeps: "
+          f"{KW.marker_watershed.host_syncs} host synchronisations by the kernel's own count; "
+          f"the profiler trace holds {launched} kernel launches and {waits} synchronising "
+          f"runtime calls{'' if launched >= 256 else ' (runtime calls not captured)'}; at most "
+          f"{most} allowed", flush=True)
+    if KW.marker_watershed.host_syncs > most or (launched >= 256 and waits > most):
+        raise AssertionError("the pair-form watershed synchronised the host too often")
 
     # the density-seeded largest component, off every path: against its
     # plain version and the plain CCL + largest label, both uncapped
@@ -1768,15 +1858,43 @@ def main() -> int:
                          f"pipeline, B={BATCH} (6, 6, 64) -> {HW}x{HW}", tail_in,
                          BATCH * (2 * HW * 6 * 6 + 2 * HW * HW * 6 + 12 * HW * HW), None),
     }
-    watershed_fns = {}   # upload -> the same fields, for the pair-form watershed
-    for name, (equ_, markers, what) in composed.items():
-        watershed_fns[name] = (
-            lambda e=equ_, m=markers: KW.marker_watershed(
-                e, m, max_scan=8, marker_label_values=(255, 128, 64)),
-            lambda e=equ_, m=markers: KW.marker_watershed_reference(
-                e, m, max_scan=8, marker_label_values=(255, 128, 64)),
-            f"pair form, {what}", (equ_, markers), None, None)
-    timed["watershed"] = watershed_fns.pop(token)
+    def watershed_bound(inputs, outputs):
+        """The pair form's bound at max_scan 8: its inputs and outputs once
+        over the HBM rate, against the plain version's operations on them
+        over the float32 peak (the costs: |dI| + 1e-3 and an add a doubling
+        step along each axis; then, for each sweep these inputs need, counted
+        by the plain sweeps, four passes of a pixel's d -/+ s, a compare and
+        two selects a doubling step, w +/- s, a compare and two selects).
+        Also the sweeps, and the floor of a design that reads and writes its
+        planes once a sweep, 24 bytes a pixel a sweep (d, l, srow and scol
+        read, d and l written), which is not the function's bound: a launch
+        that ran several sweeps on a wider halo would move fewer bytes."""
+        img, markers = inputs
+        h, w = img.shape[-2:]
+        sweeps = TGS.sweeps_to_fixpoint(img, markers, 256, 8)
+        steps = [len(TGS.doubling_steps(n)) for n in (min(w, 8), min(h, 8), w, h)]
+        per_sweep = 2 * (5 + 3 * steps[0]) + 2 * (5 + 3 * steps[1])
+        ops = img.numel() * (6 + steps[2] + steps[3] + sweeps * per_sweep)
+        b_ms, b_by = bound(nbytes(inputs) + nbytes(outputs), ops)
+        return b_ms, b_by, sweeps, 24 * img.numel() * sweeps / HBM_BYTES_PER_S * 1e3
+
+    def tile_ms(kernel_fn, outputs, iters, warmup):
+        """The watershed with each of its sweep kernel's tiles in turn (the
+        wrapper's tile_for replaced for the call), bit-exact against the
+        shipped choice's outputs, timed forward and back over the tiles:
+        {"THxTW": mean ms}."""
+        shipped, runs = KW.tile_for, {t: [] for t in KW.TILES}
+        try:
+            for order in (KW.TILES, KW.TILES[::-1]):
+                for t in order:
+                    KW.tile_for = lambda *_, t=t: t
+                    for part, a, c in zip(("labels", "boundary"), kernel_fn(), outputs):
+                        agree("watershed", a, c, f"{part}, tile {t[0]}x{t[1]}")
+                    runs[t].append(cuda_ms(kernel_fn, iters, warmup))
+        finally:
+            KW.tile_for = shipped
+        return {f"{t[0]}x{t[1]}": sum(ms) / len(ms) for t, ms in runs.items()}
+
     times, bounds, dev_times = {}, {}, {}
     compared = {}
     # batchnorm at every distinct input shape of one ResNet-50 forward at the
@@ -1834,31 +1952,53 @@ def main() -> int:
               f"(profiler) kernel {ms_text(dk)}, plain {ms_text(dp)}, {other} {ms_text(do)} ms "
               f"on {card}", flush=True)
 
-    # the pectoral branch's two kernels at the training CLI's 3328x2560,
-    # where its 12 images run them: twice each, the plain version once
-    pect_m, pect_equ, pect_markers = cli_pectoral
-    for name, kernel_fn, plain_fn, shape, inputs in (
-            ("largest_obj", lambda: KL.largest_obj(pect_m, 8, fill=True),
-             lambda: KL.largest_obj_reference(pect_m, 8, fill=True),
-             f"pectoral select, B=1 {CLI_SHAPES[0][0]}x{CLI_SHAPES[0][1]} (training CLI)",
-             (pect_m,)),
-            ("watershed", lambda: KW.marker_watershed(pect_equ, pect_markers, max_scan=8,
-                                                      marker_label_values=(255, 128, 64)),
-             lambda: KW.marker_watershed_reference(pect_equ, pect_markers, max_scan=8,
-                                                   marker_label_values=(255, 128, 64)),
-             f"pair form, B=1 {CLI_SHAPES[0][0]}x{CLI_SHAPES[0][1]} (training CLI), 256 "
-             f"sweeps", (pect_equ, pect_markers))):
+    # the pectoral branch's two kernels where a B=1 image runs them: the
+    # select at every shape beyond 512 (serving and CLI), the watershed at
+    # both serving shapes (the 1536x1280 bucket first: the record's row) and
+    # the CLI's native shapes, also with each tile of its sweep; in turns
+    # with their plain versions, the watershed 10 calls a timing after 5
+    # (one call of a few ms does not bring the card up to speed after the
+    # plain version's small launches)
+    ws_sites = [(f"pair form, {composed[name][2]}", *composed[name][:2])
+                for name in sorted(composed, key=lambda name: name != token)]
+    ws_sites += [(f"pair form, B=1 {h}x{w} (training CLI)", e, mk)
+                 for (h, w), (e, mk) in cli_pectoral.items()]
+    branch = [("largest_obj", lambda m=m: KL.largest_obj(m, 8, fill=True),
+               lambda m=m: KL.largest_obj_reference(m, 8, fill=True),
+               f"pectoral select, B=1 {h}x{w}", (m,), 10) for (h, w), m in pect_masks.items()]
+    branch += [("watershed", lambda e=e, mk=mk: KW.marker_watershed(
+                    e, mk, max_scan=8, marker_label_values=(255, 128, 64)),
+                lambda e=e, mk=mk: KW.marker_watershed_reference(
+                    e, mk, max_scan=8, marker_label_values=(255, 128, 64)),
+                shape, (e, mk), 10) for shape, e, mk in ws_sites]
+    for name, kernel_fn, plain_fn, shape, inputs, iters in branch:
         outputs = kernel_fn()
-        b_ms, b_by = bound(nbytes(inputs) + nbytes(outputs), numel(outputs))
-        k, p, _, runs = turns_ms(kernel_fn, plain_fn, 2, 1)
-        dk = device_ms(kernel_fn, 2)
+        extra, text = {}, ""
+        warmup = 5 if name == "watershed" else 1
+        if name == "watershed":
+            b_ms, b_by, sweeps, floor_ms = watershed_bound(inputs, outputs)
+            shape = f"{shape}, {sweeps} sweeps"
+            tiles = tile_ms(kernel_fn, outputs, iters, warmup)
+            extra = {"sweep_floor_ms": floor_ms, "tile_ms": tiles}
+            picked = "x".join(map(str, KW.tile_for(1, *inputs[0].shape[-2:])))
+            text = (f"; a read and write of the planes a sweep {floor_ms:.4f} ms; by tile "
+                    + ", ".join(f"{t} {ms:.4f}" for t, ms in tiles.items())
+                    + f" ms (tile_for picks {picked})")
+        else:
+            b_ms, b_by = bound(nbytes(inputs) + nbytes(outputs), numel(outputs))
+        k, p, _, runs = turns_ms(kernel_fn, plain_fn, iters, 1, warmup=warmup)
+        dk = device_ms(kernel_fn, iters)
+        if name == "watershed" and name not in times:
+            times[name], bounds[name] = (k, p, None), (b_ms, b_by)
+            dev_times[name] = (dk, device_ms(plain_fn, 1), None)
         compared.setdefault(name, []).append({
             "shape": shape, "ms": k, "plain_ms": p, "bound_ms": b_ms, "bound_by": b_by,
-            "device_ms": dk})
-        print(f"time {name} {shape}: kernel {k:.4f} ms (runs {runs[0]:.4f}, {runs[1]:.4f}), "
-              f"plain {p:.4f} ms (runs {runs[2]:.4f}, {runs[3]:.4f}), bound {b_ms:.4f} ms by "
-              f"{b_by}; device time (profiler) kernel {ms_text(dk)} ms on {card}", flush=True)
-    del outputs
+            "device_ms": dk, **extra})
+        print(f"time {name} {shape}: kernel {k:.4f} ms (runs {runs[0]:.4f}, {runs[1]:.4f}, "
+              f"apart {abs(runs[0] - runs[1]) / k * 100:.1f}%), plain {p:.4f} ms (runs "
+              f"{runs[2]:.4f}, {runs[3]:.4f}), bound {b_ms:.4f} ms by {b_by}{text}; device time "
+              f"(profiler) kernel {ms_text(dk)} ms on {card}", flush=True)
+    del outputs, branch
 
     # the training CLI's featurize split by stage: each stage's function
     # wrapped by a synchronised host clock, 5 images a native shape after a
@@ -1987,7 +2127,7 @@ def main() -> int:
         ("jet_blend", lambda: KOv.jet_blend(tail_k[1], tail_in[2]),
          lambda: KOv.jet_blend_reference(tail_k[1], tail_in[2]),
          f"B={BATCH} {HW}x{HW} gray (the pipeline's heatmaps)", None),
-    ] + [("watershed",) + fns[:3] + (None,) for fns in watershed_fns.values()]
+    ]
     # a row of 7 fields also gives its inputs and operations, for its bound
     for name, kernel_fn, plain_fn, shape, library_fn, *bound_of in extra:
         with full_fp32():

@@ -98,6 +98,7 @@ from cadx_tpu_torch.kernels import ccl as KC          # noqa: E402
 from cadx_tpu_torch.kernels import mode as KM         # noqa: E402
 from cadx_tpu_torch.kernels import watershed as KW    # noqa: E402
 from cadx_tpu_torch.ops import components as TC       # noqa: E402
+from cadx_tpu_torch.ops import geodesic_scan as TGS  # noqa: E402
 
 
 @pytest.mark.parametrize("conn", [4, 8])
@@ -628,3 +629,103 @@ def test_upsample_kernel_element_sizes(dev, rng, dtype, w):
         KUp.upsample_nearest(x, 0)
     with pytest.raises(ValueError):
         KUp.upsample_nearest(x.transpose(2, 3), 2)
+
+
+# ---- largest_obj on the tiled union-find; the pair-form watershed's tiled sweep ----
+
+_LARGEST_ORDERINGS = [dict(), dict(smooth_k=15), dict(fill=True), dict(fill=True, smooth_k=4),
+                      dict(fill=True, smooth_k=15), dict(fill_first=True),
+                      dict(fill_first=True, smooth_k=4)]
+
+
+@pytest.mark.parametrize("conn", [4, 8])
+@pytest.mark.parametrize("kw", _LARGEST_ORDERINGS)
+@pytest.mark.parametrize("hw", [(64, 64), (45, 70), (1, 70), (70, 1), (333, 257)])
+def test_largest_obj_kernel_tile_edge_cases(dev, hw, kw, conn):
+    """The tiled kernel in every ordering on the inputs that break a tiled
+    CCL (ties across tiles, diagonal joins at tile corners, holes across
+    corners, 1 x n), against its plain version uncapped, one launch a
+    call, the same bytes on a second run."""
+    h, w = hw
+    m = torch.from_numpy(tile_edge_cases(h, w) > 0).to(dev)
+    before = KL.largest_obj.launches
+    got = KL.largest_obj(m, conn, **kw)
+    again = KL.largest_obj(m, conn, **kw)
+    assert KL.largest_obj.launches == before + 2
+    _eq(got, KL.largest_obj_reference(m, conn, **kw, max_iters=h * w))
+    _eq(got, again)
+
+
+@pytest.mark.parametrize("kw", [dict(fill=True, smooth_k=15), dict(fill_first=True),
+                                dict(fill=True)])
+def test_largest_obj_kernel_batch_64(dev, rng, kw):
+    """B=64 at 256²: the cleaner's suppress-site masks, random masks, an
+    empty and a full image; two runs give the same bytes."""
+    raw8 = torch.from_numpy(synthetic_mammograms(48, 256, seed=5)).to(dev)
+    masks = binary_threshold(raw8, relative_threshold_value(raw8, 0.05), 255) > 0
+    noise = torch.from_numpy(rng.random((14, 256, 256)) > 0.55).to(dev)
+    m = torch.cat([masks, noise, torch.zeros_like(noise[:1]), torch.ones_like(noise[:1])])
+    assert m.shape == (64, 256, 256)
+    got = KL.largest_obj(m, 8, **kw)
+    _eq(got, KL.largest_obj_reference(m, 8, **kw, max_iters=256 * 256))
+    _eq(got, KL.largest_obj(m, 8, **kw))
+
+
+def test_cleaner_front_unchanged_by_the_shared_header(dev):
+    """cleaner_front launches the header's select, fill and window kernels
+    that largest_obj now shares: still one call a batch, bit-exact to its
+    plain version at B=64."""
+    raw8 = torch.from_numpy(synthetic_mammograms(64, 256, seed=6)).to(dev)
+    before = KF.cleaner_front.launches
+    got = KF.cleaner_front(raw8)
+    assert KF.cleaner_front.launches == before + 1
+    for a, b in zip(got, KF.cleaner_front_reference(raw8, max_iters=256 * 256)):
+        _eq(a, b)
+
+
+@pytest.mark.parametrize("max_iters", [1, 2, 17, 256])
+@pytest.mark.parametrize("max_scan", [8, 256])
+@pytest.mark.parametrize("hw", [(45, 70), (1, 70), (70, 1), (5, 9), (130, 200), (333, 257)])
+def test_pair_watershed_kernel_capped(dev, rng, hw, max_scan, max_iters):
+    """The pair form at ragged shapes and sides below the halo, max_scan 8
+    (the tiled sweep) and 256 (a launch a pass), stopped after exactly
+    max_iters sweeps as the plain version is (odd counts end in the other
+    plane pair), and the same bytes on a second run."""
+    img, mk = _ws_inputs(rng, 2, *hw, dev)
+    kw = dict(max_iters=max_iters, max_scan=max_scan)
+    got = KW.marker_watershed(img, mk, **kw)
+    for a, b, c in zip(got, KW.marker_watershed_reference(img, mk, **kw),
+                       KW.marker_watershed(img, mk, **kw)):
+        _eq(a, b)
+        _eq(a, c)
+
+
+@pytest.mark.parametrize("max_scan", [8, 256])
+@pytest.mark.parametrize("hw", [(24, 20), (45, 70), (64, 48), (130, 200)])
+def test_pair_watershed_kernel_early_stop(dev, rng, hw, max_scan):
+    """Small images whose float32 sweeps settle: the kernel stops as the
+    plain version does, reading the flags every CHECK_EVERY sweeps, so with
+    at most ceil(n / CHECK_EVERY) + 1 host synchronisations for n sweeps
+    (a 256-sweep call makes ceil(256 / CHECK_EVERY) - 1)."""
+    img, mk = _ws_inputs(rng, 2, *hw, dev)
+    n = TGS.sweeps_to_fixpoint(img, mk, 256, max_scan)
+    assert n < 256
+    got = KW.marker_watershed(img, mk, max_scan=max_scan)
+    syncs = KW.marker_watershed.host_syncs
+    for a, b in zip(got, KW.marker_watershed_reference(img, mk, max_scan=max_scan)):
+        _eq(a, b)
+    assert syncs <= -(-n // KW.CHECK_EVERY) + 1
+
+
+@pytest.mark.parametrize("values", [(), (255, 128, 64)])
+@pytest.mark.parametrize("hw,max_scan", [((3, 5), 8), ((3, 20), 256)])
+def test_watershed_kernel_beyond_65535_images(dev, rng, values, hw, max_scan):
+    """More images than a grid's images axis holds (65535): both forms take
+    them in groups, bit-exact against the plain version on the whole batch.
+    The pair form sweeps the 3 x 5 images in halo tiles and the 3 x 20 ones
+    (a row window of 16) a launch a pass."""
+    img, mk = _ws_inputs(rng, 65537, *hw, dev)
+    kw = dict(max_scan=max_scan, marker_label_values=values)
+    for a, b in zip(KW.marker_watershed(img, mk, **kw),
+                    KW.marker_watershed_reference(img, mk, **kw)):
+        _eq(a, b)

@@ -162,3 +162,97 @@ def test_new_kernel_wrappers_reject_other_devices():
         KW.marker_watershed(meta.to(torch.float32), meta.to(torch.int32))
     with pytest.raises(ValueError, match="CUDA"):
         TC.largest_component(meta)
+
+
+# ---- the pair-form kernel's halo tiles and its stopping rule ----------------------
+
+def _pair_state(rng, b, h, w):
+    """A sweep's input planes: noise and a ramp, the markers of _ws_inputs,
+    after two plain sweeps (so distances and labels are mixed)."""
+    img, markers = _ws_inputs(rng, h, w)
+    img = torch.from_numpy(img[:b]).to(torch.float32)
+    labels = torch.from_numpy(markers[:b])
+    d = torch.where(labels > 0, 0.0, TG.BIG).to(torch.float32)
+    srow, scol = TG.axis_costs(img)
+    for _ in range(2):
+        d, labels = TG.sweep(d, labels, srow, scol, 8)
+    return d, labels, srow, scol
+
+
+def _tiled_sweep(d, l, srow, scol, max_scan, tile_h, tile_w):
+    """One sweep computed as the kernel's blocks compute it: each tile from
+    copies of the pre-sweep planes cut to the tile and a halo of win - 1
+    pixels on every side (the image's edge cuts it too), keeping the
+    tile's own pixels only."""
+    h, w = d.shape[-2:]
+    hr, hc = KW.halo(w, max_scan), KW.halo(h, max_scan)
+    out_d, out_l = torch.empty_like(d), torch.empty_like(l)
+    for y0 in range(0, h, tile_h):
+        for x0 in range(0, w, tile_w):
+            ry0, rx0 = max(y0 - hc, 0), max(x0 - hr, 0)
+            ry1, rx1 = min(y0 + tile_h + hc, h), min(x0 + tile_w + hr, w)
+            y1, x1 = min(y0 + tile_h, h), min(x0 + tile_w, w)
+            cut = [t[:, ry0:ry1, rx0:rx1].clone() for t in (d, l, srow, scol)]
+            td, tl = TG.sweep(*cut, max_scan)
+            own = (slice(None), slice(y0 - ry0, y1 - ry0), slice(x0 - rx0, x1 - rx0))
+            out_d[:, y0:y1, x0:x1] = td[own]
+            out_l[:, y0:y1, x0:x1] = tl[own]
+    return out_d, out_l
+
+
+@pytest.mark.parametrize("tile", KW.TILES)
+@pytest.mark.parametrize("hw", [(150, 140), (45, 70), (70, 1), (1, 70), (5, 9),
+                                (65, 127), (130, 257)])
+def test_halo_tiled_sweep_exact(rng, hw, tile):
+    """The kernel's halo design: a sweep computed tile by tile with each of
+    the kernel's tiles and its halo (win - 1) equals geodesic_scan.sweep
+    bit for bit, at ragged shapes, sides below the halo and the cleaner's
+    max_scan 8, over three sweeps."""
+    d, l, srow, scol = _pair_state(rng, 2, *hw)
+    assert KW.halo(100, 8) == 7 and KW.halo(5, 8) == 7 and KW.halo(1, 8) == 0
+    assert KW.halo(100, 8) <= KW.MAX_HALO < KW.halo(100, 9)
+    for _ in range(3):
+        want = TG.sweep(d, l, srow, scol, 8)
+        got = _tiled_sweep(d, l, srow, scol, 8, *tile)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+        d, l = want
+
+
+def test_tile_choice():
+    """64 x 128 where 64 x 64 tiles would fill at most one wave of the card
+    (two blocks an SM), else 64 x 64: the 1024x832 upload and the
+    1536x1280 bucket at B=1 on 132 SMs."""
+    assert KW.tile_for(1, 1024, 832) == (64, 128)
+    assert KW.tile_for(1, 1536, 1280) == (64, 64)
+    assert KW.tile_for(1, 3328, 2560) == (64, 64)
+    assert KW.tile_for(4, 1024, 832) == (64, 64)
+
+
+@pytest.mark.parametrize("hw", [(45, 70), (24, 20)])
+def test_sweeps_after_an_unchanged_sweep_change_nothing(rng, hw):
+    """The ground of the kernel's stopping rule: once a sweep changes no
+    distance it changes no label either, so every later sweep reads and
+    writes the same planes, and running more sweeps than the plain
+    version's stop gives its labels."""
+    img, markers = _ws_inputs(rng, *hw)
+    img = torch.from_numpy(img).to(torch.float32)
+    labels = torch.from_numpy(markers)
+    d = torch.where(labels > 0, 0.0, TG.BIG).to(torch.float32)
+    srow, scol = TG.axis_costs(img)
+    for n in range(1, 200):
+        new_d, new_l = TG.sweep(d, labels, srow, scol, 8)
+        settled = bool((new_d == d).all())
+        d, labels = new_d, new_l
+        if settled:
+            break
+    assert settled and n > 1
+    assert TG.sweeps_to_fixpoint(img, torch.from_numpy(markers), 256, 8) == n
+    for _ in range(3):
+        new_d, new_l = TG.sweep(d, labels, srow, scol, 8)
+        np.testing.assert_array_equal(new_d.numpy(), d.numpy())
+        np.testing.assert_array_equal(new_l.numpy(), labels.numpy())
+    plain = TG.relax_to_fixpoint(img, torch.from_numpy(markers), 256, 8)
+    np.testing.assert_array_equal(plain.numpy(), labels.numpy())
+    capped = TG.relax_to_fixpoint(img, torch.from_numpy(markers), n + 5, 8)
+    np.testing.assert_array_equal(capped.numpy(), labels.numpy())
