@@ -130,13 +130,13 @@ extern "C" int cadx_cleaner_front(const void* raw_, const void* table_, void* br
   if (smooth_k > 0) {
     fill_unmarked<<<grid, kTileThreads, 0, s>>>(b, lab, aux, a, nullptr, nullptr, 0, 0, g);
     // erode (AND) then dilate (OR), each along y then x
-    window_pass<true, true><<<grid, kTileThreads, 0, s>>>(a, c, smooth_k, nullptr, nullptr,
+    window_pass<true, true><<<grid, kTile, 0, s>>>(a, c, smooth_k, nullptr, nullptr,
                                                           0, 0, g);
-    window_pass<false, true><<<grid, kTileThreads, 0, s>>>(c, a, smooth_k, nullptr, nullptr,
+    window_pass<false, true><<<grid, kTile, 0, s>>>(c, a, smooth_k, nullptr, nullptr,
                                                            0, 0, g);
-    window_pass<true, false><<<grid, kTileThreads, 0, s>>>(a, c, smooth_k, nullptr, nullptr,
+    window_pass<true, false><<<grid, kTile, 0, s>>>(a, c, smooth_k, nullptr, nullptr,
                                                            0, 0, g);
-    window_pass<false, false><<<grid, kTileThreads, 0, s>>>(c, mask1, smooth_k, raw, stats,
+    window_pass<false, false><<<grid, kTile, 0, s>>>(c, mask1, smooth_k, raw, stats,
                                                             kStats, kSuppressedMax, g);
   } else {
     fill_unmarked<<<grid, kTileThreads, 0, s>>>(b, lab, aux, mask1, raw, stats, kStats,

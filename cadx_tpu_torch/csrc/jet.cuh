@@ -24,7 +24,7 @@ namespace cadx_jet {
 constexpr int kLutBytes = 256 * 3;
 constexpr int kMaxDevices = 64;
 
-static __constant__ uint8_t kJetRgb[kLutBytes];
+static __constant__ __align__(4) uint8_t kJetRgb[kLutBytes];
 
 // Uploads the table (host memory, kLutBytes) to the current device once.
 static int ensure_lut(const void* lut_rgb) {
@@ -39,9 +39,13 @@ static int ensure_lut(const void* lut_rgb) {
   return 0;
 }
 
-// Copies the table into shared memory; the caller synchronises the block.
+// Copies the table into shared memory (4-byte aligned), a word a thread: a
+// warp's loads of distinct constant addresses are served one by one; the
+// caller synchronises the block.
 __device__ __forceinline__ void load_lut(uint8_t* lut) {
-  for (int i = threadIdx.x; i < kLutBytes; i += blockDim.x) lut[i] = kJetRgb[i];
+  const auto* src = reinterpret_cast<const unsigned*>(kJetRgb);
+  auto* dst = reinterpret_cast<unsigned*>(lut);
+  for (int i = threadIdx.x; i < kLutBytes / 4; i += blockDim.x) dst[i] = src[i];
 }
 
 // One channel's blend: jet / 255 + img.
@@ -52,6 +56,18 @@ __device__ __forceinline__ float blend(uint8_t jet, float img) {
 // The overlay value: trunc(b / peak * 255), b in [0, peak].
 __device__ __forceinline__ uint8_t overlay_u8(float b, float peak) {
   return static_cast<uint8_t>(__fmul_rn(__fdiv_rn(b, peak), 255.0f));
+}
+
+// The same value from rpeak = 1 / peak rounded to double (__drcp_rn): the
+// float32 quotient b / peak is b * rpeak rounded to double, then to float.
+// That is exact: b * rpeak is within 2^-52 of b / peak, relatively, and an
+// exact float quotient lies at least 2^-49 from a point where rounding to
+// float changes (b - peak * m, for m such a midpoint of 25 significant
+// bits, is a nonzero multiple of 2^-48 of b's scale, since no float times a
+// midpoint is a float), so both round to the same float.
+__device__ __forceinline__ uint8_t overlay_u8_recip(float b, double rpeak) {
+  return static_cast<uint8_t>(
+      __fmul_rn(__double2float_rn(__dmul_rn(static_cast<double>(b), rpeak)), 255.0f));
 }
 
 // Block-wide reductions over blockDim.x threads (a multiple of 32, at most

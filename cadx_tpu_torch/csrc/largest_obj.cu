@@ -4,8 +4,8 @@
 // cadx_tpu_torch/kernels/largest_obj.py for the contract and its bounds.
 //
 // One C call issues a short sequence of launches on one stream with no host
-// sync, each covering tiles x images (tiled_components.cuh), as
-// cleaner_front.cu does:
+// sync, each covering tiles x images (tiled_components.cuh, whose select,
+// fill and opening plans pectoral.cu runs too), as cleaner_front.cu does:
 //   fill_first   the background's 4-connected CCL with border marks, then
 //                fill_unmarked (the input's holes filled);
 //   select       the conn-connected CCL with areas, largest_key (each
@@ -24,37 +24,7 @@
 // bytes.
 #include "tiled_components.cuh"
 
-namespace {
-
 using namespace cadx_tiled;
-
-struct Planes {
-  int* lab;
-  int* aux;
-  unsigned long long* keys;
-  Tiles g;
-  unsigned grid;
-  cudaStream_t s;
-};
-
-// dst = the largest kConn-connected component of src (the smallest label on
-// ties; empty for an empty src)
-template <int kConn>
-void select_largest(const uint8_t* src, uint8_t* dst, const Planes& p) {
-  ccl<kConn, true>(src, false, p.lab, p.aux, p.g, p.grid, p.s);
-  largest_key<<<p.grid, kTileThreads, 0, p.s>>>(src, false, p.lab, p.aux, p.keys, 1, 0, p.g);
-  select_label<<<p.grid, kTileThreads, 0, p.s>>>(src, p.lab, p.keys, 1, 0, dst, p.g);
-}
-
-// dst = src with its holes filled: background whose 4-connected component
-// reaches no border pixel
-void fill_holes(const uint8_t* src, uint8_t* dst, const Planes& p) {
-  ccl<4, false>(src, true, p.lab, p.aux, p.g, p.grid, p.s);
-  fill_unmarked<<<p.grid, kTileThreads, 0, p.s>>>(src, p.lab, p.aux, dst, nullptr, nullptr, 0,
-                                                   0, p.g);
-}
-
-}  // namespace
 
 // in, out: (B, H, W) bytes 0/1; scratch: 8-byte aligned, 8 * B + 10 * B * H
 // * W bytes (the keys, then lab and aux, then the masks a and b).
@@ -94,17 +64,7 @@ extern "C" int cadx_largest_obj(const void* in_, void* out_, void* scratch, int 
     fill_holes(dst, filled, p);
     dst = filled;
   }
-  if (smooth) {
-    // erode (AND) then dilate (OR), each along y then x; dst is a or b here
-    uint8_t* t = other(dst);
-    window_pass<true, true><<<p.grid, kTileThreads, 0, p.s>>>(dst, t, smooth_k, nullptr,
-                                                              nullptr, 0, 0, g);
-    window_pass<false, true><<<p.grid, kTileThreads, 0, p.s>>>(t, dst, smooth_k, nullptr,
-                                                               nullptr, 0, 0, g);
-    window_pass<true, false><<<p.grid, kTileThreads, 0, p.s>>>(dst, t, smooth_k, nullptr,
-                                                               nullptr, 0, 0, g);
-    window_pass<false, false><<<p.grid, kTileThreads, 0, p.s>>>(t, out, smooth_k, nullptr,
-                                                                nullptr, 0, 0, g);
-  }
+  // dst is a or b here
+  if (smooth) opening(dst, other(dst), out, smooth_k, p);
   return static_cast<int>(cudaGetLastError());
 }

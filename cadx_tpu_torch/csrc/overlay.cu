@@ -25,7 +25,7 @@ __global__ void init_peak_kernel(int* peak, int B) {
 __global__ void __launch_bounds__(kThreads)
 peak_kernel(const uint8_t* __restrict__ heat, const float* __restrict__ img,
             int* __restrict__ peak, int n, int pix_stride, int ch_stride) {
-  __shared__ uint8_t lut[cadx_jet::kLutBytes];
+  __shared__ __align__(4) uint8_t lut[cadx_jet::kLutBytes];
   __shared__ float scratch[32];
   cadx_jet::load_lut(lut);
   __syncthreads();
@@ -49,7 +49,7 @@ __global__ void __launch_bounds__(kThreads)
 write_kernel(const uint8_t* __restrict__ heat, const float* __restrict__ img,
              const int* __restrict__ peak, uint8_t* __restrict__ out, int n,
              int pix_stride, int ch_stride) {
-  __shared__ uint8_t lut[cadx_jet::kLutBytes];
+  __shared__ __align__(4) uint8_t lut[cadx_jet::kLutBytes];
   cadx_jet::load_lut(lut);
   __syncthreads();
   const long long b = blockIdx.y;

@@ -2,7 +2,8 @@
 // a block-based union-find CCL (Playne & Hawick, IEEE TPDS 2018; Allegretti,
 // Bolelli & Grana, IEEE TPDS 2020), the per-image reductions it feeds, the
 // selection and hole fill built on it, and the separable window pass of a
-// 0/1 opening. cleaner_front.cu and largest_obj.cu launch these kernels.
+// 0/1 opening. cleaner_front.cu, largest_obj.cu and pectoral.cu launch
+// these kernels.
 //
 // A batch of (B, H, W) planes is cut into kTile x kTile tiles, and the grid
 // covers tiles x images in one flat dimension, so any B runs and at B = 1 a
@@ -27,8 +28,10 @@
 // whatever order the atomics run in: the labels, and everything chosen by
 // them, are the same on every run.
 //
-// The kernels have internal linkage (static), so each source that includes
-// this header holds its own instances.
+// The launch plans that more than one source runs (the largest component,
+// the hole fill and the opening) are host functions here too. Kernels and
+// plans have internal linkage (static), so each source that includes this
+// header holds its own instances.
 #pragma once
 
 #include <climits>
@@ -384,40 +387,111 @@ fill_unmarked(const uint8_t* __restrict__ m, const int* __restrict__ lab,
 // One axis of a 0/1 erosion (kAnd) or dilation: dst = AND (OR) of src over
 // the window [c - k/2, c + k - 1 - k/2] along y (kAlongY) or x, cut to the
 // image (a window that leaves the image takes 1 for the erosion and 0 for
-// the dilation there, so only its pixels inside count). Reads go through
-// the read-only cache, where a warp's windows overlap.
+// the dilation there, so only its pixels inside count). A warp takes a
+// kTile x kTile tile, lane l its l-th column, so every load and store of
+// the warp is one run of 32 bytes. Along y a lane slides the window down its
+// column, keeping the count of set pixels in it (two reads an output, not
+// k); along x the warp goes row by row, turning the row's pixels around the
+// tile into bit masks with ballots (k / 32 + 2 of them) and counting each
+// lane's window with popcounts. With raw, the image's max of raw where dst
+// holds goes into stats[img * stride + slot].
 template <bool kAlongY, bool kAnd>
-static __device__ __forceinline__ bool window_pass_at(const uint8_t* __restrict__ src,
-                                                      const Tiles& g, const Pixel& px,
-                                                      int k) {
-  const int lo = k / 2;
-  const int c = kAlongY ? px.y : px.x;
-  const int len = kAlongY ? g.H : g.W;
-  const int stride = kAlongY ? g.W : 1;
-  const uint8_t* line = src + (px.p - static_cast<long long>(c) * stride);
-  const int a = max(c - lo, 0), b = min(c + k - 1 - lo, len - 1);
-  for (int j = a; j <= b; ++j) {
-    const bool s = __ldg(line + static_cast<long long>(j) * stride) != 0;
-    if (s != kAnd) return !kAnd;
-  }
-  return kAnd;
-}
-
-// One axis of the opening (see window_pass_at); with raw, as fill_unmarked.
-template <bool kAlongY, bool kAnd>
-static __global__ void __launch_bounds__(kTileThreads)
+static __global__ void __launch_bounds__(kTile)
 window_pass(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst, int k,
             const uint8_t* __restrict__ raw, unsigned long long* stats, int stride, int slot,
             Tiles g) {
   const Tile tile = this_tile(g);
-  const Pixel px = tile_pixel(g, tile);
-  const long long base = tile.img * g.n, q = base + px.p;
-  bool v = false;
-  if (px.inside) {
-    v = window_pass_at<kAlongY, kAnd>(src + base, g, px, k);
+  const int lo = k / 2, hi = k - 1 - lo;
+  const int lane = static_cast<int>(threadIdx.x), x = tile.x0 + lane;
+  const int y1 = min(tile.y0 + kTile, g.H);
+  const long long base = tile.img * g.n;
+  unsigned best = 0u;
+  const auto put = [&](long long q, bool v) {
     dst[q] = v;
+    if (raw && v) best = max(best, static_cast<unsigned>(raw[q]));
+  };
+  if (kAlongY) {
+    if (x < g.W) {
+      const uint8_t* s = src + base + x;
+      int a = max(tile.y0 - lo, 0), b = min(tile.y0 + hi, g.H - 1), count = 0;
+      for (int j = a; j <= b; ++j) count += s[static_cast<long long>(j) * g.W] != 0;
+      for (int y = tile.y0; y < y1; ++y) {
+        put(base + static_cast<long long>(y) * g.W + x, kAnd ? count == b - a + 1 : count > 0);
+        if (y - lo >= 0) {  // pixel y - lo leaves the window of y + 1
+          count -= s[static_cast<long long>(y - lo) * g.W] != 0;
+          a = y - lo + 1;
+        }
+        if (y + 1 + hi < g.H) {  // pixel y + 1 + hi enters it
+          count += s[static_cast<long long>(y + 1 + hi) * g.W] != 0;
+          b = y + 1 + hi;
+        }
+      }
+    }
+  } else {
+    // bit i of word w: pixel wbase + 32 w + i of the row; the words cover
+    // every window of the tile, [x0 - lo, x0 + kTile - 1 + hi]
+    const int wbase = tile.x0 - (lo + 31) / 32 * 32;
+    const int words = (lo + 31) / 32 + 1 + (hi + 31) / 32;
+    const int a = max(x - lo, 0), b = min(x + hi, g.W - 1);
+    for (int y = tile.y0; y < y1; ++y) {
+      const uint8_t* row = src + base + static_cast<long long>(y) * g.W;
+      int count = 0;
+      for (int w = 0; w < words; ++w) {
+        const int p0 = wbase + 32 * w, xw = p0 + lane;
+        const unsigned m = __ballot_sync(0xffffffffu, xw >= 0 && xw < g.W && row[xw] != 0);
+        const int l0 = max(a - p0, 0), h0 = min(b - p0, 31);
+        if (l0 <= h0)
+          count += __popc(m & (h0 == 31 ? 0xffffffffu : (2u << h0) - 1u) & ~((1u << l0) - 1u));
+      }
+      if (x < g.W) put(base + static_cast<long long>(y) * g.W + x,
+                       kAnd ? count == b - a + 1 : count > 0);
+    }
   }
-  if (raw) block_max_into(stats + tile.img * stride + slot, v ? raw[q] : 0u);
+  if (raw) block_max_into(stats + tile.img * stride + slot, best);
+}
+
+// ---- launch plans shared by largest_obj.cu and pectoral.cu -----------------------
+
+// What a plan launches on: the CCL's label and root planes, a uint64 key an
+// image (zeroed before), the tiles and the stream.
+struct Planes {
+  int* lab;
+  int* aux;
+  unsigned long long* keys;
+  Tiles g;
+  unsigned grid;
+  cudaStream_t s;
+};
+
+// dst = the largest kConn-connected component of src (the smallest label on
+// ties; empty for an empty src): 5 launches.
+template <int kConn>
+static void select_largest(const uint8_t* src, uint8_t* dst, const Planes& p) {
+  ccl<kConn, true>(src, false, p.lab, p.aux, p.g, p.grid, p.s);
+  largest_key<<<p.grid, kTileThreads, 0, p.s>>>(src, false, p.lab, p.aux, p.keys, 1, 0, p.g);
+  select_label<<<p.grid, kTileThreads, 0, p.s>>>(src, p.lab, p.keys, 1, 0, dst, p.g);
+}
+
+// dst = src with its holes filled: background whose 4-connected component
+// reaches no border pixel: 4 launches.
+static void fill_holes(const uint8_t* src, uint8_t* dst, const Planes& p) {
+  ccl<4, false>(src, true, p.lab, p.aux, p.g, p.grid, p.s);
+  fill_unmarked<<<p.grid, kTileThreads, 0, p.s>>>(src, p.lab, p.aux, dst, nullptr, nullptr, 0,
+                                                   0, p.g);
+}
+
+// dst = the k x k opening of src (erode along y and x, then dilate along y
+// and x, the window anchored at k / 2 and cut to the image): 4 launches;
+// tmp is a scratch plane, and src is overwritten.
+static void opening(uint8_t* src, uint8_t* tmp, uint8_t* dst, int k, const Planes& p) {
+  window_pass<true, true><<<p.grid, kTile, 0, p.s>>>(src, tmp, k, nullptr, nullptr, 0,
+                                                            0, p.g);
+  window_pass<false, true><<<p.grid, kTile, 0, p.s>>>(tmp, src, k, nullptr, nullptr, 0,
+                                                             0, p.g);
+  window_pass<true, false><<<p.grid, kTile, 0, p.s>>>(src, tmp, k, nullptr, nullptr, 0,
+                                                             0, p.g);
+  window_pass<false, false><<<p.grid, kTile, 0, p.s>>>(tmp, dst, k, nullptr, nullptr, 0,
+                                                              0, p.g);
 }
 
 }  // namespace cadx_tiled

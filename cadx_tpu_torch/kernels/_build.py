@@ -12,6 +12,11 @@ stream are passed as `c_void_p`, element strides as `c_longlong`, and
 every entry point returns `cudaGetLastError()`, which `check` turns into
 an error.
 
+`csrc/legacy/` holds the one-block-per-image kernels that the tiled ones
+replaced, for timings only (`chip_smoke.py --tail-device-times`);
+`load_legacy` builds them into a library of their own, and no path loads
+it.
+
 Nothing here runs at import time: the CPU tests import every module on a
 machine without nvcc.
 """
@@ -30,6 +35,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
+LEGACY = CSRC / "legacy"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cadx_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
@@ -39,8 +45,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _SIGNATURES = {
     "cadx_equalize_hist": (_P, _P, _I, _I, _I, _P),
     "cadx_largest_obj": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "cadx_pectoral_tail": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _I, _P),
+    "cadx_pectoral_tail": (_P,) * 8 + (_I,) * 7 + (_P,),
     "cadx_ccl": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "cadx_largest_component_mask": (_P, _P, _P, _P, _I, _I, _I, _P),
     "cadx_watershed_pair": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -52,11 +57,14 @@ _SIGNATURES = {
     "cadx_upsample_nearest": (_P, _P, _I, _I, _I, _I, _I, _P),
     "cadx_batchnorm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     "cadx_jet_blend": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "cadx_gradcam_tail": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _F, _P),
+    "cadx_gradcam_tail": (_P,) * 10 + (_I,) * 7 + (_L,) * 8 + (_I,) * 3 + (_F, _P),
     "cadx_cleaner_front": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "cadx_largest_component_seeded": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "cadx_flood_from": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+}
+_LEGACY_SIGNATURES = {
+    "cadx_pectoral_tail_one_block": (_P,) * 7 + (_I,) * 7 + (_P,),
+    "cadx_gradcam_tail_one_block": (_P,) * 8 + (_I,) * 6 + (_L,) * 8 + (_I,) * 2 + (_F, _P),
 }
 
 
@@ -70,16 +78,16 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+def _sources(src_dir: Path = CSRC) -> list[Path]:
+    return sorted(src_dir.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
-def library_path() -> Path:
+def library_path(src_dir: Path = CSRC, stem: str = "libcadx_kernels") -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources(src_dir):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    return BUILD_DIR / f"libcadx_kernels_{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{stem}_{digest.hexdigest()[:16]}.so"
 
 
 def _run(cmds: list[list[str]]) -> None:
@@ -94,10 +102,10 @@ def _run(cmds: list[list[str]]) -> None:
                                f"{' '.join(cmd)}\n{out}\n{err}")
 
 
-def build() -> Path:
-    """Compile the kernels unless a library for these sources exists: one
-    nvcc per source, all started together, then one link."""
-    lib = library_path()
+def build(src_dir: Path = CSRC, stem: str = "libcadx_kernels") -> Path:
+    """Compile the kernels of `src_dir` unless a library for these sources
+    exists: one nvcc per source, all started together, then one link."""
+    lib = library_path(src_dir, stem)
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -105,7 +113,7 @@ def build() -> Path:
     compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
         objs, cmds = [], []
-        for src in sorted(CSRC.glob("*.cu")):
+        for src in sorted(src_dir.glob("*.cu")):
             obj = os.path.join(tmpdir, src.stem + ".o")
             objs.append(obj)
             cmds.append([nvcc, *compile_flags, "-I", str(CSRC), "-c", "-o", obj,
@@ -117,15 +125,25 @@ def build() -> Path:
     return lib
 
 
-@functools.cache
-def load() -> ctypes.CDLL:
-    """The kernel library, built on first use and loaded once."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
+def _bind(path: Path, signatures: dict) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use and loaded once."""
+    return _bind(build(), _SIGNATURES)
+
+
+@functools.cache
+def load_legacy() -> ctypes.CDLL:
+    """The replaced one-block kernels of `csrc/legacy/`, for timings."""
+    return _bind(build(LEGACY, "libcadx_legacy"), _LEGACY_SIGNATURES)
 
 
 def check(rc: int, name: str) -> None:
@@ -143,6 +161,12 @@ def check_input(t: torch.Tensor, dtype: torch.dtype, name: str, ndim: int = 3) -
         raise ValueError(f"{name}: expected a contiguous {ndim}-dimensional {dtype} "
                          f"tensor, got {t.dtype} {tuple(t.shape)}"
                          f"{'' if t.is_contiguous() else ', not contiguous'}")
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device `index`, read once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream_ptr(device) -> int:

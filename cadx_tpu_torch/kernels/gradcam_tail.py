@@ -10,19 +10,35 @@ min-max (+1e-7) -> bilinear upsample as R @ cam @ C^T -> clamp to [0, 1]
 
 Layout: acts and grads (B, h, w, F) float32 at any strides (the
 pipeline's are channel-last views of channel-first tensors), the image
-(B, oh, ow) float32, contiguous. One block of 1,024 threads per image: the
-F weights, the h*w CAM and the oh*w rows of R @ cam stay in shared memory;
-pass 1 writes the heatmap and takes the peak blend, pass 2 rereads its own
-heat levels and writes the overlay. One block per image leaves SMs idle
-at small batches (at B=64, 64 of the H100's 132); a later PR may split an
-image over several blocks. The sampling matrices come from the host
+(B, oh, ow) float32, contiguous. Three launches, 256 threads a block.
+The first, a block an image, stages the image's activations and
+gradients in shared memory (eight loads in flight a thread, in the order
+of memory) and writes the normalised h*w CAM to a scratch of B * (h*w +
+1) words. The other two cover row bands x images in one flat grid
+(`band_rows`: 16 rows a band where that gives two blocks an SM, fewer
+rows, down to one, where it does not, so B=1 fills the card too; 1,024
+blocks at B=64, 256² and 256 at B=1): the second takes its band's rows
+of R @ cam, writes the band's heatmap and folds the band's peak blend
+into the image's with one atomicMax on the float's bits (a max of
+positive floats, which orders as their bits and does not depend on the
+order of the blocks; the largest of a pixel's three channels is the
+blend of its largest, the blend being monotone), into the scratch's B
+words, which a memset clears first; the third rereads the band's heat
+levels and writes the overlay, four pixels a thread as three 32-bit
+words where ow % 4 == 0, dividing by the image's peak through its
+reciprocal in double (`jet.cuh::overlay_u8_recip`: exact, as the
+comment there shows). Recomputing the CAM in every band's block instead
+of the first launch measured slower (staging 1,024 copies of the
+activations). The sampling matrices come from the host
 (`ops/resize.py::_interp_matrix`: sample points in float64, weights in
 float32, both weights of an edge row where lo == hi summed into one
 entry), cached per shape and device, so the kernel uses the plain
-version's weights. Each product with them is a chain of fused
+version's weights; C^T goes as each column's nonzero weights (two for a
+bilinear column). Each product with them is a chain of fused
 multiply-adds in ascending k from 0, the order cuBLAS accumulates the
-plain version's (R @ cam) @ C^T in. The GAP over h*w cells and the sum
-over F channels add in the order torch's CUDA reduction adds them
+plain version's (R @ cam) @ C^T in (the zero terms it adds leave a
+nonnegative sum as it is). The GAP over h*w cells and the sum over F
+channels add in the order torch's CUDA reduction adds them
 (`_reduce_split`, read from ATen's Reduce.cuh and checked on the card)
 where the gradients are channel-last and the activations channel-first,
 as the pipeline gives them; for other layouts the order may differ.
@@ -67,6 +83,16 @@ def gradcam_tail_reference(acts: torch.Tensor, grads: torch.Tensor, img01: torch
     return jet_blend_reference(heat_u8, img01), heat_u8
 
 
+def band_rows(b: int, oh: int, sms: int = 132) -> int:
+    """Rows of a band for B images of oh rows on a card of `sms` SMs: 16
+    where B * ceil(oh / 16) blocks give two an SM, else halved until they
+    do or a band is one row."""
+    rows = 16
+    while rows > 1 and b * -(-oh // rows) < 2 * sms:
+        rows //= 2
+    return rows
+
+
 def _reduce_split(num_outputs: int, inner_outputs: int, n_reduce: int) -> int:
     """Over how many threads torch's CUDA reduction (ATen Reduce.cuh,
     setReduceConfig) splits each output's `n_reduce` float32 inputs when
@@ -91,10 +117,19 @@ def _reduce_split(num_outputs: int, inner_outputs: int, n_reduce: int) -> int:
 
 @functools.cache
 def _sampling(oh: int, h: int, ow: int, w: int, device: torch.device):
-    """R (oh, h) and C^T (w, ow) on `device`, once per shape."""
+    """R (oh, h), and the (w, ow) column matrix C^T as its nonzero weights
+    by column, (nk, ow) indices and weights in ascending k, padded with
+    weight 0 (a bilinear column has nk = 2), on `device`, once per shape."""
     r = torch.as_tensor(_interp_matrix(oh, h), device=device)
-    ct = torch.as_tensor(np.ascontiguousarray(_interp_matrix(ow, w).T), device=device)
-    return r, ct
+    ct = _interp_matrix(ow, w).T
+    nk = max(int((ct != 0).sum(axis=0).max()), 1)
+    idx = np.zeros((nk, ow), np.int32)
+    val = np.zeros((nk, ow), np.float32)
+    for j in range(ow):
+        ks = np.flatnonzero(ct[:, j])
+        idx[:len(ks), j] = ks
+        val[:len(ks), j] = ct[ks, j]
+    return r, torch.as_tensor(idx, device=device), torch.as_tensor(val, device=device)
 
 
 def gradcam_tail(acts: torch.Tensor, grads: torch.Tensor, img01: torch.Tensor,
@@ -122,19 +157,20 @@ def gradcam_tail(acts: torch.Tensor, grads: torch.Tensor, img01: torch.Tensor,
     overlay = torch.empty((b, oh, ow, 3), dtype=torch.uint8, device=acts.device)
     heat = torch.empty((b, oh, ow), dtype=torch.uint8, device=acts.device)
     if overlay.numel():
-        r, ct = _sampling(oh, h, ow, w, acts.device)
+        r, cidx, cval = _sampling(oh, h, ow, w, acts.device)
         # the plain version's reductions: the GAP over the cells of
         # channel-last gradients (outputs (B, F)), the channel sum over
         # activations whose channel stride is h*w (outputs (B, h, w))
         ny_gap = _reduce_split(b * f, f, h * w)
         ny_sum = _reduce_split(b * h * w, h * w, f) if acts.stride(3) == h * w else 1
-        lib = _build.load()
-        rc = lib.cadx_gradcam_tail(acts.data_ptr(), grads.data_ptr(), img01.data_ptr(),
-                                   r.data_ptr(), ct.data_ptr(), jet_lut_rgb().ctypes.data,
-                                   overlay.data_ptr(), heat.data_ptr(), b, h, w, f, oh, ow,
-                                   *acts.stride(), *grads.stride(), ny_gap, ny_sum,
-                                   float(np.float32(b * f) / np.float32(b * f * h * w)),
-                                   _build.stream_ptr(acts.device))
+        sms = _build.sm_count(acts.device.index if acts.device.index is not None else 0)
+        scratch = torch.empty((b * (h * w + 1),), dtype=torch.int32, device=acts.device)
+        rc = _build.load().cadx_gradcam_tail(
+            acts.data_ptr(), grads.data_ptr(), img01.data_ptr(), r.data_ptr(), cidx.data_ptr(),
+            cval.data_ptr(), jet_lut_rgb().ctypes.data, overlay.data_ptr(), heat.data_ptr(),
+            scratch.data_ptr(), b, h, w, f, oh, ow, cidx.shape[0], *acts.stride(),
+            *grads.stride(), ny_gap, ny_sum, band_rows(b, oh, sms),
+            float(np.float32(b * f) / np.float32(b * f * h * w)), _build.stream_ptr(acts.device))
         _build.check(rc, "cadx_gradcam_tail")
         gradcam_tail.launches += 1
     return overlay, heat

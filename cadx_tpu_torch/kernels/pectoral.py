@@ -2,26 +2,69 @@
 plain PyTorch version.
 
 Replaces `cadx_tpu/kernels/pectoral.py::pectoral_tail_pallas` (its
-`pl.pallas_call` at :124). Source: `csrc/pectoral.cu`, with the shared
-device code in `csrc/components.cuh`. Steps, per image:
+`pl.pallas_call` at :124). Source: `csrc/pectoral.cu`, with the tiled
+device code and launch plans it shares with largest_obj and cleaner_front
+in `csrc/tiled_components.cuh`. Steps, per image:
 1. largest 8-connected component of the high-threshold mask, holes filled;
 2. marker bands: erode and dilate with one (k-1)*n+1 window, centred
    (odd k);
 3. markers 255 (eroded core), 128 (outside the dilated core), 64 (outside
-   the breast mask);
-4. packed geodesic watershed -> labels, then the ridge boundary (label
-   disagreements plus the 1-px frame);
-5. opening(sm_k) of (boundary == 0) & (labels == 128).
+   the breast mask), then the packed geodesic watershed -> labels;
+4. the ridge boundary (label disagreements plus the 1-px frame), and the
+   opening(sm_k) of (boundary == 0) & (labels == 128).
 
-Layout: one block of 1024 threads per image, planes in global memory (a
-scratch of 6 int32 planes per image), loops to convergence inside the
-block. The watershed is a Bellman-Ford relaxation over 4-neighbours on
-the packed value (dist << 2) | label with the step cost
-((|dq| * K + 1) << 2), K the next power of two >= H + W: exactly what the
-JAX line scans add up, so both reach the same fixpoint; unreached pixels
-keep 1 << 30, label 0. Bound: the number of relaxation passes (the hop
-length of the longest shortest path through the unlabeled band) times a
-pass over the image from L2.
+Layout (redesigned for the whole card): one C call issues a fixed plan
+of launches on one stream, each over tiles x images in one flat grid, so
+B=1 fills the card as B=64 does. Steps 1, 2 and 4 run on 32 x 32 tiles
+of 1,024 threads: the tiled union-find CCL with areas, `largest_key` and
+`select_label`, then the background's 4-connected CCL with border marks
+and `fill_unmarked` (largest_obj's "fill" ordering: 9 launches and a
+memset); four separable `window_pass` launches for the bands (erosion
+ANDs and dilation ORs over the window cut to the image, which is what
+the one-block kernel's min with fill 1 on p and on 1 - p did; a warp
+walks a tile, each lane sliding the window along its line with a count
+of the set pixels in it, two reads an output) and one that writes the
+packed markers; one that writes the labels, the ridge and the
+ridge-free breast label, and four window passes for the opening.
+The watershed relaxes the packed value (dist << 2) | label a tile of
+`TILE` x `TILE` pixels (32, the tiles of the other steps) a block of
+`TILE` threads: the block copies its tile of pk and of the image with a
+1-pixel halo to shared memory, relaxes it to its fixpoint under that
+halo (a thread a row scanning left to right then back, a thread a column
+down then up, the JAX line scan's own shape, until `__syncthreads_or`
+sees no change), writes back only the pixels that fell and marks dirty
+each neighbour along an edge where one fell. The markers' launch marks
+dirty the tiles that hold an unreached pixel (a tile of markers alone
+never changes). The relaxation runs in rounds, a round relaxing every
+dirty tile once, until a round marks no tile (B=64 at 256² and B=8 at
+512² took 5 rounds, the 512² upload 4), all in one cooperative launch: a
+grid of as many blocks as the card holds at once, each looping over its
+tiles, with a grid sync between rounds. So nothing reads back to the
+host, and the call returns once the plan is queued: `PLAN_LAUNCHES`
+launches in all. Every step cost ((|dq| * K + 1) << 2), K the next power
+of two >= H + W, is positive and values only fall, so the min-plus
+fixpoint is unique whatever the order of relaxation: the same bytes as
+the plain line scans, ties to the smaller label code. Unreached pixels
+keep 1 << 30, label 0; int32 holds every path value for sides <= 512.
+Scratch (`scratch_bytes`): a uint64 key an image, four int32 (the
+rounds' changed flags and their count), two int32 planes (the CCL's
+labels and roots; pk then takes the first), three byte planes and two
+dirty bytes a tile: 11 bytes a pixel (the one-block kernel kept six
+int32 planes, 24).
+
+Bound: the function reads its three byte planes and writes labels,
+boundary and mask once (9 bytes a pixel), and does `ONCE_OPS` operations
+a pixel that no order of work avoids at the default windows (the largest
+label, the hole fill's certificate, the two 15-wide bands, the markers,
+the packed costs, the labels, the ridge and the 25-wide opening); the
+result is the unique fixpoint, so the sweeps a plain version runs to
+reach it belong to that algorithm, not to the function. This design's
+own floor is `PLAN_BYTES` a pixel, its launches each reading and writing
+their planes once: the two CCLs 14 each (a label written by the local
+pass, read and written by the flatten, the mask twice), the key and the
+selection 11, the fill 6, the bands' and the opening's window passes 2
+each, the markers 7, one watershed round 9 (pk read and written, the
+image read), the ridge 10.
 """
 
 from __future__ import annotations
@@ -35,7 +78,19 @@ from cadx_tpu_torch.ops.watershed import marker_watershed_plain
 
 SOURCE = "cadx_tpu_torch/csrc/pectoral.cu"
 REPLACES = "cadx_tpu/kernels/pectoral.py:124"
-_SCRATCH_PLANES = 6
+TILE = 32             # the tile side of every step (csrc/tiled_components.cuh)
+STEPS = 4             # object, bands and markers, watershed, ridge and opening
+PLAN_LAUNCHES = 20    # kernel launches a call, the watershed's one included
+PLAN_BYTES = 87       # bytes a pixel the plan's launches move at the least
+ONCE_OPS = 224        # operations a pixel the function does once, at the least
+
+
+def scratch_bytes(b: int, h: int, w: int) -> int:
+    """The plan's scratch (`csrc/pectoral.cu`): a uint64 key an image,
+    four int32 (the watershed's changed flags and its rounds), two int32
+    planes, three byte planes and two dirty flags a tile."""
+    tiles = b * -(-h // TILE) * -(-w // TILE)
+    return 8 * b + 16 + 11 * b * h * w + 2 * tiles
 
 
 def pectoral_tail_reference(img_equ: torch.Tensor, img_bin: torch.Tensor,
@@ -64,6 +119,43 @@ def pectoral_tail_reference(img_equ: torch.Tensor, img_bin: torch.Tensor,
     return labels, boundary, opening(mask128, sm_k) > 0
 
 
+def run_plan(img_equ: torch.Tensor, img_bin: torch.Tensor, breast_mask: torch.Tensor,
+             morph_k: int = 3, n_morph: int = 7, sm_k: int = 25, steps: int = STEPS,
+             rounds: torch.Tensor | None = None):
+    """The kernel's plan on CUDA tensors, up to `steps` of its steps (the
+    outputs are whole only with all four; fewer serve timings by step).
+    `rounds`, a one-element int32 tensor on the same device, receives the
+    watershed's rounds."""
+    for t, name in ((img_equ, "img_equ"), (img_bin, "img_bin"),
+                    (breast_mask, "breast_mask")):
+        _build.check_input(t, torch.uint8, f"pectoral_tail {name}")
+        if t.shape != img_equ.shape or t.device != img_equ.device:
+            raise ValueError(f"pectoral_tail: {name} is {tuple(t.shape)} on {t.device}, "
+                             f"expected {tuple(img_equ.shape)} on {img_equ.device}")
+    b, h, w = img_equ.shape
+    if max(h, w) > 512:
+        raise ValueError(f"packed watershed needs sides <= 512, got {h}x{w}")
+    if rounds is not None:
+        _build.check_input(rounds, torch.int32, "pectoral_tail rounds", ndim=1)
+        if rounds.numel() != 1 or rounds.device != img_equ.device:
+            raise ValueError(f"pectoral_tail: rounds must be one int32 on {img_equ.device}")
+    dev = img_equ.device
+    labels = torch.empty((b, h, w), dtype=torch.int32, device=dev)
+    boundary = torch.empty((b, h, w), dtype=torch.bool, device=dev)
+    mask = torch.empty((b, h, w), dtype=torch.bool, device=dev)
+    if not b:
+        return labels, boundary, mask
+    scratch = torch.empty(scratch_bytes(b, h, w), dtype=torch.uint8, device=dev)
+    rc = _build.load().cadx_pectoral_tail(
+        img_equ.data_ptr(), img_bin.data_ptr(), breast_mask.data_ptr(),
+        labels.data_ptr(), boundary.data_ptr(), mask.data_ptr(), scratch.data_ptr(),
+        None if rounds is None else rounds.data_ptr(), b, h, w, morph_k, n_morph, sm_k,
+        steps, _build.stream_ptr(dev))
+    _build.check(rc, "cadx_pectoral_tail")
+    pectoral_tail.launches += 1
+    return labels, boundary, mask
+
+
 def pectoral_tail(img_equ: torch.Tensor, img_bin: torch.Tensor,
                   breast_mask: torch.Tensor, morph_k: int = 3,
                   n_morph: int = 7, sm_k: int = 25):
@@ -77,31 +169,7 @@ def pectoral_tail(img_equ: torch.Tensor, img_bin: torch.Tensor,
     if img_equ.device.type == "cpu":
         return pectoral_tail_reference(img_equ, img_bin, breast_mask,
                                        morph_k, n_morph, sm_k)
-    for t, name in ((img_equ, "img_equ"), (img_bin, "img_bin"),
-                    (breast_mask, "breast_mask")):
-        _build.check_input(t, torch.uint8, f"pectoral_tail {name}")
-        if t.shape != img_equ.shape:
-            raise ValueError(f"pectoral_tail: {name} has shape "
-                             f"{tuple(t.shape)}, expected {tuple(img_equ.shape)}")
-    b, h, w = img_equ.shape
-    if max(h, w) > 512:
-        raise ValueError(f"packed watershed needs sides <= 512, got {h}x{w}")
-    dev = img_equ.device
-    labels = torch.empty((b, h, w), dtype=torch.int32, device=dev)
-    boundary = torch.empty((b, h, w), dtype=torch.bool, device=dev)
-    mask = torch.empty((b, h, w), dtype=torch.bool, device=dev)
-    if b:
-        scratch = torch.empty((b, _SCRATCH_PLANES, h, w), dtype=torch.int32,
-                              device=dev)
-        lib = _build.load()
-        rc = lib.cadx_pectoral_tail(
-            img_equ.data_ptr(), img_bin.data_ptr(), breast_mask.data_ptr(),
-            labels.data_ptr(), boundary.data_ptr(), mask.data_ptr(),
-            scratch.data_ptr(), b, h, w, morph_k, n_morph, sm_k,
-            _build.stream_ptr(dev))
-        _build.check(rc, "cadx_pectoral_tail")
-        pectoral_tail.launches += 1
-    return labels, boundary, mask
+    return run_plan(img_equ, img_bin, breast_mask, morph_k, n_morph, sm_k)
 
 
 pectoral_tail.launches = 0

@@ -123,3 +123,17 @@ def tile_edge_cases(h: int, w: int, tile: int = 32, seed: int = 0) -> np.ndarray
     out[9] = np.where(rng.random((h, w)) < 0.6, 200, 0)
     out[11] = 200
     return out
+
+
+def pectoral_tile_edge_inputs(h: int, w: int, seed: int = 0):
+    """(img_equ, img_bin, breast_mask), each (12, h, w) uint8, for the
+    pectoral tail on the inputs that break a tiled CCL: the high-threshold
+    mask is `tile_edge_cases` (its objects cross tile edges and corners),
+    the equalized image seeded noise (geodesic paths that wander across
+    the watershed's tiles), the breast mask 255 but for the corner
+    triangle (y + x) * 6 < h + w (the third marker)."""
+    img_bin = tile_edge_cases(h, w, seed=seed)
+    img_equ = np.random.default_rng(seed + 1).integers(0, 256, img_bin.shape).astype(np.uint8)
+    yy, xx = np.mgrid[0:h, 0:w]
+    breast = np.where((yy + xx) * 6 < h + w, 0, 255).astype(np.uint8)
+    return img_equ, img_bin, np.broadcast_to(breast, img_bin.shape).copy()

@@ -13,7 +13,13 @@ Phases, each of which raises on failure (the script then exits nonzero):
    kernels run to the fixpoint; the pair-form watershed, which has no
    float32 fixpoint at real sizes, runs the same 256 sweeps in both):
    - equalize, largest_obj, pectoral_tail: synthetic mammograms (B=16,
-     256²) and random masks; cleaner_front on B=16 256² (synthetic
+     256²) and random masks; pectoral_tail also on
+     `synthetic.pectoral_tile_edge_inputs` at the six shapes below and at
+     the serving shapes (B=1 and B=8 at 512²), each twice to the same
+     bytes; at B=1 512² the profiler trace must hold every launch of its
+     plan, each covering at least 132 blocks or the image's tile count,
+     and no synchronising runtime call (its watershed loops on the card);
+     cleaner_front on B=16 256² (synthetic
      mammograms, noise, dark images) and on `synthetic.tile_edge_cases`
      (shapes on the edges and corners of its 32x32 tiles, ties across
      tiles, border gaps; B=12 at 64², 256², 45x70, 1x70, 70x1, 333x257)
@@ -67,9 +73,7 @@ Phases, each of which raises on failure (the script then exits nonzero):
      65,536 elements (B=2, C up to 2048, contiguous and 4 bytes off a
      16-byte boundary), and jet_blend at 256² B=64 and 512²
      B=1, gray and RGB, bit-exact; gradcam_tail at the pipeline's shapes,
-     (64, 6, 6, 64) -> 256², heat +-1 and overlay +-2 where the heat
-     agrees, within the heatmap-step bound of phase 6 where it does not
-     (its GAP and channel sums round otherwise than torch's reductions);
+     (64, 6, 6, 64) -> 256², bit-exact, twice to the same bytes;
 3. the fused pipeline: `run_pipeline` at 256² with the full-width
    classifier on seeded weights, three batches of B=64; launches 1
    (cleaner_front), 1 (equalize), 1 (pectoral_tail), 4 (conv_leaky), 4
@@ -148,7 +152,16 @@ Phases, each of which raises on failure (the script then exits nonzero):
    inputs need, counted by the plain sweeps; beside it the floor of one
    read and write of the planes a sweep, 24 bytes a pixel); the CLI's
    featurize p50 split by stage (cleaner_front, pectoral removal with its
-   largest_obj and watershed, the resizes, conv1); then times with CUDA
+   largest_obj and watershed, the resizes, conv1); pectoral_tail and
+   gradcam_tail beside the one-block kernels they replaced (kept in
+   `csrc/legacy/`; `python3 chip_smoke.py --tail-device-times`, in a
+   fresh process): pectoral_tail by step (object, bands and markers,
+   watershed with its rounds, ridge and opening) at B=64 256², B=1 512²
+   and B=8 512², also beside its plain version, and its bound (its inputs
+   and outputs once against the ONCE_OPS operations a pixel it does once)
+   beside the floor of this design and, for information, the plain
+   version's sweep operations on its inputs; gradcam_tail's device time
+   beside the old kernel's; then times with CUDA
    events: each kernel beside its plain version (256²
    B=64 for the fused-pipeline kernels and gradcam_tail, the serving
    shapes for ccl, mode and watershed, the training shapes for
@@ -168,7 +181,9 @@ Phases, each of which raises on failure (the script then exits nonzero):
    bytes over 3.35 TB/s and its operations over 67 TFLOP/s, the H100
    SXM's HBM3 rate and float32 peak); ms per training step of each
    configuration; the pipeline's images per second and device time; and the p50 of
-   process_single_image per upload shape, of classify_and_roi per
+   process_single_image per upload shape (the 512² upload also split by
+   stage: cleaner_front, pectoral removal with its pectoral_tail, the
+   resize, conv1), of classify_and_roi per
    pipeline and of the reference `write_gradcam_overlays` over 10
    requests after warmup.
 
@@ -236,13 +251,9 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int) -> float | None:
-    """Mean device milliseconds per call: the kernel time torch.profiler
-    records on the card (host overhead, which bounds a small kernel's
-    back-to-back calls, excluded). None where the window lost records:
-    every call launches the same kernels, so each kernel's record count is
-    a multiple of iters; late in a long run the profiler has kept only
-    some of the port's own launches (1 of 10 of a 3 ms kernel)."""
+def device_kernels(fn, iters: int) -> list:
+    """torch.profiler's averages of the card's kernels (and memsets and
+    copies) over iters calls of fn, after one."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -251,11 +262,26 @@ def device_ms(fn, iters: int) -> float | None:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_ms(fn, iters: int) -> float | None:
+    """Mean device milliseconds per call: the kernel time torch.profiler
+    records on the card (host overhead, which bounds a small kernel's
+    back-to-back calls, excluded). None where the window lost records:
+    every call launches the same kernels, so each kernel's record count is
+    a multiple of iters; late in a long run the profiler has kept only
+    some of the port's own launches (1 of 10 of a 3 ms kernel)."""
+    kernels = device_kernels(fn, iters)
     if not kernels or any(e.count % iters for e in kernels):
         return None
     return sum(e.self_device_time_total for e in kernels) / 1e3 / iters
+
+
+def device_ms_by_kernel(fn, iters: int = 3) -> dict:
+    """Kernel name -> its launches and device milliseconds a call of fn."""
+    return {e.key[:72]: {"calls": e.count / iters, "ms": e.self_device_time_total / 1e3 / iters}
+            for e in device_kernels(fn, iters)}
 
 
 def trace_events(fn) -> list:
@@ -600,6 +626,179 @@ def batchnorm_device_times() -> int:
     return 0
 
 
+TAIL_ITERS, TAIL_WARMUP = 10, 5      # calls a timing of the tails, and before it
+TAIL_STEPS = ("object", "bands and markers", "watershed", "ridge and opening")
+
+
+def pectoral_path_inputs(dev) -> dict:
+    """Shape name -> (img_equ, img_bin, breast_mask) as `clean_boundary_gray`
+    hands them to pectoral_tail, at the three shapes its paths give it: a
+    run_pipeline batch (B=64 at 256², `synthetic_mammograms` seed 10), the
+    512² upload (B=1, `synthetic_native_mammogram` seed 7) and
+    classify_batch's batch (B=8 at 512², seeds 30-37)."""
+    from cadx_tpu_torch.kernels.cleaner_front import cleaner_front
+    from cadx_tpu_torch.ops.histogram import equalize_hist
+    from cadx_tpu_torch.ops.threshold import (binary_threshold, relative_threshold_value,
+                                              to_uint8)
+    from cadx_tpu_torch.synthetic import synthetic_mammograms, synthetic_native_mammogram
+
+    raws = {"B=64 256x256 (run_pipeline)": synthetic_mammograms(64, 256, seed=10),
+            "B=1 512x512 (the 512x512 upload)": synthetic_native_mammogram(
+                512, 512, seed=7, dtype=np.uint8, top=250)[None],
+            "B=8 512x512 (classify_batch)": np.stack(
+                [synthetic_mammograms(1, 512, seed=30 + i)[0] for i in range(8)])}
+    out = {}
+    for name, raw in raws.items():
+        breast_only, breast, _ = cleaner_front(to_uint8(torch.from_numpy(raw).to(dev)), 15, 0.05)
+        equ = equalize_hist(breast_only)
+        high = binary_threshold(equ, relative_threshold_value(breast_only, 0.8), 255)
+        out[name] = (equ, high, breast.to(torch.uint8) * 255)
+    return out
+
+
+def old_pectoral(lib, equ, high, breast, stop_after: int = 4):
+    """The replaced one-block pectoral kernel (`csrc/legacy/`), stopped after
+    `stop_after` steps, as a callable on preallocated outputs."""
+    from cadx_tpu_torch.kernels import _build
+
+    b, h, w = equ.shape
+    labels = torch.empty((b, h, w), dtype=torch.int32, device=equ.device)
+    boundary = torch.empty((b, h, w), dtype=torch.bool, device=equ.device)
+    mask = torch.empty_like(boundary)
+    scratch = torch.empty((b, 6, h, w), dtype=torch.int32, device=equ.device)
+
+    def run():
+        rc = lib.cadx_pectoral_tail_one_block(
+            equ.data_ptr(), high.data_ptr(), breast.data_ptr(), labels.data_ptr(),
+            boundary.data_ptr(), mask.data_ptr(), scratch.data_ptr(), b, h, w, 3, 7, 25,
+            stop_after, _build.stream_ptr(equ.device))
+        _build.check(rc, "cadx_pectoral_tail_one_block")
+        return labels, boundary, mask
+    return run
+
+
+def old_gradcam(lib, acts, grads, img01, out_hw):
+    """The replaced one-block Grad-CAM tail (`csrc/legacy/`) on preallocated
+    outputs, called as `gradcam_tail` calls its kernel."""
+    from cadx_tpu_torch.kernels import _build
+    from cadx_tpu_torch.kernels import gradcam_tail as KGT
+    from cadx_tpu_torch.ops.resize import _interp_matrix
+
+    b, h, w, f = acts.shape
+    oh, ow = out_hw
+    overlay = torch.empty((b, oh, ow, 3), dtype=torch.uint8, device=acts.device)
+    heat = torch.empty((b, oh, ow), dtype=torch.uint8, device=acts.device)
+    r = torch.as_tensor(_interp_matrix(oh, h), device=acts.device)
+    ct = torch.as_tensor(np.ascontiguousarray(_interp_matrix(ow, w).T), device=acts.device)
+    ny_gap = KGT._reduce_split(b * f, f, h * w)
+    ny_sum = KGT._reduce_split(b * h * w, h * w, f) if acts.stride(3) == h * w else 1
+    lut = KGT.jet_lut_rgb()
+
+    def run():
+        rc = lib.cadx_gradcam_tail_one_block(
+            acts.data_ptr(), grads.data_ptr(), img01.data_ptr(), r.data_ptr(), ct.data_ptr(),
+            lut.ctypes.data, overlay.data_ptr(), heat.data_ptr(), b, h, w, f, oh, ow,
+            *acts.stride(), *grads.stride(), ny_gap, ny_sum,
+            float(np.float32(b * f) / np.float32(b * f * h * w)), _build.stream_ptr(acts.device))
+        _build.check(rc, "cadx_gradcam_tail_one_block")
+        return overlay, heat
+    return run
+
+
+def tail_device_times() -> int:
+    """`--tail-device-times`: the pectoral tail and the Grad-CAM tail beside
+    the one-block kernels they replaced, kept in `csrc/legacy/` for this
+    and built apart (`_build.load_legacy`). Phase 8 runs it in a fresh
+    process, where the profiler keeps every record.
+
+    The pectoral tail at `pectoral_path_inputs`' three shapes: both kernels
+    bit-exact against the plain version uncapped; each prefix of the steps
+    (TAIL_STEPS; all four are the whole tail) in turns old, new, new, old,
+    TAIL_ITERS calls a timing after TAIL_WARMUP (CUDA events), each step's
+    time its prefix's less the one before; the plan's tile and blocks, its
+    watershed rounds; the plain version; device time by
+    kernel. The Grad-CAM tail at the pipeline's (64, 6, 6, 64) -> 256²:
+    bit-exact to its old kernel, CUDA events in turns old, new, new, old,
+    and each one's device time. Prints one JSON line a row, then one with
+    all of them."""
+    if not torch.cuda.is_available():
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from cadx_tpu_torch.kernels import _build
+    from cadx_tpu_torch.kernels import gradcam_tail as KGT
+    from cadx_tpu_torch.kernels import pectoral as KP
+    from cadx_tpu_torch.synthetic import synthetic_mammograms
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    legacy = _build.load_legacy()
+
+    def timed(fn):
+        return cuda_ms(fn, TAIL_ITERS, TAIL_WARMUP)
+
+    rows = []
+    for name, inputs in pectoral_path_inputs(dev).items():
+        b, h, w = inputs[0].shape
+        plain = KP.pectoral_tail_reference(*inputs, max_iters=h * w, ws_max_iters=h * w)
+        for what, got in (("old one-block kernel", old_pectoral(legacy, *inputs)()),
+                          ("tiled plan", KP.run_plan(*inputs))):
+            torch.cuda.synchronize()
+            for part, a, c in zip(("labels", "boundary", "mask"), got, plain):
+                if not torch.equal(a, c):
+                    raise AssertionError(f"pectoral_tail [{part}, {what}, {name}] disagrees "
+                                         f"with its plain version")
+        rounds = torch.zeros(1, dtype=torch.int32, device=dev)
+        KP.run_plan(*inputs, rounds=rounds)
+        watershed = {"tile": KP.TILE, "tiles": b * -(-h // KP.TILE) * -(-w // KP.TILE),
+                     "rounds": int(rounds.item())}
+        runs = {"old": ([], []), "new": ([], [])}
+        for steps in range(1, len(TAIL_STEPS) + 1):
+            old = old_pectoral(legacy, *inputs, steps)
+
+            def new(steps=steps):
+                return KP.run_plan(*inputs, steps=steps)
+            runs["old"][0].append(timed(old))
+            runs["new"][0].append(timed(new))
+            runs["new"][1].append(timed(new))
+            runs["old"][1].append(timed(old))
+        prefix = {k: [(x + y) / 2 for x, y in zip(*v)] for k, v in runs.items()}
+        by_step = {k: {step: v[i] - (v[i - 1] if i else 0.0) for i, step in enumerate(TAIL_STEPS)}
+                   for k, v in prefix.items()}
+        row = {"kernel": "pectoral_tail", "shape": name, "card": card,
+               "ms": prefix["new"][-1], "old_ms": prefix["old"][-1],
+               "plain_ms": cuda_ms(lambda: KP.pectoral_tail_reference(*inputs), 3, 1),
+               "by_step_ms": by_step["new"], "old_by_step_ms": by_step["old"],
+               "runs_ms": runs, "watershed": watershed,
+               "device_ms_by_kernel": device_ms_by_kernel(lambda: KP.run_plan(*inputs))}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+
+    rng = np.random.default_rng(3)
+    acts = torch.from_numpy(np.abs(rng.standard_normal((64, 64, 6, 6))).astype(np.float32))
+    acts = acts.to(dev).permute(0, 2, 3, 1)
+    grads = torch.from_numpy(rng.standard_normal((64, 6, 6, 64)).astype(np.float32)).to(dev)
+    img01 = torch.from_numpy(synthetic_mammograms(64, 256, seed=3)).to(dev).float() / 255.0
+    args = (acts, grads, img01, (256, 256))
+    old = old_gradcam(legacy, *args)
+
+    def new():
+        return KGT.gradcam_tail(*args)
+    for a, c in zip(new(), old()):
+        torch.cuda.synchronize()
+        if not torch.equal(a, c):
+            raise AssertionError("gradcam_tail disagrees with its one-block kernel")
+    o1, n1, n2, o2 = timed(old), timed(new), timed(new), timed(old)
+    row = {"kernel": "gradcam_tail", "shape": "B=64 (6, 6, 64) -> 256x256 (run_pipeline)",
+           "card": card, "ms": (n1 + n2) / 2, "old_ms": (o1 + o2) / 2,
+           "runs_ms": [o1, n1, n2, o2], "device_ms": device_ms(new, TAIL_ITERS),
+           "old_device_ms": device_ms(old, TAIL_ITERS), "band_rows": KGT.band_rows(64, 256),
+           "device_ms_by_kernel": device_ms_by_kernel(new),
+           "old_device_ms_by_kernel": device_ms_by_kernel(old)}
+    print(json.dumps(row), flush=True)
+    print(json.dumps({"card": card, "pectoral_tail": rows, "gradcam_tail": row}), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -639,7 +838,7 @@ def main() -> int:
     from cadx_tpu_torch.precision import full_fp32
     from cadx_tpu_torch.preprocess import cleaner
     from cadx_tpu_torch.serve import engine as E
-    from cadx_tpu_torch.synthetic import (synthetic_mammograms,
+    from cadx_tpu_torch.synthetic import (pectoral_tile_edge_inputs, synthetic_mammograms,
                                           synthetic_native_mammogram, tile_edge_cases)
     from cadx_tpu_torch.tools import bench_train as BT
     from cadx_tpu_torch.tools import train as TT
@@ -764,10 +963,9 @@ def main() -> int:
         agree_twice("largest_obj", lambda m=m: KL.largest_obj(m, 8, fill_first=True),
                     KL.largest_obj_reference(m, 8, fill_first=True, max_iters=cap),
                     f"fill_first, {what}")
-    kern = KP.pectoral_tail(equ, high, breast)
-    plain = KP.pectoral_tail_reference(equ, high, breast)
-    for name, a, b in zip(("labels", "boundary", "mask"), kern, plain):
-        agree("pectoral_tail", a, b, f"{name}, cleaner inputs B=16")
+    pect_parts = ("labels", "boundary", "mask")
+    agree_twice("pectoral_tail", lambda: KP.pectoral_tail(equ, high, breast),
+                KP.pectoral_tail_reference(equ, high, breast), "cleaner inputs B=16", pect_parts)
 
     def agree_front(raw8, what, smooth_k=15):
         """cleaner_front on the uint8 batch clean_boundary_gray hands it,
@@ -799,6 +997,12 @@ def main() -> int:
                 agree_twice("largest_obj", lambda o=opts, c=conn: KL.largest_obj(m, c, **o),
                             KL.largest_obj_reference(m, conn, **opts, max_iters=h * w),
                             f"{what}, {conn}-conn, {opts or 'default'}, plain uncapped")
+        # the pectoral tail on the same objects as its high-threshold mask,
+        # noise costs and a corner of background (the third marker)
+        p_in = tuple(torch.from_numpy(a).to(dev) for a in pectoral_tile_edge_inputs(h, w))
+        agree_twice("pectoral_tail", lambda: KP.pectoral_tail(*p_in),
+                    KP.pectoral_tail_reference(*p_in, max_iters=h * w, ws_max_iters=h * w),
+                    f"pectoral_tile_edge_inputs B=12 {h}x{w}, plain uncapped", pect_parts)
         ws_marks = torch.zeros(edge_cases.shape, dtype=torch.int32, device=dev)
         ws_marks[:, :max(h // 5, 1), :max(w // 5, 1)] = 255
         ws_marks[:, -max(h // 5, 1):, -max(w // 5, 1):] = 128
@@ -874,11 +1078,12 @@ def main() -> int:
                     KL.largest_obj_reference(g_bin_, 8, fill_first=True, max_iters=cap),
                     f"segment site, {what}, plain uncapped")
         if cleaner.use_packed((h, w), 3):
-            kern = KP.pectoral_tail(equ_, high_, breast_)
-            plain = KP.pectoral_tail_reference(equ_, high_, breast_, max_iters=cap,
-                                               ws_max_iters=cap)
-            for part, a, b_ in zip(("labels", "boundary", "mask"), kern, plain):
-                agree("pectoral_tail", a, b_, f"{part}, {what}, plain uncapped")
+            p_in = (equ_, high_, breast_)
+            agree_twice("pectoral_tail", lambda p_in=p_in: KP.pectoral_tail(*p_in),
+                        KP.pectoral_tail_reference(*p_in, max_iters=cap, ws_max_iters=cap),
+                        f"{what}, plain uncapped", pect_parts)
+            if b == 1:
+                pect_b1 = p_in
             continue
         agree_pectoral_select(high_, what)
         for m, site in ((s_bin_, "suppress mask"), (high_ > 0, "pectoral mask")):
@@ -933,6 +1138,31 @@ def main() -> int:
           flush=True)
     if lo_grids and any(g[0] * g[1] * g[2] != tiles for g in lo_grids):
         raise AssertionError(f"largest_obj launched grids {lo_grids}, not {tiles} blocks each")
+    # pectoral_tail at the 512² upload (B=1): the trace holds every launch
+    # of its plan, each covers at least 132 blocks or the image's tile
+    # count, and the call never waits on the host (its watershed loops on
+    # the card)
+    tiles = KF.tiles_per_image(*pect_b1[0].shape[1:])
+    ws_rounds = torch.zeros(1, dtype=torch.int32, device=dev)
+    events = trace_events(lambda: KP.run_plan(*pect_b1, rounds=ws_rounds))
+    p_grids = [e["args"]["grid"] for e in events
+               if e.get("cat") == "kernel" and "grid" in e.get("args", {})]
+    p_blocks = [g[0] * g[1] * g[2] for g in p_grids]
+    waits = runtime_calls(events, ("cudaEventSynchronize", "cudaStreamSynchronize", "cudaMemcpy"))
+    print(f"pectoral_tail at B=1 {tuple(pect_b1[0].shape[1:])}: {tiles} tiles of "
+          f"{KF.TILE}x{KF.TILE}; {len(p_blocks)} kernel launches in the profiler trace of the "
+          f"plan's {KP.PLAN_LAUNCHES}, blocks {sorted(set(p_blocks))}; the watershed took "
+          f"{int(ws_rounds.item())} rounds in one launch; {waits} synchronising runtime calls "
+          f"in the trace", flush=True)
+    if len(p_blocks) != KP.PLAN_LAUNCHES:
+        raise AssertionError(f"pectoral_tail's trace holds {len(p_blocks)} kernel launches, "
+                             f"its plan {KP.PLAN_LAUNCHES}")
+    if any(n < min(132, tiles) for n in p_blocks):
+        raise AssertionError(f"pectoral_tail launched grids {p_grids}, some under "
+                             f"{min(132, tiles)} blocks")
+    if waits or int(ws_rounds.item()) < 1:
+        raise AssertionError(f"pectoral_tail synchronised the host {waits} times, its watershed "
+                             f"ran {int(ws_rounds.item())} rounds")
     # a 256-sweep pair-form watershed call at the same shape waits on the
     # host once every CHECK_EVERY sweeps, not once a sweep
     ws_equ, ws_markers = cli_pectoral[CLI_SHAPES[0]]
@@ -1217,14 +1447,9 @@ def main() -> int:
                tail_img.to(torch.float32) / 255.0)
     tail_k = KGT.gradcam_tail(*tail_in, (HW, HW))
     tail_p = KGT.gradcam_tail_reference(*tail_in, (HW, HW))
-    torch.cuda.synchronize()
-    errs["gradcam_tail"] = max(max_abs_err(a, b) for a, b in zip(tail_k, tail_p))
-    for name, err, tol in overlay_checks(
-            f"B={BATCH} (6, 6, 64) -> {HW}x{HW}", tail_k[0].cpu(), tail_k[1].cpu(),
-            tail_p[0].cpu(), tail_p[1].cpu(), tail_img.cpu(), 1, jet_slope):
-        print(f"check gradcam_tail [{name}]: max_abs_err {err} (tolerance {tol})", flush=True)
-        if err > tol:
-            raise AssertionError(f"gradcam_tail [{name}] disagrees with its plain version")
+    agree_twice("gradcam_tail", lambda: KGT.gradcam_tail(*tail_in, (HW, HW)), tail_p,
+                f"B={BATCH} (6, 6, 64) -> {HW}x{HW}, {KGT.band_rows(BATCH, HW)} rows a band",
+                ("overlay", "heatmap"))
 
     phase_done("2")
 
@@ -1806,6 +2031,42 @@ def main() -> int:
     def ccl_mode(m):
         return KM.largest_component_mask(KC.label_components(m, 8), m)
 
+    def pectoral_sweep_ops(equ_, high_, breast_):
+        """The operations of the plain pectoral tail's sweeps on these
+        inputs, image by image with the sweeps each needs (uncapped),
+        counted as its CCL, flood and packed-watershed sweeps run: 22 a
+        pixel a CCL sweep (along rows and columns, two segmented cummin
+        scans of an or, a scan and an and, then a min and a select; the 3x3
+        min of two 3-windows, a min and a select), 20 a flood sweep, 24 a
+        watershed sweep at max_scan 8 (four passes of pk -/+ s, three
+        doubling mins, the candidate and a min). Information only: the
+        result is a unique fixpoint, so these sweeps are the plain
+        algorithm's, and the bound counts `KP.ONCE_OPS` a pixel."""
+        counted = {"ccl": 0, "flood": 0, "watershed": 0}
+        run, sweep_packed = TC._run_to_fixpoint, TGS.sweep_packed
+
+        def counting_run(sweep, state, max_iters):
+            kind = "flood" if "flood" in sweep.__qualname__ else "ccl"
+
+            def counted_sweep(x):
+                counted[kind] += x.numel()
+                return sweep(x)
+            return run(counted_sweep, state, max_iters)
+
+        def counting_packed(pk, *args):
+            counted["watershed"] += pk.numel()
+            return sweep_packed(pk, *args)
+
+        TC._run_to_fixpoint, TGS.sweep_packed = counting_run, counting_packed
+        try:
+            for i in range(equ_.shape[0]):
+                n = equ_[i].numel()
+                KP.pectoral_tail_reference(equ_[i:i + 1], high_[i:i + 1], breast_[i:i + 1],
+                                           max_iters=n, ws_max_iters=n)
+        finally:
+            TC._run_to_fixpoint, TGS.sweep_packed = run, sweep_packed
+        return 22 * counted["ccl"] + 20 * counted["flood"] + 24 * counted["watershed"]
+
     # name -> (kernel call, plain call, shape, inputs, operations, library call)
     timed = {
         "equalize": (lambda: KE.equalize(seg), lambda: KE.equalize_reference(seg),
@@ -1818,7 +2079,8 @@ def main() -> int:
             f"B={BATCH} {HW}x{HW}, both cleaner sites", (s_bin, g_bin), None, None),
         "pectoral_tail": (lambda: KP.pectoral_tail(equ, high, breast),
                           lambda: KP.pectoral_tail_reference(equ, high, breast),
-                          f"B={BATCH} {HW}x{HW}", (equ, high, breast), None, None),
+                          f"B={BATCH} {HW}x{HW}", (equ, high, breast),
+                          KP.ONCE_OPS * equ.numel(), None),
         "ccl": (lambda: KC.label_components(hot3, 8),
                 lambda: KC.label_components_reference(hot3, 8),
                 "B=3 62x62 CAM masks (advanced classify_and_roi)", (hot3,), None, None),
@@ -2074,6 +2336,29 @@ def main() -> int:
               f"{lib_text}, bound {bounds[name][0]:.4f} ms by {bounds[name][1]}; device "
               f"time (profiler) kernel {ms_text(dk)}, plain {ms_text(dp)}{dl_text} ms on {card}",
               flush=True)
+    # pectoral_tail's bound (its I/O once against the operations it does
+    # once) beside its design's floor and, for information, the plain
+    # version's sweeps on these inputs; then both redesigned tails by step
+    # and beside the one-block kernels they replaced, from a fresh process
+    # (tail_device_times)
+    floor_ms = KP.PLAN_BYTES * equ.numel() / HBM_BYTES_PER_S * 1e3
+    sweep_ops = pectoral_sweep_ops(equ, high, breast)
+    print(f"pectoral_tail B={BATCH} {HW}x{HW}: bound {bounds['pectoral_tail'][0]:.4f} ms by "
+          f"{bounds['pectoral_tail'][1]} ({KP.ONCE_OPS} operations a pixel); the floor of this "
+          f"design, {KP.PLAN_BYTES} bytes a pixel, {floor_ms:.4f} ms; the plain version's "
+          f"sweeps on these inputs, information only: {sweep_ops} operations, "
+          f"{sweep_ops / FP32_OPS_PER_S * 1e3:.4f} ms at the float32 peak, on {card}", flush=True)
+    tail_run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--tail-device-times"], capture_output=True, text=True,
+                              timeout=600)
+    if tail_run.returncode != 0:
+        raise AssertionError(f"the tails' device-time run failed:\n{tail_run.stderr[-4000:]}")
+    tail_lines = tail_run.stdout.strip().splitlines()
+    print("\n".join(tail_lines[:-1]), flush=True)
+    tails = json.loads(tail_lines[-1])
+    compared["pectoral_tail"] = [{"design_floor_ms": floor_ms,
+                                  "plain_sweep_ops": sweep_ops}] + tails["pectoral_tail"]
+    compared["gradcam_tail"] = [tails["gradcam_tail"]]
     cam6 = torch.from_numpy(rng.random((1, 6, 6)).astype(np.float32)).to(dev)
     hot6 = cam6 >= 0.6 * cam6.amax(dim=(1, 2), keepdim=True)
     lab6 = KC.label_components(hot6, 8)
@@ -2189,6 +2474,32 @@ def main() -> int:
         ms = p50_ms(lambda: eng.process_single_image(img, cache_token=name), N_TIMED)
         print(f"time process_single_image {name}: p50 {ms:.3f} ms over {N_TIMED} "
               f"requests on {card}", flush=True)
+    # the 512² upload split by stage, as the CLI's featurize above
+    img512 = uploads["512x512 u8"]
+    eng.process_single_image(img512)
+    stage_ms.clear()
+    totals = []
+    patched = [staged(cleaner, "cleaner_front", "cleaner_front"),
+               staged(cleaner, "remove_pectoral", "pectoral removal"),
+               staged(cleaner, "pectoral_tail", "pectoral removal: pectoral_tail"),
+               staged(E, "resize_area", "resize_area to 512x512"),
+               staged(unet, "encoder_first_features", "conv1")]
+    try:
+        for _ in range(N_TIMED):
+            t = time.perf_counter()
+            eng.process_single_image(img512)
+            totals.append((time.perf_counter() - t) * 1e3)
+    finally:
+        for module, attr, fn in reversed(patched):
+            setattr(module, attr, fn)
+    p50 = {stage: statistics.median(ms) for stage, ms in stage_ms.items()}
+    total = statistics.median(totals)
+    rest = total - sum(ms for stage, ms in p50.items() if ":" not in stage)
+    print(f"time process_single_image 512x512 u8 by stage (p50 ms over {N_TIMED} requests, "
+          f"synchronised at each stage): total {total:.3f}; "
+          + ", ".join(f"{stage} {ms:.3f}" for stage, ms in p50.items())
+          + f"; the rest (upload, uint8 rescale, boundary gray, fetches, host) {rest:.3f} on "
+          f"{card}", flush=True)
     for pipeline in ("basic", "advanced"):
         ms = p50_ms(lambda: eng.classify_and_roi(feats[token], pipeline, (0, 1),
                                                  cache_token=token), N_TIMED)
@@ -2244,4 +2555,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--batchnorm-device-times"]:
         sys.exit(batchnorm_device_times())
+    if sys.argv[1:] == ["--tail-device-times"]:
+        sys.exit(tail_device_times())
     sys.exit(main())

@@ -22,7 +22,8 @@ from cadx_tpu_torch.kernels import largest_obj as KL
 from cadx_tpu_torch.kernels import pectoral as KP
 from cadx_tpu_torch.preprocess import cleaner
 from cadx_tpu_torch.ops.threshold import binary_threshold, relative_threshold_value
-from cadx_tpu_torch.synthetic import synthetic_mammograms
+from cadx_tpu_torch.synthetic import (pectoral_tile_edge_inputs, synthetic_mammograms,
+                                      synthetic_native_mammogram)
 
 pytestmark = pytest.mark.cuda
 
@@ -61,19 +62,61 @@ def test_largest_obj_kernel(dev, rng, kw, shape):
     _eq(KL.largest_obj(full, **kw), KL.largest_obj_reference(full, **kw))
 
 
-@pytest.mark.parametrize("hw", [128, 256])
-def test_pectoral_kernel(dev, hw):
-    x = torch.from_numpy(synthetic_mammograms(4, hw, seed=2)).to(dev)
+def _pectoral_inputs(x):
+    """(img_equ, img_bin, breast_mask) the cleaner hands the pectoral tail
+    for the raw batch x."""
     sup, breast = cleaner.suppress_artifacts(x, 0.05, 15)
     seg, _ = cleaner.segment_breast_mask(sup, 0.05)
     seg = seg.to(torch.uint8)
     equ = KE.equalize(seg)
-    high = binary_threshold(equ, relative_threshold_value(seg, 0.8), 255)
+    return equ, binary_threshold(equ, relative_threshold_value(seg, 0.8), 255), breast
+
+
+@pytest.mark.parametrize("hw", [128, 256])
+def test_pectoral_kernel(dev, hw):
+    x = torch.from_numpy(synthetic_mammograms(4, hw, seed=2)).to(dev)
+    equ, high, breast = _pectoral_inputs(x)
     for a, b in zip(KP.pectoral_tail(equ, high, breast),
                     KP.pectoral_tail_reference(equ, high, breast,
                                                max_iters=hw * hw,
                                                ws_max_iters=hw * hw)):
         _eq(a, b)
+
+
+def _pectoral_agrees_twice(equ, high, breast):
+    """The plan bit-exact against the plain version uncapped, and a second
+    run giving the same bytes; one launch a call; the watershed's rounds
+    counted on the card, at least one."""
+    h, w = equ.shape[1:]
+    before = KP.pectoral_tail.launches
+    got = KP.pectoral_tail(equ, high, breast)
+    rounds = torch.zeros(1, dtype=torch.int32, device=equ.device)
+    again = KP.run_plan(equ, high, breast, rounds=rounds)
+    assert KP.pectoral_tail.launches == before + 2
+    assert 1 <= int(rounds.item()) <= h * w + 1
+    plain = KP.pectoral_tail_reference(equ, high, breast, max_iters=h * w, ws_max_iters=h * w)
+    for a, b, c in zip(got, plain, again):
+        _eq(a, b)
+        _eq(a, c)
+
+
+@pytest.mark.parametrize("which", [1, 2])
+def test_pectoral_kernel_serving_shapes(dev, which):
+    """The cleaner's inputs at the 512² upload (B=1) and classify_batch's
+    B=8 at 512²."""
+    raw = (synthetic_native_mammogram(512, 512, seed=7, dtype=np.uint8, top=250)[None]
+           if which == 1 else
+           np.stack([synthetic_mammograms(1, 512, seed=30 + i)[0] for i in range(8)]))
+    _pectoral_agrees_twice(*_pectoral_inputs(torch.from_numpy(raw).to(dev)))
+
+
+@pytest.mark.parametrize("hw", [(64, 64), (256, 256), (45, 70), (1, 70), (70, 1), (333, 257)])
+def test_pectoral_kernel_tile_edge_cases(dev, hw):
+    """`synthetic.pectoral_tile_edge_inputs` (objects across tile edges and
+    corners, noise costs, a third marker in a corner): the CCLs, bands and
+    the tile-local watershed on ragged shapes."""
+    arrays = pectoral_tile_edge_inputs(*hw)
+    _pectoral_agrees_twice(*(torch.from_numpy(a).to(dev) for a in arrays))
 
 
 def test_launch_counters(dev):
@@ -412,6 +455,33 @@ def test_gradcam_tail_kernel(dev, rng, acts_shape, out_hw):
         assert int(dh.max()) <= 1
         same = (dh == 0)[..., None].expand(ov.shape)
         assert int((ov.int() - ov_p.int()).abs().cpu()[same].max()) <= 2
+
+
+@pytest.mark.parametrize("b,rows", [(1, None), (2, None), (64, None), (3, 5), (2, 7)])
+def test_gradcam_tail_kernel_bands(dev, rng, monkeypatch, b, rows):
+    """Row bands of the pipeline's (B, 6, 6, 64) -> 256²: band_rows' own
+    choice at B=1, 2 and 64, and 5 and 7 rows a band, which leave a last
+    band of 1 and 4 rows; bit for bit on the pipeline's layout, and heat
+    +-1, overlay +-2 where the heat agrees on contiguous activations, as
+    test_gradcam_tail_kernel holds them."""
+    if rows is not None:
+        monkeypatch.setattr(KGT, "band_rows", lambda *_: rows)
+    acts = torch.from_numpy(np.abs(rng.standard_normal((b, 64, 6, 6))).astype(np.float32))
+    acts = acts.to(dev).permute(0, 2, 3, 1)
+    grads = torch.from_numpy(rng.standard_normal((b, 6, 6, 64)).astype(np.float32)).to(dev)
+    img01 = torch.from_numpy(rng.integers(0, 256, (b, 256, 256)).astype(np.float32)).to(dev) / 255
+    before = KGT.gradcam_tail.launches
+    ov, hm = KGT.gradcam_tail(acts, grads, img01, (256, 256))
+    assert KGT.gradcam_tail.launches == before + 1
+    ov_p, hm_p = KGT.gradcam_tail_reference(acts, grads, img01, (256, 256))
+    _eq(ov, ov_p)
+    _eq(hm, hm_p)
+    ov, hm = KGT.gradcam_tail(acts.contiguous(), grads, img01, (256, 256))
+    torch.cuda.synchronize()
+    dh = (hm.int() - hm_p.int()).abs().cpu()
+    assert int(dh.max()) <= 1
+    same = (dh == 0)[..., None].expand(ov.shape)
+    assert int((ov.int() - ov_p.int()).abs().cpu()[same].max()) <= 2
 
 
 def test_gradcam_tail_kernel_rejects_wrong_inputs(dev):
