@@ -13,7 +13,8 @@ every entry point returns `cudaGetLastError()`, which `check` turns into
 an error.
 
 `csrc/legacy/` holds the one-block-per-image kernels that the tiled ones
-replaced, for timings only (`chip_smoke.py --tail-device-times`);
+replaced, for timings only (`chip_smoke.py --tail-device-times` and
+`--equalize-ccl-times`);
 `load_legacy` builds them into a library of their own, and no path loads
 it.
 
@@ -43,10 +44,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # entry point -> argument types (pointers, ints, the stream last)
 _SIGNATURES = {
-    "cadx_equalize_hist": (_P, _P, _I, _I, _I, _P),
+    "cadx_equalize_hist": (_P, _P, _P, _I, _I, _I, _P),
     "cadx_largest_obj": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "cadx_pectoral_tail": (_P,) * 8 + (_I,) * 7 + (_P,),
-    "cadx_ccl": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "cadx_ccl": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "cadx_largest_component_mask": (_P, _P, _P, _P, _I, _I, _I, _P),
     "cadx_watershed_pair": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _I, _I, _I, _P),
@@ -65,6 +66,8 @@ _SIGNATURES = {
 _LEGACY_SIGNATURES = {
     "cadx_pectoral_tail_one_block": (_P,) * 7 + (_I,) * 7 + (_P,),
     "cadx_gradcam_tail_one_block": (_P,) * 8 + (_I,) * 6 + (_L,) * 8 + (_I,) * 2 + (_F, _P),
+    "cadx_equalize_hist_one_block": (_P, _P, _I, _I, _I, _P),
+    "cadx_ccl_one_block": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

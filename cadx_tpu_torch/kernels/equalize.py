@@ -4,13 +4,27 @@ PyTorch version.
 Replaces `cadx_tpu/kernels/equalize.py::equalize_hist_pallas` (its
 `pl.pallas_call` at :109). Source: `csrc/equalize.cu`.
 
-Layout: one block per image. The 256-bin histogram lives in shared
-memory (exact integer atomics), one thread forms the CDF and the LUT, and
-the block then maps its image through the LUT. The TPU kernel's nibble
-one-hot matmuls existed for the TPU's matrix unit; on Hopper, shared
-memory atomics give exact counts directly. Bound: one read and one write
-of each pixel (2 bytes/pixel) plus the per-block histogram atomics; with
-one block per image, a batch smaller than the SM count leaves SMs idle.
+Layout (redesigned for the whole card): one C call queues a memset of a
+(B, 256) int32 histogram scratch and two launches, with no host sync,
+over chunks x images in one flat grid, so one 3328x2560 image fills the
+card as a batch of 64 at 256² does. A chunk is 1-16 passes of 4 KB (256
+threads, 16 bytes a load), as many as give about four blocks an SM over
+the batch. The histogram launch counts each chunk into per-warp shared
+histograms and adds each nonzero bin once to the image's histogram (exact
+integer atomics, so every run gives the same bytes); the zero background's
+hot bin is taken by counting a thread's 16 equal bytes with the warp's
+lanes that hold the same value (`__match_any_sync`) and other runs of
+equal bytes in a register. The map launch rebuilds its image's LUT from
+the finished histogram (a block-wide prefix sum, each bin on its own
+thread, the reference's f32 arithmetic) and maps its chunk through it in
+shared memory with 16-byte loads and stores; the second read of the image
+comes from the 50 MB L2, which holds every path image (12.2 MB at most).
+Image b starts at byte b * H * W, so a block takes the bytes of its chunk
+outside its 16-byte boundaries one a thread; the output is placed at the
+input's address modulo 16 so the loads and stores pair up.
+
+Bound: bytes, 2 a pixel (one read, one write); this design moves 3 (the
+second read from L2).
 """
 
 from __future__ import annotations
@@ -52,6 +66,18 @@ def equalize_reference(img_u8: torch.Tensor) -> torch.Tensor:
     return torch.where(single_level, img_u8, out)
 
 
+def _aligned_like(x: torch.Tensor) -> torch.Tensor:
+    """An empty tensor like x whose address agrees with x's modulo 16, so
+    the kernel's 16-byte loads and stores pair up (a view of x that starts
+    off a 16-byte boundary gets an output off it by as much)."""
+    out = torch.empty_like(x)
+    if (out.data_ptr() - x.data_ptr()) % 16 == 0:
+        return out
+    buf = torch.empty(x.numel() + 15, dtype=x.dtype, device=x.device)
+    shift = (x.data_ptr() - buf.data_ptr()) % 16
+    return buf[shift:shift + x.numel()].view(x.shape)
+
+
 def equalize(img_u8: torch.Tensor) -> torch.Tensor:
     """(B, H, W) uint8 -> equalized uint8. A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel or raises."""
@@ -59,11 +85,12 @@ def equalize(img_u8: torch.Tensor) -> torch.Tensor:
         return equalize_reference(img_u8)
     _build.check_input(img_u8, torch.uint8, "equalize")
     b, h, w = img_u8.shape
-    out = torch.empty_like(img_u8)
-    if b:
-        lib = _build.load()
-        rc = lib.cadx_equalize_hist(img_u8.data_ptr(), out.data_ptr(), b, h, w,
-                                    _build.stream_ptr(img_u8.device))
+    out = _aligned_like(img_u8)
+    if img_u8.numel():
+        hist = torch.empty((b, 256), dtype=torch.int32, device=img_u8.device)
+        rc = _build.load().cadx_equalize_hist(img_u8.data_ptr(), out.data_ptr(),
+                                              hist.data_ptr(), b, h, w,
+                                              _build.stream_ptr(img_u8.device))
         _build.check(rc, "cadx_equalize_hist")
         equalize.launches += 1
     return out

@@ -5,7 +5,8 @@ images with a textured breast disc at the right edge, a bright pectoral
 wedge in the top-right corner and one saturated square artifact.
 `synthetic_native_mammogram` makes one upload at native depth and any
 shape, for the serving path. `tile_edge_cases` makes the 0/200 images
-that break a CCL which labels tiles first and joins them afterwards.
+that break a CCL which labels tiles first and joins them afterwards;
+`equalize_edge_cases` the uint8 batches that break an equalize kernel.
 """
 
 from __future__ import annotations
@@ -50,6 +51,30 @@ def synthetic_native_mammogram(h: int, w: int, seed: int = 0,
     wedge = ((w - 1 - xx) / w + yy / h) < 0.25
     img[wedge] = np.maximum(img[wedge], dtype(top * 0.9))
     return img
+
+
+def equalize_edge_cases(seed: int = 0) -> dict:
+    """Name -> (B, H, W) uint8 batch, the inputs that break an equalize
+    kernel: mammograms with a zero background (about half the pixels in
+    one bin, `synthetic_mammograms` at 64²), an all-zero image, one level
+    (the image passes through), one nonzero pixel, a 0-255 ramp, a
+    "narrow" image whose LUT entries land on .5 (1,024 pixels: 514 at
+    level 10, then levels whose (cdf - cdf_min) * 255 / 510 is 0.5, 1.5,
+    ..., 50.5, rounded half to even, and the rest at level 62), and an
+    odd-n batch (3, 37, 53) of noise whose images 1 and 2 start off a
+    16-byte boundary."""
+    rng = np.random.default_rng(seed)
+    narrow = np.concatenate([np.full(514, 10), [11], np.repeat(np.arange(12, 62), 2),
+                             np.full(409, 62)]).astype(np.uint8)
+    one_pixel = np.zeros((1, 40, 40), np.uint8)
+    one_pixel[0, 17, 23] = 201
+    return {"zero background": synthetic_mammograms(4, 64, seed=seed),
+            "all zero": np.zeros((2, 40, 40), np.uint8),
+            "one level": np.full((2, 40, 40), 9, np.uint8),
+            "one nonzero pixel": one_pixel,
+            "ramp 0-255": np.arange(256, dtype=np.uint8).reshape(1, 16, 16),
+            "narrow, LUT on .5": rng.permutation(narrow).reshape(1, 32, 32),
+            "odd n (3, 37, 53)": rng.integers(0, 256, (3, 37, 53)).astype(np.uint8)}
 
 
 def tile_edge_cases(h: int, w: int, tile: int = 32, seed: int = 0) -> np.ndarray:

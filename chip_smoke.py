@@ -56,7 +56,16 @@ Phases, each of which raises on failure (the script then exits nonzero):
      versions of largest_obj, the seeded component, cleaner_front and
      pectoral_tail launch no kernel on the card;
    - ccl, mode and watershed (packed and pair form) on random masks and
-     markers at 256² (B=16), and ccl and mode at the serving CAM shapes;
+     markers at 256² (B=16), and ccl and mode at the serving CAM shapes
+     (B=3 and B=8 at 6x6, B=3 62x62; ccl in its cluster form and its
+     tiled form, twice each); ccl 4- and 8-connected on
+     `synthetic.tile_edge_cases` at the six shapes, plain uncapped, twice;
+   - equalize twice to the same bytes at every shape a path gives it
+     (run_pipeline's B=64 256², the serving uploads' 512², 1024x832 and
+     1536x1280 bucket, classify_batch's B=8 512², the CLI's 3328x2560 and
+     4608x2656) and on `synthetic.equalize_edge_cases` (zero background,
+     all zero, one level, one pixel, a ramp, LUT entries on .5, an odd-n
+     batch) and a view 1 byte past a 16-byte boundary;
    - conv_leaky at the shapes of the training, pipeline and serving
      classifiers' conv layers (VALID and SAME), layer 1 also through the
      NHWC view conv_stack hands it, and at ragged shapes (C = 3, F = 5 and
@@ -152,7 +161,14 @@ Phases, each of which raises on failure (the script then exits nonzero):
    inputs need, counted by the plain sweeps; beside it the floor of one
    read and write of the planes a sweep, 24 bytes a pixel); the CLI's
    featurize p50 split by stage (cleaner_front, pectoral removal with its
-   largest_obj and watershed, the resizes, conv1); pectoral_tail and
+   equalize, largest_obj and watershed, the resizes, conv1); equalize at
+   every path shape and ccl at its serving shapes (both forms) and B=16
+   256² random masks beside the one-block kernels they replaced (kept in
+   `csrc/legacy/`; `python3 chip_smoke.py --equalize-ccl-times`, in a fresh
+   process: events and profiler device time in turns old, new, new, old,
+   equalize also on an all-zero and a random 3328x2560 image), and the
+   trace of one B=1 3328x2560 equalize call: a memset and two launches of
+   more than 132 blocks, no synchronising runtime call; pectoral_tail and
    gradcam_tail beside the one-block kernels they replaced (kept in
    `csrc/legacy/`; `python3 chip_smoke.py --tail-device-times`, in a
    fresh process): pectoral_tail by step (object, bands and markers,
@@ -182,8 +198,8 @@ Phases, each of which raises on failure (the script then exits nonzero):
    SXM's HBM3 rate and float32 peak); ms per training step of each
    configuration; the pipeline's images per second and device time; and the p50 of
    process_single_image per upload shape (the 512² upload also split by
-   stage: cleaner_front, pectoral removal with its pectoral_tail, the
-   resize, conv1), of classify_and_roi per
+   stage: cleaner_front, pectoral removal with its equalize and
+   pectoral_tail, the resize, conv1), of classify_and_roi per
    pipeline and of the reference `write_gradcam_overlays` over 10
    requests after warmup.
 
@@ -799,6 +815,194 @@ def tail_device_times() -> int:
     return 0
 
 
+# equalize's path shapes: (what, B, H, W)
+EQ_SHAPES = (("B=64 256x256 (run_pipeline)", 64, 256, 256),
+             ("B=1 512x512 (the 512x512 upload)", 1, 512, 512),
+             ("B=8 512x512 (classify_batch)", 8, 512, 512),
+             ("B=1 1024x832 (the 1024x832 upload)", 1, 1024, 832),
+             ("B=1 1536x1280 (the 3328x2560 upload's bucket)", 1, 1536, 1280),
+             ("B=1 3328x2560 (training CLI)", 1, 3328, 2560),
+             ("B=1 4608x2656 (training CLI)", 1, 4608, 2656))
+# ccl's: (what, B, side); CAM masks at the serving shapes, random masks
+CCL_SHAPES = (("B=3 62x62 CAM masks (advanced classify_and_roi)", 3, 62),
+              ("B=1 6x6 CAM mask (basic classify)", 1, 6),
+              ("B=16 256x256 random masks, density 0.45", 16, 256))
+EQ_ITERS = 20
+
+
+def equalize_path_input(b: int, h: int, w: int, dev) -> torch.Tensor:
+    """The image `remove_pectoral` hands equalize at (b, h, w): the breast
+    of cleaner_front's output, from `synthetic_mammograms` (seed 10, as
+    run_pipeline's first batch; seeds 30-37 at classify_batch's B=8) or,
+    at B=1, a `synthetic_native_mammogram` (seed 7) of that shape."""
+    from cadx_tpu_torch.kernels.cleaner_front import cleaner_front
+    from cadx_tpu_torch.ops.threshold import to_uint8
+    from cadx_tpu_torch.synthetic import synthetic_mammograms, synthetic_native_mammogram
+
+    if b == 1:
+        raw = synthetic_native_mammogram(h, w, seed=7).astype(np.float32)[None]
+    elif b == 8:
+        raw = np.stack([synthetic_mammograms(1, h, seed=30 + i)[0] for i in range(b)])
+    else:
+        raw = synthetic_mammograms(b, h, seed=10)
+    return cleaner_front(to_uint8(torch.from_numpy(raw).to(dev)), 15, 0.05)[0].contiguous()
+
+
+def cam_masks(rng, b: int, side: int, dev) -> torch.Tensor:
+    """Grad-CAM hot masks as `xai/roi.py` forms them: CAM >= 0.6 of its
+    peak."""
+    cams = torch.from_numpy(rng.random((b, side, side)).astype(np.float32)).to(dev)
+    return cams >= 0.6 * cams.amax(dim=(1, 2), keepdim=True)
+
+
+def ccl_in_form(m, form: str, conn: int = 8) -> torch.Tensor:
+    """ccl through its wrapper in `form` ("cluster" or "tiled") whatever
+    shape m has (the cluster form takes sides up to 64)."""
+    from cadx_tpu_torch.kernels import ccl as KC
+
+    shipped = KC.form_for
+    KC.form_for = lambda h, w: form
+    try:
+        return KC.label_components(m, conn)
+    finally:
+        KC.form_for = shipped
+
+
+def old_equalize(lib, x):
+    """The replaced one-block equalize (`csrc/legacy/`) on a preallocated
+    output."""
+    from cadx_tpu_torch.kernels import _build
+
+    out = torch.empty_like(x)
+
+    def run():
+        rc = lib.cadx_equalize_hist_one_block(x.data_ptr(), out.data_ptr(), *x.shape,
+                                              _build.stream_ptr(x.device))
+        _build.check(rc, "cadx_equalize_hist_one_block")
+        return out
+    return run
+
+
+def old_ccl(lib, m, conn: int = 8):
+    """The replaced one-block CCL (`csrc/legacy/`) on preallocated planes."""
+    from cadx_tpu_torch.kernels import _build
+    from cadx_tpu_torch.ops.components import background_label
+
+    b, h, w = m.shape
+    labels = torch.empty((b, h, w), dtype=torch.int32, device=m.device)
+    scratch = torch.empty_like(labels)
+
+    def run():
+        rc = lib.cadx_ccl_one_block(m.data_ptr(), labels.data_ptr(), scratch.data_ptr(), b, h,
+                                    w, conn, background_label(h, w), _build.stream_ptr(m.device))
+        _build.check(rc, "cadx_ccl_one_block")
+        return labels
+    return run
+
+
+def equalize_ccl_times() -> int:
+    """`--equalize-ccl-times`: equalize at every path shape (EQ_SHAPES) and
+    ccl at CCL_SHAPES beside the one-block kernels they replaced (kept in
+    `csrc/legacy/`, built apart by `_build.load_legacy`), in a fresh
+    process, where the profiler keeps every record. Each kernel and its old
+    one bit-exact against the plain version (ccl's uncapped) and twice to
+    the same bytes; then CUDA events in turns old, new, new, old (EQ_ITERS
+    calls a timing after one) and the device time of each (torch.profiler:
+    the memset and every launch of a call), each the mean of two windows in
+    the same turns. Equalize also on an all-zero and a uniform-random
+    3328x2560 image (one hot bin against none) and a trace of one B=1
+    3328x2560 call: its launches' grids, memsets and synchronising runtime
+    calls. Each row's bound: its inputs and outputs once over the HBM rate
+    (one operation an output element, below it); equalize's design floor: 3
+    bytes a pixel (read, read again, write). Prints one JSON line a row,
+    then one with all of them."""
+    if not torch.cuda.is_available():
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from cadx_tpu_torch.kernels import _build
+    from cadx_tpu_torch.kernels import ccl as KC
+    from cadx_tpu_torch.kernels import equalize as KE
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    legacy = _build.load_legacy()
+
+    def same(a, b, what):
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what} disagrees")
+
+    def row_of(kernel, shape, x, new, old, plain, floor_bytes=None, other=None):
+        """new and old (and other, (its name, its call)) checked, then timed
+        in turns old, new, [other,] [other,] new, old."""
+        out = plain()
+        runs = (("new", new), ("old", old)) + ((other,) if other else ())
+        for name, fn in runs:
+            same(fn().clone(), out, f"{kernel} [{name}, {shape}] against its plain version")
+            same(fn().clone(), fn().clone(), f"{kernel} [{name}, {shape}] on a second run")
+        order = [old, new] + ([other[1]] * 2 if other else []) + [new, old]
+        ev = [cuda_ms(fn, EQ_ITERS) for fn in order]
+        dv = [device_ms(fn, EQ_ITERS) for fn in order]
+        b_ms, b_by = bound(nbytes(x) + nbytes(out), numel(out))
+        row = {"kernel": kernel, "shape": shape, "card": card, "ms": (ev[1] + ev[-2]) / 2,
+               "old_ms": (ev[0] + ev[-1]) / 2, "runs_ms": ev,
+               "device_ms": captured_mean(dv[1], dv[-2]),
+               "old_device_ms": captured_mean(dv[0], dv[-1]), "device_runs_ms": dv,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "device_ms_by_kernel": device_ms_by_kernel(new)}
+        if other:
+            row[other[0]] = {"ms": (ev[2] + ev[3]) / 2, "device_ms": captured_mean(*dv[2:4]),
+                             "device_ms_by_kernel": device_ms_by_kernel(other[1])}
+        if floor_bytes is not None:
+            row["design_floor_ms"] = floor_bytes / HBM_BYTES_PER_S * 1e3
+        print(json.dumps(row), flush=True)
+        return row
+
+    eq_rows = []
+    for shape, b, h, w in EQ_SHAPES:
+        x = equalize_path_input(b, h, w, dev)
+        eq_rows.append(row_of("equalize", shape, x, lambda x=x: KE.equalize(x),
+                              old_equalize(legacy, x), lambda x=x: KE.equalize_reference(x),
+                              3 * x.numel()))
+    h, w = 3328, 2560
+    rng = np.random.default_rng(4)
+    for shape, x in (
+            (f"B=1 {h}x{w} all zero (every pixel in one bin)",
+             torch.zeros((1, h, w), dtype=torch.uint8, device=dev)),
+            (f"B=1 {h}x{w} uniform random bytes (no hot bin)",
+             torch.from_numpy(rng.integers(0, 256, (1, h, w), dtype=np.uint8)).to(dev))):
+        eq_rows.append(row_of("equalize", shape, x, lambda x=x: KE.equalize(x),
+                              old_equalize(legacy, x), lambda x=x: KE.equalize_reference(x),
+                              3 * x.numel()))
+    x = equalize_path_input(1, h, w, dev)
+    KE.equalize(x)
+    events = trace_events(lambda: KE.equalize(x))
+    trace = {"shape": f"B=1 {h}x{w}",
+             "grids": [e["args"]["grid"] for e in events
+                       if e.get("cat") == "kernel" and "grid" in e.get("args", {})],
+             "memsets": sum(1 for e in events if e.get("cat") == "gpu_memset"),
+             "launch_calls": runtime_calls(events, ("cudaLaunchKernel", "cudaLaunchKernelExC")),
+             "sync_calls": runtime_calls(events, ("cudaEventSynchronize",
+                                                  "cudaStreamSynchronize", "cudaMemcpy"))}
+    print(json.dumps({"equalize_trace": trace}), flush=True)
+
+    # ccl; where the cluster form runs, the tiled form too ("tiled_form")
+    ccl_rows = []
+    rng = np.random.default_rng(5)
+    for shape, b, side in CCL_SHAPES:
+        m = (torch.from_numpy(rng.random((b, side, side)) < 0.45).to(dev) if b == 16
+             else cam_masks(rng, b, side, dev))
+        other = (("tiled_form", lambda m=m: ccl_in_form(m, "tiled"))
+                 if KC.form_for(side, side) == "cluster" else None)
+        ccl_rows.append(row_of("ccl", shape, m, lambda m=m: KC.label_components(m, 8),
+                               old_ccl(legacy, m),
+                               lambda m=m: KC.label_components_reference(m, 8, m[0].numel()),
+                               other=other))
+    print(json.dumps({"card": card, "equalize": eq_rows, "equalize_trace": trace,
+                      "ccl": ccl_rows}), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -838,8 +1042,9 @@ def main() -> int:
     from cadx_tpu_torch.precision import full_fp32
     from cadx_tpu_torch.preprocess import cleaner
     from cadx_tpu_torch.serve import engine as E
-    from cadx_tpu_torch.synthetic import (pectoral_tile_edge_inputs, synthetic_mammograms,
-                                          synthetic_native_mammogram, tile_edge_cases)
+    from cadx_tpu_torch.synthetic import (equalize_edge_cases, pectoral_tile_edge_inputs,
+                                          synthetic_mammograms, synthetic_native_mammogram,
+                                          tile_edge_cases)
     from cadx_tpu_torch.tools import bench_train as BT
     from cadx_tpu_torch.tools import train as TT
     from cadx_tpu_torch.train import optim, segmentation, step
@@ -947,7 +1152,7 @@ def main() -> int:
     s_bin, g_bin, seg, equ, high, breast = clean_stage_inputs(small)
 
     for x, what in ((seg, "segmented synthetic B=16"), (rand_u8, "random u8 B=16")):
-        agree("equalize", KE.equalize(x), KE.equalize_reference(x), what)
+        agree_twice("equalize", lambda x=x: KE.equalize(x), KE.equalize_reference(x), what)
     # The kernel runs to the true fixpoint. The plain version mirrors the
     # JAX sweep cap of 128, which the random masks exceed (a spanning
     # 8-connected component needs ~180 sweeps at 256²), so there it runs
@@ -993,6 +1198,9 @@ def main() -> int:
             agree_front(edge_cases, what, k)
         m = edge_cases > 0
         for conn in (4, 8):
+            agree_twice("ccl", lambda c=conn: KC.label_components(m, c),
+                        KC.label_components_reference(m, conn, max_iters=h * w),
+                        f"{what}, {conn}-conn, {KC.form_for(h, w)} form, plain uncapped")
             for opts in orderings:
                 agree_twice("largest_obj", lambda o=opts, c=conn: KL.largest_obj(m, c, **o),
                             KL.largest_obj_reference(m, conn, **opts, max_iters=h * w),
@@ -1069,7 +1277,7 @@ def main() -> int:
         cap = h * w
         what = f"cleaner inputs of {name}, {h}x{w} B={b}"
         agree_front(to_uint8(x), what)
-        agree("equalize", KE.equalize(seg_), KE.equalize_reference(seg_), what)
+        agree_twice("equalize", lambda x=seg_: KE.equalize(x), KE.equalize_reference(seg_), what)
         agree_twice("largest_obj",
                     lambda m=s_bin_: KL.largest_obj(m, 8, fill=True, smooth_k=15),
                     KL.largest_obj_reference(s_bin_, 8, fill=True, smooth_k=15, max_iters=cap),
@@ -1108,12 +1316,28 @@ def main() -> int:
         cli_front[(h, w)] = to_uint8(x)
         agree_front(cli_front[(h, w)], what)
         border_masks[(h, w)], _, seg_, equ_, high_, breast_ = clean_stage_inputs(x)
-        agree("equalize", KE.equalize(seg_), KE.equalize_reference(seg_), what)
+        agree_twice("equalize", lambda x=seg_: KE.equalize(x), KE.equalize_reference(seg_), what)
         agree_pectoral_select(high_, what)
         markers = pectoral_markers(equ_, high_, breast_)
         agree_pair_watershed(equ_, markers, what)
         cli_pectoral[(h, w)] = (equ_, markers)   # phase 8 times the watershed here
         del x, seg_, equ_, high_, breast_, markers
+
+    # equalize at run_pipeline's B=64 batch, on the inputs that break an
+    # equalize kernel and on a view that starts 1 byte past a 16-byte
+    # boundary (the output is placed at the same offset), twice each
+    seg64 = clean_stage_inputs(
+        torch.from_numpy(synthetic_mammograms(BATCH, HW, seed=10)).to(dev))[2]
+    eq_cases = {f"run_pipeline's batch B={BATCH} {HW}x{HW}": seg64}
+    eq_cases.update({name: torch.from_numpy(a).to(dev)
+                     for name, a in equalize_edge_cases().items()})
+    eq_rng = np.random.default_rng(8)
+    odd = torch.from_numpy(eq_rng.integers(0, 256, (4, 37, 53)).astype(np.uint8)).to(dev)
+    eq_cases["a (3, 37, 53) view 1 byte past a 16-byte boundary"] = \
+        odd.view(-1)[1:1 + 3 * 37 * 53].view(3, 37, 53)
+    for name, x in eq_cases.items():
+        agree_twice("equalize", lambda x=x: KE.equalize(x), KE.equalize_reference(x), name)
+    del seg64
 
     # at B=1 the front spreads one image over many blocks: the grid of its
     # CCL launches, from a profiler trace of one call at the serving bucket
@@ -1275,7 +1499,9 @@ def main() -> int:
     if any(plain_launches.values()):
         raise AssertionError(f"a plain version launched a kernel: {plain_launches}")
 
-    # random masks and markers at 256², B=16, and the CAM shapes
+    # random masks and markers at 256², B=16, and the CAM shapes (ccl in
+    # both its forms: the cluster form the wrapper picks there and the
+    # tiled form)
     for conn in (4, 8):
         labels = KC.label_components(rand_masks, conn)
         agree("ccl", labels, KC.label_components_reference(rand_masks, conn, uncapped),
@@ -1286,9 +1512,11 @@ def main() -> int:
     for b, h in ((3, 6), (N_BATCHED, 6), (3, 62)):
         cams = torch.from_numpy(rng.random((b, h, h)).astype(np.float32)).to(dev)
         hot = cams >= 0.6 * cams.amax(dim=(1, 2), keepdim=True)
+        for form in ("cluster", "tiled"):
+            agree_twice("ccl", lambda f=form: ccl_in_form(hot, f),
+                        KC.label_components_reference(hot, 8, h * h),
+                        f"CAM masks B={b} {h}x{h}, {form} form, plain uncapped")
         labels = KC.label_components(hot, 8)
-        agree("ccl", labels, KC.label_components_reference(hot, 8, h * h),
-              f"CAM masks B={b} {h}x{h}")
         agree("mode", KM.largest_component_mask(labels, hot),
               KM.largest_component_mask_reference(labels, hot), f"CAM masks B={b} {h}x{h}")
     ws_img = torch.from_numpy(rng.integers(0, 256, (16, HW, HW)).astype(np.float32)).to(dev)
@@ -2292,6 +2520,7 @@ def main() -> int:
         totals = []
         patched = [staged(cleaner, "cleaner_front", "cleaner_front"),
                    staged(cleaner, "remove_pectoral", "pectoral removal"),
+                   staged(cleaner, "equalize_hist", "pectoral removal: equalize"),
                    staged(cleaner, "select_largest_obj", "pectoral removal: largest_obj"),
                    staged(cleaner, "marker_watershed", "pectoral removal: pair-form watershed"),
                    staged(cleaner, "resize_area", "resize_area to 512x512"),
@@ -2359,6 +2588,28 @@ def main() -> int:
     compared["pectoral_tail"] = [{"design_floor_ms": floor_ms,
                                   "plain_sweep_ops": sweep_ops}] + tails["pectoral_tail"]
     compared["gradcam_tail"] = [tails["gradcam_tail"]]
+    # equalize and ccl at every path shape beside the one-block kernels they
+    # replaced, from a fresh process (equalize_ccl_times); one B=1 3328x2560
+    # equalize call's trace: its launches cover more than the card's 132
+    # SMs, with one memset and no synchronising runtime call
+    eqccl_run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                                "--equalize-ccl-times"], capture_output=True, text=True,
+                               timeout=600)
+    if eqccl_run.returncode != 0:
+        raise AssertionError(f"the equalize/ccl timing run failed:\n{eqccl_run.stderr[-4000:]}")
+    eqccl_lines = eqccl_run.stdout.strip().splitlines()
+    print("\n".join(eqccl_lines[:-1]), flush=True)
+    eqccl = json.loads(eqccl_lines[-1])
+    compared["equalize"] = eqccl["equalize"] + [{"trace": eqccl["equalize_trace"]}]
+    compared["ccl"] = eqccl["ccl"]
+    trace = eqccl["equalize_trace"]
+    print(f"equalize at {trace['shape']}: the trace holds {len(trace['grids'])} kernel launches "
+          f"with grids {trace['grids']}, {trace['memsets']} memset and {trace['launch_calls']} "
+          f"launch and {trace['sync_calls']} synchronising runtime calls", flush=True)
+    if (len(trace["grids"]) != 2 or trace["memsets"] != 1 or trace["sync_calls"]
+            or any(g[0] * g[1] * g[2] <= 132 for g in trace["grids"])):
+        raise AssertionError(f"equalize's trace at {trace['shape']} is not a memset and two "
+                             f"launches of more than 132 blocks with no host sync: {trace}")
     cam6 = torch.from_numpy(rng.random((1, 6, 6)).astype(np.float32)).to(dev)
     hot6 = cam6 >= 0.6 * cam6.amax(dim=(1, 2), keepdim=True)
     lab6 = KC.label_components(hot6, 8)
@@ -2481,6 +2732,7 @@ def main() -> int:
     totals = []
     patched = [staged(cleaner, "cleaner_front", "cleaner_front"),
                staged(cleaner, "remove_pectoral", "pectoral removal"),
+               staged(cleaner, "equalize_hist", "pectoral removal: equalize"),
                staged(cleaner, "pectoral_tail", "pectoral removal: pectoral_tail"),
                staged(E, "resize_area", "resize_area to 512x512"),
                staged(unet, "encoder_first_features", "conv1")]
@@ -2557,4 +2809,6 @@ if __name__ == "__main__":
         sys.exit(batchnorm_device_times())
     if sys.argv[1:] == ["--tail-device-times"]:
         sys.exit(tail_device_times())
+    if sys.argv[1:] == ["--equalize-ccl-times"]:
+        sys.exit(equalize_ccl_times())
     sys.exit(main())

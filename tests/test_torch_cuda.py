@@ -799,3 +799,109 @@ def test_watershed_kernel_beyond_65535_images(dev, rng, values, hw, max_scan):
     for a, b in zip(KW.marker_watershed(img, mk, **kw),
                     KW.marker_watershed_reference(img, mk, **kw)):
         _eq(a, b)
+
+
+# ---- equalize over chunks x images; ccl's cluster and tiled forms -----------
+
+from cadx_tpu_torch.synthetic import equalize_edge_cases  # noqa: E402
+
+# equalize's path shapes: (B, H, W) of run_pipeline, the uploads (the
+# 3328x2560 one at its 1536x1280 bucket), classify_batch and the training CLI
+_EQ_PATH_SHAPES = [(64, 256, 256), (1, 512, 512), (8, 512, 512), (1, 1024, 832),
+                   (1, 1536, 1280), (1, 3328, 2560), (1, 4608, 2656)]
+
+
+def _equalize_twice(x):
+    """One launch a call, bit-exact to the plain version, the same bytes on
+    a second run."""
+    before = KE.equalize.launches
+    got = KE.equalize(x)
+    again = KE.equalize(x)
+    assert KE.equalize.launches == before + 2
+    _eq(got, KE.equalize_reference(x))
+    _eq(got, again)
+
+
+@pytest.mark.parametrize("shape", _EQ_PATH_SHAPES)
+def test_equalize_kernel_path_shapes(dev, shape):
+    """The breast image remove_pectoral hands equalize (cleaner_front's
+    output) at every shape a path gives it."""
+    b, h, w = shape
+    raw = np.stack([synthetic_native_mammogram(h, w, seed=s, dtype=np.uint8, top=250)
+                    for s in range(b)])
+    _equalize_twice(KF.cleaner_front(torch.from_numpy(raw).to(dev))[0].contiguous())
+
+
+@pytest.mark.parametrize("case", sorted(equalize_edge_cases()))
+def test_equalize_kernel_edge_cases(dev, case):
+    """Zero background, all zero, one level, one pixel, a ramp, LUT entries
+    on .5 and an odd-n batch whose images start off 16-byte boundaries."""
+    _equalize_twice(torch.from_numpy(equalize_edge_cases()[case]).to(dev))
+
+
+def test_equalize_kernel_unaligned_view(dev, rng):
+    """A view that starts 1 byte past a 16-byte boundary: the output is
+    placed at the same offset, so the kernel's 16-byte loads and stores
+    pair up."""
+    x = torch.from_numpy(rng.integers(0, 256, (4, 37, 53)).astype(np.uint8)).to(dev)
+    view = x.view(-1)[1:1 + 3 * 37 * 53].view(3, 37, 53)
+    assert view.data_ptr() % 16 != 0
+    out = KE.equalize(view)
+    assert (out.data_ptr() - view.data_ptr()) % 16 == 0
+    _eq(out, KE.equalize_reference(view))
+
+
+_CCL_EDGE_SHAPES = [(64, 64), (256, 256), (45, 70), (1, 70), (70, 1), (333, 257)]
+
+
+@pytest.mark.parametrize("conn", [4, 8])
+@pytest.mark.parametrize("hw", _CCL_EDGE_SHAPES)
+def test_ccl_kernel_tile_edge_cases(dev, hw, conn):
+    """The inputs that break a tiled CCL (ties across tiles, diagonal joins
+    at tile corners, 1 x n; the cluster form up to 64 x 64, the tiled form
+    beyond), against the plain version uncapped, the same bytes twice."""
+    h, w = hw
+    m = torch.from_numpy(tile_edge_cases(h, w) > 0).to(dev)
+    want = KC.label_components_reference(m, conn, max_iters=h * w)
+    got = KC.label_components(m, conn)
+    _eq(got, want)
+    _eq(got, KC.label_components(m, conn))
+
+
+@pytest.mark.parametrize("form", ["cluster", "tiled"])
+@pytest.mark.parametrize("conn", [4, 8])
+@pytest.mark.parametrize("shape", [(3, 62, 62), (1, 6, 6), (8, 6, 6), (2, 45, 60),
+                                   (2, 64, 64), (1, 1, 64), (2, 64, 1)])
+def test_ccl_kernel_forms(dev, rng, monkeypatch, shape, conn, form):
+    """The serving path's CAM masks (CAM >= 0.6 of its peak) in the
+    cluster form and in the tiled form, one launch a call, bit-exact against the
+    plain version uncapped, the same bytes twice."""
+    b, h, w = shape
+    monkeypatch.setattr(KC, "form_for", lambda h, w: form)
+    cams = torch.from_numpy(rng.random(shape).astype(np.float32)).to(dev)
+    m = cams >= 0.6 * cams.amax(dim=(1, 2), keepdim=True)
+    before = KC.label_components.launches
+    got = KC.label_components(m, conn)
+    assert KC.label_components.launches == before + 1
+    _eq(got, KC.label_components_reference(m, conn, max_iters=h * w))
+    _eq(got, KC.label_components(m, conn))
+
+
+@pytest.mark.parametrize("hw", [(64, 64), (333, 257)])
+@pytest.mark.parametrize("kernel", ["cleaner_front", "largest_obj", "pectoral_tail"])
+def test_tiled_header_kernels_unchanged(dev, kernel, hw):
+    """ccl moved onto tiled_components.cuh beside cleaner_front, largest_obj
+    and pectoral_tail: each still bit-exact to its plain version uncapped
+    on the tile edge cases."""
+    h, w = hw
+    x = torch.from_numpy(tile_edge_cases(h, w)).to(dev)
+    if kernel == "cleaner_front":
+        for a, b in zip(KF.cleaner_front(x), KF.cleaner_front_reference(x, max_iters=h * w)):
+            _eq(a, b)
+    elif kernel == "largest_obj":
+        m = x > 0
+        _eq(KL.largest_obj(m, 8, fill=True, smooth_k=15),
+            KL.largest_obj_reference(m, 8, fill=True, smooth_k=15, max_iters=h * w))
+    else:
+        _pectoral_agrees_twice(*(torch.from_numpy(a).to(dev)
+                                 for a in pectoral_tile_edge_inputs(h, w)))
