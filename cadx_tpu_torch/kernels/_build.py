@@ -12,9 +12,9 @@ stream are passed as `c_void_p`, element strides as `c_longlong`, and
 every entry point returns `cudaGetLastError()`, which `check` turns into
 an error.
 
-`csrc/legacy/` holds the one-block-per-image kernels that the tiled ones
-replaced, for timings only (`chip_smoke.py --tail-device-times` and
-`--equalize-ccl-times`);
+`csrc/legacy/` holds the kernels that the redesigned ones replaced, for
+timings only (`chip_smoke.py --tail-device-times`, `--equalize-ccl-times`
+and `--mode-jet-times`);
 `load_legacy` builds them into a library of their own, and no path loads
 it.
 
@@ -48,7 +48,7 @@ _SIGNATURES = {
     "cadx_largest_obj": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "cadx_pectoral_tail": (_P,) * 8 + (_I,) * 7 + (_P,),
     "cadx_ccl": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "cadx_largest_component_mask": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "cadx_largest_component_mask": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "cadx_watershed_pair": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _I, _I, _I, _P),
     "cadx_watershed_packed": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -57,7 +57,7 @@ _SIGNATURES = {
     "cadx_pool": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     "cadx_upsample_nearest": (_P, _P, _I, _I, _I, _I, _I, _P),
     "cadx_batchnorm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
-    "cadx_jet_blend": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "cadx_jet_blend": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "cadx_gradcam_tail": (_P,) * 10 + (_I,) * 7 + (_L,) * 8 + (_I,) * 3 + (_F, _P),
     "cadx_cleaner_front": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "cadx_largest_component_seeded": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -68,6 +68,8 @@ _LEGACY_SIGNATURES = {
     "cadx_gradcam_tail_one_block": (_P,) * 8 + (_I,) * 6 + (_L,) * 8 + (_I,) * 2 + (_F, _P),
     "cadx_equalize_hist_one_block": (_P, _P, _I, _I, _I, _P),
     "cadx_ccl_one_block": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "cadx_largest_component_mask_one_block": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "cadx_jet_blend_two_pass": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 
@@ -145,7 +147,7 @@ def load() -> ctypes.CDLL:
 
 @functools.cache
 def load_legacy() -> ctypes.CDLL:
-    """The replaced one-block kernels of `csrc/legacy/`, for timings."""
+    """The replaced kernels of `csrc/legacy/`, for timings."""
     return _bind(build(LEGACY, "libcadx_legacy"), _LEGACY_SIGNATURES)
 
 

@@ -58,7 +58,9 @@ Phases, each of which raises on failure (the script then exits nonzero):
    - ccl, mode and watershed (packed and pair form) on random masks and
      markers at 256² (B=16), and ccl and mode at the serving CAM shapes
      (B=3 and B=8 at 6x6, B=3 62x62; ccl in its cluster form and its
-     tiled form, twice each); ccl 4- and 8-connected on
+     tiled form, mode in its block, cluster and wide forms, twice each);
+     mode in each form on labels out of range, an exact tie and an empty
+     mask, twice; ccl 4- and 8-connected on
      `synthetic.tile_edge_cases` at the six shapes, plain uncapped, twice;
    - equalize twice to the same bytes at every shape a path gives it
      (run_pipeline's B=64 256², the serving uploads' 512², 1024x832 and
@@ -80,8 +82,12 @@ Phases, each of which raises on failure (the script then exits nonzero):
    - batchnorm at every distinct input shape of the ResNet-50 at a 512²
      display (the path's own inputs) and at planes of 1, 3, 4, 256 and
      65,536 elements (B=2, C up to 2048, contiguous and 4 bytes off a
-     16-byte boundary), and jet_blend at 256² B=64 and 512²
-     B=1, gray and RGB, bit-exact; gradcam_tail at the pipeline's shapes,
+     16-byte boundary), and jet_blend at 256² B=64, 512² B=1, the
+     1536x1280 display cap and B=3 37x53 (images off 16-byte
+     boundaries), gray and RGB, on random heat, a dark image and all-255
+     heat, in its one-launch form (where the images fit one block an SM)
+     and its wide form, each twice
+     to the same bytes, bit-exact; gradcam_tail at the pipeline's shapes,
      (64, 6, 6, 64) -> 256², bit-exact, twice to the same bytes;
 3. the fused pipeline: `run_pipeline` at 256² with the full-width
    classifier on seeded weights, three batches of B=64; launches 1
@@ -168,7 +174,14 @@ Phases, each of which raises on failure (the script then exits nonzero):
    process: events and profiler device time in turns old, new, new, old,
    equalize also on an all-zero and a random 3328x2560 image), and the
    trace of one B=1 3328x2560 equalize call: a memset and two launches of
-   more than 132 blocks, no synchronising runtime call; pectoral_tail and
+   more than 132 blocks, no synchronising runtime call; mode (the serving
+   CAM shapes, B=16 256² random masks) and jet_blend (512² gray and RGB,
+   1024x832, the 1536x1280 cap, B=64 256², B=3 37x53, smooth heat) beside
+   the kernels they replaced and their other forms (`python3 chip_smoke.py
+   --mode-jet-times`, in a fresh process: events and profiler device time
+   in turns old, new, other forms, new, old) and the traces of one mode
+   call at B=3 62x62 and one jet_blend call at B=1 512²: one launch, no
+   memset, no synchronising runtime call; pectoral_tail and
    gradcam_tail beside the one-block kernels they replaced (kept in
    `csrc/legacy/`; `python3 chip_smoke.py --tail-device-times`, in a
    fresh process): pectoral_tail by step (object, bands and markers,
@@ -855,17 +868,15 @@ def cam_masks(rng, b: int, side: int, dev) -> torch.Tensor:
     return cams >= 0.6 * cams.amax(dim=(1, 2), keepdim=True)
 
 
-def ccl_in_form(m, form: str, conn: int = 8) -> torch.Tensor:
-    """ccl through its wrapper in `form` ("cluster" or "tiled") whatever
-    shape m has (the cluster form takes sides up to 64)."""
-    from cadx_tpu_torch.kernels import ccl as KC
-
-    shipped = KC.form_for
-    KC.form_for = lambda h, w: form
+def in_form(module, form: str, fn):
+    """fn() with module.form_for answering `form` whatever the shape (the
+    C entry point refuses a form beyond its size)."""
+    shipped = module.form_for
+    module.form_for = lambda *shape: form
     try:
-        return KC.label_components(m, conn)
+        return fn()
     finally:
-        KC.form_for = shipped
+        module.form_for = shipped
 
 
 def old_equalize(lib, x):
@@ -992,7 +1003,7 @@ def equalize_ccl_times() -> int:
     for shape, b, side in CCL_SHAPES:
         m = (torch.from_numpy(rng.random((b, side, side)) < 0.45).to(dev) if b == 16
              else cam_masks(rng, b, side, dev))
-        other = (("tiled_form", lambda m=m: ccl_in_form(m, "tiled"))
+        other = (("tiled_form", lambda m=m: in_form(KC, "tiled", lambda: KC.label_components(m, 8)))
                  if KC.form_for(side, side) == "cluster" else None)
         ccl_rows.append(row_of("ccl", shape, m, lambda m=m: KC.label_components(m, 8),
                                old_ccl(legacy, m),
@@ -1000,6 +1011,191 @@ def equalize_ccl_times() -> int:
                                other=other))
     print(json.dumps({"card": card, "equalize": eq_rows, "equalize_trace": trace,
                       "ccl": ccl_rows}), flush=True)
+    return 0
+
+
+# mode's: (what, B, side); CAM labels at the serving shapes, random masks
+MODE_SHAPES = (("B=3 62x62 CAM labels (advanced classify_and_roi)", 3, 62),
+               ("B=1 6x6 CAM labels (basic classify)", 1, 6),
+               ("B=16 256x256 random masks, density 0.45", 16, 256))
+# jet_blend's: (what, B, H, W, RGB)
+JET_SHAPES = (("B=1 512x512 gray (the reference Grad-CAM display, segment_hw)", 1, 512, 512,
+               False),
+              ("B=1 512x512 RGB", 1, 512, 512, True),
+              ("B=1 1024x832 gray (the one-launch form at 512 threads a block)", 1, 1024, 832,
+               False),
+              ("B=1 1536x1280 gray (the display cap)", 1, 1536, 1280, False),
+              ("B=64 256x256 gray (the pipeline's heatmaps)", 64, 256, 256, False),
+              ("B=3 37x53 gray (images off 16-byte boundaries)", 3, 37, 53, False))
+MJ_ITERS = 20
+
+
+def smooth_heat(rng, b: int, h: int, w: int) -> torch.Tensor:
+    """Grad-CAM-like uint8 heatmaps on the CPU: 6x6 random maps resized
+    bilinearly to (h, w), as the pipeline's CAMs are."""
+    import torch.nn.functional as F
+
+    cams = torch.from_numpy(rng.random((b, 1, 6, 6)).astype(np.float32))
+    up = F.interpolate(cams, size=(h, w), mode="bilinear", align_corners=False)
+    return (up[:, 0] * 255).to(torch.uint8).contiguous()
+
+
+def old_mode(lib, labels, m):
+    """The replaced one-block mode (`csrc/legacy/`) through the body of its
+    former wrapper: the same input checks and per-call allocations (the
+    output and three int32 scratch planes), so that CUDA events compare
+    wrapper with wrapper."""
+    from cadx_tpu_torch.kernels import _build
+
+    def run():
+        _build.check_input(labels, torch.int32, "largest_component_mask labels")
+        _build.check_input(m, torch.bool, "largest_component_mask mask")
+        b, h, w = labels.shape
+        out = torch.empty_like(m)
+        scratch = torch.empty((b, 3, h, w), dtype=torch.int32, device=m.device)
+        rc = lib.cadx_largest_component_mask_one_block(labels.data_ptr(), m.data_ptr(),
+                                                       out.data_ptr(), scratch.data_ptr(), b, h,
+                                                       w, _build.stream_ptr(m.device))
+        _build.check(rc, "cadx_largest_component_mask_one_block")
+        return out
+    return run
+
+
+def old_jet(lib, heat, img01):
+    """The replaced three-launch jet_blend (`csrc/legacy/`) through the body
+    of its former wrapper: the same input checks and per-call allocations
+    (the output and a (B,) int32 peak), so that CUDA events compare wrapper
+    with wrapper."""
+    from cadx_tpu_torch.kernels import _build
+    from cadx_tpu_torch.kernels import overlay as KOv
+
+    def run():
+        _build.check_input(heat, torch.uint8, "jet_blend heat")
+        rgb = img01.ndim == 4
+        _build.check_input(img01, torch.float32, "jet_blend image", ndim=4 if rgb else 3)
+        b, h, w = heat.shape
+        out = torch.empty((b, h, w, 3), dtype=torch.uint8, device=heat.device)
+        peak = torch.empty(b, dtype=torch.int32, device=heat.device)
+        rc = lib.cadx_jet_blend_two_pass(heat.data_ptr(), img01.data_ptr(),
+                                         KOv.jet_lut_rgb().ctypes.data, peak.data_ptr(),
+                                         out.data_ptr(), b, h, w, 3 if rgb else 1,
+                                         1 if rgb else 0, _build.stream_ptr(heat.device))
+        _build.check(rc, "cadx_jet_blend_two_pass")
+        return out
+    return run
+
+
+def one_call_trace(fn) -> dict:
+    """Kernel launches (with grids), memsets and synchronising runtime calls
+    of one call of fn, from a torch.profiler trace."""
+    events = trace_events(fn)
+    return {"grids": [e["args"].get("grid") for e in events if e.get("cat") == "kernel"],
+            "memsets": sum(1 for e in events if e.get("cat") == "gpu_memset"),
+            "launch_calls": runtime_calls(events, ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                                                   "cudaLaunchCooperativeKernel")),
+            "sync_calls": runtime_calls(events, ("cudaEventSynchronize", "cudaStreamSynchronize",
+                                                 "cudaMemcpy"))}
+
+
+def mode_jet_times() -> int:
+    """`--mode-jet-times`: mode at MODE_SHAPES and jet_blend at JET_SHAPES
+    beside the kernels they replaced (kept in `csrc/legacy/`, built apart
+    by `_build.load_legacy`), in a fresh process, where the profiler keeps
+    every record. Each kernel, its old one and its other forms (mode at the
+    CAM shapes: the other two of the block, cluster and wide forms;
+    jet_blend where it takes the one-launch form: the wide form) bit-exact
+    against the plain version and twice to the same bytes; then CUDA events
+    in turns old, new, other forms twice, new, old (MJ_ITERS calls a timing
+    after one) and the device time of each (torch.profiler), the mean of the two
+    new and the two old windows. The heatmaps are smooth (6x6 maps resized
+    bilinearly, as the paths' CAMs), the images random bytes / 255. Each
+    row's bound: its inputs and outputs once over the HBM rate (mode one
+    operation, jet_blend 4, an output element). The trace of one mode
+    call at B=3 62x62 and one jet_blend call at B=1 512x512 gray must hold
+    one kernel launch, no memset and no synchronising runtime call. Prints
+    one JSON line a row, then one with all of them."""
+    if not torch.cuda.is_available():
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from cadx_tpu_torch.kernels import _build
+    from cadx_tpu_torch.kernels import ccl as KC
+    from cadx_tpu_torch.kernels import mode as KM
+    from cadx_tpu_torch.kernels import overlay as KOv
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    legacy = _build.load_legacy()
+
+    def same(a, b, what):
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what} disagrees")
+
+    def row_of(kernel, shape, inputs, new, old, plain, others, ops_per_out):
+        out = plain()
+        for name, fn in (("new", new), ("old", old)) + others:
+            same(fn().clone(), out, f"{kernel} [{name}, {shape}] against its plain version")
+            same(fn().clone(), fn().clone(), f"{kernel} [{name}, {shape}] on a second run")
+        order = [old, new] + [fn for _, fn in others for _ in (0, 1)] + [new, old]
+        ev = [cuda_ms(fn, MJ_ITERS) for fn in order]
+        dv = [device_ms(fn, MJ_ITERS) for fn in order]
+        b_ms, b_by = bound(nbytes(inputs) + nbytes(out), ops_per_out * numel(out))
+        row = {"kernel": kernel, "shape": shape, "card": card, "ms": (ev[1] + ev[-2]) / 2,
+               "old_ms": (ev[0] + ev[-1]) / 2, "runs_ms": ev,
+               "device_ms": captured_mean(dv[1], dv[-2]),
+               "old_device_ms": captured_mean(dv[0], dv[-1]), "device_runs_ms": dv,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "device_ms_by_kernel": device_ms_by_kernel(new),
+               "old_device_ms_by_kernel": device_ms_by_kernel(old)}
+        for i, (name, fn) in enumerate(others):
+            row[name] = {"ms": (ev[2 + 2 * i] + ev[3 + 2 * i]) / 2,
+                         "device_ms": captured_mean(dv[2 + 2 * i], dv[3 + 2 * i]),
+                         "device_ms_by_kernel": device_ms_by_kernel(fn)}
+        print(json.dumps(row), flush=True)
+        return row
+
+    rng = np.random.default_rng(11)
+    mode_rows, traces = [], {}
+    for shape, b, side in MODE_SHAPES:
+        m = (torch.from_numpy(rng.random((b, side, side)) < 0.45).to(dev) if b == 16
+             else cam_masks(rng, b, side, dev))
+        labels = KC.label_components(m, 8)
+        shipped = KM.form_for(side, side)
+        others = tuple((f"{form}_form", lambda m=m, labels=labels, form=form: in_form(
+            KM, form, lambda: KM.largest_component_mask(labels, m)))
+            for form in (("block", "cluster", "wide") if shipped != "wide" else ())
+            if form != shipped)
+        mode_rows.append(row_of("mode", shape, (labels, m),
+                                lambda m=m, labels=labels: KM.largest_component_mask(labels, m),
+                                old_mode(legacy, labels, m),
+                                lambda m=m, labels=labels: KM.largest_component_mask_reference(
+                                    labels, m), others, 1))
+        if b == 3:
+            traces["mode"] = {"shape": shape, **one_call_trace(
+                lambda m=m, labels=labels: KM.largest_component_mask(labels, m))}
+    jet_rows = []
+    for shape, b, h, w, rgb in JET_SHAPES:
+        heat = smooth_heat(rng, b, h, w).to(dev)
+        img = torch.from_numpy(rng.integers(0, 256, (b, h, w) + ((3,) if rgb else ()))
+                               .astype(np.float32)).to(dev) / 255.0
+        others = ((("wide_form", lambda heat=heat, img=img: in_form(
+            KOv, "wide", lambda: KOv.jet_blend(heat, img))),)
+            if KOv.form_for(b, h, w) == "once" else ())
+        jet_rows.append(row_of("jet_blend", shape, (heat, img),
+                               lambda heat=heat, img=img: KOv.jet_blend(heat, img),
+                               old_jet(legacy, heat, img),
+                               lambda heat=heat, img=img: KOv.jet_blend_reference(heat, img),
+                               others, 4))
+        if (b, h, w, rgb) == (1, 512, 512, False):
+            traces["jet_blend"] = {"shape": shape, **one_call_trace(
+                lambda heat=heat, img=img: KOv.jet_blend(heat, img))}
+    for name, trace in traces.items():
+        print(json.dumps({f"{name}_trace": trace}), flush=True)
+        if len(trace["grids"]) != 1 or trace["memsets"] or trace["sync_calls"]:
+            raise AssertionError(f"{name}'s trace at {trace['shape']} is not one launch with no "
+                                 f"memset and no synchronising call: {trace}")
+    print(json.dumps({"card": card, "mode": mode_rows, "jet_blend": jet_rows,
+                      "traces": traces}), flush=True)
     return 0
 
 
@@ -1513,12 +1709,26 @@ def main() -> int:
         cams = torch.from_numpy(rng.random((b, h, h)).astype(np.float32)).to(dev)
         hot = cams >= 0.6 * cams.amax(dim=(1, 2), keepdim=True)
         for form in ("cluster", "tiled"):
-            agree_twice("ccl", lambda f=form: ccl_in_form(hot, f),
+            agree_twice("ccl", lambda f=form: in_form(KC, f, lambda: KC.label_components(hot, 8)),
                         KC.label_components_reference(hot, 8, h * h),
                         f"CAM masks B={b} {h}x{h}, {form} form, plain uncapped")
         labels = KC.label_components(hot, 8)
-        agree("mode", KM.largest_component_mask(labels, hot),
-              KM.largest_component_mask_reference(labels, hot), f"CAM masks B={b} {h}x{h}")
+        for form in ("block", "cluster", "wide"):
+            agree_twice("mode", lambda f=form: in_form(
+                KM, f, lambda: KM.largest_component_mask(labels, hot)),
+                KM.largest_component_mask_reference(labels, hot),
+                f"CAM masks B={b} {h}x{h}, {form} form")
+    # mode's edge inputs in each form: labels out of range (negative, H*W,
+    # beyond), an exact tie, an empty mask
+    edge = torch.zeros((4, 12, 12), dtype=torch.bool, device=dev)
+    edge[0, 1:3, 1:3] = edge[0, 8:10, 8:10] = edge[2, :, :6] = edge[3, 5, 5] = True
+    edge_labels = KC.label_components(edge, 8)
+    edge_labels[2, :, :3], edge_labels[2, :2, 3:6], edge_labels[3, 5, 5] = -5, 144, 1000
+    for form in ("block", "cluster", "wide"):
+        agree_twice("mode", lambda f=form: in_form(
+            KM, f, lambda: KM.largest_component_mask(edge_labels, edge)),
+            KM.largest_component_mask_reference(edge_labels, edge),
+            f"labels out of range, a tie, an empty mask, {form} form")
     ws_img = torch.from_numpy(rng.integers(0, 256, (16, HW, HW)).astype(np.float32)).to(dev)
     ws_mk = torch.zeros((16, HW, HW), dtype=torch.int32, device=dev)
     ws_mk[:, :50, :50], ws_mk[:, -50:, -50:], ws_mk[:, :4, -4:] = 255, 128, 64
@@ -1660,12 +1870,23 @@ def main() -> int:
                                (flat[1:].view(shape), "a view 4 bytes off 16")):
                     agree("batchnorm", KBN.batchnorm(x, *vec), KBN.batchnorm_reference(x, *vec),
                           f"B=2 C={c} {hh}x{ww}, {how}")
-    for b, side in ((BATCH, HW), (1, seg_h)):
-        heat = torch.from_numpy(rng.integers(0, 256, (b, side, side)).astype(np.uint8)).to(dev)
-        for shape, kind in (((b, side, side), "gray"), ((b, side, side, 3), "RGB")):
+    # jet_blend at the paths' shapes (the pipeline's B=64 256², the 512²
+    # display), the display cap and images off 16-byte boundaries, in each
+    # form that takes the shape (the one-launch form where the images fit
+    # one block an SM), on
+    # random heat, a dark image and all-255 heat, twice to the same bytes
+    for b, h, w in ((BATCH, HW, HW), (1, seg_h, seg_w), (1, 1536, 1280), (3, 37, 53)):
+        heat = torch.from_numpy(rng.integers(0, 256, (b, h, w)).astype(np.uint8)).to(dev)
+        forms = ("once", "wide") if KOv.form_for(b, h, w) == "once" else ("wide",)
+        for shape, kind in (((b, h, w), "gray"), ((b, h, w, 3), "RGB")):
             img01 = torch.from_numpy(rng.integers(0, 256, shape).astype(np.float32)).to(dev) / 255.0
-            agree("jet_blend", KOv.jet_blend(heat, img01), KOv.jet_blend_reference(heat, img01),
-                  f"B={b} {side}x{side} {kind}")
+            for heat_, img_, case in ((heat, img01, "random"),
+                                      (heat, torch.zeros_like(img01), "dark"),
+                                      (torch.full_like(heat, 255), img01, "all-255 heat")):
+                for form in forms:
+                    agree_twice("jet_blend", lambda f=form, x=heat_, y=img_: in_form(
+                        KOv, f, lambda: KOv.jet_blend(x, y)), KOv.jet_blend_reference(heat_, img_),
+                        f"B={b} {h}x{w} {kind}, {case}, {form} form")
     # gradcam_tail at the pipeline's shapes: channel-last views of
     # channel-first activations, as conv_stack returns them
     jet_levels = apply_jet(torch.arange(256, dtype=torch.uint8)).int()
@@ -2610,6 +2831,23 @@ def main() -> int:
             or any(g[0] * g[1] * g[2] <= 132 for g in trace["grids"])):
         raise AssertionError(f"equalize's trace at {trace['shape']} is not a memset and two "
                              f"launches of more than 132 blocks with no host sync: {trace}")
+    # mode and jet_blend beside the kernels they replaced, from a fresh
+    # process (mode_jet_times), which also asserts that one mode call at
+    # B=3 62x62 and one jet_blend call at B=1 512x512 are one launch each
+    # with no memset and no synchronising runtime call
+    mj_run = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--mode-jet-times"],
+                            capture_output=True, text=True, timeout=600)
+    if mj_run.returncode != 0:
+        raise AssertionError(f"the mode/jet_blend timing run failed:\n{mj_run.stderr[-4000:]}")
+    mj_lines = mj_run.stdout.strip().splitlines()
+    print("\n".join(mj_lines[:-1]), flush=True)
+    mj = json.loads(mj_lines[-1])
+    compared["mode"] = mj["mode"] + [{"trace": mj["traces"]["mode"]}]
+    compared["jet_blend"] = mj["jet_blend"] + [{"trace": mj["traces"]["jet_blend"]}]
+    for name, trace in mj["traces"].items():
+        print(f"{name} at {trace['shape']}: the trace holds {len(trace['grids'])} kernel launch "
+              f"with grid {trace['grids']}, {trace['memsets']} memsets and {trace['sync_calls']} "
+              f"synchronising runtime calls", flush=True)
     cam6 = torch.from_numpy(rng.random((1, 6, 6)).astype(np.float32)).to(dev)
     hot6 = cam6 >= 0.6 * cam6.amax(dim=(1, 2), keepdim=True)
     lab6 = KC.label_components(hot6, 8)
@@ -2811,4 +3049,6 @@ if __name__ == "__main__":
         sys.exit(tail_device_times())
     if sys.argv[1:] == ["--equalize-ccl-times"]:
         sys.exit(equalize_ccl_times())
+    if sys.argv[1:] == ["--mode-jet-times"]:
+        sys.exit(mode_jet_times())
     sys.exit(main())

@@ -905,3 +905,157 @@ def test_tiled_header_kernels_unchanged(dev, kernel, hw):
     else:
         _pectoral_agrees_twice(*(torch.from_numpy(a).to(dev)
                                  for a in pectoral_tile_edge_inputs(h, w)))
+
+
+# ---- mode as one cluster launch; jet_blend reading its inputs once ----------
+
+# mode: (shape, form); the block form up to 64 x 64 (the wrapper takes it
+# up to 1,024 pixels), the cluster form up to 64 x 64, the wide form at
+# every shape: both sides of 32 x 32 and of 64 x 64
+_MODE_SHAPES = [(3, 62, 62), (1, 6, 6), (8, 6, 6), (2, 32, 32), (2, 32, 33), (2, 64, 64),
+                (1, 1, 64), (2, 64, 1), (3, 37, 53), (1, 1, 1), (2, 65, 64), (1, 64, 65),
+                (16, 256, 256)]
+_MODE_CASES = [(s, f) for s in _MODE_SHAPES if KM.form_for(*s[1:]) != "wide"
+               for f in ("block", "cluster")] + [(s, "wide") for s in _MODE_SHAPES]
+
+
+def _mode_inputs(rng, shape, dev):
+    """CAM-like masks (CAM >= 0.6 of its peak) and their 8-connected labels;
+    random masks at density 0.45 at 256²."""
+    if shape[1] == 256:
+        m = torch.from_numpy(rng.random(shape) < 0.45).to(dev)
+    else:
+        cams = torch.from_numpy(rng.random(shape).astype(np.float32)).to(dev)
+        m = cams >= 0.6 * cams.amax(dim=(1, 2), keepdim=True)
+    return KC.label_components(m, 8), m
+
+
+def _mode_twice(labels, m):
+    """One launch a call, bit-exact to the plain version, the same bytes on
+    a second run."""
+    before = KM.largest_component_mask.launches
+    got = KM.largest_component_mask(labels, m)
+    assert KM.largest_component_mask.launches == before + 1
+    _eq(got, KM.largest_component_mask_reference(labels, m))
+    _eq(got, KM.largest_component_mask(labels, m))
+
+
+@pytest.mark.parametrize("shape,form", _MODE_CASES)
+def test_mode_kernel_forms(dev, rng, monkeypatch, shape, form):
+    monkeypatch.setattr(KM, "form_for", lambda h, w: form)
+    _mode_twice(*_mode_inputs(rng, shape, dev))
+
+
+@pytest.mark.parametrize("form", ["block", "cluster", "wide"])
+def test_mode_kernel_edge_inputs(dev, monkeypatch, form):
+    """Labels out of range (negative, H*W, beyond), an exact tie, an empty
+    mask and a mask whose every label is out of range."""
+    monkeypatch.setattr(KM, "form_for", lambda h, w: form)
+    m = torch.zeros((4, 12, 12), dtype=torch.bool, device=dev)
+    m[0, 1:3, 1:3] = True          # two components of area 4: the first wins
+    m[0, 8:10, 8:10] = True
+    m[2, :, :6] = True
+    m[3, 5, 5] = True
+    labels = KC.label_components(m, 8)
+    labels[2, :, :3] = -5          # 36 pixels not counted
+    labels[2, :2, 3:6] = 144       # H*W: not counted
+    labels[3, 5, 5] = 1000
+    _mode_twice(labels, m)
+    out = KM.largest_component_mask(labels, m)
+    assert int(out[0].sum()) == 4 and bool(out[0, 1, 1]) and not bool(out[1].any())
+    assert int(out[2].sum()) == 30 and not bool(out[3].any())
+
+
+def test_mode_kernel_batch_zero_and_refusal(dev, monkeypatch):
+    """B=0 launches nothing; the block and cluster forms refuse a plane
+    beyond 64 x 64 (the C rule that form_for states) and count no launch."""
+    for form in ("block", "cluster", "wide"):
+        monkeypatch.setattr(KM, "form_for", lambda h, w, f=form: f)
+        e = torch.zeros((0, 8, 8), dtype=torch.int32, device=dev)
+        before = KM.largest_component_mask.launches
+        assert KM.largest_component_mask(e, e.bool()).shape == (0, 8, 8)
+        assert KM.largest_component_mask.launches == before
+    m = torch.ones((1, 65, 64), dtype=torch.bool, device=dev)
+    for form in ("block", "cluster"):
+        monkeypatch.setattr(KM, "form_for", lambda h, w, f=form: f)
+        before = KM.largest_component_mask.launches
+        with pytest.raises(RuntimeError):
+            KM.largest_component_mask(KC.label_components(m, 8), m)
+        assert KM.largest_component_mask.launches == before
+
+
+# jet_blend: (shape, form); the one-launch form where the images fit 132
+# blocks of 512 threads (an H100 SXM's SMs), the wide form at every shape;
+# both sides of that edge at 132 images and at one image of 132 blocks;
+# (3, 37, 53), (2, 1, 5) and (5, 17, 19) start their images off 16-byte
+# boundaries
+_JET_SHAPES = [(1, 512, 512), (64, 256, 256), (3, 37, 53), (2, 1, 5), (1, 4, 4), (5, 17, 19),
+               (1, 512, 513), (1, 1536, 1280), (132, 64, 64), (133, 64, 64), (1, 1024, 1056),
+               (1, 1024, 1057)]
+_JET_CASES = [(s, f) for s in _JET_SHAPES for f in ("once", "wide")
+              if f == "wide" or KOv.form_for(*s) == "once"]
+
+
+def _jet_twice(heat, img01):
+    before = KOv.jet_blend.launches
+    got = KOv.jet_blend(heat, img01)
+    assert KOv.jet_blend.launches == before + 1
+    _eq(got, KOv.jet_blend_reference(heat, img01))
+    _eq(got, KOv.jet_blend(heat, img01))
+
+
+@pytest.mark.parametrize("case", ["random", "dark", "hot"])
+@pytest.mark.parametrize("rgb", [False, True])
+@pytest.mark.parametrize("shape,form", _JET_CASES)
+def test_jet_blend_kernel_forms(dev, rng, monkeypatch, shape, form, rgb, case):
+    """Random heat and images, a dark image (the peak from the table alone)
+    and all-255 heat, in both forms on both sides of the boundary."""
+    monkeypatch.setattr(KOv, "form_for", lambda *shape: form)
+    heat = rng.integers(0, 256, shape).astype(np.uint8)
+    img = rng.integers(0, 256, shape + ((3,) if rgb else ())).astype(np.float32) / 255.0
+    if case == "dark":
+        img[:] = 0.0
+    elif case == "hot":
+        heat[:] = 255
+    _jet_twice(torch.from_numpy(heat).to(dev), torch.from_numpy(img).to(dev))
+
+
+@pytest.mark.parametrize("form", ["once", "wide"])
+@pytest.mark.parametrize("offset", [1, 4])
+@pytest.mark.parametrize("rgb", [False, True])
+def test_jet_blend_kernel_unaligned_views(dev, rng, monkeypatch, form, offset, rgb):
+    """Views that start `offset` elements past a 16-byte boundary take the
+    same groups a scalar at a time."""
+    monkeypatch.setattr(KOv, "form_for", lambda *shape: form)
+    shape = (3, 37, 53) + ((3,) if rgb else ())
+    n = int(np.prod(shape))
+    heat = torch.from_numpy(rng.integers(0, 256, 3 * 37 * 53 + 16).astype(np.uint8)).to(dev)
+    img = torch.rand(n + 16, device=dev)
+    _jet_twice(heat[offset:offset + 3 * 37 * 53].view(3, 37, 53),
+               img[offset:offset + n].view(shape))
+
+
+def test_jet_blend_kernel_odd_values_and_refusal(dev, monkeypatch):
+    """Image values off the exact quotient path (negative, tiny, above 2^40)
+    take the general division, bit-exact; B=0 launches nothing; the
+    one-launch form refuses a batch beyond one block of 512 threads an SM
+    and counts no launch."""
+    heat = torch.arange(4 * 16 * 16, device=dev).remainder(256).to(torch.uint8).view(4, 16, 16)
+    img = torch.rand((4, 16, 16), device=dev)
+    img[0, 3, 3] = -0.25
+    img[1, 5, 5] = 2.0 ** -60
+    img[2, 7, 7] = 2.0 ** 50
+    img[3] = 2.0 ** -45
+    for form in ("once", "wide"):
+        monkeypatch.setattr(KOv, "form_for", lambda *shape, f=form: f)
+        _jet_twice(heat, img)
+        before = KOv.jet_blend.launches
+        out = KOv.jet_blend(heat[:0], img[:0])
+        assert out.shape == (0, 16, 16, 3) and KOv.jet_blend.launches == before
+    monkeypatch.setattr(KOv, "form_for", lambda *shape: "once")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    big = torch.zeros((sms + 1, 16, 16), dtype=torch.uint8, device=dev)
+    before = KOv.jet_blend.launches
+    with pytest.raises(RuntimeError):
+        KOv.jet_blend(big, torch.zeros((sms + 1, 16, 16), device=dev))
+    assert KOv.jet_blend.launches == before

@@ -92,11 +92,20 @@ def test_colormap_helpers_match_jax(rng):
                               np.asarray(JCol.normalize_to_u8(jnp.asarray(x))))
 
 
-@pytest.mark.parametrize("shape", [(2, 32, 48), (1, 64, 64), (3, 17, 29)])
-def test_jet_blend_plain_matches_pallas(rng, shape):
+@pytest.mark.parametrize("shape,case", [((2, 32, 48), "random"), ((1, 64, 64), "random"),
+                                        ((3, 17, 29), "random"), ((2, 32, 48), "dark"),
+                                        ((3, 17, 29), "hot")],
+                         ids=["shape0", "shape1", "shape2", "dark", "hot"])
+def test_jet_blend_plain_matches_pallas(rng, shape, case):
+    """Random heat and images; a dark image (the peak from the table
+    alone); all-255 heat (every pixel the table's last colour)."""
     heat = rng.integers(0, 256, shape).astype(np.uint8)
     img = rng.random(shape).astype(np.float32)
     img[0] = rng.integers(0, 256, shape[1:]) / np.float32(255)
+    if case == "dark":
+        img[:] = 0.0
+    elif case == "hot":
+        heat[:] = 255
     pallas = np.asarray(jet_blend_pallas(jnp.asarray(heat), jnp.asarray(img), interpret=True))
     before = KOv.jet_blend.launches
     ours = KOv.jet_blend(torch.from_numpy(heat), torch.from_numpy(img))
