@@ -13,8 +13,8 @@ every entry point returns `cudaGetLastError()`, which `check` turns into
 an error.
 
 `csrc/legacy/` holds the kernels that the redesigned ones replaced, for
-timings only (`chip_smoke.py --tail-device-times`, `--equalize-ccl-times`
-and `--mode-jet-times`);
+timings only (`chip_smoke.py --tail-device-times`, `--equalize-ccl-times`,
+`--mode-jet-times` and `--flood-seeded-times`);
 `load_legacy` builds them into a library of their own, and no path loads
 it.
 
@@ -60,8 +60,8 @@ _SIGNATURES = {
     "cadx_jet_blend": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "cadx_gradcam_tail": (_P,) * 10 + (_I,) * 7 + (_L,) * 8 + (_I,) * 3 + (_F, _P),
     "cadx_cleaner_front": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "cadx_largest_component_seeded": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "cadx_flood_from": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "cadx_largest_component_seeded": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "cadx_flood_from": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 _LEGACY_SIGNATURES = {
     "cadx_pectoral_tail_one_block": (_P,) * 7 + (_I,) * 7 + (_P,),
@@ -70,6 +70,8 @@ _LEGACY_SIGNATURES = {
     "cadx_ccl_one_block": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "cadx_largest_component_mask_one_block": (_P, _P, _P, _P, _I, _I, _I, _P),
     "cadx_jet_blend_two_pass": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "cadx_flood_from_one_block": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "cadx_largest_component_seeded_one_block": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -16,11 +16,14 @@ Two orderings, as at the cleaner's two call sites:
 `cadx_tpu/kernels/largest_obj.py::largest_component_mask` (:131-162),
 which the JAX package reaches only through a test's `pallas_call`
 (`tests/test_kernels.py:200`) and keeps off its paths; so does the port.
-It floods from the mask pixel with the densest 17x17 neighbourhood and
-keeps the flood when it holds a strict majority of the mask, which proves
-it the unique largest component; otherwise it takes the CCL + largest
-label. Its result is therefore `largest_component_plain`'s at the
-fixpoint whatever the seed. Source: `csrc/seeded_component.cu`.
+JAX floods from the mask pixel with the densest 17x17 neighbourhood and
+keeps the flood where it holds a strict majority of the mask, which
+proves it the unique largest component; otherwise it takes the CCL +
+largest label. Its result is therefore `largest_component_plain`'s at the
+fixpoint whatever the seed, which is this kernel's selection with the
+fill and the opening off: `csrc/seeded_component.cu` calls
+`cadx_largest_obj` so (a memset and 5 launches), with no seed and no
+flood, and its bytes equal `largest_obj(masks, conn)`'s.
 
 Layout (redesigned for the whole card): the grid covers 32 x 32 tiles x
 images, flattened, so any B runs and one large image fills every SM. One
@@ -60,8 +63,7 @@ SOURCE = "cadx_tpu_torch/csrc/largest_obj.cu"
 REPLACES = "cadx_tpu/kernels/largest_obj.py:238"
 SEEDED_SOURCE = "cadx_tpu_torch/csrc/seeded_component.cu"
 SEEDED_REPLACES = "cadx_tpu/kernels/largest_obj.py:131"
-_SEEDED_PLANES = 4
-_DENSITY_K = 17
+_DENSITY_K = 17   # the plain version's density window (JAX's)
 
 
 def _scratch_bytes(b: int, h: int, w: int) -> int:
@@ -169,11 +171,11 @@ def largest_component_seeded(masks: torch.Tensor, connectivity: int = 8) -> torc
     b, h, w = masks.shape
     out = torch.empty_like(masks)
     if b:
-        scratch = torch.empty((b, _SEEDED_PLANES, h, w), dtype=torch.int32,
+        scratch = torch.empty(_scratch_bytes(b, h, w), dtype=torch.uint8,
                               device=masks.device)
         rc = _build.load().cadx_largest_component_seeded(
             masks.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, h, w,
-            connectivity, _DENSITY_K, _build.stream_ptr(masks.device))
+            connectivity, _build.stream_ptr(masks.device))
         _build.check(rc, "cadx_largest_component_seeded")
         largest_component_seeded.launches += 1
     return out

@@ -153,14 +153,7 @@ def marker_watershed(image: torch.Tensor, markers: torch.Tensor,
     lib = _build.load()
     values = tuple(int(v) for v in marker_label_values)
     if values and G.use_packed((h, w), len(values)):
-        scratch = torch.empty((b, _PACKED_PLANES, h, w), dtype=torch.int32,
-                              device=dev)
-        v = values + (0,) * (3 - len(values))
-        rc = lib.cadx_watershed_packed(
-            img.data_ptr(), mk.data_ptr(), labels.data_ptr(),
-            boundary.data_ptr(), scratch.data_ptr(), b, h, w, v[0], v[1],
-            v[2], len(values), _build.stream_ptr(dev))
-        _build.check(rc, "cadx_watershed_packed")
+        packed_form(img, mk, values, labels, boundary)
     else:
         scratch = torch.empty((_PAIR_PLANES, b, h, w), dtype=torch.float32,
                               device=dev)
@@ -183,3 +176,24 @@ def marker_watershed(image: torch.Tensor, markers: torch.Tensor,
 
 marker_watershed.launches = 0
 marker_watershed.host_syncs = 0   # host synchronisations of the last pair-form call
+
+
+def packed_form(img: torch.Tensor, mk: torch.Tensor, values: tuple,
+                labels: torch.Tensor, boundary: torch.Tensor) -> None:
+    """The packed form's launches (`cadx_watershed_packed`) into labels and
+    boundary, for `marker_watershed`'s checked inputs; counted here apart
+    from the pair form (`packed_form.launches`) as well as in
+    `marker_watershed.launches`."""
+    b, h, w = img.shape
+    scratch = torch.empty((b, _PACKED_PLANES, h, w), dtype=torch.int32,
+                          device=img.device)
+    v = values + (0,) * (3 - len(values))
+    rc = _build.load().cadx_watershed_packed(
+        img.data_ptr(), mk.data_ptr(), labels.data_ptr(), boundary.data_ptr(),
+        scratch.data_ptr(), b, h, w, v[0], v[1], v[2], len(values),
+        _build.stream_ptr(img.device))
+    _build.check(rc, "cadx_watershed_packed")
+    packed_form.launches += 1
+
+
+packed_form.launches = 0

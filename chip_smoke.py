@@ -45,18 +45,22 @@ Phases, each of which raises on failure (the script then exits nonzero):
      4608x2656) each kernel its path launches there: cleaner_front,
      equalize, largest_obj at the pectoral select, pair-form watershed;
    - the density-seeded largest component (off every path, as in JAX)
-     against its plain version and `largest_component_plain` on blobs,
-     ties, random and empty masks at 256² B=16 and 1536x1280, with the
-     count that took the flood and the fallback by the kernel's own seed;
+     against its plain version, `largest_component_plain` and
+     `largest_obj` without fill or opening (the same launches) on blobs,
+     ties, random and empty masks at 256² B=16 and 1536x1280, twice to the
+     same bytes, with the count that JAX's algorithm sends to its flood and
+     to its fallback;
    - the flood: fill_holes' border flood on suppress-site backgrounds
-     (256² B=12, the 1536x1280 bucket and the 3328x2560 native, B=1) and
-     serpentines (256² B=4), 4- and 8-connected, uncapped and capped (2 and
-     40 sweeps, which the serpentines hit), bit-exact; the dispatching
+     (256² B=12, the 1536x1280 bucket and the 3328x2560 native, B=1),
+     serpentines (256² B=4) and random masks across the packed words'
+     borders (B=3 37x31, 37x32, 37x33), 4- and 8-connected, uncapped and
+     capped (2, 40 and 128 sweeps, which the serpentines hit), bit-exact,
+     twice to the same bytes; the dispatching
      `ops.components.fill_holes` and `flood_from` launch it; the plain
      versions of largest_obj, the seeded component, cleaner_front and
      pectoral_tail launch no kernel on the card;
-   - ccl, mode and watershed (packed and pair form) on random masks and
-     markers at 256² (B=16), and ccl and mode at the serving CAM shapes
+   - ccl, mode and watershed (packed and pair form, twice each) on random
+     masks and markers at 256² (B=16), and ccl and mode at the serving CAM shapes
      (B=3 and B=8 at 6x6, B=3 62x62; ccl in its cluster form and its
      tiled form, mode in its block, cluster and wide forms, twice each);
      mode in each form on labels out of range, an exact tie and an empty
@@ -103,9 +107,9 @@ Phases, each of which raises on failure (the script then exits nonzero):
    (fused tail); per pipeline classify, classify_and_roi (0, 1) and the
    overlay PNGs; eight concurrent micro-batched classify calls;
    classify_batch on B=8 at 512². The exact launch count of each of the
-   fifteen kernels is asserted (cleaner_front once per cleaned batch,
-   largest_obj once per composed pectoral branch, jet_blend once per
-   overlay class);
+   fifteen kernels, and of the packed watershed's form apart, is asserted
+   (cleaner_front once per cleaned batch, largest_obj once per composed
+   pectoral branch, jet_blend once per overlay class);
 6. one 640x544 request on the card and on a CPU engine with the same
    weights: clean exact, features 1e-5, probs 2e-5, ROI boxes within one
    CAM cell, heatmaps +-2 u8, overlays +-2 u8 where the heatmaps agree,
@@ -181,7 +185,19 @@ Phases, each of which raises on failure (the script then exits nonzero):
    --mode-jet-times`, in a fresh process: events and profiler device time
    in turns old, new, other forms, new, old) and the traces of one mode
    call at B=3 62x62 and one jet_blend call at B=1 512²: one launch, no
-   memset, no synchronising runtime call; pectoral_tail and
+   memset, no synchronising runtime call; the flood (fill_holes' border
+   flood at B=64 256², B=1 1536x1280 and 3328x2560, serpentines into the
+   128-sweep cap; its sweeps a call and the time a sweep) and the seeded
+   component (phase 2's B=16 256² masks, 1536x1280 generated masks, B=16
+   256² random masks at density 0.45; beside ccl + mode and largest_obj)
+   beside the one-block kernels they replaced, and the packed watershed
+   beside its plain version (B=1 512², B=8 512², B=16 256², cleaner
+   markers; the record's row is B=1 512²) (`python3 chip_smoke.py
+   --flood-seeded-times`, in a fresh process: events and profiler device
+   time in turns old, new, other launches, new, old), and the traces of
+   one flood call at B=64 256² and at B=1 1536x1280 (one launch, at most
+   one memset, no synchronising runtime call) and of one seeded call (no
+   flood, every grid larger than the batch); pectoral_tail and
    gradcam_tail beside the one-block kernels they replaced (kept in
    `csrc/legacy/`; `python3 chip_smoke.py --tail-device-times`, in a
    fresh process): pectoral_tail by step (object, bands and markers,
@@ -217,7 +233,8 @@ Phases, each of which raises on failure (the script then exits nonzero):
    requests after warmup.
 
 The last line of standard output is {"ok": true, "device": {...}}; the
-line before it is the per-kernel JSON record. Imports torch, numpy and
+line before it is the per-kernel JSON record: the fifteen kernels and the
+packed watershed's form ("watershed_packed"), which shares watershed.cu. Imports torch, numpy and
 the port only.
 """
 
@@ -1027,6 +1044,59 @@ JET_SHAPES = (("B=1 512x512 gray (the reference Grad-CAM display, segment_hw)", 
               ("B=1 1536x1280 gray (the display cap)", 1, 1536, 1280, False),
               ("B=64 256x256 gray (the pipeline's heatmaps)", 64, 256, 256, False),
               ("B=3 37x53 gray (images off 16-byte boundaries)", 3, 37, 53, False))
+def clean_stage_inputs(batch):
+    """The inputs the cleaner hands each kernel (launches not counted):
+    suppress-site and segment-site masks, the segmented image, its
+    equalized image, the high-threshold pectoral mask and the breast."""
+    from cadx_tpu_torch.kernels import equalize as KE
+    from cadx_tpu_torch.ops.threshold import (binary_threshold,
+                                              relative_threshold_value, to_uint8)
+    from cadx_tpu_torch.preprocess import cleaner
+
+    raw8 = to_uint8(batch)
+    th = relative_threshold_value(raw8, 0.05)
+    suppress_bin = binary_threshold(raw8, th, 255) > 0
+    sup, breast = cleaner.suppress_artifacts(raw8, 0.05, 15)
+    img8 = to_uint8(sup)
+    segment_bin = binary_threshold(img8, relative_threshold_value(img8, 0.05), 255) > 0
+    seg, _ = cleaner.segment_breast_mask(sup, 0.05)
+    seg = seg.to(torch.uint8)
+    equ = KE.equalize(seg)
+    high = binary_threshold(equ, relative_threshold_value(seg, 0.8), 255)
+    return suppress_bin, segment_bin, seg, equ, high, breast
+
+
+def pectoral_markers(equ, high, breast):
+    """The composed remove_pectoral branch's watershed markers."""
+    from cadx_tpu_torch.ops.morphology import dilate, erode
+    from cadx_tpu_torch.preprocess import cleaner
+
+    pect = cleaner.select_largest_obj(high, 255, fill_holes_=True)
+    markers = torch.zeros(equ.shape, dtype=torch.int32, device=equ.device)
+    markers = torch.where(erode(pect, 3, 7) > 0, 255, markers)
+    markers = torch.where(dilate(pect, 3, 7) == 0, 128, markers)
+    return torch.where(breast == 0, 64, markers)
+
+
+def serpentine(h: int, w: int, step: int) -> np.ndarray:
+    """A corridor that doubles back every `step` rows: a flood from (0, 0)
+    needs one sweep a turn."""
+    m = np.zeros((h, w), bool)
+    for r in range(0, h, step):
+        m[r, :] = True
+        m[r + 1:r + step, w - 1 if (r // step) % 2 == 0 else 0] = True
+    return m
+
+
+def border_flood(masks):
+    """(mask, seed) of fill_holes' flood: the background, seeded where it
+    meets the image border."""
+    inv = ~masks
+    edge = torch.zeros_like(inv)
+    edge[:, 0], edge[:, -1], edge[:, :, 0], edge[:, :, -1] = True, True, True, True
+    return inv.contiguous(), (edge & inv).contiguous()
+
+
 MJ_ITERS = 20
 
 
@@ -1090,6 +1160,7 @@ def one_call_trace(fn) -> dict:
     of one call of fn, from a torch.profiler trace."""
     events = trace_events(fn)
     return {"grids": [e["args"].get("grid") for e in events if e.get("cat") == "kernel"],
+            "names": [e.get("name", "")[:60] for e in events if e.get("cat") == "kernel"],
             "memsets": sum(1 for e in events if e.get("cat") == "gpu_memset"),
             "launch_calls": runtime_calls(events, ("cudaLaunchKernel", "cudaLaunchKernelExC",
                                                    "cudaLaunchCooperativeKernel")),
@@ -1199,6 +1270,240 @@ def mode_jet_times() -> int:
     return 0
 
 
+FS_ITERS = 20          # most calls a timing of a kernel, after one
+FS_WINDOW_S = 0.25     # fewer calls where one takes longer than this / FS_ITERS
+FS_PLAIN_ITERS = 3     # calls a timing of a plain version
+
+
+def old_flood(lib, mask, seed, max_iters: int, conn: int):
+    """The replaced one-block flood (`csrc/legacy/`) through the body of its
+    former wrapper: the same checks and per-call allocations (the output
+    and, where a block's planes pass 200 KB of shared memory, their global
+    scratch), so that CUDA events compare wrapper with wrapper."""
+    from cadx_tpu_torch.kernels import _build
+
+    def run():
+        _build.check_input(mask, torch.bool, "flood_from")
+        _build.check_input(seed, torch.bool, "flood_from")
+        b, h, w = mask.shape
+        out = torch.empty_like(mask)
+        words = 3 * h * (-(-w // 32) | 1) + 2 * w * (-(-h // 32) | 1)
+        scratch = (torch.empty(b * words, dtype=torch.int32, device=mask.device)
+                   if 4 * words > 200 * 1024 else None)
+        rc = lib.cadx_flood_from_one_block(mask.data_ptr(), seed.data_ptr(), out.data_ptr(),
+                                           None if scratch is None else scratch.data_ptr(), b,
+                                           h, w, max_iters, conn, _build.stream_ptr(mask.device))
+        _build.check(rc, "cadx_flood_from_one_block")
+        return out
+    return run
+
+
+def old_seeded(lib, masks, conn: int):
+    """The replaced one-block seeded component (`csrc/legacy/`) through the
+    body of its former wrapper: its checks, the output and a (B, 4, H, W)
+    int32 scratch."""
+    from cadx_tpu_torch.kernels import _build
+
+    def run():
+        _build.check_input(masks, torch.bool, "largest_component_seeded")
+        b, h, w = masks.shape
+        out = torch.empty_like(masks)
+        scratch = torch.empty((b, 4, h, w), dtype=torch.int32, device=masks.device)
+        rc = lib.cadx_largest_component_seeded_one_block(
+            masks.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, h, w, conn, 17,
+            _build.stream_ptr(masks.device))
+        _build.check(rc, "cadx_largest_component_seeded_one_block")
+        return out
+    return run
+
+
+def flood_seeded_times() -> int:
+    """`--flood-seeded-times`: the flood and the seeded component beside the
+    one-block kernels they replaced (kept in `csrc/legacy/`, built apart by
+    `_build.load_legacy`), and the packed watershed beside its plain
+    version, in a fresh process, where the profiler keeps every record.
+
+    - flood, 4-connected: fill_holes' border flood of suppress-site
+      backgrounds (run_pipeline's B=64 256² batch; B=1 1536x1280 and
+      3328x2560 synthetic natives) at the default 128 sweeps, and four
+      serpentines (B=4 256²) that run into that cap; the sweeps a call
+      (the kernel's own count) and the device time a sweep;
+    - the seeded component, 8-connected: generated masks (blobs, ties,
+      random, empty) with 8 suppress-site masks at B=16 256², generated
+      masks at 1536x1280, random masks at density 0.45 (B=16 256²), also
+      beside ccl + mode and largest_obj without fill or opening;
+    - the packed watershed (no old kernel): B=1 512², B=8 512² and B=16
+      256² synthetic mammograms' equalized images and cleaner markers.
+
+    Each kernel, and its old one, bit-exact against the plain version (the
+    seeded component uncapped) and twice to the same bytes; CUDA events and
+    profiler device time in turns old, new, other launches twice, new, old,
+    up to FS_ITERS calls a timing after one; the plain version
+    FS_PLAIN_ITERS calls before and after. Bound: inputs and outputs once
+    over the HBM rate, at least one operation an output pixel (the packed
+    watershed's 13 bytes a pixel: image and markers in, labels and
+    boundary out). Traces of one call: the flood at B=1 1536x1280 and B=64
+    256² must be one launch, at most one memset, no synchronising runtime
+    call; the seeded component at B=16 256² launches no flood and nothing
+    of one block an image (every grid holds more blocks than images). Prints
+    one JSON line a row, then one with all of them."""
+    if not torch.cuda.is_available():
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from cadx_tpu_torch.kernels import _build
+    from cadx_tpu_torch.kernels import ccl as KC
+    from cadx_tpu_torch.kernels import flood as KFl
+    from cadx_tpu_torch.kernels import largest_obj as KL
+    from cadx_tpu_torch.kernels import mode as KM
+    from cadx_tpu_torch.kernels import watershed as KW
+    from cadx_tpu_torch.ops import components as TC
+    from cadx_tpu_torch.synthetic import synthetic_mammograms, synthetic_native_mammogram
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    legacy = _build.load_legacy()
+
+    def same(a, b, what):
+        torch.cuda.synchronize()
+        for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{what} disagrees")
+
+    def clone(out):
+        return tuple(t.clone() for t in out) if isinstance(out, tuple) else out.clone()
+
+    def calls_for(fn):
+        """FS_ITERS calls, fewer where a call takes more than
+        FS_WINDOW_S / FS_ITERS, at least 3."""
+        return max(3, min(FS_ITERS, int(FS_WINDOW_S * 1e3 / max(cuda_ms(fn, 1), 1e-3))))
+
+    def row_of(kernel, shape, inputs, new, old, plain, exact, others=(), extra=None):
+        """Check new, old and others against `exact` (twice each), then time
+        them in turns and the plain version before and after."""
+        for name, fn in (("new", new),) + ((("old", old),) if old else ()) + others:
+            same(clone(fn()), exact, f"{kernel} [{name}, {shape}] against its plain version")
+            same(clone(fn()), clone(fn()), f"{kernel} [{name}, {shape}] on a second run")
+        out = new()
+        fns = [fn for fn in (old, new) if fn] + [fn for _, fn in others for _ in (0, 1)] \
+            + [fn for fn in (new, old) if fn]
+        iters = [calls_for(fn) for fn in fns]
+        p1 = cuda_ms(plain, FS_PLAIN_ITERS)
+        ev = [cuda_ms(fn, n) for fn, n in zip(fns, iters)]
+        p2 = cuda_ms(plain, FS_PLAIN_ITERS)
+        dv = [device_ms(fn, n) for fn, n in zip(fns, iters)]
+        first, last = (1, -2) if old else (0, -1)
+        b_ms, b_by = bound(nbytes(inputs) + nbytes(out), numel(out[0] if isinstance(out, tuple)
+                                                            else out))
+        row = {"kernel": kernel, "shape": shape, "card": card,
+               "ms": (ev[first] + ev[last]) / 2, "device_ms": captured_mean(dv[first], dv[last]),
+               "plain_ms": (p1 + p2) / 2, "plain_runs_ms": [p1, p2], "runs_ms": ev,
+               "device_runs_ms": dv, "calls": iters, "bound_ms": b_ms, "bound_by": b_by,
+               "device_ms_by_kernel": device_ms_by_kernel(new)}
+        if old:
+            row.update(old_ms=(ev[0] + ev[-1]) / 2, old_device_ms=captured_mean(dv[0], dv[-1]),
+                       old_device_ms_by_kernel=device_ms_by_kernel(old))
+        for i, (name, _) in enumerate(others):
+            k = (2 if old else 1) + 2 * i
+            row[name] = {"ms": (ev[k] + ev[k + 1]) / 2,
+                         "device_ms": captured_mean(dv[k], dv[k + 1])}
+        row.update(extra or {})
+        if row.get("sweeps"):
+            per = row["device_ms"] if row["device_ms"] is not None else row["ms"]
+            row["ms_a_sweep"] = per / row["sweeps"]
+        print(json.dumps(row), flush=True)
+        return row
+
+    def suppress_site(batch):
+        return clean_stage_inputs(batch)[0]
+
+    rng = np.random.default_rng(12)
+    # the flood: fill_holes' border flood (4-connected, 128 sweeps at most)
+    pipe = torch.from_numpy(synthetic_mammograms(64, 256, seed=10)).to(dev)
+    natives = {(h, w): torch.from_numpy(synthetic_native_mammogram(h, w, seed=21).astype(
+        np.float32)).to(dev)[None] for h, w in ((1536, 1280), (3328, 2560))}
+    serp = torch.from_numpy(np.stack([serpentine(256, 256, st) for st in (2, 3, 4, 8)])).to(dev)
+    serp_seed = torch.zeros_like(serp)
+    serp_seed[:, 0, 0] = True
+    flood_in = [("B=64 256x256 border flood of suppress-site backgrounds (run_pipeline's batch)",
+                 border_flood(suppress_site(pipe)))]
+    flood_in += [(f"B=1 {h}x{w} border flood of a suppress-site background",
+                  border_flood(suppress_site(x))) for (h, w), x in natives.items()]
+    flood_in.append(("B=4 256x256 serpentines (steps 2, 3, 4, 8), into the 128-sweep cap",
+                     (serp, serp_seed)))
+    flood_rows, traces = [], {}
+    sweeps = torch.zeros(1, dtype=torch.int32, device=dev)
+    for shape, (m, seed) in flood_in:
+        exact = KFl.flood_from_reference(m, seed, 128, 4)
+        KFl.flood_from(m, seed, 128, 4, sweeps=sweeps)
+        n = int(sweeps.item())
+        row = row_of("flood", shape, (m, seed),
+                     lambda m=m, seed=seed: KFl.flood_from(m, seed, 128, 4),
+                     old_flood(legacy, m, seed, 128, 4),
+                     lambda m=m, seed=seed: KFl.flood_from_reference(m, seed, 128, 4), exact,
+                     extra={"sweeps": n})
+        flood_rows.append(row)
+        if m.shape[0] == 64 or m.shape[1:] == (1536, 1280):
+            traces[f"flood {tuple(m.shape)}"] = {"shape": shape, **one_call_trace(
+                lambda m=m, seed=seed: KFl.flood_from(m, seed, 128, 4))}
+    del natives
+
+    # the packed watershed on cleaner markers, beside its plain version as the
+    # cleaner calls it (max_scan 8, the default 256-sweep cap)
+    packed_rows = []
+    values = (255, 128, 64)
+    for b, side in ((1, 512), (8, 512), (16, 256)):
+        batch = torch.from_numpy(synthetic_mammograms(b, side, seed=30)).to(dev)
+        _, _, _, equ, high, breast = clean_stage_inputs(batch)
+        mk = pectoral_markers(equ, high, breast)
+        img = equ.to(torch.float32)
+        exact = KW.marker_watershed_reference(img, mk, max_iters=side * side, max_scan=8,
+                                              marker_label_values=values)
+        packed_rows.append(row_of(
+            "watershed_packed", f"B={b} {side}x{side} cleaner markers", (img, mk),
+            lambda img=img, mk=mk: KW.marker_watershed(img, mk, max_scan=8,
+                                                       marker_label_values=values),
+            None, lambda img=img, mk=mk: KW.marker_watershed_reference(
+                img, mk, max_scan=8, marker_label_values=values), exact))
+
+    # the seeded component, 8-connected, beside ccl + mode and largest_obj
+    small = torch.from_numpy(synthetic_mammograms(16, 256, seed=1)).to(dev)
+    seeded_in = [
+        ("B=16 256x256: 8 generated (blobs, ties, random, empty) + 8 suppress-site masks",
+         torch.from_numpy(np.concatenate([seeded_masks(rng, 256, 256),
+                                          suppress_site(small)[:8].cpu().numpy()])).to(dev)),
+        ("B=7 1536x1280 generated masks (blobs, ties, random, empty)",
+         torch.from_numpy(seeded_masks(rng, 1536, 1280)).to(dev)),
+        ("B=16 256x256 random masks, density 0.45",
+         torch.from_numpy(rng.random((16, 256, 256)) < 0.45).to(dev))]
+    seeded_rows = []
+    for shape, m in seeded_in:
+        exact = TC.largest_component_plain(m, 8, m.shape[1] * m.shape[2])
+        seeded_rows.append(row_of(
+            "largest_component_seeded", shape, (m,),
+            lambda m=m: KL.largest_component_seeded(m, 8), old_seeded(legacy, m, 8),
+            lambda m=m: KL.largest_component_seeded_reference(m, 8), exact,
+            (("ccl_mode", lambda m=m: KM.largest_component_mask(KC.label_components(m, 8), m)),
+             ("largest_obj", lambda m=m: KL.largest_obj(m, 8)))))
+        if m.shape == (16, 256, 256) and "seeded" not in traces:
+            traces["seeded"] = {"shape": shape, "images": m.shape[0], **one_call_trace(
+                lambda m=m: KL.largest_component_seeded(m, 8))}
+
+    for name, trace in traces.items():
+        print(json.dumps({f"{name}_trace": trace}), flush=True)
+        if name.startswith("flood") and (len(trace["grids"]) != 1 or trace["memsets"] > 1
+                                         or trace["sync_calls"]):
+            raise AssertionError(f"{name}'s trace is not one launch with at most one memset "
+                                 f"and no synchronising call: {trace}")
+        if name == "seeded" and (trace["sync_calls"] or any(
+                "flood" in k or g[0] * g[1] * g[2] <= trace["images"]
+                for k, g in zip(trace["names"], trace["grids"]))):
+            raise AssertionError(f"the seeded component launched a flood, a grid of one block "
+                                 f"an image or a synchronising call: {trace}")
+    print(json.dumps({"card": card, "flood": flood_rows, "largest_component_seeded": seeded_rows,
+                      "watershed_packed": packed_rows, "traces": traces}), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1230,10 +1535,8 @@ def main() -> int:
     from cadx_tpu_torch.ops import geodesic_scan as TGS
     from cadx_tpu_torch.ops import pool as TPool
     from cadx_tpu_torch.ops.colormap import apply_jet
-    from cadx_tpu_torch.ops.morphology import dilate, erode
     from cadx_tpu_torch.ops.resize import resize_area
-    from cadx_tpu_torch.ops.threshold import (binary_threshold,
-                                              relative_threshold_value, to_uint8)
+    from cadx_tpu_torch.ops.threshold import to_uint8
     from cadx_tpu_torch.pipeline import fused
     from cadx_tpu_torch.precision import full_fp32
     from cadx_tpu_torch.preprocess import cleaner
@@ -1259,6 +1562,7 @@ def main() -> int:
     # kernel -> (source, the TPU kernel it replaces)
     sources = {name: (mod.SOURCE, mod.REPLACES) for name, mod in modules.items()}
     sources["largest_component_seeded"] = (KL.SEEDED_SOURCE, KL.SEEDED_REPLACES)
+    sources["watershed_packed"] = (KW.SOURCE, KW.REPLACES)
     wrappers = {"largest_obj": KL.largest_obj, "equalize": KE.equalize,
                 "pectoral_tail": KP.pectoral_tail, "ccl": KC.label_components,
                 "mode": KM.largest_component_mask, "watershed": KW.marker_watershed,
@@ -1267,7 +1571,7 @@ def main() -> int:
                 "jet_blend": KOv.jet_blend, "gradcam_tail": KGT.gradcam_tail,
                 "cleaner_front": KF.cleaner_front,
                 "largest_component_seeded": KL.largest_component_seeded,
-                "flood": KFl.flood_from}
+                "flood": KFl.flood_from, "watershed_packed": KW.packed_form}
 
     def zero_counts():
         for fn in wrappers.values():
@@ -1289,34 +1593,13 @@ def main() -> int:
     n_sources = len(list(_build.CSRC.glob("*.cu")))
     print(f"build: {n_sources} sources in {time.perf_counter() - t0:.2f} s -> {lib_path.name}",
           flush=True)
-    if n_sources != len(wrappers):
-        raise AssertionError(f"{n_sources} kernel sources for {len(wrappers)} kernels")
+    if n_sources != len({src for src, _ in sources.values()}):
+        raise AssertionError(f"{n_sources} kernel sources for the kernels' "
+                             f"{len({src for src, _ in sources.values()})}")
 
     phase_done("1")
 
     # ---- 2. each kernel against its plain version, on the card --------------
-    def clean_stage_inputs(batch):
-        """The inputs the cleaner hands each kernel (launches not counted)."""
-        raw8 = to_uint8(batch)
-        th = relative_threshold_value(raw8, 0.05)
-        suppress_bin = binary_threshold(raw8, th, 255) > 0
-        sup, breast = cleaner.suppress_artifacts(raw8, 0.05, 15)
-        img8 = to_uint8(sup)
-        segment_bin = binary_threshold(img8, relative_threshold_value(img8, 0.05), 255) > 0
-        seg, _ = cleaner.segment_breast_mask(sup, 0.05)
-        seg = seg.to(torch.uint8)
-        equ = KE.equalize(seg)
-        high = binary_threshold(equ, relative_threshold_value(seg, 0.8), 255)
-        return suppress_bin, segment_bin, seg, equ, high, breast
-
-    def pectoral_markers(equ, high, breast):
-        """The composed remove_pectoral branch's watershed markers."""
-        pect = cleaner.select_largest_obj(high, 255, fill_holes_=True)
-        markers = torch.zeros(equ.shape, dtype=torch.int32, device=equ.device)
-        markers = torch.where(erode(pect, 3, 7) > 0, 255, markers)
-        markers = torch.where(dilate(pect, 3, 7) == 0, 128, markers)
-        return torch.where(breast == 0, 64, markers)
-
     errs = {name: 0.0 for name in wrappers}
 
     def agree(name, kernel_out, plain_out, what):
@@ -1600,19 +1883,21 @@ def main() -> int:
         raise AssertionError("the pair-form watershed synchronised the host too often")
 
     # the density-seeded largest component, off every path: against its
-    # plain version and the plain CCL + largest label, both uncapped
+    # plain version and the plain CCL + largest label, both uncapped, and
+    # largest_obj with neither fill nor opening (the same launches), twice
     def seeded_paths(m):
-        """(flood, fallback) image counts of the 8-connected kernel, by its
-        own seed: the densest mask pixel, the smallest raster index on ties
-        (its 64-bit key; the plain version's 20-bit packing is exact only
-        up to 2**20 pixels)."""
+        """(flood, fallback) image counts of the plain algorithm (JAX's),
+        8-connected, by its seed: the densest mask pixel, the smallest
+        raster index on ties (a 64-bit key; the plain version's 20-bit
+        packing is exact only up to 2**20 pixels). The kernel takes neither
+        path: it runs the tiled CCL."""
         b, h, w = m.shape
         k = KL._DENSITY_K
         dens = KL._axis_window_sum(KL._axis_window_sum(m.to(torch.int32), k, -2), k, -1)
         idx = torch.arange(h * w, dtype=torch.int64, device=m.device).view(h, w)
         key = torch.where(m, (dens.to(torch.int64) << 32) | (0xFFFFFFFF - idx), -1)
         seed = (key == key.amax(dim=(1, 2), keepdim=True)) & m
-        comp = TC.flood_from(m, seed, h * w, 8)
+        comp = TC.flood_from_plain(m, seed, h * w, 8)
         flood = comp.sum(dim=(1, 2)) * 2 > m.sum(dim=(1, 2))
         return int(flood.sum()), int((~flood).sum())
 
@@ -1625,51 +1910,48 @@ def main() -> int:
                                               f"1536x1280")):
         cap = m.shape[1] * m.shape[2]
         for conn in conns:
+            agree_twice("largest_component_seeded",
+                        lambda m=m, c=conn: KL.largest_component_seeded(m, c),
+                        KL.largest_component_seeded_reference(m, conn, cap),
+                        f"{what}, {conn}-conn, plain uncapped")
             got = KL.largest_component_seeded(m, conn)
-            agree("largest_component_seeded", got,
-                  KL.largest_component_seeded_reference(m, conn, cap),
-                  f"{what}, {conn}-conn, plain uncapped")
             agree("largest_component_seeded", got, TC.largest_component_plain(m, conn, cap),
                   f"{what}, {conn}-conn, against largest_component_plain uncapped")
+            agree("largest_component_seeded", got, KL.largest_obj(m, conn),
+                  f"{what}, {conn}-conn, against largest_obj without fill or opening")
         flood, fallback = seeded_paths(m)
-        print(f"seeded component [{what}, 8-conn, by the kernel's seed]: {flood} took the "
-              f"flood, {fallback} fell back to the CCL + largest label", flush=True)
+        print(f"seeded component [{what}, 8-conn, JAX's algorithm by its seed]: {flood} take "
+              f"the flood, {fallback} the CCL + largest label", flush=True)
 
     # the flood: the border flood of fill_holes (the background of a
-    # suppress-site mask, seeded on the image border) and serpentines (a
-    # corridor that doubles back every `step` rows, one sweep a turn), 4- and
+    # suppress-site mask, seeded on the image border), serpentines (a
+    # corridor that doubles back every `step` rows, one sweep a turn) and
+    # runs across the packed words' borders at W = 31, 32, 33, 4- and
     # 8-connected, uncapped (H*W sweeps bound any flood) and capped short of
-    # the serpentines' fixpoints; bit-exact, the state after a capped run too
-    def serpentine(h, w, step):
-        m = np.zeros((h, w), bool)
-        for r in range(0, h, step):
-            m[r, :] = True
-            m[r + 1:r + step, w - 1 if (r // step) % 2 == 0 else 0] = True
-        return m
-
-    def border_flood(masks):
-        """(mask, seed) of fill_holes' flood: the background, seeded where
-        it meets the image border."""
-        inv = ~masks
-        edge = torch.zeros_like(inv)
-        edge[:, 0], edge[:, -1], edge[:, :, 0], edge[:, :, -1] = True, True, True, True
-        return inv.contiguous(), (edge & inv).contiguous()
-
+    # the serpentines' fixpoints (2, 40 and the default 128); bit-exact, the
+    # state after a capped run too, twice to the same bytes
     serp = torch.from_numpy(np.stack([serpentine(HW, HW, st) for st in (2, 3, 4, 8)])).to(dev)
     serp_seed = torch.zeros_like(serp)
     serp_seed[:, 0, 0] = True
     inv12, seed12 = border_flood(s_bin[:12])
     flood_cases = [(torch.cat([inv12, serp]), torch.cat([seed12, serp_seed]),
-                    f"12 suppress-site backgrounds + 4 serpentines, B=16 {HW}x{HW}", (2, 40))]
+                    f"12 suppress-site backgrounds + 4 serpentines, B=16 {HW}x{HW}", (2, 40, 128))]
+    for w in (31, 32, 33):
+        m = torch.from_numpy(rng.random((3, 37, w)) < 0.7).to(dev)
+        m[0, 5] = True
+        seed = torch.zeros_like(m)
+        seed[:, :, 0] = True
+        flood_cases.append((m, seed, f"random masks, B=3 37x{w}", (2,)))
     for (h, w) in ((1536, 1280), CLI_SHAPES[0]):
         flood_cases.append(border_flood(border_masks[(h, w)])
                            + (f"suppress-site background, B=1 {h}x{w}", (2,)))
     for m, seed, what, caps in flood_cases:
         for conn in (4, 8):
             for cap in (m.shape[1] * m.shape[2],) + caps:
-                agree("flood", KFl.flood_from(m, seed, cap, conn),
-                      KFl.flood_from_reference(m, seed, cap, conn),
-                      f"{what}, {conn}-conn, max_iters {cap}")
+                agree_twice("flood", lambda m=m, seed=seed, cap=cap, conn=conn: KFl.flood_from(
+                                m, seed, cap, conn),
+                            KFl.flood_from_reference(m, seed, cap, conn),
+                            f"{what}, {conn}-conn, max_iters {cap}")
     # the dispatching ops launch the flood kernel on the card
     before = KFl.flood_from.launches
     agree("flood", TC.fill_holes(rand_masks), TC.fill_holes_plain(rand_masks, uncapped),
@@ -1743,12 +2025,12 @@ def main() -> int:
             (equ, markers16, (255, 128, 64), 8, f"packed form, cleaner markers B=16 {HW}x{HW}"),
             (equ, markers16, (), 8, f"pair form, cleaner markers B=16 {HW}x{HW}")):
         cap = uncapped if values else 256
-        for a, b, part in zip(
-                KW.marker_watershed(img_, mk_, max_scan=max_scan, marker_label_values=values),
-                KW.marker_watershed_reference(img_, mk_, max_iters=cap, max_scan=max_scan,
-                                              marker_label_values=values),
-                ("labels", "boundary")):
-            agree("watershed", a, b, f"{what} {part}, max_scan {max_scan}, plain cap {cap}")
+        agree_twice("watershed_packed" if values else "watershed",
+                    lambda i=img_, k=mk_, s_=max_scan, v=values: KW.marker_watershed(
+                        i, k, max_scan=s_, marker_label_values=v),
+                    KW.marker_watershed_reference(img_, mk_, max_iters=cap, max_scan=max_scan,
+                                                  marker_label_values=values),
+                    f"{what}, max_scan {max_scan}, plain cap {cap}", ("labels", "boundary"))
 
     # the training slice's kernels, at the shapes of the conv layers of the
     # basic (B=8 training, B=64 pipeline) and advanced (B=32 training, B=1
@@ -1918,7 +2200,7 @@ def main() -> int:
                 "conv_leaky": 4 * N_MAIN_BATCHES, "pool": 4 * N_MAIN_BATCHES,
                 "upsample": 0, "batchnorm": 0, "jet_blend": 0,
                 "gradcam_tail": 2 * N_MAIN_BATCHES, "cleaner_front": N_MAIN_BATCHES,
-                "largest_component_seeded": 0, "flood": 0}
+                "largest_component_seeded": 0, "flood": 0, "watershed_packed": 0}
     print(f"fused pipeline: {N_MAIN_BATCHES} batches of B={BATCH} at {HW}x{HW}, "
           f"launches {pipe_launches}", flush=True)
     if pipe_launches != expected:
@@ -2007,7 +2289,7 @@ def main() -> int:
                 "watershed": 2, "ccl": 4 + n_flushes, "mode": 4 + n_flushes,
                 "conv_leaky": 2 * stacks, "pool": 2 * stacks, "upsample": 0,
                 "batchnorm": 0, "jet_blend": 2 * 2, "gradcam_tail": 0, "cleaner_front": 4,
-                "largest_component_seeded": 0, "flood": 0}
+                "largest_component_seeded": 0, "flood": 0, "watershed_packed": 0}
     print(f"serving path: 3 uploads, 2 pipelines, {N_BATCHED} batched requests in "
           f"{n_flushes} flushes, classify_batch B={N_BATCHED}; launches {serve_launches}",
           flush=True)
@@ -2848,6 +3130,34 @@ def main() -> int:
         print(f"{name} at {trace['shape']}: the trace holds {len(trace['grids'])} kernel launch "
               f"with grid {trace['grids']}, {trace['memsets']} memsets and {trace['sync_calls']} "
               f"synchronising runtime calls", flush=True)
+    # the flood and the seeded component beside the one-block kernels they
+    # replaced, and the packed watershed beside its plain version, from a
+    # fresh process (flood_seeded_times), which also asserts that one flood
+    # call is one launch with no synchronising call and that the seeded
+    # component launches no flood and nothing of one block an image; the
+    # packed form's record row is its first (B=1 512x512)
+    fs_run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                             "--flood-seeded-times"], capture_output=True, text=True,
+                            timeout=900)
+    if fs_run.returncode != 0:
+        raise AssertionError(f"the flood/seeded timing run failed:\n{fs_run.stderr[-4000:]}")
+    fs_lines = fs_run.stdout.strip().splitlines()
+    print("\n".join(fs_lines[:-1]), flush=True)
+    fs = json.loads(fs_lines[-1])
+    compared.setdefault("flood", []).extend(fs["flood"])
+    compared["flood"].append({"traces": {k: v for k, v in fs["traces"].items()
+                                         if k.startswith("flood")}})
+    compared.setdefault("largest_component_seeded", []).extend(
+        fs["largest_component_seeded"] + [{"trace": fs["traces"]["seeded"]}])
+    compared["watershed_packed"] = fs["watershed_packed"]
+    wp = fs["watershed_packed"][0]
+    times["watershed_packed"] = (wp["ms"], wp["plain_ms"], None)
+    bounds["watershed_packed"] = (wp["bound_ms"], wp["bound_by"])
+    dev_times["watershed_packed"] = (wp["device_ms"], None, None)
+    for name, trace in fs["traces"].items():
+        print(f"{name} at {trace['shape']}: the trace holds {len(trace['grids'])} kernel "
+              f"launches with grids {trace['grids']}, {trace['memsets']} memsets and "
+              f"{trace['sync_calls']} synchronising runtime calls", flush=True)
     cam6 = torch.from_numpy(rng.random((1, 6, 6)).astype(np.float32)).to(dev)
     hot6 = cam6 >= 0.6 * cam6.amax(dim=(1, 2), keepdim=True)
     lab6 = KC.label_components(hot6, 8)
@@ -3051,4 +3361,6 @@ if __name__ == "__main__":
         sys.exit(equalize_ccl_times())
     if sys.argv[1:] == ["--mode-jet-times"]:
         sys.exit(mode_jet_times())
+    if sys.argv[1:] == ["--flood-seeded-times"]:
+        sys.exit(flood_seeded_times())
     sys.exit(main())

@@ -585,6 +585,32 @@ def test_seeded_component_kernel(dev, rng, conn, shape):
     assert KL.largest_component_seeded.launches == before + 1
 
 
+@pytest.mark.parametrize("conn", [4, 8])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (2, 1, 70), (2, 70, 1), (3, 33, 31),
+                                   (2, 45, 70), (2, 333, 257)])
+def test_seeded_component_kernel_ties_and_edges(dev, rng, conn, shape):
+    """Exact ties (two equal squares; two equal diagonal pairs, which join
+    8-connected only; equal parts in different 32x32 tiles), an empty mask,
+    one pixel, odd shapes: the smallest label wins, empty selects nothing,
+    and the bytes are largest_obj's without fill or opening."""
+    b, h, w = shape
+    masks = np.zeros(shape, bool)
+    masks[0, h // 2, w // 2] = True
+    if b > 1:
+        masks[1] = rng.random((h, w)) < 0.5
+    if h >= 33 and w >= 31:
+        tie = np.zeros((h, w), bool)
+        tie[2:6, 2:6] = tie[h - 6:h - 2, w - 6:w - 2] = True
+        tie[10, 10] = tie[11, 11] = tie[10, 20] = tie[11, 21] = True
+        masks = np.concatenate([masks, tie[None], np.zeros((1, h, w), bool)])
+    m = torch.from_numpy(masks).to(dev)
+    got = KL.largest_component_seeded(m, conn)
+    _eq(got, KL.largest_component_seeded_reference(m, conn, max_iters=h * w))
+    _eq(got, TC.largest_component_plain(m, conn, max_iters=h * w))
+    _eq(got, KL.largest_obj(m, conn))
+    _eq(KL.largest_component_seeded(m, conn), got)
+
+
 def test_seeded_component_kernel_rejects_wrong_inputs(dev):
     before = KL.largest_component_seeded.launches
     for bad in (torch.zeros((1, 8, 8), dtype=torch.uint8, device=dev),
@@ -612,8 +638,9 @@ def _serpentine(h, w, step):
 @pytest.mark.parametrize("conn", [4, 8])
 @pytest.mark.parametrize("shape", [(3, 37, 53), (2, 256, 256), (2, 600, 520)])
 def test_flood_kernel(dev, rng, conn, shape):
-    """Bit-exact to the fixpoint and after a capped run; 600x520 keeps its
-    planes in the global scratch, the others in shared memory."""
+    """Bit-exact to the fixpoint and after a capped run, from a short image
+    to one of more bands than the others' (600x520: 19 row bands, 17
+    column bands of 32)."""
     b, h, w = shape
     masks = rng.random(shape) < 0.6
     masks[0] = _serpentine(h, w, 3)
@@ -625,6 +652,94 @@ def test_flood_kernel(dev, rng, conn, shape):
         got = KFl.flood_from(m, s, cap, conn)
         assert KFl.flood_from.launches == before + 1
         _eq(got, KFl.flood_from_reference(m, s, cap, conn))
+
+
+def _flood_edge_cases(rng):
+    """(name, mask, seed) at the cooperative flood's edges: runs across word
+    borders at W = 31, 32, 33 (B*H*W not a multiple of 32), rows and columns
+    of more than a warp's 32 words, a batch of more bands than the card holds
+    blocks at once, a single pixel, an empty mask."""
+    cases = []
+    for w in (31, 32, 33):
+        m = rng.random((3, 37, w)) < 0.7
+        m[0, 5], m[1, :, 7] = True, True
+        s = np.zeros_like(m)
+        s[:, :, 0] = True
+        cases.append((f"3x37x{w}", m, s))
+    m = rng.random((2, 5, 1100)) < 0.97
+    m[0, 2] = True
+    s = np.zeros_like(m)
+    s[:, 2, 1099] = True
+    cases.append(("rows of 35 words, 2x5x1100", m, s))
+    m = rng.random((1, 1090, 5)) < 0.97
+    s = np.zeros_like(m)
+    s[0, 0, :] = True
+    cases.append(("columns of 35 words, 1x1090x5", m, s))
+    m = rng.random((700, 64, 40)) < 0.6
+    s = np.zeros_like(m)
+    s[:, 0, :] = True
+    cases.append(("more bands than one wave, 700x64x40", m, s))
+    one = np.zeros((2, 1, 1), bool)
+    one[0] = True
+    cases.append(("one pixel", one, one.copy()))
+    cases.append(("empty", np.zeros((2, 9, 70), bool), np.ones((2, 9, 70), bool)))
+    return cases
+
+
+@pytest.mark.parametrize("conn", [4, 8])
+def test_flood_kernel_layout_edges(dev, rng, conn):
+    sweeps = torch.zeros(1, dtype=torch.int32, device=dev)
+    for name, masks, seeds in _flood_edge_cases(rng):
+        m, s = torch.from_numpy(masks).to(dev), torch.from_numpy(seeds).to(dev)
+        cap = masks.shape[1] * masks.shape[2]
+        got = KFl.flood_from(m, s, cap, conn, sweeps=sweeps)
+        _eq(got, KFl.flood_from_reference(m, s, cap, conn))
+        _eq(KFl.flood_from(m, s, cap, conn), got)
+
+
+@pytest.mark.parametrize("conn", [4, 8])
+@pytest.mark.parametrize("cap", [1, 2, 17])
+def test_flood_kernel_capped_serpentine(dev, conn, cap):
+    """The state and the sweep count after a capped run, which no union-find
+    gives: the serpentines need a sweep a turn."""
+    masks = np.stack([_serpentine(90, 70, st) for st in (2, 3, 5)])
+    seeds = np.zeros_like(masks)
+    seeds[:, 0, 0] = True
+    m, s = torch.from_numpy(masks).to(dev), torch.from_numpy(seeds).to(dev)
+    sweeps = torch.zeros(1, dtype=torch.int32, device=dev)
+    got = KFl.flood_from(m, s, cap, conn, sweeps=sweeps)
+    _eq(got, KFl.flood_from_reference(m, s, cap, conn))
+    assert int(sweeps) == cap
+    assert int(got.sum()) < int(m.sum())
+
+
+def test_flood_kernel_sweep_count(dev, rng):
+    """The sweeps a call ran: those of the plain loop (to the first sweep that
+    changes nothing)."""
+    from cadx_tpu_torch.ops import components as TCo
+
+    m = torch.from_numpy(rng.random((4, 48, 40)) < 0.65).to(dev)
+    s = torch.zeros_like(m)
+    s[:, 0] = True
+    s &= m
+    for conn in (4, 8):
+        count = [0]
+        run = TCo._run_to_fixpoint
+
+        def counting(sweep, state, cap):
+            def counted(x):
+                count[0] += 1
+                return sweep(x)
+            return run(counted, state, cap)
+
+        TCo._run_to_fixpoint = counting
+        try:
+            KFl.flood_from_reference(m, s, 48 * 40, conn)
+        finally:
+            TCo._run_to_fixpoint = run
+        sweeps = torch.zeros(1, dtype=torch.int32, device=dev)
+        KFl.flood_from(m, s, 48 * 40, conn, sweeps=sweeps)
+        assert int(sweeps) == count[0]
 
 
 def test_flood_dispatch_and_plain_versions(dev, rng):
