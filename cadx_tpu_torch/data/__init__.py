@@ -1,1 +1,2 @@
-"""Data layer: the DICOM reader and the mapping-CSV dataset."""
+"""Data layer: the DICOM reader and its codecs, the upload reader
+(`imageio.py`), and the mapping-CSV dataset."""

@@ -2,22 +2,29 @@
 
 The port's own copy of `cadx_tpu/data/dicom.py`: `DicomFile`, `dcmread`,
 `primary_frame`, `dcmwrite_minimal` and `DicomError`, for the training
-CLI's data layer. It reads the four uncompressed transfer syntaxes
-(implicit VR little endian, explicit VR little endian, deflated explicit
-VR little endian, explicit VR big endian): 8/16-bit monochrome or
-samples-last color, one or more frames, PatientID. A file in one of the
-encapsulated syntaxes (RLE, JPEG lossless, JPEG-LS, JPEG baseline and
-extended, JPEG 2000, HTJ2K) parses, but its `pixel_array` raises
-`DicomError`: the JAX package's codecs are not ported yet (ROADMAP). The
-geometry bound of a compressed frame and the pixel-data length check are
-kept.
+CLI's data layer and the HTTP front's uploads. It reads the four
+uncompressed transfer syntaxes (implicit VR little endian, explicit VR
+little endian, deflated explicit VR little endian, explicit VR big
+endian) and every encapsulated one the JAX package decodes: RLE, JPEG
+lossless (process 14 and SV1), JPEG-LS (lossless and near-lossless), JPEG
+baseline and extended, JPEG 2000 (lossless and lossy) and HTJ2K. Pixels
+are 8/16-bit monochrome or samples-last color, one or more frames.
+
+The encapsulated frames decode through the port's copies of the JAX
+codecs (`data/codecs.py`, `jls.py`, `jpg.py`, `j2k.py`, `htj2k.py`);
+RLE, JPEG lossless and JPEG-LS try the native C++ decoder first
+(`data/native_loader.py`, bit-identical), and the Python codec runs where
+it cannot be built or rejects a stream. `DECODER_RUNS` counts the frames
+each decoder took, by (codec, "native" or "python").
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
 import struct
+import threading
 import zlib
 
 import numpy as np
@@ -28,7 +35,7 @@ _EXPLICIT_LONG_VRS = {b"OB", b"OW", b"OF", b"SQ", b"UT", b"UN",
                       # 4-byte length as reserved bytes desyncs the walk
                       b"UC", b"UR", b"OD", b"OL", b"OV", b"SV", b"UV"}
 
-# transfer syntax UIDs: the first four decode here, the rest need codecs
+# transfer syntax UIDs we can decode
 TS_IMPLICIT_LE = "1.2.840.10008.1.2"
 TS_EXPLICIT_LE = "1.2.840.10008.1.2.1"
 TS_DEFLATED_LE = "1.2.840.10008.1.2.1.99"
@@ -53,6 +60,9 @@ _ENCAPSULATED_TS = {TS_RLE, TS_JPEG_LOSSLESS_P14, TS_JPEG_LOSSLESS_SV1,
                     TS_JPEG_BASELINE, TS_JPEG_EXTENDED,
                     TS_HTJ2K_LOSSLESS, TS_HTJ2K_LOSSLESS_RPCL, TS_HTJ2K}
 _SUPPORTED_TS = _UNCOMPRESSED_TS | _ENCAPSULATED_TS
+# JPEG 2000 and JPEG baseline/extended have no encoder in the port
+_WRITABLE_TS = _SUPPORTED_TS - {TS_IMPLICIT_LE, TS_J2K_LOSSLESS, TS_J2K,
+                                TS_JPEG_BASELINE, TS_JPEG_EXTENDED}
 
 TAG_TRANSFER_SYNTAX = (0x0002, 0x0010)
 TAG_PATIENT_ID = (0x0010, 0x0020)
@@ -69,10 +79,20 @@ class DicomError(ValueError):
     pass
 
 
+# frames decoded, by (codec, "native" or "python"); the HTTP front's
+# threads decode at once
+DECODER_RUNS: collections.Counter = collections.Counter()
+_DECODER_RUNS_LOCK = threading.Lock()
+
+
+def _count(codec: str, how: str) -> None:
+    with _DECODER_RUNS_LOCK:
+        DECODER_RUNS[(codec, how)] += 1
+
+
 @dataclasses.dataclass
 class DicomFile:
-    """Parsed DICOM dataset: raw elements + the decoded pixel array of an
-    uncompressed syntax."""
+    """Parsed DICOM dataset: raw elements + decoded pixel array."""
 
     elements: dict[tuple[int, int], bytes]
     transfer_syntax: str
@@ -132,11 +152,7 @@ class DicomFile:
         if self.transfer_syntax in _ENCAPSULATED_TS:
             if samples != 1:
                 raise DicomError("compressed multi-sample data unsupported")
-            _check_compressed_geometry(rows, cols, max(self.get_is(TAG_NUMBER_OF_FRAMES, 1), 1))
-            raise DicomError(
-                f"transfer syntax {self.transfer_syntax} is encapsulated: its codec is not "
-                "ported to cadx_tpu_torch yet (ROADMAP, the codecs); transcode the file to "
-                "an uncompressed syntax")
+            return self._decode_compressed(raw, rows, cols, bits, signed)
         bo = ">" if self.big_endian else "<"
         if bits == 8:
             dtype = np.dtype("i1" if signed else "u1")
@@ -156,6 +172,49 @@ class DicomFile:
             return arr.reshape((n_frames,) + shape)
         return arr.reshape(shape)
 
+    def _decode_compressed(self, raw: bytes, rows: int, cols: int,
+                           bits: int, signed: bool) -> np.ndarray:
+        from cadx_tpu_torch.data import codecs
+
+        n_frames = max(self.get_is(TAG_NUMBER_OF_FRAMES, 1), 1)
+        _check_compressed_geometry(rows, cols, n_frames)
+        try:
+            frames = codecs.split_frames(raw, n_frames)
+            decoded = []
+            for frame in frames:
+                if self.transfer_syntax == TS_RLE:
+                    decoded.append(_rle_pixels(frame, rows, cols, bits))
+                elif self.transfer_syntax in (TS_J2K_LOSSLESS, TS_J2K,
+                                              TS_HTJ2K_LOSSLESS,
+                                              TS_HTJ2K_LOSSLESS_RPCL,
+                                              TS_HTJ2K):
+                    # HTJ2K (.201/.202/.203) shares the Part-1 tier-2
+                    # machinery; the HT block coder lives in data/htj2k.py
+                    decoded.append(_j2k_pixels(frame, rows, cols))
+                elif self.transfer_syntax in (TS_JPEG_LS, TS_JPEG_LS_NEAR):
+                    decoded.append(_jls_pixels(frame, rows, cols))
+                elif self.transfer_syntax in (TS_JPEG_BASELINE,
+                                              TS_JPEG_EXTENDED):
+                    decoded.append(_jpg_pixels(frame, rows, cols))
+                else:
+                    decoded.append(_jpeg_lossless_pixels(frame, rows, cols))
+        except DicomError:
+            raise
+        except (ValueError, IndexError, KeyError, struct.error, MemoryError,
+                OverflowError, ZeroDivisionError) as e:
+            # malformed streams may fail mid-parse with raw index/struct/
+            # value errors, and corrupt length fields can drive huge
+            # allocations (MemoryError): every decode failure surfaces as
+            # DicomError, the serving layer's catch contract (ValueError
+            # also covers CodecError and JlsError)
+            raise DicomError(f"compressed pixel decode failed: {e}") from e
+        dtype = (np.int8 if signed else np.uint8) if bits == 8 else (
+            np.int16 if signed else np.uint16)
+        if n_frames == 1:
+            return decoded[0].astype(dtype)
+        # pydicom shape convention for multi-frame: (frames, rows, cols)
+        return np.stack([d.astype(dtype) for d in decoded])
+
 
 def _check_compressed_geometry(rows: int, cols: int, n_frames: int) -> None:
     """Compressed payloads expand: a hostile header (Rows and Columns are
@@ -164,6 +223,97 @@ def _check_compressed_geometry(rows: int, cols: int, n_frames: int) -> None:
     pixels in all (a ~130-frame tomosynthesis stack passes)."""
     if rows * cols > 1 << 28 or n_frames > 4096 or rows * cols * n_frames > 1 << 31:
         raise DicomError(f"implausible compressed geometry {rows}x{cols}x{n_frames} frames")
+
+
+def _native(codec: str, fn, *args):
+    """The native decoder's frame, or None where it cannot be built or
+    rejects the stream (the caller then runs the Python codec)."""
+    try:
+        from cadx_tpu_torch.data import native_loader
+
+        arr = getattr(native_loader, fn)(*args)
+    except Exception:  # noqa: BLE001 — toolchain missing or native rejected
+        return None
+    if arr is not None:
+        _count(codec, "native")
+    return arr
+
+
+def _rle_pixels(frame: bytes, rows: int, cols: int, bits: int) -> np.ndarray:
+    """Decode a DICOM RLE frame, preferring the native (C++) decoder: the
+    pure-Python PackBits loop is per byte and costs seconds on a
+    full-resolution 16-bit mammogram; the codecs path stays the
+    bit-identical fallback (and the parity oracle)."""
+    if bits in (8, 16):  # depths the python oracle accepts
+        arr = _native("rle", "decode_rle", frame, rows, cols, bits)
+        if arr is not None:
+            return arr
+    from cadx_tpu_torch.data import codecs
+
+    _count("rle", "python")
+    return codecs.rle_decode(frame, rows, cols, bits)
+
+
+def _jpeg_lossless_pixels(frame: bytes, rows: int, cols: int) -> np.ndarray:
+    """Decode a JPEG-lossless frame, preferring the native (C++) decoder;
+    the pure-Python reference codec is the bit-identical fallback."""
+    arr = _native("jpeg_lossless", "decode_jpeg_lossless", frame, rows, cols)
+    if arr is not None:
+        return arr
+    from cadx_tpu_torch.data import codecs
+
+    _count("jpeg_lossless", "python")
+    arr, _precision = codecs.jpeg_lossless_decode(frame, expect_hw=(rows, cols))
+    if arr.shape != (rows, cols):
+        raise DicomError(f"decoded JPEG size {arr.shape} != Rows/Columns {(rows, cols)}")
+    return arr
+
+
+def _jls_pixels(frame: bytes, rows: int, cols: int) -> np.ndarray:
+    """Decode a JPEG-LS frame, preferring the native (C++) decoder (the
+    pure-Python LOCO-I loop is per sample); data/jls.py is the
+    bit-identical fallback."""
+    arr = _native("jpeg_ls", "decode_jls", frame, rows, cols)
+    if arr is not None:
+        return arr
+    from cadx_tpu_torch.data.jls import JlsError, jls_decode
+
+    _count("jpeg_ls", "python")
+    try:
+        arr, _precision = jls_decode(frame, expect_hw=(rows, cols))
+    except JlsError as e:
+        raise DicomError(f"JPEG-LS decode failed: {e}") from e
+    if arr.shape != (rows, cols):
+        raise DicomError(f"decoded JPEG-LS size {arr.shape} != Rows/Columns {(rows, cols)}")
+    return arr
+
+
+def _jpg_pixels(frame: bytes, rows: int, cols: int) -> np.ndarray:
+    """Decode a lossy sequential JPEG frame (data/jpg.py, one component)."""
+    from cadx_tpu_torch.data.jpg import JpegError, jpeg_lossy_decode
+
+    _count("jpeg", "python")
+    try:
+        arr, _precision = jpeg_lossy_decode(frame, expect_hw=(rows, cols))
+    except JpegError as e:
+        raise DicomError(f"lossy JPEG decode failed: {e}") from e
+    if arr.shape != (rows, cols):
+        raise DicomError(f"decoded JPEG size {arr.shape} != Rows/Columns {(rows, cols)}")
+    return arr
+
+
+def _j2k_pixels(frame: bytes, rows: int, cols: int) -> np.ndarray:
+    """Decode a JPEG 2000 frame (data/j2k.py; its tier-1 and inverse 5/3
+    take the native decoder where it builds)."""
+    from cadx_tpu_torch.data.j2k import j2k_decode
+
+    _count("j2k", "python")
+    arr = j2k_decode(frame, expect_hw=(rows, cols))
+    if arr.ndim != 2:
+        raise DicomError("J2K multi-component pixel data in a single-sample DICOM")
+    if arr.shape != (rows, cols):
+        raise DicomError(f"decoded J2K size {arr.shape} != Rows/Columns {(rows, cols)}")
+    return arr
 
 
 def primary_frame(ds, arr: np.ndarray | None = None) -> np.ndarray:
@@ -249,8 +399,7 @@ def _read_element(buf: memoryview, off: int, explicit: bool, bo: str = "<"):
 
 
 def dcmread(path_or_bytes) -> DicomFile:
-    """Read a DICOM file (path or bytes), pydicom.dcmread's equivalent.
-    Encapsulated files parse; their pixel data does not decode here."""
+    """Read a DICOM file (path or bytes), pydicom.dcmread's equivalent."""
     if isinstance(path_or_bytes, (bytes, bytearray, memoryview)):
         data = bytes(path_or_bytes)
     else:
@@ -319,9 +468,12 @@ def dcmwrite_minimal(path: str, pixel_array: np.ndarray,
                      transfer_syntax: str = TS_EXPLICIT_LE) -> None:
     """Write a minimal valid DICOM (for tests and demos): uint8 or uint16,
     (rows, cols) or (frames, rows, cols), as explicit VR little endian
-    (default), deflated explicit VR little endian or explicit VR big
-    endian. The encapsulated syntaxes need the codecs, which are not
-    ported yet (ROADMAP)."""
+    (default), deflated explicit VR little endian, explicit VR big endian,
+    or encapsulated (PS3.5 A.4) with the port's own encoders: RLE, JPEG
+    lossless (.57/.70), JPEG-LS (.80/.81 at NEAR 2) and HTJ2K (.201-.203,
+    lossless). JPEG 2000 (.90/.91) and JPEG baseline/extended (.50/.51)
+    raise DicomError: their encoders are OpenJPEG's and libjpeg's, which
+    the port does not use (the JAX package writes them through cv2)."""
     arr = np.ascontiguousarray(pixel_array)
     if arr.dtype == np.uint8:
         bits = 8
@@ -329,9 +481,9 @@ def dcmwrite_minimal(path: str, pixel_array: np.ndarray,
         bits = 16
     else:
         raise DicomError("writer supports uint8/uint16 only")
-    if transfer_syntax not in (TS_EXPLICIT_LE, TS_DEFLATED_LE, TS_EXPLICIT_BE):
-        raise DicomError(f"writer does not support {transfer_syntax} (the encapsulated "
-                         "syntaxes' codecs are not ported yet, ROADMAP)")
+    if transfer_syntax not in _WRITABLE_TS:
+        raise DicomError(f"writer does not support {transfer_syntax} (no encoder here for "
+                         "JPEG 2000 or JPEG baseline/extended)")
     if arr.ndim == 3:   # (frames, rows, cols) multi-frame
         n_frames, rows, cols = arr.shape
     else:
@@ -371,11 +523,41 @@ def dcmwrite_minimal(path: str, pixel_array: np.ndarray,
     body += elem_short(0x0028, 0x0011, b"US", us(cols))
     body += elem_short(0x0028, 0x0100, b"US", us(bits))
     body += elem_short(0x0028, 0x0103, b"US", us(0))
-    pix = arr.astype(arr.dtype.newbyteorder(">")) if bo == ">" and bits == 16 else arr
-    body += elem_long(0x7FE0, 0x0010, b"OW", pix.tobytes())
+    if transfer_syntax in _ENCAPSULATED_TS:
+        # OB with undefined length + item stream (PS3.5 A.4); multi-frame
+        # gets a Basic Offset Table so readers can map fragments to frames
+        from cadx_tpu_torch.data import codecs
+
+        body += (struct.pack("<HH", 0x7FE0, 0x0010) + b"OB\x00\x00"
+                 + struct.pack("<I", 0xFFFFFFFF)
+                 + codecs.encapsulate(_encode_frames(arr, bits, transfer_syntax),
+                                      bot=n_frames > 1))
+    else:
+        pix = arr.astype(arr.dtype.newbyteorder(">")) if bo == ">" and bits == 16 else arr
+        body += elem_long(0x7FE0, 0x0010, b"OW", pix.tobytes())
     if transfer_syntax == TS_DEFLATED_LE:
         # PS3.5 A.5: raw-deflate the whole post-meta dataset
         co = zlib.compressobj(level=6, wbits=-zlib.MAX_WBITS)
         body = co.compress(body) + co.flush()
     with open(path, "wb") as f:
         f.write(b"\x00" * 128 + b"DICM" + meta + body)
+
+
+def _encode_frames(arr: np.ndarray, bits: int, transfer_syntax: str) -> list[bytes]:
+    """Each frame of `arr` as one encoded fragment of `transfer_syntax`."""
+    from cadx_tpu_torch.data import codecs
+
+    frames = arr if arr.ndim == 3 else arr[None]
+    if transfer_syntax == TS_RLE:
+        return [codecs.rle_encode(f) for f in frames]
+    if transfer_syntax in (TS_HTJ2K_LOSSLESS, TS_HTJ2K_LOSSLESS_RPCL, TS_HTJ2K):
+        from cadx_tpu_torch.data.htj2k import ht_encode_lossless
+
+        return [ht_encode_lossless(f, depth=bits) for f in frames]
+    if transfer_syntax in (TS_JPEG_LS, TS_JPEG_LS_NEAR):
+        from cadx_tpu_torch.data import jls
+
+        near = 2 if transfer_syntax == TS_JPEG_LS_NEAR else 0
+        return [jls.jls_encode(f, near=near, precision=bits) for f in frames]
+    # the two JPEG-lossless syntaxes (.57/.70)
+    return [codecs.jpeg_lossless_encode(f, precision=bits) for f in frames]

@@ -11,6 +11,7 @@ jax.image's antialiased 'linear' resize: the triangle-filter weights of
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -122,3 +123,94 @@ def resize_linear_mxu(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tenso
     r = torch.as_tensor(_interp_matrix(oh, h), device=img.device)
     ct = torch.as_tensor(_interp_matrix(ow, w).T, device=img.device)
     return r @ img.to(torch.float32) @ ct
+
+
+@functools.cache
+def _cv2_area_taps(n_in: int, n_out: int) -> tuple[np.ndarray, np.ndarray]:
+    """cv2's `computeResizeAreaTab` along one axis: for each output, the
+    inputs its cell overlaps and the float32 share of each (the partial
+    first and last pixel, 1/cell width between), as (n_out, T) indices and
+    weights in cv2's order, zero weights padding a short row."""
+    scale = n_in / n_out
+    rows = []
+    for d in range(n_out):
+        f1 = d * scale
+        f2 = f1 + scale
+        cell = min(scale, n_in - f1)
+        s1, s2 = math.ceil(f1), math.floor(f2)
+        s2 = min(s2, n_in - 1)
+        s1 = min(s1, s2)
+        taps = []
+        if s1 - f1 > 1e-3:
+            taps.append((s1 - 1, (s1 - f1) / cell))
+        taps += [(s, 1.0 / cell) for s in range(s1, s2)]
+        if f2 - s2 > 1e-3:
+            taps.append((s2, min(min(f2 - s2, 1.0), cell) / cell))
+        rows.append(taps)
+    n_taps = max(len(t) for t in rows)
+    idx = np.zeros((n_out, n_taps), np.int64)
+    w = np.zeros((n_out, n_taps), np.float32)
+    for d, taps in enumerate(rows):
+        for t, (s, a) in enumerate(taps):
+            idx[d, t], w[d, t] = s, np.float32(a)
+    return idx, w
+
+
+@functools.cache
+def _cv2_area_zoom_taps(n_in: int, n_out: int) -> tuple[np.ndarray, np.ndarray]:
+    """The two taps a side of cv2's INTER_AREA where an axis zooms: source
+    floor(d * scale) and the next, the second weighted by the fractional
+    part of (d + 1) - (s + 1) / scale (0 where that is not positive), the
+    last source pixel alone at the edge."""
+    scale, inv = n_in / n_out, n_out / n_in
+    idx = np.zeros((n_out, 2), np.int64)
+    w = np.zeros((n_out, 2), np.float32)
+    for d in range(n_out):
+        s = math.floor(d * scale)
+        f = float(np.float32((d + 1) - (s + 1) * inv))
+        f = 0.0 if f <= 0 else f - math.floor(f)
+        if s >= n_in - 1:
+            s, f = n_in - 1, 0.0
+        idx[d] = (s, min(s + 1, n_in - 1))
+        w[d] = (1.0 - f, f)
+    return idx, w
+
+
+def resize_area_cv2(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """cv2.resize(img, (w, h), interpolation=cv2.INTER_AREA) of a (H, W)
+    uint8 or uint16 image (in any dtype) on any device; -> float32 of the
+    integer values. A downscale is bit for bit cv2's: at integer factors
+    its fast path, the box sum times 1/area rounded half to even, or at
+    2x2 (its SIMD path) (sum + 2) >> 2; at other factors its general
+    path, each row resampled with `_cv2_area_taps` in float32, then the
+    rows accumulated tap by tap, rounded half to even. Where an axis
+    zooms, cv2 interpolates between two pixels (`_cv2_area_zoom_taps`) in
+    fixed point; this does it in float32, within a code of cv2."""
+    h, w = img.shape
+    oh, ow = out_hw
+    x = img.to(torch.float32)
+    if oh > h or ow > w:
+        return torch.round(_apply_taps(_apply_taps(x, 1, *_cv2_area_zoom_taps(w, ow)),
+                                       0, *_cv2_area_zoom_taps(h, oh)))
+    if h % oh == 0 and w % ow == 0:
+        fh, fw = h // oh, w // ow
+        s = x.reshape(oh, fh, ow, fw).sum(dim=(1, 3))
+        if (fh, fw) == (2, 2):
+            return torch.floor((s + 2.0) * 0.25)
+        return torch.round(s * np.float32(1.0 / (fh * fw)))
+    return torch.round(_apply_taps(_apply_taps(x, 1, *_cv2_area_taps(w, ow)),
+                                   0, *_cv2_area_taps(h, oh)))
+
+
+def _apply_taps(x: torch.Tensor, dim: int, idx: np.ndarray, taps: np.ndarray) -> torch.Tensor:
+    """sum_t taps[:, t] * x[idx[:, t]] along `dim` of a 2-D tensor, tap by
+    tap in order, each product rounded before its add."""
+    idx_t = torch.as_tensor(idx, device=x.device)
+    w_t = torch.as_tensor(taps, device=x.device)
+    shape = [1, 1]
+    shape[dim] = idx.shape[0]
+    out = None
+    for t in range(idx.shape[1]):
+        term = torch.index_select(x, dim, idx_t[:, t]) * w_t[:, t].view(shape)
+        out = term if out is None else out + term
+    return out

@@ -1,1 +1,2 @@
-"""The serving engine and its micro-batcher (the HTTP front is not ported)."""
+"""The serving engine, its micro-batcher, and the HTTP front (`app.py`)
+with its case store and pages."""

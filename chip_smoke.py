@@ -230,7 +230,30 @@ Phases, each of which raises on failure (the script then exits nonzero):
    stage: cleaner_front, pectoral removal with its equalize and
    pectoral_tail, the resize, conv1), of classify_and_roi per
    pipeline and of the reference `write_gradcam_overlays` over 10
-   requests after warmup.
+   requests after warmup;
+9. the HTTP front: the port's `serve.app.make_server` with warmup on
+   127.0.0.1, port 0, its own `InferenceEngine()` at `EngineConfig()`
+   defaults on the card with seeded weights, driven over a socket with
+   uploads of a 512² u8 PNG, a 1024x832 16-bit PNG, and a 3328x2560 u16
+   image as explicit VR little endian, JPEG lossless SV1 and RLE DICOMs
+   (written by the port's `dcmwrite_minimal`); per upload /upload-single,
+   /view_segmentation (64 masks), /classify and /roi for both pipelines;
+   then a zip of 8 PNGs through /upload-bulk, /bulk-classify for both
+   pipelines and /upload-bulk-image. Every answer is held against the
+   same engine called directly on the decoded image: the stored upload
+   equal to the image written, features to 1e-6, probabilities to 1e-6,
+   ROI boxes, clean, overlay and heatmap PNGs equal, bulk rows equal to
+   `classify_batch` on the same resized stack; an HTTP 500, an "error"
+   field or an exception stored by an artifact job fails the phase. The
+   launch counters over each upload's round (upload, masks, classify,
+   roi, the Grad-CAM jobs) and the bulk round make the record's "front"
+   path: cleaner_front, equalize, conv_leaky, pool, ccl, mode and
+   jet_blend launch in every upload's round, pectoral_tail at the 512²
+   upload and in bulk, largest_obj and the pair-form watershed at every
+   upload beyond 512. Then each route's p50 over 10 requests on the host
+   clock around the HTTP call, beside the engine's own p50 on the same
+   image and phase 8's for the same shape, and each upload's decode p50
+   by decoder (native or Python, with the native loader's state).
 
 The last line of standard output is {"ok": true, "device": {...}}; the
 line before it is the per-kernel JSON record: the fifteen kernels and the
@@ -243,13 +266,19 @@ from __future__ import annotations
 import concurrent.futures
 import copy
 import dataclasses
+import http.client
+import io
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import zipfile
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -267,6 +296,9 @@ N_TIMED = 10
 # 3328x2560 upload and a taller one), images in all, and the command
 CLI_SHAPES = ((3328, 2560), (4608, 2656))
 N_CLI = 12
+# the HTTP front phase: bulk images in the zip, and their shape
+N_FRONT_BULK = 8
+FRONT_BULK_HW = (1024, 832)
 CLI_ARGS = ["--features", "encoder", "--feature-size", "32", "--conv-layers", "128x3,64x3",
             "--hidden-units", "256,128", "--epochs", "2", "--batch-size", "8"]
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM3 bytes/s and float32
@@ -1504,6 +1536,327 @@ def flood_seeded_times() -> int:
     return 0
 
 
+def png16_bytes(img: np.ndarray) -> bytes:
+    """A 16-bit gray PNG of `img` (filter 0 on every row), in the chunks of
+    the port's `xai/png.py`."""
+    from cadx_tpu_torch.xai import png
+
+    h, w = img.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           img.astype(">u2").view(np.uint8).reshape(h, 2 * w)], axis=1)
+    return (b"\x89PNG\r\n\x1a\n" + png._chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 16, 0, 0,
+                                                                    0, 0))
+            + png._chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + png._chunk(b"IEND", b""))
+
+
+class FrontClient:
+    """HTTP calls to the front on 127.0.0.1; any 500 or "error" field raises."""
+
+    def __init__(self, port: int):
+        self.port = port
+
+    def _call(self, method: str, path: str, body: bytes = b"", headers=None):
+        conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=600)
+        try:
+            conn.request(method, path, body=body, headers=headers or {})
+            r = conn.getresponse()
+            data = r.read()
+            return r.status, dict(r.getheaders()), data
+        finally:
+            conn.close()
+
+    def get(self, path: str) -> dict:
+        status, _, data = self._call("GET", path)
+        out = json.loads(data)
+        if status != 200 or "error" in out:
+            raise AssertionError(f"GET {path}: HTTP {status} {str(out)[:300]}")
+        return out
+
+    def post(self, path: str, fields: dict, files: dict, location: str) -> None:
+        boundary = "CADXFRONTBOUNDARY"
+        parts = [f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"\r\n\r\n'
+                 f"{v}\r\n".encode() for k, v in fields.items()]
+        parts += [(f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"; '
+                   f'filename="{name}"\r\nContent-Type: application/octet-stream\r\n\r\n'
+                   ).encode() + data + b"\r\n" for k, (name, data) in files.items()]
+        body = b"".join(parts) + f"--{boundary}--\r\n".encode()
+        status, headers, data = self._call(
+            "POST", path, body, {"Content-Type": f"multipart/form-data; boundary={boundary}"})
+        if status != 302 or headers.get("Location") != location:
+            raise AssertionError(f"POST {path}: HTTP {status} {headers.get('Location')} "
+                                 f"{data[:300]!r}")
+
+
+def front_phase(uploads: dict, engine_p50: dict, zero_counts, read_counts, card: str) -> dict:
+    """Phase 9: the port's HTTP front on the card, over a socket. Returns
+    the launch counts of its counted rounds, summed (the record's "front"
+    path)."""
+    from cadx_tpu_torch.data import dicom as TDicom
+    from cadx_tpu_torch.data import imageio, native_loader
+    from cadx_tpu_torch.serve import app as A
+    from cadx_tpu_torch.synthetic import synthetic_native_mammogram
+    from cadx_tpu_torch.xai import png as TPng
+
+    big = uploads["3328x2560 u16"]
+    deep = synthetic_native_mammogram(1024, 832, seed=7, dtype=np.uint16, top=60000)
+    # kind -> (file name, bytes, the image written, phase 8's shape)
+    files = {"512x512 u8 PNG": ("case512.png", TPng.encode_png(uploads["512x512 u8"]),
+                                uploads["512x512 u8"], "512x512 u8"),
+             "1024x832 u16 PNG": ("deep1024.png", png16_bytes(deep), deep, "1024x832 u8")}
+    with tempfile.TemporaryDirectory() as tmp:
+        for kind, ts, fname in (("3328x2560 u16 DICOM explicit LE", TDicom.TS_EXPLICIT_LE,
+                                 "scan_le.dcm"),
+                                ("3328x2560 u16 DICOM JPEG lossless SV1",
+                                 TDicom.TS_JPEG_LOSSLESS_SV1, "scan_sv1.dcm"),
+                                ("3328x2560 u16 DICOM RLE", TDicom.TS_RLE, "scan_rle.dcm")):
+            t = time.perf_counter()
+            path = os.path.join(tmp, fname)
+            TDicom.dcmwrite_minimal(path, big, "FRONT", transfer_syntax=ts)
+            with open(path, "rb") as fh:
+                files[kind] = (fname, fh.read(), big, "3328x2560 u16")
+            print(f"front: {kind} written by dcmwrite_minimal in "
+                  f"{time.perf_counter() - t:.2f} s, {len(files[kind][1])} bytes", flush=True)
+    try:
+        native_loader.get_lib()
+        native = "built"
+    except native_loader.NativeUnavailable as e:
+        native = f"unavailable ({str(e)[:200]})"
+    print(f"front: the native DICOM decoder (native/cadx_io.cc, g++) is {native}", flush=True)
+
+    front = {}
+    ws_root = tempfile.TemporaryDirectory()
+    t = time.perf_counter()
+    srv = A.make_server(ws_root.name, "127.0.0.1", 0, warmup=True)
+    eng, ws = srv.app.engine, srv.app.ws
+    print(f"front: make_server with warmup in {time.perf_counter() - t:.2f} s, engine on "
+          f"{eng.device}", flush=True)
+    if eng.device.type != "cuda":
+        raise AssertionError(f"the front's engine is on {eng.device}")
+    jobs = []
+    submit = ws.submit
+
+    def tracked_submit(key, fn, *args):
+        fut = submit(key, fn, *args)
+        jobs.append((key, fut))
+        return fut
+    ws.submit = tracked_submit
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    client = FrontClient(srv.server_address[1])
+    seg_hw = tuple(eng.config.segment_hw)
+    expl_names = [f"gradcam_{k}_class_{c}.png" for k in ("overlay", "heatmap") for c in (0, 1)]
+
+    def check(what: str, ok: bool, detail=""):
+        if not ok:
+            raise AssertionError(f"front {what}: {detail}")
+
+    def close_probs(a, b, what):
+        err = float(np.abs(np.subtract(a, b)).max())
+        check(what, err <= 1e-6, f"probabilities differ by {err} > 1e-6")
+        return err
+
+    def add(counts):
+        for k, v in counts.items():
+            front[k] = front.get(k, 0) + v
+
+    try:
+        # ---- one counted round per upload, each answer against the engine
+        for kind, (fname, data, img, _) in files.items():
+            zero_counts()
+            client.post("/upload-single", {"body_part1": "Left breast", "modality1": "Mammogram"},
+                        {"image1": (fname, data)}, "/diagnosis")
+            masks = client.get("/view_segmentation")["masks"]
+            check(f"{kind} masks", len(masks) == 64, f"{len(masks)} masks")
+            answers, overlays = {}, {}
+            for pipeline in ("basic", "advanced"):
+                answers[("classify", pipeline)] = client.get(f"/classify?pipeline={pipeline}")
+                ws.wait("gradcam")
+                overlays[pipeline] = {}
+                for name in expl_names:
+                    with open(os.path.join(ws.folder("explainability"), name), "rb") as fh:
+                        overlays[pipeline][name] = fh.read()
+            for pipeline in ("basic", "advanced"):
+                answers[("roi", pipeline)] = client.get(f"/roi?pipeline={pipeline}")
+            ws.wait("save_masks")
+            counts = read_counts()
+            add(counts)
+            need = ["cleaner_front", "equalize", "conv_leaky", "pool", "ccl", "mode", "jet_blend"]
+            need += ["largest_obj", "watershed"] if max(img.shape) > 512 else ["pectoral_tail"]
+            missing = [k for k in need if counts[k] == 0]
+            print(f"front launches, {kind} round (upload, masks, classify and roi x 2 "
+                  f"pipelines, Grad-CAM jobs): {({k: v for k, v in counts.items() if v})}",
+                  flush=True)
+            check(f"{kind} launches", not missing, f"no launch of {missing}")
+
+            (case,) = ws.read_cases()
+            check(f"{kind} case", case["image_name"] == fname, case)
+            decoded = A._imread_gray(case["dicom_file_path"])
+            stored = np.load(case["preprocessed_file_path"])
+            check(f"{kind} decode", decoded is not None and decoded.dtype == img.dtype
+                  and np.array_equal(decoded, img) and np.array_equal(stored, img),
+                  "the stored upload is not the image written")
+            feats_d, clean_d = eng.process_single_image(decoded)
+            feats_f = np.load(case["segmented_images_file_path"])
+            f_err = float(np.abs(feats_f - feats_d).max())
+            check(f"{kind} features", feats_f.shape == feats_d.shape and f_err <= 1e-6,
+                  f"differ by {f_err}")
+            with open(case["clean_image_path"], "rb") as fh:
+                clean_f = imageio.png_gray(fh.read())
+            check(f"{kind} clean PNG", np.array_equal(clean_f, clean_d), "differs")
+            p_errs = []
+            for pipeline in ("basic", "advanced"):
+                route = answers[("classify", pipeline)]["classificationData"][0]
+                direct = eng.classify(feats_d, pipeline)
+                p_errs.append(close_probs(route["prediction_probabilities"],
+                                          direct["prediction_probabilities"],
+                                          f"{kind} /classify {pipeline}"))
+                check(f"{kind} /classify {pipeline}",
+                      route["predicted_class"] == direct["predicted_class"]
+                      and route["roiCoords"] == direct["roiCoords"], (route, direct))
+                base, coords = eng.classify_and_roi(feats_d, pipeline, (0, 1))
+                roi_rows = answers[("roi", pipeline)]["classificationData"]
+                check(f"{kind} /roi {pipeline} boxes",
+                      [r["roiCoords"] for r in roi_rows] == coords, (roi_rows, coords))
+                for r in roi_rows:
+                    p_errs.append(close_probs(r["prediction_probabilities"],
+                                              base["prediction_probabilities"],
+                                              f"{kind} /roi {pipeline}"))
+                with tempfile.TemporaryDirectory() as od:
+                    eng.write_gradcam_overlays(feats_d, clean_d, od, (0, 1), pipeline)
+                    for name in expl_names:
+                        with open(os.path.join(od, name), "rb") as fh:
+                            check(f"{kind} {pipeline} {name}",
+                                  fh.read() == overlays[pipeline][name], "differs")
+            print(f"front {kind}: stored upload equal to the image written, features "
+                  f"max_abs_err {f_err}, clean PNG equal, probabilities max_abs_err "
+                  f"{max(p_errs)}, ROI boxes, overlay and heatmap PNGs equal to the engine "
+                  f"called directly", flush=True)
+
+        # ---- bulk: a zip of PNGs, each against classify_batch
+        bulk_imgs = [synthetic_native_mammogram(*FRONT_BULK_HW, seed=40 + i, dtype=np.uint8,
+                                                top=250) for i in range(N_FRONT_BULK)]
+        names = [f"bulk{i}.png" for i in range(N_FRONT_BULK)]
+        zbuf = io.BytesIO()
+        with zipfile.ZipFile(zbuf, "w") as zf:
+            for name, im in zip(names, bulk_imgs):
+                zf.writestr(name, TPng.encode_png(im))
+        zip_bytes = zbuf.getvalue()
+        client.post("/upload-bulk", {}, {"bulk_images_zip": ("bulk.zip", zip_bytes)},
+                    "/bulk-select-parameters")
+        check("bulk list", client.get("/bulk-select-parameters")["images"] == names, names)
+        zero_counts()
+        bulk_rows = {p: client.get(f"/bulk-classify?pipeline={p}")["classificationData"]
+                     for p in ("basic", "advanced")}
+        counts = read_counts()
+        add(counts)
+        print(f"front launches, bulk round (/bulk-classify x 2 pipelines, B={N_FRONT_BULK}): "
+              f"{({k: v for k, v in counts.items() if v})}", flush=True)
+        missing = [k for k in ("cleaner_front", "equalize", "pectoral_tail", "conv_leaky", "pool")
+                   if counts[k] == 0]
+        check("bulk launches", not missing, f"no launch of {missing}")
+        stack = np.stack([A._resize_area_like(
+            A._imread_gray(os.path.join(ws.folder("bulk"), n)), seg_hw, eng.device)
+            for n in names])
+        b_errs = []
+        for pipeline, rows in bulk_rows.items():
+            direct = eng.classify_batch(stack, pipeline)
+            check(f"bulk {pipeline} rows", [r["image_name"] for r in rows] == names
+                  and len(direct) == len(rows), rows)
+            for r, d in zip(rows, direct):
+                b_errs.append(close_probs(r["prediction_probabilities"],
+                                          d["prediction_probabilities"], f"bulk {pipeline}"))
+                check(f"bulk {pipeline} row", all(r[k] == d[k] for k in (
+                    "sample", "predicted_class", "diagnosis")), (r, d))
+        client.post("/upload-bulk-image", {"bulk_image_name": names[0], "modality1": "MG"}, {},
+                    "/diagnosis")
+        (case,) = ws.read_cases()
+        check("/upload-bulk-image", case["image_name"] == names[0]
+              and np.array_equal(np.load(case["preprocessed_file_path"]), bulk_imgs[0]), case)
+        print(f"front bulk: {N_FRONT_BULK} PNGs at {FRONT_BULK_HW}, rows equal to "
+              f"classify_batch on the same resized stack (probabilities max_abs_err "
+              f"{max(b_errs)}); /upload-bulk-image stored {names[0]}", flush=True)
+
+        # ---- times: each route's p50 on the host clock around the HTTP call
+        def route_p50(fn, n=N_TIMED):
+            times = []
+            for _ in range(n):
+                t0 = time.perf_counter()
+                fn()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(times)
+
+        for kind, (fname, data, img, shape) in files.items():
+            up_ms = route_p50(lambda: client.post(
+                "/upload-single", {"modality1": "MG"}, {"image1": (fname, data)}, "/diagnosis"))
+            raw = ws.read_cases()[0]["dicom_file_path"]
+            before = dict(TDicom.DECODER_RUNS)
+            imageio.imread_gray(raw)
+            used = sorted(f"{c} {how}" for (c, how), v in TDicom.DECODER_RUNS.items()
+                          if v != before.get((c, how), 0))
+            decoder = ", ".join(used) if used else ("PNG, Python (numpy, zlib)"
+                                                    if fname.endswith(".png") else "uncompressed")
+            dec_ms = route_p50(lambda: imageio.imread_gray(raw))
+            eng_ms = p50_ms(lambda: eng.process_single_image(img), N_TIMED)
+            # the route's other host stages, each alone on the same data
+            feats_d, clean_d = eng.process_single_image(img)
+            with tempfile.TemporaryDirectory() as st:
+                png_ms = route_p50(lambda: A._imwrite(os.path.join(st, "c.png"), clean_d))
+                npy_ms = route_p50(lambda: (np.save(os.path.join(st, "i.npy"), img),
+                                            np.save(os.path.join(st, "f.npy"), feats_d)))
+                masks_ms = route_p50(lambda: A.save_masks(feats_d, fname, st))
+            print(f"time front /upload-single {kind} ({len(data)} bytes): p50 {up_ms:.3f} ms "
+                  f"over {N_TIMED} requests; its decode ({decoder}) p50 {dec_ms:.3f} ms; the "
+                  f"engine's process_single_image on the same image p50 {eng_ms:.3f} ms, phase "
+                  f"8's for {shape} "
+                  f"{engine_p50[f'process_single_image {shape}']:.3f} ms; the clean PNG "
+                  f"{png_ms:.3f} ms, the two .npy writes {npy_ms:.3f} ms, the 64 mask PNGs "
+                  f"(the save_masks job, which the next upload waits on) {masks_ms:.3f} ms, "
+                  f"each alone; on {card}", flush=True)
+        ws.wait("save_masks")
+        for route, direct in (("/view_segmentation", srv.app.view_segmentation),
+                              ("/classify?pipeline=basic", lambda: srv.app.classify("basic")),
+                              ("/classify?pipeline=advanced",
+                               lambda: srv.app.classify("advanced")),
+                              ("/roi?pipeline=basic", lambda: srv.app.roi("basic")),
+                              ("/roi?pipeline=advanced", lambda: srv.app.roi("advanced"))):
+            ms = route_p50(lambda: client.get(route))
+            app_ms = route_p50(direct)
+            pipeline = route.rsplit("=", 1)[-1]
+            beside = (f"; phase 8's engine classify_and_roi {pipeline} p50 "
+                      f"{engine_p50[f'classify_and_roi {pipeline}']:.3f} ms"
+                      if "pipeline" in route else "")
+            print(f"time front GET {route} (3328x2560 RLE upload's features): p50 {ms:.3f} ms "
+                  f"over {N_TIMED} requests; the route's method called without HTTP "
+                  f"{app_ms:.3f} ms{beside}; on {card}", flush=True)
+        ws.wait("gradcam")
+        ms = route_p50(lambda: client.post("/upload-bulk", {}, {
+            "bulk_images_zip": ("bulk.zip", zip_bytes)}, "/bulk-select-parameters"))
+        print(f"time front POST /upload-bulk ({N_FRONT_BULK} PNGs, {len(zip_bytes)} bytes): p50 "
+              f"{ms:.3f} ms over {N_TIMED} requests on {card}", flush=True)
+        for pipeline in ("basic", "advanced"):
+            ms = route_p50(lambda: client.get(f"/bulk-classify?pipeline={pipeline}"))
+            direct_ms = p50_ms(lambda: eng.classify_batch(stack, pipeline), N_TIMED)
+            print(f"time front GET /bulk-classify?pipeline={pipeline} (B={N_FRONT_BULK} "
+                  f"{FRONT_BULK_HW[0]}x{FRONT_BULK_HW[1]} PNGs, read and resized on each "
+                  f"request): p50 {ms:.3f} ms over {N_TIMED} requests; the engine's "
+                  f"classify_batch on the resized stack p50 {direct_ms:.3f} ms; on {card}",
+                  flush=True)
+        for key in ("save_masks", "gradcam"):
+            ws.wait(key)
+        failed = [(key, fut.exception()) for key, fut in jobs if fut.exception() is not None]
+        check("artifact jobs", not failed, failed)
+        print(f"front: {len(jobs)} artifact jobs, none raised", flush=True)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+        ws.close()
+        for b in eng._batchers.values():
+            b.close()
+        ws_root.cleanup()
+    return front
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1514,6 +1867,7 @@ def main() -> int:
     from cadx_tpu_torch import checkpoint
     from cadx_tpu_torch.compat import adcnnm
     from cadx_tpu_torch.data import dicom as TDicom
+    from cadx_tpu_torch.data import imageio, native_loader
     from cadx_tpu_torch.kernels import _build
     from cadx_tpu_torch.kernels import batchnorm as KBN
     from cadx_tpu_torch.kernels import ccl as KC
@@ -1540,6 +1894,7 @@ def main() -> int:
     from cadx_tpu_torch.pipeline import fused
     from cadx_tpu_torch.precision import full_fp32
     from cadx_tpu_torch.preprocess import cleaner
+    from cadx_tpu_torch.serve import app as A
     from cadx_tpu_torch.serve import engine as E
     from cadx_tpu_torch.synthetic import (equalize_edge_cases, pectoral_tile_edge_inputs,
                                           synthetic_mammograms, synthetic_native_mammogram,
@@ -3269,8 +3624,10 @@ def main() -> int:
     print(f"time run_pipeline B={BATCH} {HW}x{HW}: {pipe_ms:.3f} ms/batch, "
           f"{BATCH / (pipe_ms / 1e3):.1f} img/s, device time (profiler) {ms_text(pipe_dev)} "
           f"ms/batch on {card}", flush=True)
+    engine_p50 = {}   # phase 9 prints the front's route p50s beside these
     for name, img in uploads.items():
         ms = p50_ms(lambda: eng.process_single_image(img, cache_token=name), N_TIMED)
+        engine_p50[f"process_single_image {name}"] = ms
         print(f"time process_single_image {name}: p50 {ms:.3f} ms over {N_TIMED} "
               f"requests on {card}", flush=True)
     # the 512² upload split by stage, as the CLI's featurize above
@@ -3303,6 +3660,7 @@ def main() -> int:
     for pipeline in ("basic", "advanced"):
         ms = p50_ms(lambda: eng.classify_and_roi(feats[token], pipeline, (0, 1),
                                                  cache_token=token), N_TIMED)
+        engine_p50[f"classify_and_roi {pipeline}"] = ms
         print(f"time classify_and_roi {pipeline} (0, 1), cached features: p50 "
               f"{ms:.3f} ms over {N_TIMED} requests on {card}", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3326,9 +3684,15 @@ def main() -> int:
         b.close()
 
     phase_done("8")
+
+    # ---- 9. the HTTP front ------------------------------------------------------
+    t9 = time.perf_counter()
+    front_launches = front_phase(uploads, engine_p50, zero_counts, read_counts, card)
+    print(f"front phase: {time.perf_counter() - t9:.1f} s", flush=True)
+    phase_done("9")
     by_path = {"pipeline": pipe_launches, "serving": serve_launches,
                "reference_gradcam": ref_launches, "training": train_launches,
-               "training_cli": cli_launches}
+               "training_cli": cli_launches, "front": front_launches}
     # the seeded component lies on no path (as in JAX): 0 on each
     own_path = {"conv_leaky": "training", "pool": "training", "upsample": "training",
                 "batchnorm": "reference_gradcam", "jet_blend": "reference_gradcam",

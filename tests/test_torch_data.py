@@ -2,8 +2,8 @@
 (`cadx_tpu_torch/data/`) against the JAX package's `cadx_tpu/data/`.
 
 Files written by either writer read the same through both readers, in
-each uncompressed transfer syntax; an encapsulated file parses but its
-pixels raise DicomError (the codecs are not ported yet).
+each uncompressed transfer syntax and in the encapsulated ones (the
+codecs' own parity is in test_torch_codecs.py).
 """
 
 import csv
@@ -88,13 +88,15 @@ def test_implicit_le_and_rgb(tmp_path, mammo16, rng):
 def test_encapsulated_and_bad_files_raise(tmp_path, mammo16):
     p = str(tmp_path / "rle.dcm")
     JDicom.dcmwrite_minimal(p, mammo16, "P1", transfer_syntax=JDicom.TS_RLE)
-    ds = TDicom.dcmread(p)                       # the header parses
+    ds = TDicom.dcmread(p)
     assert ds.transfer_syntax == TDicom.TS_RLE and ds.PatientID == "P1"
-    with pytest.raises(TDicom.DicomError, match="ROADMAP"):
-        ds.pixel_array
-    with pytest.raises(TDicom.DicomError):
+    np.testing.assert_array_equal(ds.pixel_array, JDicom.dcmread(p).pixel_array)
+    TDicom.dcmwrite_minimal(str(tmp_path / "x.dcm"), mammo16, "P1",
+                            transfer_syntax=TDicom.TS_RLE)
+    assert open(tmp_path / "x.dcm", "rb").read() == open(p, "rb").read()
+    with pytest.raises(TDicom.DicomError, match="no encoder"):
         TDicom.dcmwrite_minimal(str(tmp_path / "x.dcm"), mammo16,
-                                transfer_syntax=TDicom.TS_RLE)
+                                transfer_syntax=TDicom.TS_J2K_LOSSLESS)
     with pytest.raises(TDicom.DicomError, match="DICM"):
         TDicom.dcmread(b"\x00" * 200)
     # the pixel-data length check
@@ -135,12 +137,14 @@ def test_load_mapping_csv_matches_jax(tmp_path, mammo16):
     assert [r["PatientID"] for r in ours.records] == [r["PatientID"] for r in ref.records]
     for a, b in zip(ours.raw_images, ref.raw_images):
         np.testing.assert_array_equal(a, b)
-    # an encapsulated file is skipped at pixel extraction (the codec is
-    # not ported; JAX decodes it), and the records stay aligned
+    # an encapsulated file decodes, as it does in JAX, and the records
+    # stay aligned
     with open(cp, "a", newline="") as f:
         csv.writer(f).writerow([rle, "BENIGN"])
     ours = TD.load_mapping_csv(cp, log=logs.append)
-    assert len(ours) == len(ours.records) == 5 and "Skipping" in logs[-1]
+    ref = JD.load_mapping_csv(cp, log=lambda s: None)
+    assert len(ours) == len(ours.records) == len(ref) == 6
+    np.testing.assert_array_equal(ours.raw_images[-1], ref.raw_images[-1])
 
 
 def test_split_and_helpers_match_jax(rng):
