@@ -12,15 +12,18 @@
 // predecessor changed no distance returns at once, and the host reads the
 // per-sweep flags once every check_every sweeps; the tiled sweeps are
 // programmatic dependent launches, so a sweep's blocks copy the costs
-// while the sweep before it ends. Packed form: the block-level
-// Bellman-Ford of components.cuh, one block per image.
+// while the sweep before it ends.
+//
+// Packed form: three launches over 32 x 32 tiles x images, none of which
+// waits on the host: a prologue writes q = rint(img), the packed markers
+// and the first dirty flags; tiled_watershed.cuh's relax_to_fixpoint runs
+// the relaxation to its fixpoint in one cooperative launch; an epilogue
+// writes the labels and the ridge.
 #include <cmath>
 
-#include "components.cuh"
+#include "tiled_watershed.cuh"
 
 namespace {
-
-using namespace cadx;
 
 constexpr float kBig = 1e30f;
 constexpr float kEdgeEps = 1e-3f;
@@ -437,33 +440,75 @@ __global__ void boundary_kernel(const int* labels, uint8_t* boundary, int H, int
   boundary[plane + p] = ridge;
 }
 
-// Packed form, one block per image: markers equal to values[i] become
-// label i + 1 at distance 0, the fixpoint is found by Bellman-Ford, and
-// label i + 1 maps back to values[i] (0 where unreached).
-__global__ void __launch_bounds__(kThreads)
-packed_kernel(const float* img, const int* markers, int* labels, int* scratch, int H,
-              int W, int v1, int v2, int v3, int n_values) {
-  const int n = H * W;
-  const long long im = blockIdx.x;
-  img += im * n;
-  markers += im * n;
-  labels += im * n;
-  int* q = scratch + im * 2 * n;
-  int* pk = q + n;
-  const int values[3] = {v1, v2, v3};
-  for (int p = threadIdx.x; p < n; p += blockDim.x) {
-    q[p] = static_cast<int>(rintf(img[p]));
-    int small = 0;
-    for (int i = 0; i < n_values; ++i)
-      if (markers[p] == values[i]) small = i + 1;
-    pk[p] = small ? small : kUnreachedPk;
+// ---- the packed form --------------------------------------------------------
+
+namespace ct = cadx_tiled;
+
+// The small label (1..3, later values winning ties; 0 for none) of a
+// marker, and the value it maps back to; selects on constant indices, so
+// the values stay in registers.
+struct Values {
+  int v[3];
+  int n;
+  __device__ __forceinline__ int small_of(int m) const {
+    int s = 0;
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      if (i < n && m == v[i]) s = i + 1;
+    return s;
   }
-  __syncthreads();
-  packed_watershed(q, pk, H, W);
-  for (int p = threadIdx.x; p < n; p += blockDim.x) {
-    const int small = pk[p] & 3;
-    labels[p] = small ? values[small - 1] : 0;
+  __device__ __forceinline__ int value_of(int pk) const {
+    const int s = pk & 3;
+    return s == 1 ? v[0] : s == 2 ? v[1] : s == 3 ? v[2] : 0;
   }
+};
+
+// q = rint(img); pk = the packed markers at distance 0, kUnreachedPk
+// elsewhere; the dirty flags of the first round (a tile holding an
+// unreached pixel) and the second round's zeroed, one thread each, and
+// the rounds' changed flags zeroed, so no memset runs. A block covers one
+// tile, relax_rounds' tile.
+__global__ void __launch_bounds__(ct::kTileThreads)
+packed_prologue(const float* __restrict__ img, const int* __restrict__ markers,
+                int* __restrict__ q, int* __restrict__ pk, uint8_t* __restrict__ dirty,
+                int* __restrict__ changed, ct::Tiles g, unsigned tiles, Values values) {
+  const ct::Tile tile = ct::this_tile(g);
+  const ct::Pixel px = ct::tile_pixel(g, tile);
+  bool open = false;
+  if (px.inside) {
+    const long long i = tile.img * g.n + px.p;
+    q[i] = static_cast<int>(rintf(img[i]));
+    const int s = values.small_of(markers[i]);
+    pk[i] = s ? s : ct::kUnreachedPk;
+    open = s == 0;
+  }
+  const int any = __syncthreads_or(open);
+  if (threadIdx.x == 0) {
+    dirty[blockIdx.x] = any ? 1 : 0;
+    dirty[tiles + blockIdx.x] = 0;
+  }
+  if (blockIdx.x == 0 && threadIdx.x < 3) changed[threadIdx.x] = 0;
+}
+
+// labels = the values of pk's label bits (0 where unreached); boundary =
+// a 4-neighbour disagreement between positive labels, plus the 1-px frame.
+__global__ void __launch_bounds__(ct::kTileThreads)
+packed_epilogue(const int* __restrict__ pk, int* __restrict__ labels,
+                uint8_t* __restrict__ boundary, ct::Tiles g, Values values) {
+  const ct::Tile tile = ct::this_tile(g);
+  const ct::Pixel px = ct::tile_pixel(g, tile);
+  if (!px.inside) return;
+  const int* c = pk + tile.img * g.n;
+  const int lv = values.value_of(c[px.p]);
+  bool ridge = px.y == 0 || px.y == g.H - 1 || px.x == 0 || px.x == g.W - 1;
+  if (!ridge && lv > 0) {
+    const int nb[4] = {values.value_of(c[px.p - 1]), values.value_of(c[px.p + 1]),
+                       values.value_of(c[px.p - g.W]), values.value_of(c[px.p + g.W])};
+    for (int k = 0; k < 4; ++k) ridge |= nb[k] > 0 && nb[k] != lv;
+  }
+  const long long i = tile.img * g.n + px.p;
+  labels[i] = lv;
+  boundary[i] = ridge;
 }
 
 bool shape_ok(int H, int W) {
@@ -616,24 +661,43 @@ extern "C" int cadx_watershed_pair(const void* img, const void* markers, void* l
 }
 
 // img: (B, H, W) float32 (integer-valued); markers, labels: (B, H, W)
-// int32; boundary: (B, H, W) bytes 0/1; scratch: (B, 2, H, W) int32. Up to
-// three marker values, v1..v3, in tie order. Runs to the fixpoint.
+// int32; boundary: (B, H, W) bytes 0/1; scratch: 4-byte aligned,
+// kernels/watershed.py::packed_scratch_bytes: two (B, H, W) int32 planes
+// (q, pk), four int32 (the rounds' three changed flags and a rounds slot)
+// and two dirty flags a tile; rounds: a device int32 that receives the
+// relaxation's rounds, or null (then the scratch's slot does). Up to three
+// marker values, v1..v3, in tie order. Sides up to 512 (the packed
+// distances' int32 range). Runs to the fixpoint; nothing waits on the
+// host.
 extern "C" int cadx_watershed_packed(const void* img, const void* markers, void* labels,
-                                     void* boundary, void* scratch, int B, int H, int W,
-                                     int v1, int v2, int v3, int n_values, void* stream) {
+                                     void* boundary, void* scratch, void* rounds, int B, int H,
+                                     int W, int v1, int v2, int v3, int n_values,
+                                     void* stream) {
   if (B <= 0 || H <= 0 || W <= 0) return 0;
-  if (!shape_ok(H, W)) return static_cast<int>(cudaErrorInvalidValue);
+  if (H > 512 || W > 512 || n_values < 0 || n_values > 3)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const ct::Tiles g = ct::make_tiles(H, W);
+  const long long blocks = static_cast<long long>(B) * g.per_image;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned tiles = static_cast<unsigned>(blocks);
+  const long long n = static_cast<long long>(B) * g.n;
+  int* q = static_cast<int*>(scratch);
+  int* pk = q + n;
+  int* changed = pk + n;
+  uint8_t* dirty = reinterpret_cast<uint8_t*>(changed + 4);
+  int* rounds_at = rounds ? static_cast<int*>(rounds) : changed + 3;
+  const Values values{{v1, v2, v3}, n_values};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  packed_kernel<<<B, kThreads, 0, st>>>(static_cast<const float*>(img),
-                                        static_cast<const int*>(markers),
-                                        static_cast<int*>(labels), static_cast<int*>(scratch),
-                                        H, W, v1, v2, v3, n_values);
+  packed_prologue<<<tiles, ct::kTileThreads, 0, st>>>(static_cast<const float*>(img),
+                                                      static_cast<const int*>(markers), q, pk,
+                                                      dirty, changed, g, tiles, values);
   if (cudaError_t e = cudaGetLastError(); e != cudaSuccess) return static_cast<int>(e);
-  const size_t hw = static_cast<size_t>(H) * W;
-  for (int b0 = 0; b0 < B; b0 += kMaxImages)
-    boundary_kernel<<<pixel_grid(B - b0 < kMaxImages ? B - b0 : kMaxImages, H, W),
-                      dim3(kPixX, kPixY), 0, st>>>(static_cast<const int*>(labels) + b0 * hw,
-                                                   static_cast<uint8_t*>(boundary) + b0 * hw,
-                                                   H, W);
+  if (cudaError_t e = ct::relax_to_fixpoint(static_cast<const int*>(q), pk, dirty, changed,
+                                            rounds_at, g, tiles, st);
+      e != cudaSuccess)
+    return static_cast<int>(e);
+  packed_epilogue<<<tiles, ct::kTileThreads, 0, st>>>(pk, static_cast<int*>(labels),
+                                                      static_cast<uint8_t*>(boundary), g,
+                                                      values);
   return static_cast<int>(cudaGetLastError());
 }

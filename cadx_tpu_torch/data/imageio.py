@@ -11,16 +11,21 @@ the file's first bytes, as cv2 takes it:
   as libpng's `png_set_rgb_to_gray(1, 0.299, 0.587)` does it, in its
   fixed point: (9797 R + 19234 G + 3737 B) >> 15 at 8 bits, the same +
   16384 at 16; where a gAMA or sRGB chunk gives a gamma libpng counts as
-  significant, 8-bit colour goes through its 8-bit tables (to linear,
-  the sum rounded, back). 16-bit colour with such a gamma, and iCCP
-  profiles, read as without one (ROADMAP, known gaps).
-- GIF: the first frame, LZW, interlaced or not, on the logical screen;
-  palette to gray as cv2.cvtColor's RGB2GRAY: (9798 R + 19235 G + 3735 B
-  + 16384) >> 15.
-- JPEG: baseline and extended sequential, through `data/jpg.py`'s
-  `jpeg_luma_decode` (the Y plane of a colour file, libjpeg's grayscale
-  output), within +-2 codes of libjpeg's integer IDCT, turned as its
-  EXIF orientation says, as cv2.imread turns it.
+  significant, colour goes through libpng's gamma tables (to linear, the
+  sum rounded, back): its 8-bit tables, or at 16 bits its 16-bit ones,
+  indexed with sBIT's shift. An eXIf chunk's orientation turns the image
+  as cv2 turns a JPEG; an APNG reads as its IDAT image. iCCP profiles
+  are ignored, as libpng ignores them.
+- GIF: the first frame, LZW, interlaced or not, on the logical screen
+  (`gif_gray`: cv2's background and transparency); palette to gray as
+  cv2.cvtColor's RGB2GRAY: (9798 R + 19235 G + 3735 B + 16384) >> 15.
+- JPEG: baseline, extended sequential and progressive, through
+  `data/jpg.py`'s `jpeg_luma_decode` (libjpeg's grayscale output: the Y
+  plane of YCbCr, RGB, CMYK and YCCK converted as libjpeg and cv2
+  convert them), within +-2 codes of libjpeg's integer IDCT, turned as
+  its EXIF orientation says, as cv2.imread turns it.
+- BMP (`bmp_gray`) and PBM/PGM/PPM (`pxm_gray`) as cv2's own decoders
+  read them.
 - DICOM: `dicom.primary_frame(dicom.dcmread(path))`, uint8/uint16 kept,
   signed data shifted to start at 0, as the JAX front does.
 
@@ -42,6 +47,7 @@ _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
           (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 _MAX_PIXELS = 1 << 28  # the codecs' decode-size bound
+_SPACE = b" \t\n\r\x0b\x0c"
 
 
 class ImageError(ValueError):
@@ -64,6 +70,10 @@ def imread_gray(path: str) -> np.ndarray | None:
             from cadx_tpu_torch.data.jpg import jpeg_luma_decode
 
             return _orient(jpeg_luma_decode(data)[0], _exif_orientation(data))
+        if data[:2] == b"BM":
+            return bmp_gray(data)
+        if len(data) >= 3 and data[0] == 0x50 and 0x31 <= data[1] <= 0x36 and data[2] in _SPACE:
+            return pxm_gray(data)
     except Exception:  # noqa: BLE001 — unreadable upload -> None like cv2
         pass
     try:
@@ -86,7 +96,9 @@ def imread_gray(path: str) -> np.ndarray | None:
 # ---- PNG ---------------------------------------------------------------------
 
 def png_gray(data: bytes) -> np.ndarray:
-    """A PNG file's pixels as cv2's IMREAD_GRAYSCALE | IMREAD_ANYDEPTH."""
+    """A PNG file's pixels as cv2's IMREAD_GRAYSCALE | IMREAD_ANYDEPTH,
+    turned as its eXIf orientation says (an APNG reads as its IDAT
+    image, the default image)."""
     chunks = _png_chunks(data)
     if not chunks or chunks[0][0] != b"IHDR" or len(chunks[0][1]) != 13:
         raise ImageError("PNG without IHDR")
@@ -96,16 +108,20 @@ def png_gray(data: bytes) -> np.ndarray:
     if comp or filt or interlace > 1 or w == 0 or h == 0 or w * h > _MAX_PIXELS:
         raise ImageError("PNG header out of range")
     palette = None
+    orientation = 1
     gamma = None   # the file's gamma, in libpng's units of 1e-5
+    sig_bit = 0    # sBIT's most significant bits of a colour channel
     idat = []
     for kind, body in chunks:
-        # libpng takes gAMA and sRGB only before PLTE and IDAT; sRGB's
+        # libpng takes gAMA, sRGB and sBIT only before PLTE and IDAT; sRGB's
         # gamma overrides gAMA's
         early = palette is None and not idat
         if kind == b"gAMA" and len(body) == 4 and gamma is None and early:
             gamma = struct.unpack(">I", body)[0] or None
         elif kind == b"sRGB" and early:
             gamma = 45455
+        elif kind == b"sBIT" and early and ctype in (2, 6) and len(body) >= 3:
+            sig_bit = max(body[:3])
         elif kind == b"PLTE":
             if len(body) % 3 or len(body) > 768:
                 raise ImageError("bad PLTE")
@@ -113,6 +129,11 @@ def png_gray(data: bytes) -> np.ndarray:
             palette[:len(body) // 3] = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
+        elif kind == b"eXIf":  # anywhere before IEND; libpng keeps a TIFF block
+            try:
+                orientation = _tiff_orientation(body)
+            except struct.error:
+                pass
     if ctype == 3 and palette is None:
         raise ImageError("palette PNG without PLTE")
     raw = zlib.decompress(b"".join(idat))
@@ -128,6 +149,13 @@ def png_gray(data: bytes) -> np.ndarray:
             samples[ys::dy, xs::dx] = sub
     else:
         samples, _ = _png_pass(raw, 0, w, h, nch, depth)
+    return _orient(_png_to_gray(samples, ctype, depth, palette, gamma, sig_bit), orientation)
+
+
+def _png_to_gray(samples: np.ndarray, ctype: int, depth: int, palette, gamma, sig_bit: int):
+    """(h, w, channels) samples -> gray as libpng's transforms under cv2
+    give it: low-bit gray scaled to 8 bits, alpha dropped, colour through
+    png_do_rgb_to_gray, with gamma tables where `gamma` is significant."""
     if ctype == 0:
         gray = samples[..., 0]
         return gray * np.uint8(255 // ((1 << depth) - 1)) if depth < 8 else gray
@@ -135,6 +163,20 @@ def png_gray(data: bytes) -> np.ndarray:
         return samples[..., 0]
     rgb = palette[samples[..., 0]] if ctype == 3 else samples[..., :3]
     r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
+    if depth == 16 and gamma is not None and _significant(gamma):
+        # png_do_rgb_to_gray with libpng's 16-bit tables (png_build_16bit_table),
+        # indexed by the value's low byte shifted by the insignificant bits
+        # (from sBIT) and its high byte
+        shift = min(16 - sig_bit, 8) if 0 < sig_bit < 16 else 0
+        screen = _reciprocal(gamma)
+        same = _gamma16_table(shift, int(math.floor(1e15 / gamma / screen + 0.5)))
+        to_1, from_1 = _gamma16_table(shift, screen), _gamma16_table(shift, _reciprocal(screen))
+
+        def look(table, v):
+            return table[(v & 0xFF) >> shift, v >> 8]
+        lin = (9797 * look(to_1, r) + 19234 * look(to_1, g) + 3737 * look(to_1, b)
+               + 16384) >> 15
+        return np.where((r == g) & (g == b), look(same, r), look(from_1, lin)).astype(np.uint16)
     if depth == 16:
         return ((9797 * r + 19234 * g + 3737 * b + 16384) >> 15).astype(np.uint16)
     if gamma is not None and _significant(gamma):
@@ -165,6 +207,19 @@ def _gamma_table(g: int) -> np.ndarray:
     if g == 100000:
         return i
     return np.floor(255 * np.power(i / 255.0, g * 1e-5) + 0.5).astype(np.int64)
+
+
+def _gamma16_table(shift: int, g: int) -> np.ndarray:
+    """png_build_16bit_table: (2^(8 - shift), 256) entries, [i][j] the
+    output for the input whose top 16 - shift bits are (j << (8 - shift))
+    + i: floor(65535 (ig / max)^(g / 1e5) + 0.5) where g is significant
+    (5% or more from 1), else ig rescaled to 16 bits."""
+    max_ig = (1 << (16 - shift)) - 1
+    ig = (np.arange(256)[None, :] << (8 - shift)) + np.arange(1 << (8 - shift))[:, None]
+    if abs(g - 100000) > 5000:
+        return np.floor(65535.0 * np.power(ig * (1.0 / max_ig), g * 0.00001) + 0.5).astype(
+            np.int64)
+    return ig if shift == 0 else (ig * 65535 + (1 << (15 - shift))) // max_ig
 
 
 def _png_chunks(data: bytes) -> list[tuple[bytes, bytes]]:
@@ -265,15 +320,24 @@ def _exif_orientation(data: bytes) -> int:
         (n,) = struct.unpack_from(">H", data, pos + 2)
         seg = data[pos + 4:pos + 2 + n]
         if data[pos + 1] == 0xE1 and seg[:6] == b"Exif\x00\x00" and len(seg) >= 14:
-            tiff = seg[6:]
-            bo = "<" if tiff[:2] == b"II" else ">"
-            (ifd,) = struct.unpack_from(bo + "I", tiff, 4)
-            (count,) = struct.unpack_from(bo + "H", tiff, ifd)
-            for k in range(count):
-                tag, kind, _, value = struct.unpack_from(bo + "HHIH", tiff, ifd + 2 + 12 * k)
-                if tag == 0x0112 and kind == 3:
-                    return value
+            return _tiff_orientation(seg[6:])
         pos += 2 + n
+    return 1
+
+
+def _tiff_orientation(tiff: bytes) -> int:
+    """The orientation tag (0x0112) in the first IFD of an EXIF block (a
+    TIFF header, "II*\\0" or "MM\\0*", and its directory), 1 where there is
+    none."""
+    if tiff[:4] not in (b"II*\x00", b"MM\x00*") or len(tiff) < 8:
+        return 1
+    bo = "<" if tiff[:2] == b"II" else ">"
+    (ifd,) = struct.unpack_from(bo + "I", tiff, 4)
+    (count,) = struct.unpack_from(bo + "H", tiff, ifd)
+    for k in range(count):
+        tag, kind, _, value = struct.unpack_from(bo + "HHIH", tiff, ifd + 2 + 12 * k)
+        if tag == 0x0112 and kind == 3:
+            return value
     return 1
 
 
@@ -288,25 +352,39 @@ def _orient(img: np.ndarray, orientation: int) -> np.ndarray:
 
 def gif_gray(data: bytes) -> np.ndarray:
     """A GIF file's first frame, on its logical screen, as cv2's
-    IMREAD_GRAYSCALE returns it."""
-    sw, sh, packed, _bg, _aspect = struct.unpack_from("<HHBBB", data, 6)
+    IMREAD_GRAYSCALE returns it: the screen starts as the global table's
+    background colour (black without a global table; a background index
+    past the table reads as nothing), the frame must lie within it, and
+    its transparent index (from the graphic control extension) leaves
+    the background."""
+    sw, sh, packed, bg, _aspect = struct.unpack_from("<HHBBB", data, 6)
     if sw == 0 or sh == 0 or sw * sh > _MAX_PIXELS:
         raise ImageError("GIF screen out of range")
     pos = 13
     table = None
+    background = np.zeros(3, np.uint8)
     if packed & 0x80:
         n = 3 << ((packed & 7) + 1)
         table = np.frombuffer(data, np.uint8, n, pos).reshape(-1, 3)
         pos += n
+        if bg >= len(table):
+            raise ImageError("GIF background index past the global table")
+        background = table[bg]
+    transparent = None
     while True:
         intro = data[pos]
         if intro == 0x21:  # extension: label, then sub-blocks
-            _, pos = _gif_blocks(data, pos + 2)
+            body, end = _gif_blocks(data, pos + 2)
+            if data[pos + 1] == 0xF9 and len(body) >= 4:  # graphic control
+                transparent = body[3] if body[0] & 1 else None
+            pos = end
         elif intro == 0x2C:
             break
         else:
             raise ImageError("GIF without an image")
     left, top, w, h, ipacked = struct.unpack_from("<HHHHB", data, pos + 1)
+    if w == 0 or h == 0 or left + w > sw or top + h > sh:
+        raise ImageError("GIF frame outside its screen")
     pos += 10
     if ipacked & 0x80:
         n = 3 << ((ipacked & 7) + 1)
@@ -330,9 +408,11 @@ def gif_gray(data: bytes) -> np.ndarray:
         idx = deinterlaced
     pal = np.zeros((256, 3), np.uint8)
     pal[:len(table)] = table
-    rgb = np.zeros((sh, sw, 3), np.uint8)
-    vis_h, vis_w = max(0, min(h, sh - top)), max(0, min(w, sw - left))
-    rgb[top:top + vis_h, left:left + vis_w] = pal[idx[:vis_h, :vis_w]]
+    rgb = np.empty((sh, sw, 3), np.uint8)
+    rgb[:] = background
+    frame = rgb[top:top + h, left:left + w]
+    drawn = idx != transparent if transparent is not None else slice(None)
+    frame[drawn] = pal[idx[drawn]]
     r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
     return ((9798 * r + 19235 * g + 3735 * b + 16384) >> 15).astype(np.uint8)
 
@@ -389,3 +469,294 @@ def _lzw_decode(stream: bytes, min_code: int, limit: int) -> bytes:
         if len(table) == (1 << width) and width < 12:
             width += 1
     return bytes(out)
+
+
+# ---- BMP ---------------------------------------------------------------------
+
+_CB, _CG, _CR = 1868, 9617, 4899   # cv2's BGR -> gray weights at 14 bits
+
+
+def _gray14(b, g, r) -> np.ndarray:
+    """cv2's icvCvt_BGR2Gray: 14-bit weights, rounded."""
+    t = _CB * b.astype(np.int64) + _CG * g.astype(np.int64) + _CR * r.astype(np.int64)
+    return ((t + (1 << 13)) >> 14).astype(np.uint8)
+
+
+def bmp_gray(data: bytes) -> np.ndarray:
+    """A BMP file as cv2's built-in BmpDecoder reads it in gray: 1, 4 and 8
+    bits through the palette's gray (entries past the palette read 0), RLE8
+    and RLE4 (`_rle8`, `_rle4`: cv2's fills with entry 0, its wraps and its
+    refusals), 15/16 bits as 555 (or 565 with BITFIELDS masks, read after
+    the header), 24 and 32 bits as BGR(A); a 32-bit BITFIELDS file with a
+    header of 56 bytes or more goes through its masks, each channel scaled
+    by 255 over its maximum and the sum truncated. A positive height is
+    bottom-up; OS/2 headers (12 bytes) take 3-byte palette entries. The
+    masked path's gray is float32, 0.299 R + 0.587 G then + 0.114 B,
+    truncated."""
+    if len(data) < 26:
+        raise ImageError("truncated BMP")
+    (offset,) = struct.unpack_from("<I", data, 10)
+    (size,) = struct.unpack_from("<I", data, 14)
+    masks = None
+    pos = 14 + size
+    if size >= 36:
+        w, h, _planes, bpp, comp = struct.unpack_from("<iiHHI", data, 18)
+        (clrused,) = struct.unpack_from("<I", data, 46)
+        if comp > 3:
+            raise ImageError(f"BMP compression {comp}")
+        if bpp == 32 and comp == 3 and size >= 56:
+            masks = struct.unpack_from("<4I", data, 54)
+        if bpp <= 8:
+            if clrused > 256:
+                raise ImageError("BMP palette of more than 256 colours")
+            n = clrused or 1 << bpp
+            pal = np.zeros((256, 4), np.uint8)
+            pal[:n] = np.frombuffer(data, np.uint8, 4 * n, pos).reshape(n, 4)
+        elif bpp == 16 and comp == 3:
+            r, g, b = struct.unpack_from("<3I", data, pos)
+            if (r, g, b) == (0x7C00, 0x3E0, 0x1F):
+                bpp = 15
+            elif (r, g, b) != (0xF800, 0x7E0, 0x1F):
+                raise ImageError("BMP 16-bit masks other than 555 and 565")
+        elif bpp == 16:
+            bpp = 15
+    elif size == 12:
+        w, h, _, bpp = struct.unpack_from("<HHHH", data, 18)
+        comp = 0
+        if bpp <= 8:
+            n = 1 << bpp
+            pal = np.zeros((256, 4), np.uint8)
+            pal[:n, :3] = np.frombuffer(data, np.uint8, 3 * n, pos).reshape(n, 3)
+    else:
+        raise ImageError(f"BMP header of {size} bytes")
+    ok = w > 0 and h != 0 and (
+        (bpp in (1, 4, 8, 15, 16, 24, 32) and comp == 0) or (bpp in (15, 16, 32) and comp == 3)
+        or (bpp == 4 and comp == 2) or (bpp == 8 and comp == 1))
+    if not ok or w * abs(h) > _MAX_PIXELS:
+        raise ImageError(f"BMP of {bpp} bits, compression {comp}, {w}x{h}")
+    rows_h = abs(h)
+    if bpp <= 8:
+        gray_pal = _gray14(pal[:, 0], pal[:, 1], pal[:, 2])
+    if comp in (1, 2):
+        idx = (_rle8 if comp == 1 else _rle4)(data, offset, w, rows_h)
+        img = gray_pal[idx]
+    else:
+        stride = (w * (16 if bpp == 15 else bpp) + 31) // 32 * 4
+        if offset + stride * rows_h > len(data):
+            raise ImageError("BMP pixel data too short")
+        rows = np.frombuffer(data, np.uint8, stride * rows_h, offset).reshape(rows_h, stride)
+        if bpp <= 8:
+            bits = np.unpackbits(rows, axis=1) if bpp < 8 else rows
+            if bpp == 4:
+                bits = np.stack([rows >> 4, rows & 15], axis=-1).reshape(rows_h, -1)
+            img = gray_pal[bits[:, :w]]
+        elif bpp in (15, 16):
+            t = rows[:, :2 * w].view("<u2").astype(np.int64)
+            if bpp == 15:
+                img = _gray14((t << 3) & 0xF8, (t >> 2) & 0xF8, (t >> 7) & 0xF8)
+            else:
+                img = _gray14((t << 3) & 0xF8, (t >> 3) & 0xFC, (t >> 8) & 0xF8)
+        else:
+            px = rows[:, :w * bpp // 8].reshape(rows_h, w, bpp // 8)
+            if masks is not None and all(masks[:3]):
+                word = px.view("<u4")[..., 0].astype(np.int64)
+                b, g, r = (_mask_channel(word, m) for m in (masks[2], masks[1], masks[0]))
+                f32 = np.float32
+                img = (f32(0.299) * r + f32(0.587) * g + f32(0.114) * b).astype(np.uint8)
+            else:
+                img = _gray14(px[..., 0], px[..., 1], px[..., 2])
+    return np.ascontiguousarray(img[::-1] if h > 0 else img)
+
+
+def _mask_channel(word: np.ndarray, mask: int) -> np.ndarray:
+    """A BITFIELDS channel scaled to 8 bits as cv2 scales it: value * 255 //
+    its maximum, as float32."""
+    shift = (mask & -mask).bit_length() - 1
+    return (((word & mask) >> shift) * 255 // (mask >> shift)).astype(np.float32)
+
+
+def _rle8(data: bytes, pos: int, w: int, h: int) -> np.ndarray:
+    """cv2's BMP RLE8 decode into (h, w) palette indices, line 0 first: a
+    run or an absolute run may not pass its line's end; a run that ends on
+    it moves to the next line, where an end of line right after it is
+    skipped; end of line, delta (dx + dy lines) and end of bitmap fill
+    with entry 0; the data must reach the last line."""
+    out = np.zeros(h * w, np.int64)
+    x = y = 0
+    wrapped = False
+
+    def fill(count: int) -> None:   # cv2's FillUniGray with entry 0
+        nonlocal x, y
+        while True:
+            take = min(count, w - x)
+            x += take
+            count -= take
+            if x >= w:
+                x, y = 0, y + 1
+                if y >= h:
+                    return
+            if count <= 0:
+                return
+
+    while y < h:
+        if pos + 2 > len(data):
+            raise ImageError("BMP RLE8 data too short")
+        n, code = data[pos], data[pos + 1]
+        pos += 2
+        if n:
+            if x + n > w:
+                raise ImageError("BMP RLE8 run past its line")
+            out[y * w + x:y * w + x + n] = code
+            x += n
+            wrapped = x == w
+            if wrapped:
+                x, y = 0, y + 1
+        elif code > 2:
+            if x + code > w or pos + code > len(data):
+                raise ImageError("BMP RLE8 absolute run past its line")
+            out[y * w + x:y * w + x + code] = np.frombuffer(data, np.uint8, code, pos)
+            pos += (code + 1) & ~1
+            x += code
+            wrapped = False
+        else:
+            if code or not wrapped or x > 0:
+                shift = w - x
+                if code == 2:
+                    if pos + 2 > len(data):
+                        raise ImageError("BMP RLE8 data too short")
+                    shift, dy = data[pos], data[pos + 1]
+                    pos += 2
+                    shift += dy * w
+                elif code == 1:
+                    shift += (h - y) * w
+                fill(shift)
+            wrapped = False
+    return out.reshape(h, w)
+
+
+def _rle4(data: bytes, pos: int, w: int, h: int) -> np.ndarray:
+    """cv2's BMP RLE4 decode into (h, w) palette indices, line 0 first: runs
+    (two alternating nibbles) and absolute runs may not pass their line's
+    end and never leave it; only escapes move on: end of line and end of
+    bitmap fill the rest of the line with entry 0, delta fills dx pixels
+    (cv2 drops its dy); the data must reach the last line."""
+    out = np.zeros(h * w, np.int64)
+    x = y = 0
+    while y < h:
+        if pos + 2 > len(data):
+            raise ImageError("BMP RLE4 data too short")
+        n, code = data[pos], data[pos + 1]
+        pos += 2
+        if n:
+            if x + n > w:
+                raise ImageError("BMP RLE4 run past its line")
+            out[y * w + x:y * w + x + n] = np.resize([code >> 4, code & 15], n)
+            x += n
+        elif code > 2:
+            size = (((code + 1) >> 1) + 1) & ~1
+            if x + code > w or pos + size > len(data):
+                raise ImageError("BMP RLE4 absolute run past its line")
+            nib = np.frombuffer(data, np.uint8, size, pos)
+            out[y * w + x:y * w + x + code] = np.stack([nib >> 4, nib & 15], -1).reshape(-1)[:code]
+            pos += size
+            x += code
+        else:
+            count = w - x
+            if code == 2:
+                if pos + 2 > len(data):
+                    raise ImageError("BMP RLE4 data too short")
+                count = data[pos]
+                pos += 2
+            while True:   # cv2's FillUniGray with entry 0
+                take = min(count, w - x)
+                x += take
+                count -= take
+                if x >= w:
+                    x, y = 0, y + 1
+                    if y >= h:
+                        break
+                if count <= 0:
+                    break
+    return out.reshape(h, w)
+
+
+# ---- PBM, PGM, PPM -----------------------------------------------------------
+
+def pxm_gray(data: bytes) -> np.ndarray:
+    """A PBM, PGM or PPM file (P1-P6) as cv2's PxMDecoder reads it in gray
+    with ANYDEPTH: bitmaps 1 -> 0 and 0 -> 255; maxval above 255 gives
+    uint16 samples (big-endian in binary files); ASCII samples are clamped
+    to maxval and, at 8 bits, scaled by 255 / maxval (floor), binary ones
+    kept as they are; colour goes to gray with cv2's RGB weights (rounded,
+    at 16 bits too). A number must end before the end of the file."""
+    kind = data[1] - ord("0")
+    pos = 2
+    w, pos = _pxm_number(data, pos)
+    h, pos = _pxm_number(data, pos)
+    maxval = 1
+    if kind not in (1, 4):
+        maxval, pos = _pxm_number(data, pos)
+    if w <= 0 or h <= 0 or not 0 < maxval < 65536 or w * h > _MAX_PIXELS:
+        raise ImageError("PxM header out of range")
+    channels = 3 if kind in (3, 6) else 1
+    n = w * h * channels
+    wide = maxval > 255
+    if kind == 4:
+        stride = (w + 7) // 8
+        if pos + stride * h > len(data):
+            raise ImageError("PBM data too short")
+        bits = np.unpackbits(np.frombuffer(data, np.uint8, stride * h, pos).reshape(h, stride),
+                             axis=1)[:, :w]
+        return np.where(bits == 1, 0, 255).astype(np.uint8)
+    if kind in (5, 6):
+        dtype = np.dtype(">u2") if wide else np.dtype(np.uint8)
+        if pos + n * dtype.itemsize > len(data):
+            raise ImageError("PxM data too short")
+        v = np.frombuffer(data, dtype, n, pos).astype(np.int64)
+    else:
+        v = np.empty(n, np.int64)
+        for i in range(n):
+            v[i], pos = _pxm_number(data, pos, kind == 1)
+        if kind == 1:
+            return np.where(v.reshape(h, w) != 0, 0, 255).astype(np.uint8)
+        v = np.minimum(v, maxval)
+        if not wide:
+            v = v * 255 // maxval
+    v = v.reshape(h, w, channels)
+    if channels == 3:
+        t = _CR * v[..., 0] + _CG * v[..., 1] + _CB * v[..., 2]
+        v = (t + (1 << 13)) >> 14
+    else:
+        v = v[..., 0]
+    return v.astype(np.uint16 if wide else np.uint8)
+
+
+def _pxm_number(data: bytes, pos: int, one_digit: bool = False) -> tuple[int, int]:
+    """cv2's ReadNumber: skip whitespace and '#' comments, read digits (one
+    for an ASCII bitmap), and the byte after them, which must exist."""
+    n = len(data)
+    while True:
+        if pos >= n:
+            raise ImageError("PxM data too short")
+        c = data[pos]
+        if c == 0x23:   # '#': to the end of the line
+            while pos < n and data[pos] not in (0x0A, 0x0D):
+                pos += 1
+            pos += 1
+        elif c in _SPACE:
+            pos += 1
+        elif 0x30 <= c <= 0x39:
+            break
+        else:
+            raise ImageError("PxM: not a number")
+    val = 0
+    while pos < n and 0x30 <= data[pos] <= 0x39:
+        val = val * 10 + data[pos] - 0x30
+        pos += 1
+        if one_digit:
+            return val, pos
+        if val > 0x7FFFFFFF:
+            raise ImageError("PxM number too large")
+    if pos >= n:
+        raise ImageError("PxM data too short")
+    return val, pos + 1

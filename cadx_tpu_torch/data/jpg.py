@@ -1,19 +1,26 @@
-"""Baseline / extended sequential JPEG (lossy DCT) decoder — pure Python.
+"""JPEG (lossy DCT) decoders — pure Python on numpy.
 
-The port's own copy of `cadx_tpu/data/jpg.py`: the DICOM transfer
-syntaxes 1.2.840.10008.1.2.4.50 (JPEG baseline, 8-bit) and .51 (JPEG
-extended sequential, 12-bit), which the reference's pydicom ecosystem
-reads via Pillow (Classes/Preprocessing.py:149). Mammography pixel data
-is single-sample, so `jpeg_lossy_decode` (the DICOM path) takes one
-component and raises JpegError on multi-component scans;
-`jpeg_luma_decode` (the HTTP front's JPEG uploads) returns the first
-component of a YCbCr file, which is libjpeg's grayscale output.
+Two entry points with two contracts, sharing the IDCT (`_samples`):
 
-Scope: SOF0 (baseline huffman) and SOF1 (extended sequential huffman,
-8/12-bit), DHT/DQT/DRI/RSTn, EOB/ZRL AC run-length semantics per ITU
-T.81 F.2. The IDCT is the exact float-point 2-D DCT-III (numpy matmul
-form); integer-IDCT decoders (libjpeg) may differ by +-1-2 codes, which
-is within T.81's decoder accuracy allowance — the tests bound the
+- `jpeg_lossy_decode`, the DICOM path: the port's own copy of
+  `cadx_tpu/data/jpg.py` for the transfer syntaxes 1.2.840.10008.1.2.4.50
+  (JPEG baseline, 8-bit) and .51 (JPEG extended sequential, 12-bit),
+  which the reference's pydicom ecosystem reads via Pillow
+  (Classes/Preprocessing.py:149). Mammography pixel data is
+  single-sample: one component, SOF0/SOF1, DHT/DQT/DRI/RSTn, EOB/ZRL
+  run-lengths per ITU T.81 F.2, read a bit at a time; a stream cut short
+  raises JpegError where JAX's does, so the two packages agree on every
+  hostile frame the DICOM tests feed them.
+- `jpeg_luma_decode`, the HTTP front's uploads: what cv2.imread's
+  IMREAD_GRAYSCALE returns through libjpeg-turbo, for baseline, extended
+  and progressive huffman files, any scan layout, gray, YCbCr, Adobe RGB,
+  CMYK and YCCK; a segment cut short reads as zeros, as libjpeg reads it.
+  Its entropy decoders look codes up 16 bits at a time, so a 3328 x 2560
+  progressive frame decodes in seconds.
+
+The IDCT is the exact float-point 2-D DCT-III (numpy matmul form);
+integer-IDCT decoders (libjpeg) may differ by +-1-2 codes, which is
+within T.81's decoder accuracy allowance — the tests bound the
 difference against cv2/libjpeg on natural images and pin DC-only blocks
 exactly.
 
@@ -24,6 +31,9 @@ so encoder and decoder share no code; plus a self-written minimal
 
 from __future__ import annotations
 
+import concurrent.futures
+import functools
+import os
 import struct
 
 import numpy as np
@@ -146,22 +156,10 @@ def jpeg_lossy_decode(data: bytes,
     expect_hw: when the container (DICOM Rows/Columns) already knows the
     size, mismatching SOF dims fail before the entropy scan runs.
     """
-    return _decode(data, expect_hw, luma=False)
+    return _decode(data, expect_hw)
 
 
-def jpeg_luma_decode(data: bytes) -> tuple[np.ndarray, int]:
-    """The first component of a sequential-huffman JPEG file: the plane of
-    a grayscale file, the Y plane of a YCbCr one (one interleaved scan of
-    all three components, any chroma subsampling, or a first scan of Y
-    alone). That is libjpeg's grayscale output, what cv2.imread's
-    IMREAD_GRAYSCALE returns, up to the IDCT's +-1-2 codes. Adobe RGB
-    (transform 0), CMYK/YCCK, and a Y plane subsampled against another
-    component raise JpegError, as multi-scan layouts other than the two
-    above do."""
-    return _decode(data, None, luma=True)
-
-
-def _decode(data: bytes, expect_hw, luma: bool) -> tuple[np.ndarray, int]:
+def _decode(data: bytes, expect_hw) -> tuple[np.ndarray, int]:
     if len(data) < 4 or data[0] != 0xFF or data[1] != 0xD8:
         raise JpegError("not a JPEG stream (missing SOI)")
     pos = 2
@@ -169,7 +167,6 @@ def _decode(data: bytes, expect_hw, luma: bool) -> tuple[np.ndarray, int]:
     htables: dict[tuple[int, int], _HuffTable] = {}  # (class, id)
     precision = h = w = None
     comps: list[tuple[int, int, int, int]] = []  # (id, H, V, Tq)
-    adobe_transform = None
     restart_interval = 0
     while True:
         if pos + 4 > len(data):
@@ -197,7 +194,7 @@ def _decode(data: bytes, expect_hw, luma: bool) -> tuple[np.ndarray, int]:
             if len(seg) < 9:
                 raise JpegError("truncated SOF segment")
             precision, h, w, nf = struct.unpack_from(">BHHB", seg, 0)
-            if nf != 1 and not (luma and nf == 3):
+            if nf != 1:
                 raise JpegError(
                     f"multi-component JPEG unsupported (Nf={nf})")
             if precision not in (8, 12):
@@ -207,25 +204,18 @@ def _decode(data: bytes, expect_hw, luma: bool) -> tuple[np.ndarray, int]:
             if len(seg) < 6 + 3 * nf:
                 raise JpegError("truncated SOF segment")
             # seg = P Y Y X X Nf, then per component: Ci, HiVi, Tqi
-            if not luma and seg[7] != 0x11:
+            if seg[7] != 0x11:
                 raise JpegError("subsampled single component nonsensical")
             if h * w > 1 << 28:
                 # decode-size DoS bound (matches j2k/jls/lossless): a
                 # hostile SOF would otherwise drive multi-GiB coefficient
                 # allocations before the DICOM Rows/Columns check
                 raise JpegError(f"implausible frame size {h}x{w}")
-            comps = [(seg[6 + 3 * c], seg[7 + 3 * c] >> 4, seg[7 + 3 * c] & 15,
-                      seg[8 + 3 * c]) for c in range(nf)]
-            if nf == 1:  # one component: one block an MCU, whatever H, V
-                comps = [(comps[0][0], 1, 1, comps[0][3])]
-            if any(not (1 <= hv <= 4) for c in comps for hv in c[1:3]):
-                raise JpegError("sampling factor outside 1..4")
+            comps = [(seg[6], 1, 1, seg[8])]
         elif marker in (0xC2, 0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB,
                         0xCD, 0xCE, 0xCF):
             raise JpegError(
                 f"non-sequential-huffman SOF 0x{marker:02x} unsupported")
-        elif marker == 0xEE and seg[:5] == b"Adobe" and len(seg) >= 12:
-            adobe_transform = seg[11]
         elif marker == 0xC4:  # DHT
             off = 0
             while off < len(seg):
@@ -264,7 +254,7 @@ def _decode(data: bytes, expect_hw, luma: bool) -> tuple[np.ndarray, int]:
             ns = seg[0] if seg else 0
             if len(seg) < 4 + 2 * ns:
                 raise JpegError("truncated SOS segment")
-            if ns != 1 and not (luma and ns == len(comps)):
+            if ns != 1:
                 raise JpegError(f"multi-component scan unsupported (Ns={ns})")
             scan = [(seg[1 + 2 * k], seg[2 + 2 * k] >> 4, seg[2 + 2 * k] & 15)
                     for k in range(ns)]
@@ -278,36 +268,18 @@ def _decode(data: bytes, expect_hw, luma: bool) -> tuple[np.ndarray, int]:
         # fail before the per-coefficient huffman loop (hostile streams
         # declaring huge dims against a small DICOM Rows/Columns)
         raise JpegError(f"SOF size {h}x{w} != expected {expect_hw}")
-    if luma and len(comps) == 3 and (adobe_transform == 0 or bytes(
-            c[0] for c in comps) == b"RGB"):
-        raise JpegError("RGB-coded JPEG unsupported (no YCbCr transform)")
-    ids = [c[0] for c in comps]
-    if any(cs not in ids for cs, _, _ in scan):
+    (cs, td, ta), = scan
+    if cs != comps[0][0]:
         raise JpegError("scan names an undeclared component")
-    if scan[0][0] != comps[0][0]:
-        raise JpegError("first scan does not hold the first component")
-    hmax = max(c[1] for c in comps)
-    vmax = max(c[2] for c in comps)
-    if (comps[0][1], comps[0][2]) != (hmax, vmax):
-        raise JpegError("first component subsampled against another")
-    # per scan component: (H, V, quant, dc table, ac table), Y first
-    units = []
-    for cs, td, ta in scan:
-        _, hi, vi, tq = comps[ids.index(cs)]
-        if tq not in qtables:
-            raise JpegError(f"quant table {tq} undeclared")
-        if (0, td) not in htables or (1, ta) not in htables:
-            raise JpegError("huffman tables undeclared")
-        units.append((hi, vi, htables[(0, td)], htables[(1, ta)]))
-    quant = qtables[comps[0][3]]
-    if len(scan) == 1:  # non-interleaved: the first component's own grid
-        mcus_x, mcus_y, hy, vy = (w + 7) // 8, (h + 7) // 8, 1, 1
-        units = [(1, 1) + units[0][2:]]
-    else:
-        mcus_x = (w + 8 * hmax - 1) // (8 * hmax)
-        mcus_y = (h + 8 * vmax - 1) // (8 * vmax)
-        hy, vy = hmax, vmax
-    bw, bh = mcus_x * hy, mcus_y * vy
+    tq = comps[0][3]
+    if tq not in qtables:
+        raise JpegError(f"quant table {tq} undeclared")
+    if (0, td) not in htables or (1, ta) not in htables:
+        raise JpegError("huffman tables undeclared")
+    units = [(1, 1, htables[(0, td)], htables[(1, ta)])]
+    quant = qtables[tq]
+    mcus_x, mcus_y, hy, vy = (w + 7) // 8, (h + 7) // 8, 1, 1
+    bw, bh = mcus_x, mcus_y
     coefs = np.zeros((bh * bw, 64), np.int32)
     block = np.zeros(64, np.int32)
     r = _BitReader(data, pos)
@@ -325,20 +297,30 @@ def _decode(data: bytes, expect_hw, luma: bool) -> tuple[np.ndarray, int]:
                            else block)
                     preds[u] = _decode_block(r, dc_tab, ac_tab, preds[u], out)
 
-    # dequantize -> de-zigzag -> exact 2-D IDCT -> level shift
-    deq = (coefs * quant[None, :]).astype(np.float64)
-    blocks = np.zeros((bh * bw, 64), np.float64)
-    blocks[:, _ZIGZAG] = deq
-    blocks = blocks.reshape(-1, 8, 8)
-    spatial = np.einsum("nk,bkl,ml->bnm", _IDCT_C, blocks, _IDCT_C)
+    return _samples(coefs, quant, bh, bw, h, w, precision), precision
+
+
+def _samples(coefs: np.ndarray, quant: np.ndarray, bh: int, bw: int, h: int,
+             w: int, precision: int) -> np.ndarray:
+    """(bh * bw, 64) zigzag coefficients of a component -> its (h, w)
+    samples: dequantize, de-zigzag, exact 2-D IDCT, level shift, crop the
+    right/bottom padding. The IDCT runs on threads over chunks of blocks
+    (einsum releases the GIL; each block's sum is the same whatever the
+    chunk)."""
     level = 1 << (precision - 1)
     maxval = (1 << precision) - 1
-    img = np.rint(spatial + level).clip(0, maxval)
-    # blocks -> image plane, crop the right/bottom padding
-    img = img.reshape(bh, bw, 8, 8).transpose(0, 2, 1, 3).reshape(
-        bh * 8, bw * 8)[:h, :w]
     dtype = np.uint8 if precision == 8 else np.uint16
-    return img.astype(dtype), precision
+
+    def idct(c: np.ndarray) -> np.ndarray:
+        blocks = np.zeros((len(c), 64), np.float64)
+        blocks[:, _ZIGZAG] = (c * quant[None, :]).astype(np.float64)
+        spatial = np.einsum("nk,bkl,ml->bnm", _IDCT_C, blocks.reshape(-1, 8, 8), _IDCT_C)
+        return np.rint(spatial + level).clip(0, maxval).astype(dtype)
+
+    chunks = np.array_split(coefs, max(1, min(os.cpu_count() or 1, 8, len(coefs) // 512)))
+    with concurrent.futures.ThreadPoolExecutor(len(chunks)) as pool:
+        img = np.concatenate(list(pool.map(idct, chunks)))
+    return img.reshape(bh, bw, 8, 8).transpose(0, 2, 1, 3).reshape(bh * 8, bw * 8)[:h, :w]
 
 
 def _decode_block(r: _BitReader, dc_tab: _HuffTable, ac_tab: _HuffTable,
@@ -365,3 +347,529 @@ def _decode_block(r: _BitReader, dc_tab: _HuffTable, ac_tab: _HuffTable,
         out[k] = _extend(r.bits(ssz), ssz)
         k += 1
     return pred
+
+
+# ---- the upload reader: every huffman layout cv2 reads, progressive too ------
+
+_SEQUENTIAL, _PROGRESSIVE = (0xC0, 0xC1), 0xC2
+
+
+@functools.lru_cache(maxsize=64)
+def _lookup(counts: bytes, vals: bytes) -> list:
+    """A DHT table as 65536 entries indexed by the next 16 bits: (code
+    length << 8) | symbol, 0 where no code starts."""
+    look = [0] * 65536
+    code = k = 0
+    for length in range(1, 17):
+        for _ in range(counts[length - 1]):
+            if k >= len(vals) or code >= 1 << length:
+                raise JpegError("bad DHT table")
+            lo, n = code << (16 - length), 1 << (16 - length)
+            look[lo:lo + n] = [(length << 8) | vals[k]] * n
+            code += 1
+            k += 1
+        code <<= 1
+    return look
+
+
+def _entropy_segments(data: bytes, pos: int) -> tuple[list[bytes], int]:
+    """The entropy-coded data of the scan at pos, cut at its RSTn markers
+    and unstuffed, and the position of the marker that ends the scan (the
+    end of the data where none does, which libjpeg reads as zeros)."""
+    segs, start, i = [], pos, pos
+    while True:
+        j = data.find(b"\xff", i)
+        if j < 0 or j + 1 >= len(data):
+            segs.append(data[start:].replace(b"\xff\x00", b"\xff"))
+            return segs, len(data)
+        m = data[j + 1]
+        if m == 0x00 or m == 0xFF:
+            i = j + (2 if m == 0x00 else 1)
+        elif 0xD0 <= m <= 0xD7:
+            segs.append(data[start:j].replace(b"\xff\x00", b"\xff"))
+            start = i = j + 2
+        else:
+            segs.append(data[start:j].replace(b"\xff\x00", b"\xff"))
+            return segs, j
+
+
+class _Component:
+    """A frame component: its sampling factors, its quantization table and
+    the block grid its coefficients are stored on (the MCU-padded grid of
+    an interleaved frame), at `first` in the frame's coefficient array."""
+
+    def __init__(self, cid: int, h: int, v: int, tq: int):
+        self.id, self.h, self.v, self.tq = cid, h, v, tq
+        self.quant = None
+        self.bw = self.bh = self.first = 0
+
+
+class _Frame:
+    """A frame header, its components and their coefficients; `tables` is
+    the file's quantization tables by id, as DQT segments define them."""
+
+    def __init__(self, seg: bytes, progressive: bool, tables: dict):
+        if len(seg) < 6:
+            raise JpegError("truncated SOF segment")
+        self.precision, self.h, self.w, nf = struct.unpack_from(">BHHB", seg, 0)
+        if self.precision not in (8, 12):
+            raise JpegError(f"precision {self.precision} unsupported")
+        if self.h == 0 or self.w == 0:
+            raise JpegError("DNL-deferred or zero size unsupported")
+        if self.h * self.w > 1 << 28:
+            raise JpegError(f"implausible frame size {self.h}x{self.w}")
+        if nf not in (1, 3, 4) or len(seg) < 6 + 3 * nf:
+            raise JpegError(f"{nf} components unsupported")
+        self.progressive, self.tables = progressive, tables
+        self.comps = [_Component(seg[6 + 3 * c], seg[7 + 3 * c] >> 4, seg[7 + 3 * c] & 15,
+                                 seg[8 + 3 * c]) for c in range(nf)]
+        if nf == 1:  # one component: one block an MCU, whatever H, V
+            self.comps[0].h = self.comps[0].v = 1
+        if any(not (1 <= f <= 4) for c in self.comps for f in (c.h, c.v)):
+            raise JpegError("sampling factor outside 1..4")
+        self.hmax = max(c.h for c in self.comps)
+        self.vmax = max(c.v for c in self.comps)
+        self.mcus_x = -(-self.w // (8 * self.hmax))
+        self.mcus_y = -(-self.h // (8 * self.vmax))
+        first = 0
+        for c in self.comps:
+            if nf == 1:
+                c.bw, c.bh = -(-self.w // 8), -(-self.h // 8)
+            else:
+                c.bw, c.bh = self.mcus_x * c.h, self.mcus_y * c.v
+            c.first = first
+            first += c.bw * c.bh
+        self.coefs = np.zeros((first, 64), np.int32)
+
+    def comp_dims(self, c: _Component) -> tuple[int, int]:
+        """The component's sample rows and columns."""
+        return -(-self.h * c.v // self.vmax), -(-self.w * c.h // self.hmax)
+
+
+def _scan_units(f: _Frame, comps: list) -> tuple[list, list, int]:
+    """A scan's blocks in decode order: (global block index, the scan
+    component it belongs to) and the blocks an MCU (the restart
+    interval's unit). A one-component scan walks that component's own
+    block grid in raster order; an interleaved one MCU by MCU."""
+    if len(comps) == 1:
+        c = comps[0]
+        rows, cols = f.comp_dims(c)
+        by, bx = -(-rows // 8), -(-cols // 8)
+        blocks = (c.first + np.arange(by)[:, None] * c.bw + np.arange(bx)).ravel()
+        return blocks.tolist(), [0] * len(blocks), 1
+    parts, slots = [], []
+    my, mx = np.arange(f.mcus_y)[:, None], np.arange(f.mcus_x)[None, :]
+    for k, c in enumerate(comps):
+        for v in range(c.v):
+            for h in range(c.h):
+                parts.append(c.first + (my * c.v + v) * c.bw + mx * c.h + h)
+                slots.append(k)
+    blocks = np.stack(parts, axis=-1).reshape(-1)
+    return blocks.tolist(), slots * (f.mcus_x * f.mcus_y), len(parts)
+
+
+def _decode_scan(data: bytes, pos: int, f: _Frame, seg: bytes, htables: dict,
+                 restart: int, keep: set) -> int:
+    """Decode the scan whose SOS body is seg (entropy data at pos) into
+    f.coefs; returns the position of the marker after it. Components not
+    in `keep` are parsed where they share an MCU with a kept one and
+    skipped where a scan holds them alone."""
+    ns = seg[0] if seg else 0
+    if not 1 <= ns <= 4 or len(seg) < 4 + 2 * ns:
+        raise JpegError("bad SOS segment")
+    by_id = {c.id: c for c in f.comps}
+    comps, dcs, acs = [], [], []
+    for k in range(ns):
+        c = by_id.get(seg[1 + 2 * k])
+        if c is None:
+            raise JpegError("scan names an undeclared component")
+        comps.append(c)
+        dcs.append(htables.get((0, seg[2 + 2 * k] >> 4)))
+        acs.append(htables.get((1, seg[2 + 2 * k] & 15)))
+    ss, se, ah, al = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns] >> 4, seg[3 + 2 * ns] & 15
+    if f.progressive:
+        ok = (ss == 0 and se == 0) or (1 <= ss <= se <= 63 and ns == 1)
+        if not ok or al > 13 or (ah and ah != al + 1):
+            raise JpegError("bad progressive scan parameters")
+    elif ss != 0 or se != 63 or ah or al:
+        raise JpegError("non-sequential spectral selection")
+    if ns > 1 and sum(c.h * c.v for c in comps) > 10:
+        raise JpegError("MCU of more than 10 blocks")
+    segs, end = _entropy_segments(data, pos)
+    kept = [c.id in keep for c in comps]
+    if not any(kept):
+        return end
+    for c in comps:
+        if c.quant is None:  # libjpeg latches a component's table at its first scan
+            c.quant = f.tables.get(c.tq)
+            if c.quant is None:
+                raise JpegError(f"quant table {c.tq} undeclared")
+    need_dc = not f.progressive or (ss == 0 and ah == 0)
+    need_ac = not f.progressive or ss > 0
+    if (need_dc and None in dcs) or (need_ac and None in acs):
+        raise JpegError("huffman tables undeclared")
+    blocks, slots, per_mcu = _scan_units(f, comps)
+    step = restart * per_mcu if restart else max(len(blocks), 1)
+    # each restart interval's data, zero-padded, with its blocks
+    intervals = [((segs[i] if i < len(segs) else b"") + bytes(8), lo, min(lo + step, len(blocks)))
+                 for i, lo in enumerate(range(0, len(blocks), step))]
+    flat = f.coefs.reshape(-1)
+    idx, val = [], []
+    if not f.progressive:
+        _sequential(intervals, blocks, slots, kept, dcs, acs, idx, val)
+    elif ss == 0 and ah == 0:
+        _dc_first(intervals, blocks, slots, kept, dcs, al, idx, val)
+    elif ss == 0:
+        _dc_refine(intervals, blocks, slots, kept, idx)
+        flat[np.asarray(idx, np.int64)] |= 1 << al
+        return end
+    elif ah == 0:
+        _ac_first(intervals, blocks, acs[0], ss, se, al, idx, val)
+    else:
+        corr = _ac_refine(intervals, blocks, acs[0], ss, se, al, f.coefs, idx, val)
+        c = flat[corr]
+        p1 = 1 << al
+        flat[corr] = np.where(c & p1, c, c + np.where(c >= 0, p1, -p1))
+    flat[np.asarray(idx, np.int64)] = np.asarray(val, np.int64)
+    return end
+
+
+# The scan decoders below read bits inline from a local accumulator: acc
+# holds the n bits not yet read of buf up to p, refilled 32 bits at a time
+# (at least 32 are held before each symbol: a code of at most 16 bits and
+# its value of at most 16), since a method call a symbol would double the
+# time of a 3328 x 2560 progressive file. A code is looked up by the next
+# 16 bits (`_lookup`); an entry under 0x100 is no code.
+
+
+def _sequential(intervals, blocks, slots, kept, dcs, acs, idx, val) -> None:
+    """A sequential scan: each block's DC difference and AC run-lengths."""
+    add_i, add_v = idx.append, val.append
+    for buf, lo, hi in intervals:
+        p = acc = n = 0
+        pred = [0] * len(dcs)
+        for u in range(lo, hi):
+            k = slots[u]
+            if n < 32:
+                acc = ((acc & ((1 << n) - 1)) << 32) | int.from_bytes(buf[p:p + 4], "big")
+                p, n = p + 4, n + 32
+            e = dcs[k][(acc >> (n - 16)) & 0xFFFF]
+            if e < 0x100 or e & 0xFF > 15:
+                raise JpegError("bad DC code")
+            n -= e >> 8
+            t = e & 0xFF
+            if t:
+                n -= t
+                v = (acc >> n) & ((1 << t) - 1)
+                pred[k] += v - (1 << t) + 1 if v < (1 << (t - 1)) else v
+            keep, look, base = kept[k], acs[k], blocks[u] * 64
+            if keep:
+                add_i(base)
+                add_v(pred[k])
+            z = 1
+            while z < 64:
+                if n < 32:
+                    acc = ((acc & ((1 << n) - 1)) << 32) | int.from_bytes(buf[p:p + 4], "big")
+                    p, n = p + 4, n + 32
+                e = look[(acc >> (n - 16)) & 0xFFFF]
+                if e < 0x100:
+                    raise JpegError("invalid huffman code")
+                n -= e >> 8
+                s = e & 15
+                if s:
+                    z += (e >> 4) & 15
+                    if z > 63:
+                        raise JpegError("AC run past block end")
+                    n -= s
+                    if keep:
+                        v = (acc >> n) & ((1 << s) - 1)
+                        add_i(base + z)
+                        add_v(v - (1 << s) + 1 if v < (1 << (s - 1)) else v)
+                    z += 1
+                elif e & 0xFF == 0xF0:
+                    z += 16
+                else:
+                    break
+
+
+def _dc_first(intervals, blocks, slots, kept, dcs, al, idx, val) -> None:
+    """A first DC scan (T.81 G.1.2.1): each block's DC difference, the
+    value scaled by 2^al."""
+    for buf, lo, hi in intervals:
+        p = acc = n = 0
+        pred = [0] * len(dcs)
+        for u in range(lo, hi):
+            k = slots[u]
+            if n < 32:
+                acc = ((acc & ((1 << n) - 1)) << 32) | int.from_bytes(buf[p:p + 4], "big")
+                p, n = p + 4, n + 32
+            e = dcs[k][(acc >> (n - 16)) & 0xFFFF]
+            if e < 0x100 or e & 0xFF > 15:
+                raise JpegError("bad DC code")
+            n -= e >> 8
+            t = e & 0xFF
+            if t:
+                n -= t
+                v = (acc >> n) & ((1 << t) - 1)
+                pred[k] += v - (1 << t) + 1 if v < (1 << (t - 1)) else v
+            if kept[k]:
+                idx.append(blocks[u] * 64)
+                val.append(pred[k] << al)
+
+
+def _dc_refine(intervals, blocks, slots, kept, idx) -> None:
+    """A refining DC scan: one bit a block; idx gets the blocks whose bit
+    is 1."""
+    for buf, lo, hi in intervals:
+        bits = np.unpackbits(np.frombuffer(buf, np.uint8))
+        idx.extend(blocks[u] * 64 for u in range(lo, hi) if bits[u - lo] and kept[slots[u]])
+
+
+def _ac_first(intervals, blocks, look, ss, se, al, idx, val) -> None:
+    """A first AC scan of one component (T.81 G.1.2.2): run-lengths within
+    the band [ss, se], values scaled by 2^al, EOB runs across blocks."""
+    add_i, add_v = idx.append, val.append
+    for buf, lo, hi in intervals:
+        p = acc = n = eobrun = 0
+        for u in range(lo, hi):
+            if eobrun:
+                eobrun -= 1
+                continue
+            base, z = blocks[u] * 64, ss
+            while z <= se:
+                if n < 32:
+                    acc = ((acc & ((1 << n) - 1)) << 32) | int.from_bytes(buf[p:p + 4], "big")
+                    p, n = p + 4, n + 32
+                e = look[(acc >> (n - 16)) & 0xFFFF]
+                if e < 0x100:
+                    raise JpegError("invalid huffman code")
+                n -= e >> 8
+                rr, s = (e >> 4) & 15, e & 15
+                if s:
+                    z += rr
+                    if z > 63:
+                        raise JpegError("AC run past block end")
+                    n -= s
+                    v = (acc >> n) & ((1 << s) - 1)
+                    add_i(base + z)
+                    add_v((v - (1 << s) + 1 if v < (1 << (s - 1)) else v) << al)
+                    z += 1
+                elif rr == 15:
+                    z += 16
+                else:
+                    eobrun = 1 << rr
+                    if rr:
+                        n -= rr
+                        eobrun += (acc >> n) & ((1 << rr) - 1)
+                    eobrun -= 1
+                    break
+
+
+def _ac_refine(intervals, blocks, look, ss, se, al, coefs, idx, val) -> np.ndarray:
+    """A refining AC scan of one component (T.81 G.1.2.3, libjpeg's
+    decode_mcu_AC_refine): new coefficients of +-2^al placed after runs of
+    zeros, and a correction bit for each coefficient already nonzero that a
+    run or an EOB run passes. Only coefficients nonzero before the scan
+    take a correction bit, so their positions are found for all blocks at
+    once, a run jumps over its zeros, and the correction bits between two
+    symbols are read as one integer, recorded with the index of their
+    first coefficient in that list and expanded with numpy at the end.
+    New coefficients go to idx and val; returns the flat indices whose
+    correction bit is 1."""
+    p1, m1 = 1 << al, -(1 << al)
+    bl = np.asarray(blocks, np.int64)
+    rows, cols_np = np.nonzero(coefs[bl, ss:se + 1])
+    starts = np.searchsorted(rows, np.arange(len(bl) + 1)).tolist()
+    cols = (cols_np + ss).tolist()
+    firsts, counts, words = [], [], []   # correction bits: where, how many, which
+    for buf, lo, hi in intervals:
+        p = acc = n = eobrun = 0
+        for u in range(lo, hi):
+            j, end = starts[u], starts[u + 1]
+            base, z = blocks[u] * 64, ss
+            while not eobrun and z <= se:
+                if n < 32:
+                    acc = ((acc & ((1 << n) - 1)) << 32) | int.from_bytes(buf[p:p + 4], "big")
+                    p, n = p + 4, n + 32
+                e = look[(acc >> (n - 16)) & 0xFFFF]
+                if e < 0x100:
+                    raise JpegError("invalid huffman code")
+                n -= e >> 8
+                rr, s = (e >> 4) & 15, e & 15
+                if s:
+                    n -= 1
+                    s = p1 if (acc >> n) & 1 else m1
+                elif rr != 15:
+                    eobrun = 1 << rr
+                    if rr:
+                        n -= rr
+                        eobrun += (acc >> n) & ((1 << rr) - 1)
+                    break
+                # pass rr zeros and the nonzero coefficients between, which
+                # take one correction bit each, read together
+                j0 = j
+                while True:
+                    gap = (cols[j] if j < end else se + 1) - z
+                    if rr < gap:
+                        z += rr
+                        break
+                    rr -= gap
+                    z += gap + 1
+                    if z > se + 1:
+                        break
+                    j += 1
+                cnt = j - j0
+                if cnt:
+                    while n < cnt:
+                        acc = ((acc & ((1 << n) - 1)) << 32) | int.from_bytes(buf[p:p + 4], "big")
+                        p, n = p + 4, n + 32
+                    n -= cnt
+                    firsts.append(j0)
+                    counts.append(cnt)
+                    words.append((acc >> n) & ((1 << cnt) - 1))
+                if s and z <= se:
+                    idx.append(base + z)
+                    val.append(s)
+                z += 1
+            if eobrun:
+                # in an EOB run (the block that read the EOB is its first): a
+                # correction bit for each nonzero coefficient left
+                cnt = end - j
+                if cnt:
+                    while n < cnt:
+                        acc = ((acc & ((1 << n) - 1)) << 32) | int.from_bytes(buf[p:p + 4], "big")
+                        p, n = p + 4, n + 32
+                    n -= cnt
+                    firsts.append(j)
+                    counts.append(cnt)
+                    words.append((acc >> n) & ((1 << cnt) - 1))
+                eobrun -= 1
+    # bit t of a chunk (from its most significant) is coefficient first + t's
+    counts_np = np.asarray(counts, np.int64)
+    chunk = np.repeat(np.arange(len(counts_np)), counts_np)
+    t = np.arange(len(chunk)) - np.repeat(np.cumsum(counts_np) - counts_np, counts_np)
+    shift = (counts_np[chunk] - 1 - t).astype(np.uint64)
+    hit = ((np.asarray(words, np.uint64)[chunk] >> shift) & np.uint64(1)) == 1
+    at = np.asarray(firsts, np.int64)[chunk][hit] + t[hit]
+    return bl[rows[at]] * 64 + cols_np[at] + ss
+
+
+def jpeg_luma_decode(data: bytes) -> tuple[np.ndarray, int]:
+    """A JPEG file as libjpeg's grayscale output, what cv2.imread's
+    IMREAD_GRAYSCALE returns, up to the IDCT's +-1-2 codes: baseline,
+    extended sequential (8 and 12 bits) or progressive huffman, any scan
+    layout and restart interval. The colour space is libjpeg's guess
+    (`_colour_space`): gray and YCbCr give the first component's plane;
+    RGB goes to gray as libjpeg's rgb_gray_convert; CMYK and YCCK (YCCK
+    to CMYK as libjpeg's ycck_cmyk_convert) as cv2's
+    icvCvt_CMYK2Gray_8u_C4C1R. Arithmetic-coded and lossless frames, and
+    RGB, CMYK or YCCK with subsampled components, raise JpegError."""
+    if len(data) < 4 or data[0] != 0xFF or data[1] != 0xD8:
+        raise JpegError("not a JPEG stream (missing SOI)")
+    pos, f, jfif, adobe = 2, None, False, None
+    htables: dict = {}
+    tables: dict = {}
+    restart = 0
+    keep: set = set()
+    while pos + 2 <= len(data):
+        if data[pos] != 0xFF:
+            raise JpegError(f"expected marker, got 0x{data[pos]:02x}")
+        while pos + 1 < len(data) and data[pos + 1] == 0xFF:
+            pos += 1
+        if pos + 1 >= len(data):
+            break
+        marker = data[pos + 1]
+        pos += 2
+        if marker == 0xD9:
+            break
+        if marker == 0x01 or 0xD0 <= marker <= 0xD7:
+            continue
+        if pos + 2 > len(data):
+            raise JpegError("truncated marker stream")
+        (seg_len,) = struct.unpack_from(">H", data, pos)
+        if seg_len < 2 or pos + seg_len > len(data):
+            raise JpegError("marker segment overruns stream")
+        seg = data[pos + 2:pos + seg_len]
+        pos += seg_len
+        if marker in _SEQUENTIAL or marker == _PROGRESSIVE:
+            if f is not None:
+                raise JpegError("second SOF")
+            f = _Frame(seg, marker == _PROGRESSIVE, tables)
+            space = _colour_space(f, jfif, adobe)
+            keep = {f.comps[0].id} if space in ("gray", "ycc") else {c.id for c in f.comps}
+        elif 0xC3 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+            raise JpegError(f"SOF 0x{marker:02x} unsupported")
+        elif marker == 0xE0 and seg[:5] == b"JFIF\x00":
+            jfif = True
+        elif marker == 0xEE and seg[:5] == b"Adobe" and len(seg) >= 12:
+            adobe = seg[11]
+        elif marker == 0xC4:
+            off = 0
+            while off < len(seg):
+                counts = bytes(seg[off + 1:off + 17])
+                if len(counts) < 16 or seg[off] >> 4 > 1:
+                    raise JpegError("bad DHT segment")
+                n = sum(counts)
+                htables[(seg[off] >> 4, seg[off] & 15)] = _lookup(
+                    counts, bytes(seg[off + 17:off + 17 + n]))
+                off += 17 + n
+        elif marker == 0xDB:
+            off = 0
+            while off < len(seg):
+                pq, size = seg[off] >> 4, 129 if seg[off] >> 4 else 65
+                if off + size > len(seg):
+                    raise JpegError("truncated DQT segment")
+                tables[seg[off] & 15] = np.frombuffer(
+                    seg[off + 1:off + size], ">u2" if pq else np.uint8).astype(np.int32)
+                off += size
+        elif marker == 0xDD:
+            if len(seg) < 2:
+                raise JpegError("truncated DRI segment")
+            (restart,) = struct.unpack_from(">H", seg, 0)
+        elif marker == 0xDA:
+            if f is None:
+                raise JpegError("SOS before SOF")
+            pos = _decode_scan(data, pos, f, seg, htables, restart, keep)
+    if f is None or any(c.quant is None for c in f.comps if c.id in keep):
+        raise JpegError("no scan data")
+    return _to_gray(f, space), f.precision
+
+
+def _colour_space(f: _Frame, jfif: bool, adobe) -> str:
+    """libjpeg's jpeg_color_space for the frame (jdapimin.c's
+    default_decompress_parms): "gray", "ycc", "rgb", "cmyk" or "ycck"."""
+    nf = len(f.comps)
+    if nf == 1:
+        return "gray"
+    if nf == 3:
+        if jfif:
+            return "ycc"
+        if adobe is not None:
+            return "rgb" if adobe == 0 else "ycc"
+        return "rgb" if [c.id for c in f.comps] == [82, 71, 66] else "ycc"
+    return "cmyk" if adobe is None or adobe == 0 else "ycck"
+
+
+def _to_gray(f: _Frame, space: str) -> np.ndarray:
+    planes = []
+    for c in f.comps if space not in ("gray", "ycc") else f.comps[:1]:
+        if (c.h, c.v) != (f.hmax, f.vmax):
+            raise JpegError(f"{space} component subsampled against another")
+        planes.append(_samples(f.coefs[c.first:c.first + c.bw * c.bh], c.quant, c.bh, c.bw,
+                               f.h, f.w, f.precision))
+    if space in ("gray", "ycc"):
+        return planes[0]
+    if f.precision != 8:
+        raise JpegError(f"{space} at {f.precision} bits unsupported")
+    p = [x.astype(np.int64) for x in planes]
+    if space == "rgb":  # jdcolor.c rgb_gray_convert: FIX(0.299, 0.587, 0.114) at 16 bits
+        return ((19595 * p[0] + 38470 * p[1] + 7471 * p[2] + 32768) >> 16).astype(np.uint8)
+    if space == "ycck":  # jdcolor.c ycck_cmyk_convert: YCC -> RGB, inverted; K kept
+        y, cb, cr = p[0], p[1] - 128, p[2] - 128
+        p[0] = np.clip(255 - (y + ((91881 * cr + 32768) >> 16)), 0, 255)
+        p[1] = np.clip(255 - (y + ((-22554 * cb - 46802 * cr + 32768) >> 16)), 0, 255)
+        p[2] = np.clip(255 - (y + ((116130 * cb + 32768) >> 16)), 0, 255)
+    # cv2's icvCvt_CMYK2Gray_8u_C4C1R on libjpeg's (Adobe-inverted) CMYK
+    c, m, y, k = p
+    c, m, y = (k - (((255 - x) * k) >> 8) for x in (c, m, y))
+    return ((1868 * y + 9617 * m + 4899 * c + 8192) >> 14).astype(np.uint8)

@@ -14,7 +14,7 @@ an error.
 
 `csrc/legacy/` holds the kernels that the redesigned ones replaced, for
 timings only (`chip_smoke.py --tail-device-times`, `--equalize-ccl-times`,
-`--mode-jet-times` and `--flood-seeded-times`);
+`--mode-jet-times`, `--flood-seeded-times` and `--packed-watershed-times`);
 `load_legacy` builds them into a library of their own, and no path loads
 it.
 
@@ -51,8 +51,7 @@ _SIGNATURES = {
     "cadx_largest_component_mask": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "cadx_watershed_pair": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _I, _I, _I, _P),
-    "cadx_watershed_packed": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                              _P),
+    "cadx_watershed_packed": (_P,) * 6 + (_I,) * 7 + (_P,),
     "cadx_conv_leaky": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "cadx_pool": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     "cadx_upsample_nearest": (_P, _P, _I, _I, _I, _I, _I, _P),
@@ -72,6 +71,7 @@ _LEGACY_SIGNATURES = {
     "cadx_jet_blend_two_pass": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "cadx_flood_from_one_block": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "cadx_largest_component_seeded_one_block": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "cadx_watershed_packed_one_block": (_P,) * 5 + (_I,) * 7 + (_P,),
 }
 
 

@@ -4,7 +4,9 @@ plain PyTorch version.
 Replaces `cadx_tpu/kernels/pectoral.py::pectoral_tail_pallas` (its
 `pl.pallas_call` at :124). Source: `csrc/pectoral.cu`, with the tiled
 device code and launch plans it shares with largest_obj and cleaner_front
-in `csrc/tiled_components.cuh`. Steps, per image:
+in `csrc/tiled_components.cuh` and the watershed relaxation it shares
+with the packed marker watershed in `csrc/tiled_watershed.cuh`. Steps,
+per image:
 1. largest 8-connected component of the high-threshold mask, holes filled;
 2. marker bands: erode and dilate with one (k-1)*n+1 window, centred
    (odd k);

@@ -69,12 +69,37 @@ The tiles re-read their halos (1.5x the pixels at 64 x 64, partly from
 L2), and the walks' loads and doubling steps hit shared memory and
 registers.
 
-Packed form. An integer min-plus fixpoint is unique, so the block-level
-Bellman-Ford shared with the pectoral tail (`csrc/components.cuh`)
-reaches the plain version's labels; one block per image, bound by its
-hop count, as in `kernels/pectoral.py`. It runs to the fixpoint and
-ignores `max_iters` and `max_scan`, which change only how fast the plain
-version gets there.
+Packed form (redesigned for the whole card). An integer min-plus
+fixpoint is unique, so any relaxation order reaches the plain version's
+labels; the kernel runs to the fixpoint and ignores `max_iters` and
+`max_scan`, which change only how fast the plain version gets there (and
+where JAX's 256-sweep cap binds, the plain version and JAX stop short of
+it; ROADMAP Queue 3, "Noted"). `cadx_watershed_packed` issues three
+launches over 32 x 32 tiles x images and never waits on the host: a
+prologue writes q = rint(image) (int32: the plain version takes any
+integer-valued float32), the packed markers (dist << 2) | label and the
+first round's dirty flags (a tile holding an unreached pixel), with the
+second round's and the rounds' changed flags zeroed (no memset); the
+pectoral tail's relaxation
+(`csrc/tiled_watershed.cuh::relax_to_fixpoint`, on int32 costs here, on
+uint8 there) relaxes every dirty tile to its local fixpoint in shared
+memory under a 1-pixel halo, a warp a tile (its row and column passes
+alternating until one after the first changes nothing), in rounds with
+grid syncs between them, all in one cooperative launch of as many blocks
+as the card holds at once, until a round marks no tile; an epilogue writes the
+labels (values[label - 1], 0 unreached) and the ridge, folding the pair
+form's `boundary_kernel` into the same pass. `packed_form(...,
+rounds=t)` writes the rounds run into a one-element int32 CUDA tensor.
+
+Bound: bytes. The function reads the image and the markers and writes
+labels and boundary once, 13 bytes a pixel (0.0010 ms at B=1 512² over
+3.35 TB/s). This design's own floor is `packed_floor_bytes`: the
+prologue 16 bytes a pixel (image and markers in, q and pk out), a round
+12 (q read, pk read and written), the epilogue 9 (pk in, labels and
+boundary out). The one-block kernel it replaced (`csrc/legacy/
+watershed_packed_one_block.cu`, built only by `_build.load_legacy`) ran
+one block of 1,024 threads an image over the whole plane in global
+memory, a block barrier a Bellman-Ford sweep.
 """
 
 from __future__ import annotations
@@ -90,7 +115,7 @@ from cadx_tpu_torch.ops.watershed import marker_watershed_plain
 SOURCE = "cadx_tpu_torch/csrc/watershed.cu"
 REPLACES = "cadx_tpu/kernels/watershed_kernel.py:83"
 _PAIR_PLANES = 5     # srow, scol, d0, d1 (float32) and l1 (int32)
-_PACKED_PLANES = 2   # q, pk (int32)
+PACKED_TILE = 32     # the packed form's tile side (kTile, csrc/tiled_components.cuh)
 TILES = ((64, 64), (64, 128))   # the tiled sweep's tiles (rows, columns)
 MAX_HALO = 7              # the widest halo a tiled sweep takes (max_scan <= 8)
 CHECK_EVERY = 16          # sweeps between two host reads of the changed flags
@@ -178,20 +203,45 @@ marker_watershed.launches = 0
 marker_watershed.host_syncs = 0   # host synchronisations of the last pair-form call
 
 
+def packed_tiles(b: int, h: int, w: int) -> int:
+    """The packed form's tiles x images."""
+    return b * -(-h // PACKED_TILE) * -(-w // PACKED_TILE)
+
+
+def packed_scratch_bytes(b: int, h: int, w: int) -> int:
+    """`cadx_watershed_packed`'s scratch: two int32 planes (q, pk), four
+    int32 (the rounds' changed flags and a rounds slot) and two dirty
+    flags a tile."""
+    return 8 * b * h * w + 16 + 2 * packed_tiles(b, h, w)
+
+
+def packed_floor_bytes(b: int, h: int, w: int, rounds: int) -> int:
+    """The bytes the packed form's launches move at the least: the
+    prologue 16 a pixel, a round 12, the epilogue 9."""
+    return (16 + 12 * rounds + 9) * b * h * w
+
+
 def packed_form(img: torch.Tensor, mk: torch.Tensor, values: tuple,
-                labels: torch.Tensor, boundary: torch.Tensor) -> None:
+                labels: torch.Tensor, boundary: torch.Tensor,
+                rounds: torch.Tensor | None = None) -> None:
     """The packed form's launches (`cadx_watershed_packed`) into labels and
     boundary, for `marker_watershed`'s checked inputs; counted here apart
     from the pair form (`packed_form.launches`) as well as in
-    `marker_watershed.launches`."""
+    `marker_watershed.launches`. `rounds`, a one-element int32 tensor on
+    the same device, receives the relaxation's rounds."""
     b, h, w = img.shape
-    scratch = torch.empty((b, _PACKED_PLANES, h, w), dtype=torch.int32,
+    if rounds is not None:
+        _build.check_input(rounds, torch.int32, "packed_form rounds", ndim=1)
+        if rounds.device != img.device:
+            raise ValueError(f"packed_form: rounds on {rounds.device}, "
+                             f"images on {img.device}")
+    scratch = torch.empty((packed_scratch_bytes(b, h, w),), dtype=torch.uint8,
                           device=img.device)
     v = values + (0,) * (3 - len(values))
     rc = _build.load().cadx_watershed_packed(
         img.data_ptr(), mk.data_ptr(), labels.data_ptr(), boundary.data_ptr(),
-        scratch.data_ptr(), b, h, w, v[0], v[1], v[2], len(values),
-        _build.stream_ptr(img.device))
+        scratch.data_ptr(), None if rounds is None else rounds.data_ptr(), b, h,
+        w, v[0], v[1], v[2], len(values), _build.stream_ptr(img.device))
     _build.check(rc, "cadx_watershed_packed")
     packed_form.launches += 1
 

@@ -160,38 +160,70 @@ def _cv2_area_taps(n_in: int, n_out: int) -> tuple[np.ndarray, np.ndarray]:
 def _cv2_area_zoom_taps(n_in: int, n_out: int) -> tuple[np.ndarray, np.ndarray]:
     """The two taps a side of cv2's INTER_AREA where an axis zooms: source
     floor(d * scale) and the next, the second weighted by the fractional
-    part of (d + 1) - (s + 1) / scale (0 where that is not positive), the
-    last source pixel alone at the edge."""
+    part of (d + 1) - (s + 1) / scale (0 where that is not positive, and
+    at the last source pixel, which stands alone at the edge)."""
     scale, inv = n_in / n_out, n_out / n_in
     idx = np.zeros((n_out, 2), np.int64)
     w = np.zeros((n_out, 2), np.float32)
     for d in range(n_out):
         s = math.floor(d * scale)
-        f = float(np.float32((d + 1) - (s + 1) * inv))
-        f = 0.0 if f <= 0 else f - math.floor(f)
+        f = np.float32((d + 1) - (s + 1) * inv)
+        f = np.float32(0.0) if f <= 0 else np.float32(f - math.floor(f))
         if s >= n_in - 1:
-            s, f = n_in - 1, 0.0
+            s, f = n_in - 1, np.float32(0.0)
         idx[d] = (s, min(s + 1, n_in - 1))
-        w[d] = (1.0 - f, f)
+        w[d] = (np.float32(1.0) - f, f)
     return idx, w
+
+
+@functools.cache
+def _cv2_area_zoom_fixed(n_in: int, n_out: int) -> tuple[np.ndarray, np.ndarray]:
+    """The zoom taps as cv2 keeps them for uint8: weights in units of 1/2048
+    (INTER_RESIZE_COEF_SCALE), each rounded from its float; from the first
+    output whose source has no right neighbour on, the source alone at
+    weight 2048 (HResizeLinear's tail)."""
+    idx, w = _cv2_area_zoom_taps(n_in, n_out)
+    fixed = np.rint(w * np.float32(2048)).astype(np.int64)
+    alone = np.cumsum(np.floor(np.arange(n_out) * (n_in / n_out)) + 1 >= n_in) > 0
+    fixed[alone] = (2048, 0)
+    return idx, fixed
+
+
+def _zoom_u8(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """cv2's INTER_AREA of a uint8 image where an axis zooms: its linear
+    resize on the area taps in fixed point, rows to int32 sums in units of
+    1/2048, then each output (((b0 * (r0 >> 4)) >> 16) + ((b1 * (r1 >>
+    4)) >> 16) + 2) >> 2, as its VResizeLinear for 8-bit does it."""
+    (h, w), (oh, ow) = x.shape, out_hw
+    xi, xw = (torch.as_tensor(a, device=x.device) for a in _cv2_area_zoom_fixed(w, ow))
+    yi, yw = (torch.as_tensor(a, device=x.device) for a in _cv2_area_zoom_fixed(h, oh))
+    s = x.to(torch.int64)
+    rows = s[:, xi[:, 0]] * xw[:, 0] + s[:, xi[:, 1]] * xw[:, 1]
+    r0, r1 = rows[yi[:, 0]] >> 4, rows[yi[:, 1]] >> 4
+    b0, b1 = yw[:, :1], yw[:, 1:]
+    return ((((b0 * r0) >> 16) + ((b1 * r1) >> 16) + 2) >> 2).clamp(0, 255)
 
 
 def resize_area_cv2(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     """cv2.resize(img, (w, h), interpolation=cv2.INTER_AREA) of a (H, W)
-    uint8 or uint16 image (in any dtype) on any device; -> float32 of the
-    integer values. A downscale is bit for bit cv2's: at integer factors
-    its fast path, the box sum times 1/area rounded half to even, or at
-    2x2 (its SIMD path) (sum + 2) >> 2; at other factors its general
-    path, each row resampled with `_cv2_area_taps` in float32, then the
-    rows accumulated tap by tap, rounded half to even. Where an axis
-    zooms, cv2 interpolates between two pixels (`_cv2_area_zoom_taps`) in
-    fixed point; this does it in float32, within a code of cv2."""
+    image on any device: a uint8 tensor is a uint8 image, any other dtype
+    holds the values of a uint16 one; -> float32 of the integer values,
+    bit for bit cv2's. A downscale: at integer factors its fast path, the
+    box sum times 1/area rounded half to even, or at 2x2 (its SIMD path)
+    (sum + 2) >> 2; at other factors its general path, each row resampled
+    with `_cv2_area_taps` in float32, then the rows accumulated tap by
+    tap, rounded half to even. Where an axis zooms, cv2 interpolates
+    between two pixels (`_cv2_area_zoom_taps`): in fixed point at uint8
+    (`_zoom_u8`), in float32 at uint16."""
     h, w = img.shape
     oh, ow = out_hw
-    x = img.to(torch.float32)
     if oh > h or ow > w:
+        if img.dtype == torch.uint8:
+            return _zoom_u8(img, out_hw).to(torch.float32)
+        x = img.to(torch.float32)
         return torch.round(_apply_taps(_apply_taps(x, 1, *_cv2_area_zoom_taps(w, ow)),
                                        0, *_cv2_area_zoom_taps(h, oh)))
+    x = img.to(torch.float32)
     if h % oh == 0 and w % ow == 0:
         fh, fw = h // oh, w // ow
         s = x.reshape(oh, fh, ow, fw).sum(dim=(1, 3))

@@ -75,7 +75,7 @@ _imwrite = write_png
 def _resize_area_like(img: np.ndarray, hw, device) -> np.ndarray:
     """cv2.resize(img, (w, h), interpolation=INTER_AREA) on `device`, in
     the upload's dtype."""
-    x = torch.as_tensor(img.astype(np.float32), device=device)
+    x = torch.as_tensor(img if img.dtype == np.uint8 else img.astype(np.float32), device=device)
     return resize_area_cv2(x, tuple(hw)).cpu().numpy().astype(img.dtype)
 
 

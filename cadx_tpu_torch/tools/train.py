@@ -112,10 +112,10 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if args.data_parallel:
         raise SystemExit("--data-parallel is not ported to cadx_tpu_torch yet "
-                         "(ROADMAP Queue 1 item 11)")
+                         "(ROADMAP Queue 1 item 4)")
     if args.bf16_compute:
         raise SystemExit("--bf16-compute is not ported to cadx_tpu_torch yet "
-                         "(ROADMAP Queue 1 item 10, entry 3)")
+                         "(ROADMAP Queue 1 item 1)")
 
     from cadx_tpu_torch.data.dataset import split_train_test
     from cadx_tpu_torch.models import cnn

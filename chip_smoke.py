@@ -66,6 +66,12 @@ Phases, each of which raises on failure (the script then exits nonzero):
      mode in each form on labels out of range, an exact tie and an empty
      mask, twice; ccl 4- and 8-connected on
      `synthetic.tile_edge_cases` at the six shapes, plain uncapped, twice;
+   - the packed watershed (prologue, cooperative tile relaxation,
+     epilogue) at B = 1, 8 and 16 on sides 1x1, 31x33, 32x32, 33x31,
+     200x136, 511x512 and 512x512 with one, two and three marker values,
+     and with markers that leave nothing unreached or none at all, on
+     float images up to 1000 with half-integer values, against its plain
+     version uncapped, twice to the same bytes;
    - equalize twice to the same bytes at every shape a path gives it
      (run_pipeline's B=64 256², the serving uploads' 512², 1024x832 and
      1536x1280 bucket, classify_batch's B=8 512², the CLI's 3328x2560 and
@@ -100,6 +106,13 @@ Phases, each of which raises on failure (the script then exits nonzero):
    none of the other kernels (the flood lies on no path);
 4. the fused pipeline on a B=2 batch on the card and on the CPU: clean_u8
    exact, probs 2e-5, features 1e-5, heatmaps and overlays +-2 u8;
+4b. the even-kernel pectoral path, `cleaner.process(x, pect_removal=True,
+   morph_kn_size=4, n_morph_op=7)` at the serving segment shape (B=8
+   512²) and the pipeline's B=64 256²: remove_pectoral's composed branch,
+   one packed watershed launch a call, pectoral_tail none; the packed
+   watershed's inputs on the way bit-exact against its plain version
+   uncapped, a second run the same bytes, every output equal to the CPU
+   `process`, and each call's wall p50;
 5. serving at full width, `EngineConfig()` defaults, seeded weights:
    warmup, then uploads of a 3328x2560 uint16 native (cleaned at the
    1536x1280 bucket, pair-form watershed), a 1024x832 uint8 native
@@ -190,14 +203,19 @@ Phases, each of which raises on failure (the script then exits nonzero):
    128-sweep cap; its sweeps a call and the time a sweep) and the seeded
    component (phase 2's B=16 256² masks, 1536x1280 generated masks, B=16
    256² random masks at density 0.45; beside ccl + mode and largest_obj)
-   beside the one-block kernels they replaced, and the packed watershed
-   beside its plain version (B=1 512², B=8 512², B=16 256², cleaner
-   markers; the record's row is B=1 512²) (`python3 chip_smoke.py
+   beside the one-block kernels they replaced (`python3 chip_smoke.py
    --flood-seeded-times`, in a fresh process: events and profiler device
    time in turns old, new, other launches, new, old), and the traces of
    one flood call at B=64 256² and at B=1 1536x1280 (one launch, at most
    one memset, no synchronising runtime call) and of one seeded call (no
-   flood, every grid larger than the batch); pectoral_tail and
+   flood, every grid larger than the batch); the packed watershed beside
+   the one-block kernel it replaced and its plain version (B=1 512², B=8
+   512², B=16 256², cleaner markers; the record's row is B=1 512²), with
+   its rounds, bound, design floor and targets, the trace of one B=1 512²
+   call (three launches over tiles x images, no synchronising call), and
+   pectoral_tail at B=64 256² and B=1 512² beside its records from before
+   its relaxation moved into `csrc/tiled_watershed.cuh` (`python3
+   chip_smoke.py --packed-watershed-times`, in a fresh process); pectoral_tail and
    gradcam_tail beside the one-block kernels they replaced (kept in
    `csrc/legacy/`; `python3 chip_smoke.py --tail-device-times`, in a
    fresh process): pectoral_tail by step (object, bands and markers,
@@ -234,14 +252,17 @@ Phases, each of which raises on failure (the script then exits nonzero):
 9. the HTTP front: the port's `serve.app.make_server` with warmup on
    127.0.0.1, port 0, its own `InferenceEngine()` at `EngineConfig()`
    defaults on the card with seeded weights, driven over a socket with
-   uploads of a 512² u8 PNG, a 1024x832 16-bit PNG, and a 3328x2560 u16
+   uploads of a 512² u8 PNG, a 1024x832 16-bit PNG, a 3328x2560 u16
    image as explicit VR little endian, JPEG lossless SV1 and RLE DICOMs
-   (written by the port's `dcmwrite_minimal`); per upload /upload-single,
+   (written by the port's `dcmwrite_minimal`), a 512² progressive JPEG
+   (`tests/data/upload_progressive.jpg`) and a 512² 24-bit BMP named
+   `.png`; per upload /upload-single,
    /view_segmentation (64 masks), /classify and /roi for both pipelines;
    then a zip of 8 PNGs through /upload-bulk, /bulk-classify for both
    pipelines and /upload-bulk-image. Every answer is held against the
    same engine called directly on the decoded image: the stored upload
-   equal to the image written, features to 1e-6, probabilities to 1e-6,
+   equal to the image written (for the JPEG and the BMP, the reader's
+   image of the file), features to 1e-6, probabilities to 1e-6,
    ROI boxes, clean, overlay and heatmap PNGs equal, bulk rows equal to
    `classify_batch` on the same resized stack; an HTTP 500, an "error"
    field or an exception stored by an artifact job fails the phase. The
@@ -257,7 +278,8 @@ Phases, each of which raises on failure (the script then exits nonzero):
 
 The last line of standard output is {"ok": true, "device": {...}}; the
 line before it is the per-kernel JSON record: the fifteen kernels and the
-packed watershed's form ("watershed_packed"), which shares watershed.cu. Imports torch, numpy and
+packed watershed's form ("watershed_packed", its launches those of phase
+4b's path), which shares watershed.cu. Imports torch, numpy and
 the port only.
 """
 
@@ -304,6 +326,7 @@ CLI_ARGS = ["--features", "encoder", "--feature-size", "32", "--conv-layers", "1
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM3 bytes/s and float32
 # FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
+TRACE_ATTEMPTS = 3
 FP32_OPS_PER_S = 67e12
 
 
@@ -364,18 +387,26 @@ def device_ms_by_kernel(fn, iters: int = 3) -> dict:
 
 def trace_events(fn) -> list:
     """The events of a torch.profiler trace (host and card) of one call of
-    fn."""
+    fn. Late in a long process the profiler can drop the card's records of
+    the port's ctypes launches (PERF.md §7): a trace whose host side holds
+    launch calls but whose card side holds no kernel is taken again, up to
+    TRACE_ATTEMPTS times."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(TRACE_ATTEMPTS):
         torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as fh:
-            return json.load(fh).get("traceEvents", [])
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as fh:
+                events = json.load(fh).get("traceEvents", [])
+        if any(e.get("cat") == "kernel" for e in events) or not runtime_calls(
+                events, ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchCooperativeKernel")):
+            break
+    return events
 
 
 def kernel_grids(fn, name_part: str) -> list:
@@ -1018,6 +1049,20 @@ def equalize_ccl_times() -> int:
         print(json.dumps(row), flush=True)
         return row
 
+    # the trace first, while the profiler keeps every record of the process
+    h, w = 3328, 2560
+    x = equalize_path_input(1, h, w, dev)
+    KE.equalize(x)
+    events = trace_events(lambda: KE.equalize(x))
+    trace = {"shape": f"B=1 {h}x{w}",
+             "grids": [e["args"]["grid"] for e in events
+                       if e.get("cat") == "kernel" and "grid" in e.get("args", {})],
+             "memsets": sum(1 for e in events if e.get("cat") == "gpu_memset"),
+             "launch_calls": runtime_calls(events, ("cudaLaunchKernel", "cudaLaunchKernelExC")),
+             "sync_calls": runtime_calls(events, ("cudaEventSynchronize",
+                                                  "cudaStreamSynchronize", "cudaMemcpy"))}
+    print(json.dumps({"equalize_trace": trace}), flush=True)
+
     eq_rows = []
     for shape, b, h, w in EQ_SHAPES:
         x = equalize_path_input(b, h, w, dev)
@@ -1034,17 +1079,6 @@ def equalize_ccl_times() -> int:
         eq_rows.append(row_of("equalize", shape, x, lambda x=x: KE.equalize(x),
                               old_equalize(legacy, x), lambda x=x: KE.equalize_reference(x),
                               3 * x.numel()))
-    x = equalize_path_input(1, h, w, dev)
-    KE.equalize(x)
-    events = trace_events(lambda: KE.equalize(x))
-    trace = {"shape": f"B=1 {h}x{w}",
-             "grids": [e["args"]["grid"] for e in events
-                       if e.get("cat") == "kernel" and "grid" in e.get("args", {})],
-             "memsets": sum(1 for e in events if e.get("cat") == "gpu_memset"),
-             "launch_calls": runtime_calls(events, ("cudaLaunchKernel", "cudaLaunchKernelExC")),
-             "sync_calls": runtime_calls(events, ("cudaEventSynchronize",
-                                                  "cudaStreamSynchronize", "cudaMemcpy"))}
-    print(json.dumps({"equalize_trace": trace}), flush=True)
 
     # ccl; where the cluster form runs, the tiled form too ("tiled_form")
     ccl_rows = []
@@ -1349,11 +1383,69 @@ def old_seeded(lib, masks, conn: int):
     return run
 
 
+def same_bytes(a, b, what):
+    """Raise unless the tensors (or tuples of them) a and b are equal."""
+    torch.cuda.synchronize()
+    for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{what} disagrees")
+
+
+def cloned(out):
+    return tuple(t.clone() for t in out) if isinstance(out, tuple) else out.clone()
+
+
+def calls_for(fn):
+    """FS_ITERS calls, fewer where a call takes more than FS_WINDOW_S /
+    FS_ITERS, at least 3."""
+    return max(3, min(FS_ITERS, int(FS_WINDOW_S * 1e3 / max(cuda_ms(fn, 1), 1e-3))))
+
+
+def timing_row(card, kernel, shape, inputs, new, old, plain, exact, others=(), extra=None):
+    """Check new, old and others against `exact` (twice each), then time
+    them in turns (old, new, each other twice, new, old: CUDA events, then
+    profiler device time) and the plain version before and after; print
+    and return the row. Bound: inputs and outputs once over the HBM rate,
+    at least one operation an output element."""
+    for name, fn in (("new", new),) + ((("old", old),) if old else ()) + others:
+        same_bytes(cloned(fn()), exact, f"{kernel} [{name}, {shape}] against its plain version")
+        same_bytes(cloned(fn()), cloned(fn()), f"{kernel} [{name}, {shape}] on a second run")
+    out = new()
+    fns = [fn for fn in (old, new) if fn] + [fn for _, fn in others for _ in (0, 1)] \
+        + [fn for fn in (new, old) if fn]
+    iters = [calls_for(fn) for fn in fns]
+    p1 = cuda_ms(plain, FS_PLAIN_ITERS)
+    ev = [cuda_ms(fn, n) for fn, n in zip(fns, iters)]
+    p2 = cuda_ms(plain, FS_PLAIN_ITERS)
+    dv = [device_ms(fn, n) for fn, n in zip(fns, iters)]
+    first, last = (1, -2) if old else (0, -1)
+    b_ms, b_by = bound(nbytes(inputs) + nbytes(out), numel(out[0] if isinstance(out, tuple)
+                                                        else out))
+    row = {"kernel": kernel, "shape": shape, "card": card,
+           "ms": (ev[first] + ev[last]) / 2, "device_ms": captured_mean(dv[first], dv[last]),
+           "plain_ms": (p1 + p2) / 2, "plain_runs_ms": [p1, p2], "runs_ms": ev,
+           "device_runs_ms": dv, "calls": iters, "bound_ms": b_ms, "bound_by": b_by,
+           "device_ms_by_kernel": device_ms_by_kernel(new)}
+    if old:
+        row.update(old_ms=(ev[0] + ev[-1]) / 2, old_device_ms=captured_mean(dv[0], dv[-1]),
+                   old_device_ms_by_kernel=device_ms_by_kernel(old))
+    for i, (name, _) in enumerate(others):
+        k = (2 if old else 1) + 2 * i
+        row[name] = {"ms": (ev[k] + ev[k + 1]) / 2,
+                     "device_ms": captured_mean(dv[k], dv[k + 1])}
+    row.update(extra or {})
+    if row.get("sweeps"):
+        per = row["device_ms"] if row["device_ms"] is not None else row["ms"]
+        row["ms_a_sweep"] = per / row["sweeps"]
+    print(json.dumps(row), flush=True)
+    return row
+
+
 def flood_seeded_times() -> int:
     """`--flood-seeded-times`: the flood and the seeded component beside the
     one-block kernels they replaced (kept in `csrc/legacy/`, built apart by
-    `_build.load_legacy`), and the packed watershed beside its plain
-    version, in a fresh process, where the profiler keeps every record.
+    `_build.load_legacy`), in a fresh process, where the profiler keeps
+    every record.
 
     - flood, 4-connected: fill_holes' border flood of suppress-site
       backgrounds (run_pipeline's B=64 256² batch; B=1 1536x1280 and
@@ -1363,18 +1455,14 @@ def flood_seeded_times() -> int:
     - the seeded component, 8-connected: generated masks (blobs, ties,
       random, empty) with 8 suppress-site masks at B=16 256², generated
       masks at 1536x1280, random masks at density 0.45 (B=16 256²), also
-      beside ccl + mode and largest_obj without fill or opening;
-    - the packed watershed (no old kernel): B=1 512², B=8 512² and B=16
-      256² synthetic mammograms' equalized images and cleaner markers.
+      beside ccl + mode and largest_obj without fill or opening.
 
     Each kernel, and its old one, bit-exact against the plain version (the
     seeded component uncapped) and twice to the same bytes; CUDA events and
     profiler device time in turns old, new, other launches twice, new, old,
     up to FS_ITERS calls a timing after one; the plain version
-    FS_PLAIN_ITERS calls before and after. Bound: inputs and outputs once
-    over the HBM rate, at least one operation an output pixel (the packed
-    watershed's 13 bytes a pixel: image and markers in, labels and
-    boundary out). Traces of one call: the flood at B=1 1536x1280 and B=64
+    FS_PLAIN_ITERS calls before and after (`timing_row`). Traces of one
+    call: the flood at B=1 1536x1280 and B=64
     256² must be one launch, at most one memset, no synchronising runtime
     call; the seeded component at B=16 256² launches no flood and nothing
     of one block an image (every grid holds more blocks than images). Prints
@@ -1387,7 +1475,6 @@ def flood_seeded_times() -> int:
     from cadx_tpu_torch.kernels import flood as KFl
     from cadx_tpu_torch.kernels import largest_obj as KL
     from cadx_tpu_torch.kernels import mode as KM
-    from cadx_tpu_torch.kernels import watershed as KW
     from cadx_tpu_torch.ops import components as TC
     from cadx_tpu_torch.synthetic import synthetic_mammograms, synthetic_native_mammogram
 
@@ -1395,55 +1482,8 @@ def flood_seeded_times() -> int:
     card = card_line()
     legacy = _build.load_legacy()
 
-    def same(a, b, what):
-        torch.cuda.synchronize()
-        for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
-            if not torch.equal(x, y):
-                raise AssertionError(f"{what} disagrees")
-
-    def clone(out):
-        return tuple(t.clone() for t in out) if isinstance(out, tuple) else out.clone()
-
-    def calls_for(fn):
-        """FS_ITERS calls, fewer where a call takes more than
-        FS_WINDOW_S / FS_ITERS, at least 3."""
-        return max(3, min(FS_ITERS, int(FS_WINDOW_S * 1e3 / max(cuda_ms(fn, 1), 1e-3))))
-
-    def row_of(kernel, shape, inputs, new, old, plain, exact, others=(), extra=None):
-        """Check new, old and others against `exact` (twice each), then time
-        them in turns and the plain version before and after."""
-        for name, fn in (("new", new),) + ((("old", old),) if old else ()) + others:
-            same(clone(fn()), exact, f"{kernel} [{name}, {shape}] against its plain version")
-            same(clone(fn()), clone(fn()), f"{kernel} [{name}, {shape}] on a second run")
-        out = new()
-        fns = [fn for fn in (old, new) if fn] + [fn for _, fn in others for _ in (0, 1)] \
-            + [fn for fn in (new, old) if fn]
-        iters = [calls_for(fn) for fn in fns]
-        p1 = cuda_ms(plain, FS_PLAIN_ITERS)
-        ev = [cuda_ms(fn, n) for fn, n in zip(fns, iters)]
-        p2 = cuda_ms(plain, FS_PLAIN_ITERS)
-        dv = [device_ms(fn, n) for fn, n in zip(fns, iters)]
-        first, last = (1, -2) if old else (0, -1)
-        b_ms, b_by = bound(nbytes(inputs) + nbytes(out), numel(out[0] if isinstance(out, tuple)
-                                                            else out))
-        row = {"kernel": kernel, "shape": shape, "card": card,
-               "ms": (ev[first] + ev[last]) / 2, "device_ms": captured_mean(dv[first], dv[last]),
-               "plain_ms": (p1 + p2) / 2, "plain_runs_ms": [p1, p2], "runs_ms": ev,
-               "device_runs_ms": dv, "calls": iters, "bound_ms": b_ms, "bound_by": b_by,
-               "device_ms_by_kernel": device_ms_by_kernel(new)}
-        if old:
-            row.update(old_ms=(ev[0] + ev[-1]) / 2, old_device_ms=captured_mean(dv[0], dv[-1]),
-                       old_device_ms_by_kernel=device_ms_by_kernel(old))
-        for i, (name, _) in enumerate(others):
-            k = (2 if old else 1) + 2 * i
-            row[name] = {"ms": (ev[k] + ev[k + 1]) / 2,
-                         "device_ms": captured_mean(dv[k], dv[k + 1])}
-        row.update(extra or {})
-        if row.get("sweeps"):
-            per = row["device_ms"] if row["device_ms"] is not None else row["ms"]
-            row["ms_a_sweep"] = per / row["sweeps"]
-        print(json.dumps(row), flush=True)
-        return row
+    def row_of(*args, **kwargs):
+        return timing_row(card, *args, **kwargs)
 
     def suppress_site(batch):
         return clean_stage_inputs(batch)[0]
@@ -1478,24 +1518,6 @@ def flood_seeded_times() -> int:
             traces[f"flood {tuple(m.shape)}"] = {"shape": shape, **one_call_trace(
                 lambda m=m, seed=seed: KFl.flood_from(m, seed, 128, 4))}
     del natives
-
-    # the packed watershed on cleaner markers, beside its plain version as the
-    # cleaner calls it (max_scan 8, the default 256-sweep cap)
-    packed_rows = []
-    values = (255, 128, 64)
-    for b, side in ((1, 512), (8, 512), (16, 256)):
-        batch = torch.from_numpy(synthetic_mammograms(b, side, seed=30)).to(dev)
-        _, _, _, equ, high, breast = clean_stage_inputs(batch)
-        mk = pectoral_markers(equ, high, breast)
-        img = equ.to(torch.float32)
-        exact = KW.marker_watershed_reference(img, mk, max_iters=side * side, max_scan=8,
-                                              marker_label_values=values)
-        packed_rows.append(row_of(
-            "watershed_packed", f"B={b} {side}x{side} cleaner markers", (img, mk),
-            lambda img=img, mk=mk: KW.marker_watershed(img, mk, max_scan=8,
-                                                       marker_label_values=values),
-            None, lambda img=img, mk=mk: KW.marker_watershed_reference(
-                img, mk, max_scan=8, marker_label_values=values), exact))
 
     # the seeded component, 8-connected, beside ccl + mode and largest_obj
     small = torch.from_numpy(synthetic_mammograms(16, 256, seed=1)).to(dev)
@@ -1532,8 +1554,174 @@ def flood_seeded_times() -> int:
             raise AssertionError(f"the seeded component launched a flood, a grid of one block "
                                  f"an image or a synchronising call: {trace}")
     print(json.dumps({"card": card, "flood": flood_rows, "largest_component_seeded": seeded_rows,
-                      "watershed_packed": packed_rows, "traces": traces}), flush=True)
+                      "traces": traces}), flush=True)
     return 0
+
+
+# the packed watershed's shapes: (B, H, W) of the timings (cleaner markers),
+# and the sides phase 2 and the card tests hold it at, for B = 1, 8 and 16
+PACKED_TIMED = ((1, 512, 512), (8, 512, 512), (16, 256, 256))
+PACKED_SIDES = ((1, 1), (31, 33), (32, 32), (33, 31), (200, 136), (511, 512), (512, 512))
+PACKED_TARGET_MS = {(1, 512, 512): 0.20, (8, 512, 512): 0.35, (16, 256, 256): 0.15}
+# pectoral_tail's records from before its relaxation moved into
+# csrc/tiled_watershed.cuh (PERF.md row 3; NVIDIA H100 80GB HBM3, 700 W):
+# (device time from the profiler, the highest CUDA-event time) in ms
+PECTORAL_RECORDS_MS = {"B=64 256x256 (run_pipeline)": (0.7222, 0.7554),
+                       "B=1 512x512 (the 512x512 upload)": (0.2737, 0.3085)}
+
+
+def packed_inputs(rng, b: int, h: int, w: int, n_values: int, case: str, dev):
+    """(image, markers, values) for the packed watershed: float images (a
+    smooth field with noise up to 1000, half of the pixels at x.5) and
+    markers of the first n_values of (255, 128, 64): discs and a band
+    ("some"), every pixel a marker ("all") or none ("none")."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    field = 500 + 500 * np.sin(xx / (3 + w / 9)) * np.cos(yy / (4 + h / 11))
+    img = np.clip(field + rng.normal(0, 50, (b, h, w)), 0, 1000)
+    img = (np.floor(img) + np.where(rng.random((b, h, w)) < 0.5, 0.5, 0.0)).astype(np.float32)
+    values = (255, 128, 64)[:n_values]
+    mk = np.zeros((b, h, w), np.int32)
+    if case == "all":
+        mk[:] = values[-1]
+        mk[:, : h // 2] = values[0]
+    elif case == "some":
+        for i in range(b):
+            for v in values:
+                cy, cx = rng.integers(0, h), rng.integers(0, w)
+                mk[i][(yy - cy) ** 2 + (xx - cx) ** 2 < (min(h, w) // 8 + 1) ** 2] = v
+        mk[:, -1, : w // 3] = values[-1]
+    return torch.from_numpy(img).to(dev), torch.from_numpy(mk).to(dev), values
+
+
+def old_packed(lib, img, mk, values):
+    """The replaced one-block packed watershed (`csrc/legacy/`) on
+    preallocated outputs, called as the wrapper called it."""
+    from cadx_tpu_torch.kernels import _build
+
+    b, h, w = img.shape
+    labels = torch.empty((b, h, w), dtype=torch.int32, device=img.device)
+    boundary = torch.empty((b, h, w), dtype=torch.bool, device=img.device)
+    scratch = torch.empty((b, 2, h, w), dtype=torch.int32, device=img.device)
+    v = values + (0,) * (3 - len(values))
+
+    def run():
+        rc = lib.cadx_watershed_packed_one_block(
+            img.data_ptr(), mk.data_ptr(), labels.data_ptr(), boundary.data_ptr(),
+            scratch.data_ptr(), b, h, w, v[0], v[1], v[2], len(values),
+            _build.stream_ptr(img.device))
+        _build.check(rc, "cadx_watershed_packed_one_block")
+        return labels, boundary
+    return run
+
+
+def packed_watershed_times() -> int:
+    """`--packed-watershed-times`: the packed marker watershed beside the
+    one-block kernel it replaced (`csrc/legacy/watershed_packed_one_block.cu`,
+    built apart by `_build.load_legacy`) and beside its plain version, and
+    pectoral_tail, whose relaxation moved into the shared
+    `csrc/tiled_watershed.cuh`, beside its records; in a fresh process,
+    where the profiler keeps every record.
+
+    - the packed watershed on the equalized images and cleaner markers of
+      synthetic mammograms at PACKED_TIMED (seed 30), as the cleaner's
+      composed branch calls it (max_scan 8): new and old bit-exact against
+      the plain version uncapped and twice to the same bytes, then CUDA
+      events and profiler device time in turns old, new, new, old
+      (`timing_row`), the plain version as the cleaner runs it (its
+      256-sweep cap) before and after; the rounds of the relaxation (the
+      kernel's own count), the bound (13 bytes a pixel: image and markers
+      in, labels and boundary out) and this design's floor
+      (`packed_floor_bytes` over the HBM rate), each beside its target;
+    - a trace of one call at B=1 512²: three launches (prologue, the
+      cooperative relaxation, epilogue), none of one block an image, no
+      synchronising runtime call;
+    - pectoral_tail at `pectoral_path_inputs`' B=64 256² and B=1 512²:
+      bit-exact to its plain version uncapped, CUDA events and device time
+      over TAIL_ITERS calls after TAIL_WARMUP, beside PECTORAL_RECORDS_MS.
+
+    Prints one JSON line a row, then one with all of them."""
+    if not torch.cuda.is_available():
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from cadx_tpu_torch.kernels import _build
+    from cadx_tpu_torch.kernels import pectoral as KP
+    from cadx_tpu_torch.kernels import watershed as KW
+    from cadx_tpu_torch.synthetic import synthetic_mammograms
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    legacy = _build.load_legacy()
+    values = (255, 128, 64)
+    packed_in = {}
+    for b, h, w in PACKED_TIMED:
+        batch = torch.from_numpy(synthetic_mammograms(b, h, seed=30)).to(dev)
+        _, _, _, equ, high, breast = clean_stage_inputs(batch)
+        packed_in[(b, h, w)] = (equ.to(torch.float32), pectoral_markers(equ, high, breast))
+    # the trace first, while the profiler keeps every record of the process
+    img, mk = packed_in[PACKED_TIMED[0]]
+    KW.marker_watershed(img, mk, max_scan=8, marker_label_values=values)
+    trace = {"shape": "B=1 512x512 cleaner markers", "images": 1, **one_call_trace(
+        lambda: KW.marker_watershed(img, mk, max_scan=8, marker_label_values=values))}
+    rows = []
+    for b, h, w in PACKED_TIMED:
+        img, mk = packed_in[(b, h, w)]
+        exact = KW.marker_watershed_reference(img, mk, max_iters=h * w, max_scan=8,
+                                              marker_label_values=values)
+        rounds = torch.zeros(1, dtype=torch.int32, device=dev)
+        KW.packed_form(img, mk, values, torch.empty_like(mk),
+                       torch.empty(img.shape, dtype=torch.bool, device=dev), rounds=rounds)
+        n_rounds = int(rounds.item())
+        floor_ms = KW.packed_floor_bytes(b, h, w, n_rounds) / HBM_BYTES_PER_S * 1e3
+        rows.append(timing_row(
+            card, "watershed_packed", f"B={b} {h}x{w} cleaner markers", (img, mk),
+            lambda img=img, mk=mk: KW.marker_watershed(img, mk, max_scan=8,
+                                                       marker_label_values=values),
+            old_packed(legacy, img, mk, values),
+            lambda img=img, mk=mk: KW.marker_watershed_reference(
+                img, mk, max_scan=8, marker_label_values=values), exact,
+            extra={"rounds": n_rounds, "tiles": KW.packed_tiles(b, h, w),
+                   "floor_ms": floor_ms, "floor_bytes_a_pixel": 25 + 12 * n_rounds,
+                   "target_ms": PACKED_TARGET_MS[(b, h, w)]}))
+    print(json.dumps({"watershed_packed_trace": trace}), flush=True)
+    if (len(trace["grids"]) != 3 or trace["sync_calls"]
+            or any(g[0] * g[1] * g[2] <= trace["images"] for g in trace["grids"])):
+        raise AssertionError(f"the packed watershed's call is not three launches over tiles "
+                             f"x images without a synchronising call: {trace}")
+
+    tail_rows = []
+    for name, inputs in pectoral_path_inputs(dev).items():
+        if name not in PECTORAL_RECORDS_MS:
+            continue
+        h, w = inputs[0].shape[1:]
+        plain = KP.pectoral_tail_reference(*inputs, max_iters=h * w, ws_max_iters=h * w)
+        same_bytes(KP.run_plan(*inputs), plain, f"pectoral_tail [{name}]")
+
+        def plan(inputs=inputs):
+            return KP.run_plan(*inputs)
+        ev = [cuda_ms(plan, TAIL_ITERS, TAIL_WARMUP) for _ in range(2)]
+        dv = [device_ms(plan, TAIL_ITERS) for _ in range(2)]
+        rec_device, rec_ms = PECTORAL_RECORDS_MS[name]
+        dev_ms = captured_mean(*dv)
+        row = {"kernel": "pectoral_tail", "shape": name, "card": card,
+               "ms": sum(ev) / 2, "runs_ms": ev, "device_ms": dev_ms, "device_runs_ms": dv,
+               "record_device_ms": rec_device, "record_ms": rec_ms,
+               "device_within_10pct": None if dev_ms is None else dev_ms <= 1.1 * rec_device,
+               "events_within_10pct": sum(ev) / 2 <= 1.1 * rec_ms}
+        print(json.dumps(row), flush=True)
+        tail_rows.append(row)
+    print(json.dumps({"card": card, "watershed_packed": rows, "trace": trace,
+                      "pectoral_tail": tail_rows}), flush=True)
+    return 0
+
+
+def bmp24_bytes(bgr: np.ndarray) -> bytes:
+    """A bottom-up 24-bit BMP (BITMAPINFOHEADER) of (h, w, 3) BGR bytes."""
+    h, w, _ = bgr.shape
+    stride = (3 * w + 3) // 4 * 4
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :3 * w] = bgr[::-1].reshape(h, 3 * w)
+    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size, 2835, 2835, 0, 0)
+    return b"BM" + struct.pack("<IHHI", 54 + rows.size, 0, 0, 54) + info + rows.tobytes()
 
 
 def png16_bytes(img: np.ndarray) -> bytes:
@@ -1622,6 +1810,24 @@ def front_phase(uploads: dict, engine_p50: dict, zero_counts, read_counts, card:
     except native_loader.NativeUnavailable as e:
         native = f"unavailable ({str(e)[:200]})"
     print(f"front: the native DICOM decoder (native/cadx_io.cc, g++) is {native}", flush=True)
+    # a progressive JPEG (libjpeg-turbo's full progression as cv2 writes it,
+    # quality 75, of the 512x512 upload's synthetic image:
+    # tests/data/upload_progressive.jpg) and a 24-bit BMP under a .png name;
+    # the image each upload should store is the reader's
+    prog = (Path(__file__).resolve().parent / "tests" / "data" /
+            "upload_progressive.jpg").read_bytes()
+    u8 = uploads["512x512 u8"]
+    bgr = np.stack([u8, u8[::-1], 255 - u8], axis=-1)
+    with tempfile.TemporaryDirectory() as tmp:
+        for kind, fname, data in (("512x512 progressive JPEG", "case512p.jpg", prog),
+                                  ("512x512 BMP named .png", "case512b.png", bmp24_bytes(bgr))):
+            path = os.path.join(tmp, fname)
+            with open(path, "wb") as fh:
+                fh.write(data)
+            files[kind] = (fname, data, imageio.imread_gray(path), "512x512 u8")
+            check_read = files[kind][2]
+            if check_read is None or check_read.shape != u8.shape:
+                raise AssertionError(f"front: the reader cannot read the {kind}")
 
     front = {}
     ws_root = tempfile.TemporaryDirectory()
@@ -1793,8 +1999,9 @@ def front_phase(uploads: dict, engine_p50: dict, zero_counts, read_counts, card:
             imageio.imread_gray(raw)
             used = sorted(f"{c} {how}" for (c, how), v in TDicom.DECODER_RUNS.items()
                           if v != before.get((c, how), 0))
-            decoder = ", ".join(used) if used else ("PNG, Python (numpy, zlib)"
-                                                    if fname.endswith(".png") else "uncompressed")
+            decoder = ", ".join(used) if used else {
+                b"\x89P": "PNG, Python (numpy, zlib)", b"\xff\xd8": "JPEG, Python (numpy)",
+                b"BM": "BMP, Python (numpy)"}.get(data[:2], "uncompressed")
             dec_ms = route_p50(lambda: imageio.imread_gray(raw))
             eng_ms = p50_ms(lambda: eng.process_single_image(img), N_TIMED)
             # the route's other host stages, each alone on the same data
@@ -2386,6 +2593,24 @@ def main() -> int:
                     KW.marker_watershed_reference(img_, mk_, max_iters=cap, max_scan=max_scan,
                                                   marker_label_values=values),
                     f"{what}, max_scan {max_scan}, plain cap {cap}", ("labels", "boundary"))
+    # the packed form over tiles x images at B = 1, 8, 16 on both sides of
+    # its 32 x 32 tiles up to 512 x 512, with one, two and three marker
+    # values, and markers that leave nothing unreached or that are absent
+    # (the plain version uncapped; max_scan 256 reaches the same fixpoint
+    # in fewer sweeps)
+    packed_cases = [(b, hw, n, "some") for b in (1, 8, 16) for hw in PACKED_SIDES
+                    for n in (1, 2, 3)]
+    packed_cases += [(b, hw, 3, case) for b in (1, 8, 16) for hw in PACKED_SIDES
+                     for case in ("all", "none")]
+    for b, (h, w), n_values, case in packed_cases:
+        img_, mk_, values = packed_inputs(rng, b, h, w, n_values, case, dev)
+        agree_twice("watershed_packed",
+                    lambda i=img_, k=mk_, v=values: KW.marker_watershed(
+                        i, k, max_scan=8, marker_label_values=v),
+                    KW.marker_watershed_reference(img_, mk_, max_iters=h * w + 1, max_scan=256,
+                                                  marker_label_values=values),
+                    f"B={b} {h}x{w}, {n_values} values, markers {case}, plain uncapped",
+                    ("labels", "boundary"))
 
     # the training slice's kernels, at the shapes of the conv layers of the
     # basic (B=8 training, B=64 pipeline) and advanced (B=32 training, B=1
@@ -2590,6 +2815,71 @@ def main() -> int:
             raise AssertionError(f"{name}: card and CPU differ by {err} > {tol}")
 
     phase_done("4")
+
+    # ---- 4b. the even-kernel pectoral path, through the packed watershed -------
+    # process(..., pect_removal=True, morph_kn_size=4, n_morph_op=7) takes
+    # remove_pectoral's composed branch (the fused tail does not anchor an
+    # even window with repeats): select_largest_obj, erode and dilate, the
+    # packed watershed, the ridge, the opening
+    even_kw = dict(pect_removal=True, morph_kn_size=4, n_morph_op=7)
+    even_in = {"B=8 512x512 (the serving segment shape)": torch.from_numpy(
+                   synthetic_mammograms(8, 512, seed=40)).to(dev),
+               f"B={BATCH} {HW}x{HW} (the pipeline's batch)": torch.from_numpy(
+                   synthetic_mammograms(BATCH, HW, seed=50)).to(dev)}
+    zero_counts()
+    even_out = {name: cleaner.process(x, **even_kw) for name, x in even_in.items()}
+    even_launches = read_counts()
+    print(f"even-kernel process path: {len(even_in)} calls "
+          f"({', '.join(even_in)}), launches {even_launches}", flush=True)
+    n_even = len(even_in)
+    if (even_launches["watershed_packed"] != n_even or even_launches["watershed"] != n_even
+            or even_launches["pectoral_tail"]):
+        raise AssertionError(f"the even-kernel path launched the packed watershed "
+                             f"{even_launches['watershed_packed']} times for {n_even} calls "
+                             f"(pectoral_tail {even_launches['pectoral_tail']}): "
+                             f"{even_launches}")
+    # the packed watershed's inputs on the way through a second run, against
+    # its plain version uncapped; the second run's bytes equal the first's
+    seen = []
+    ws_fn = cleaner.marker_watershed
+
+    def recording_watershed(img, mk, *args, **kwargs):
+        out = ws_fn(img, mk, *args, **kwargs)
+        seen.append((img, mk, kwargs, out))
+        return out
+    cleaner.marker_watershed = recording_watershed
+    try:
+        again = {name: cleaner.process(x, **even_kw) for name, x in even_in.items()}
+    finally:
+        cleaner.marker_watershed = ws_fn
+    for (img_, mk_, kwargs, (labels, boundary)), name in zip(seen, even_in):
+        h, w = img_.shape[1:]
+        plain_l, plain_b = KW.marker_watershed_reference(
+            img_.to(torch.float32), mk_, max_iters=h * w + 1, max_scan=kwargs["max_scan"],
+            marker_label_values=kwargs["marker_label_values"])
+        agree("watershed_packed", labels, plain_l, f"even-kernel process, {name}, labels")
+        agree("watershed_packed", boundary, plain_b, f"even-kernel process, {name}, boundary")
+    for name, x in even_in.items():
+        (img_a, res_a), (img_b, res_b) = even_out[name], again[name]
+        cpu_img, cpu_res = cleaner.process(x.cpu(), **even_kw)
+        for field, a, b, c in [("image", img_a, img_b, cpu_img)] + [
+                (f, getattr(res_a, f), getattr(res_b, f), getattr(cpu_res, f))
+                for f in cpu_res._fields]:
+            torch.cuda.synchronize()
+            if not torch.equal(a, b):
+                raise AssertionError(f"even-kernel process [{name}, {field}]: two runs differ")
+            err = max_abs_err(a.cpu(), c)
+            print(f"check even-kernel process [{name}, {field}], card vs CPU: max_abs_err "
+                  f"{err} (tolerance 0, bit-exact)", flush=True)
+            if err != 0.0:
+                raise AssertionError(f"even-kernel process [{name}, {field}]: card and CPU "
+                                     f"differ")
+        ms = p50_ms(lambda x=x: cleaner.process(x, **even_kw), N_TIMED)
+        print(f"time even-kernel process {name}: wall p50 {ms:.3f} ms over {N_TIMED} calls "
+              f"on {card}", flush=True)
+    del even_in, even_out, again, seen
+
+    phase_done("4b")
 
     # ---- 5. serving at full width --------------------------------------------
     eng = E.InferenceEngine(E.EngineConfig(), seed=0, device=dev)
@@ -3486,11 +3776,10 @@ def main() -> int:
               f"with grid {trace['grids']}, {trace['memsets']} memsets and {trace['sync_calls']} "
               f"synchronising runtime calls", flush=True)
     # the flood and the seeded component beside the one-block kernels they
-    # replaced, and the packed watershed beside its plain version, from a
-    # fresh process (flood_seeded_times), which also asserts that one flood
-    # call is one launch with no synchronising call and that the seeded
-    # component launches no flood and nothing of one block an image; the
-    # packed form's record row is its first (B=1 512x512)
+    # replaced, from a fresh process (flood_seeded_times), which also
+    # asserts that one flood call is one launch with no synchronising call
+    # and that the seeded component launches no flood and nothing of one
+    # block an image
     fs_run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
                              "--flood-seeded-times"], capture_output=True, text=True,
                             timeout=900)
@@ -3504,15 +3793,40 @@ def main() -> int:
                                          if k.startswith("flood")}})
     compared.setdefault("largest_component_seeded", []).extend(
         fs["largest_component_seeded"] + [{"trace": fs["traces"]["seeded"]}])
-    compared["watershed_packed"] = fs["watershed_packed"]
-    wp = fs["watershed_packed"][0]
-    times["watershed_packed"] = (wp["ms"], wp["plain_ms"], None)
-    bounds["watershed_packed"] = (wp["bound_ms"], wp["bound_by"])
-    dev_times["watershed_packed"] = (wp["device_ms"], None, None)
     for name, trace in fs["traces"].items():
         print(f"{name} at {trace['shape']}: the trace holds {len(trace['grids'])} kernel "
               f"launches with grids {trace['grids']}, {trace['memsets']} memsets and "
               f"{trace['sync_calls']} synchronising runtime calls", flush=True)
+    # the packed watershed beside its one-block kernel and its plain version,
+    # and pectoral_tail beside its records, from a fresh process
+    # (packed_watershed_times), which also asserts that a B=1 512x512 call
+    # is three launches over tiles x images with no synchronising call; the
+    # packed form's record row is its first (B=1 512x512)
+    pw_run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                             "--packed-watershed-times"], capture_output=True, text=True,
+                            timeout=900)
+    if pw_run.returncode != 0:
+        raise AssertionError(f"the packed watershed timing run failed:\n"
+                             f"{pw_run.stderr[-4000:]}")
+    pw_lines = pw_run.stdout.strip().splitlines()
+    print("\n".join(pw_lines[:-1]), flush=True)
+    pw = json.loads(pw_lines[-1])
+    compared["watershed_packed"] = pw["watershed_packed"] + [{"trace": pw["trace"]}]
+    compared.setdefault("pectoral_tail", []).extend(pw["pectoral_tail"])
+    wp = pw["watershed_packed"][0]
+    times["watershed_packed"] = (wp["ms"], wp["plain_ms"], None)
+    bounds["watershed_packed"] = (wp["bound_ms"], wp["bound_by"])
+    dev_times["watershed_packed"] = (wp["device_ms"], None, None)
+    for row in pw["watershed_packed"]:
+        print(f"time watershed_packed {row['shape']}: device {ms_text(row['device_ms'])} ms "
+              f"(target {row['target_ms']}), events {row['ms']:.4f}, the one-block kernel "
+              f"device {ms_text(row['old_device_ms'])}, events {row['old_ms']:.4f}, plain "
+              f"{row['plain_ms']:.4f}; {row['rounds']} rounds, bound {row['bound_ms']:.4f} "
+              f"({row['bound_by']}), floor {row['floor_ms']:.4f} on {card}", flush=True)
+    for row in pw["pectoral_tail"]:
+        print(f"time pectoral_tail {row['shape']} after the shared header: device "
+              f"{ms_text(row['device_ms'])} ms (record {row['record_device_ms']}), events "
+              f"{row['ms']:.4f} (record {row['record_ms']}) on {card}", flush=True)
     cam6 = torch.from_numpy(rng.random((1, 6, 6)).astype(np.float32)).to(dev)
     hot6 = cam6 >= 0.6 * cam6.amax(dim=(1, 2), keepdim=True)
     lab6 = KC.label_components(hot6, 8)
@@ -3692,12 +4006,14 @@ def main() -> int:
     phase_done("9")
     by_path = {"pipeline": pipe_launches, "serving": serve_launches,
                "reference_gradcam": ref_launches, "training": train_launches,
-               "training_cli": cli_launches, "front": front_launches}
+               "training_cli": cli_launches, "front": front_launches,
+               "even_kernel_process": even_launches}
     # the seeded component lies on no path (as in JAX): 0 on each
     own_path = {"conv_leaky": "training", "pool": "training", "upsample": "training",
                 "batchnorm": "reference_gradcam", "jet_blend": "reference_gradcam",
                 "gradcam_tail": "pipeline", "cleaner_front": "training_cli",
-                "largest_component_seeded": "training_cli"}
+                "largest_component_seeded": "training_cli",
+                "watershed_packed": "even_kernel_process"}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1],
@@ -3727,4 +4043,6 @@ if __name__ == "__main__":
         sys.exit(mode_jet_times())
     if sys.argv[1:] == ["--flood-seeded-times"]:
         sys.exit(flood_seeded_times())
+    if sys.argv[1:] == ["--packed-watershed-times"]:
+        sys.exit(packed_watershed_times())
     sys.exit(main())

@@ -1174,3 +1174,114 @@ def test_jet_blend_kernel_odd_values_and_refusal(dev, monkeypatch):
     with pytest.raises(RuntimeError):
         KOv.jet_blend(big, torch.zeros((sms + 1, 16, 16), device=dev))
     assert KOv.jet_blend.launches == before
+
+
+# ---- the packed marker watershed over tiles x images -------------------------
+
+_PACKED_SIDES = [(1, 1), (31, 33), (32, 32), (33, 31), (200, 136), (511, 512), (512, 512)]
+
+
+def _packed_inputs(rng, b, h, w, n_values, case, dev):
+    """Float images (a smooth field with noise up to 1000, half of the
+    pixels at x.5) and markers of the first n_values of (255, 128, 64):
+    discs and a band ("some"), every pixel a marker ("all") or none
+    ("none")."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    field = 500 + 500 * np.sin(xx / (3 + w / 9)) * np.cos(yy / (4 + h / 11))
+    img = np.clip(field + rng.normal(0, 50, (b, h, w)), 0, 1000)
+    img = (np.floor(img) + np.where(rng.random((b, h, w)) < 0.5, 0.5, 0.0)).astype(np.float32)
+    values = (255, 128, 64)[:n_values]
+    mk = np.zeros((b, h, w), np.int32)
+    if case == "all":
+        mk[:] = values[-1]
+        mk[:, : h // 2] = values[0]
+    elif case == "some":
+        for i in range(b):
+            for v in values:
+                cy, cx = rng.integers(0, h), rng.integers(0, w)
+                mk[i][(yy - cy) ** 2 + (xx - cx) ** 2 < (min(h, w) // 8 + 1) ** 2] = v
+        mk[:, -1, : w // 3] = values[-1]
+    return torch.from_numpy(img).to(dev), torch.from_numpy(mk).to(dev), values
+
+
+def _packed_twice(img, mk, values):
+    """One packed launch a call, bit-exact to the plain version run
+    uncapped, the same bytes on a second run."""
+    h, w = img.shape[1:]
+    before = KW.packed_form.launches
+    got = KW.marker_watershed(img, mk, max_scan=8, marker_label_values=values)
+    rounds = torch.zeros(1, dtype=torch.int32, device=img.device)
+    labels = torch.empty_like(mk)
+    boundary = torch.empty(img.shape, dtype=torch.bool, device=img.device)
+    KW.packed_form(img, mk, values, labels, boundary, rounds=rounds)
+    assert KW.packed_form.launches == before + 2
+    assert 1 <= int(rounds.item()) <= h * w + 1
+    plain = KW.marker_watershed_reference(img, mk, max_iters=h * w + 1, max_scan=256,
+                                          marker_label_values=values)
+    for a, b, c in zip(got, plain, (labels, boundary)):
+        _eq(a, b)
+        _eq(a, c)
+
+
+@pytest.mark.parametrize("n_values", [1, 2, 3])
+@pytest.mark.parametrize("hw", _PACKED_SIDES)
+@pytest.mark.parametrize("b", [1, 8, 16])
+def test_packed_watershed_kernel(dev, rng, b, hw, n_values):
+    _packed_twice(*_packed_inputs(rng, b, *hw, n_values, "some", dev))
+
+
+@pytest.mark.parametrize("case", ["all", "none"])
+@pytest.mark.parametrize("hw", _PACKED_SIDES)
+@pytest.mark.parametrize("b", [1, 8, 16])
+def test_packed_watershed_kernel_edge_markers(dev, rng, b, hw, case):
+    """Markers that leave nothing unreached (no tile dirty), and no markers
+    at all (every tile dirty, nothing falls): one round either way."""
+    img, mk, values = _packed_inputs(rng, b, *hw, 3, case, dev)
+    _packed_twice(img, mk, values)
+    rounds = torch.zeros(1, dtype=torch.int32, device=dev)
+    KW.packed_form(img, mk, values, torch.empty_like(mk),
+                   torch.empty(img.shape, dtype=torch.bool, device=dev), rounds=rounds)
+    assert int(rounds.item()) == 1
+
+
+def test_packed_watershed_kernel_trace(dev, rng):
+    """At B=1 512² the call launches no grid of one block an image and makes
+    no synchronising runtime call: a prologue and an epilogue of 256 blocks
+    and one cooperative launch."""
+    import json
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    img, mk, values = _packed_inputs(rng, 1, 512, 512, 3, "some", dev)
+    KW.marker_watershed(img, mk, max_scan=8, marker_label_values=values)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        KW.marker_watershed(img, mk, max_scan=8, marker_label_values=values)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh).get("traceEvents", [])
+    grids = [e["args"]["grid"] for e in events
+             if e.get("cat") == "kernel" and "grid" in e.get("args", {})]
+    syncs = [e["name"] for e in events if e.get("cat") == "cuda_runtime" and e.get("name") in (
+        "cudaEventSynchronize", "cudaStreamSynchronize", "cudaMemcpy")]
+    assert len(grids) == 3, grids
+    assert all(g[0] * g[1] * g[2] > 1 for g in grids), grids
+    assert not syncs, syncs
+
+
+def test_packed_watershed_kernel_rejects_wrong_inputs(dev):
+    img = torch.zeros((1, 8, 8), dtype=torch.float32, device=dev)
+    mk = torch.zeros((1, 8, 8), dtype=torch.int32, device=dev)
+    out = torch.empty_like(mk), torch.empty((1, 8, 8), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError):
+        KW.packed_form(img, mk, (255,), *out, rounds=torch.zeros(1, device=dev))
+    with pytest.raises(RuntimeError):   # sides beyond 512: the C entry refuses
+        big = torch.zeros((1, 513, 8), dtype=torch.float32, device=dev)
+        KW.packed_form(big, big.to(torch.int32), (255,),
+                       torch.empty((1, 513, 8), dtype=torch.int32, device=dev),
+                       torch.empty((1, 513, 8), dtype=torch.bool, device=dev))

@@ -103,8 +103,8 @@ def test_train_cli_encoder_features(tmp_path, rng):
     assert os.path.exists(os.path.join(out, "cnn_model_advanced.npz"))
 
 
-@pytest.mark.parametrize("flag,where", [("--data-parallel", "Queue 1 item 11"),
-                                        ("--bf16-compute", "Queue 1 item 10, entry 3")])
+@pytest.mark.parametrize("flag,where", [("--data-parallel", r"Queue 1 item 4\)"),
+                                        ("--bf16-compute", r"Queue 1 item 1\)")])
 def test_unported_flags_raise(tmp_path, flag, where):
     with pytest.raises(SystemExit, match=where):
         TT.main(["--csv", str(tmp_path / "none.csv"), "--out-dir", str(tmp_path / "o"),
