@@ -1,6 +1,7 @@
 """Advanced-pipeline compat: load the reference's PyTorch checkpoints.
 
-Port of the loader half of `cadx_tpu/compat/adcnnm.py`. The reference's
+Port of `cadx_tpu/compat/adcnnm.py`, the loader and its inverse, the
+exporter. The reference's
 "advanced" model is a torch CNN (ADCNNM.py:34-78: Conv2d(padding=1) +
 MaxPool2d(2) blocks with LeakyReLU, then a Linear stack) whose best weights
 are saved as a state dict (.pth) and rebuilt from the training-summary
@@ -11,6 +12,9 @@ JSON (load_trained_model, ADCNNM.py:155-202). Here they become the port's
 - linear weights (out, in) become (in, out);
 - the FIRST linear layer's input is permuted from torch's NCHW flatten
   order (C, H, W) to the port's channel-last flatten (H, W, C).
+
+`torch_state_dict_from_params` and `save_trained_model` go the other way,
+so reference-side torch tooling can consume weights the port trained.
 """
 
 from __future__ import annotations
@@ -77,3 +81,33 @@ def load_trained_model(json_path: str, weight_path: str, device=None):
         config = advanced_config_from_summary(json.load(f))
     state_dict = torch.load(weight_path, map_location="cpu", weights_only=True)
     return config, params_from_torch_state_dict(state_dict, config, device)
+
+
+def torch_state_dict_from_params(model: cnn.CNN, config: cnn.CNNConfig) -> dict:
+    """Inverse of params_from_torch_state_dict: the port's CNN as an
+    ADCNNM-layout state dict of CPU float32 tensors (conv OIHW as they are,
+    dense transposed to (out, in), the first dense input permuted back to
+    torch's NCHW flatten order), fc keys at the nn.Sequential indices 0,
+    3, 6, ... (each hidden block is Linear, LeakyReLU, Dropout)."""
+    def cpu(t: torch.Tensor) -> torch.Tensor:
+        return t.detach().to("cpu", torch.float32).contiguous()
+
+    h, w, c = _flatten_hwc(config)
+    out: dict = {}
+    for i, (wgt, b) in enumerate(zip(model.conv_w, model.conv_b)):
+        out[f"convs.{i}.weight"] = cpu(wgt).clone()
+        out[f"convs.{i}.bias"] = cpu(b).clone()
+    dense = list(zip(model.dense_w, model.dense_b)) + [(model.out_w, model.out_b)]
+    for pos, (wgt, b) in enumerate(dense):
+        wt = cpu(wgt).T                                   # (out, in), HWC order
+        if pos == 0:
+            out_dim = wt.shape[0]
+            wt = wt.reshape(out_dim, h, w, c).permute(0, 3, 1, 2).reshape(out_dim, c * h * w)
+        out[f"fc.{3 * pos}.weight"] = wt.contiguous().clone()
+        out[f"fc.{3 * pos}.bias"] = cpu(b).clone()
+    return out
+
+
+def save_trained_model(model: cnn.CNN, config: cnn.CNNConfig, weight_path: str) -> None:
+    """torch.save an ADCNNM-compatible state dict of the port's model."""
+    torch.save(torch_state_dict_from_params(model, config), weight_path)

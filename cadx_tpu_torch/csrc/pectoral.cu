@@ -11,13 +11,12 @@
 //   2. markers   the bands: erode and dilate with the composed window
 //                (k - 1) * n + 1, anchored at its half, a window_pass
 //                launch along y then one along x each; then one launch
-//                writes the packed markers and the watershed's first
-//                dirty tiles;
-//   3. watershed the packed (dist << 2) | label relaxation, a tile a block
-//                (relax_one), in rounds until no tile is dirty, all in one
-//                cooperative launch with grid syncs between the rounds
-//                (tiled_watershed.cuh's relax_to_fixpoint, which
-//                watershed.cu's packed form runs too);
+//                writes the packed markers;
+//   3. watershed the packed (dist << 2) | label relaxation as JAX's sweeps,
+//                until one changes nothing or ws_max_iters ran, at
+//                max_scan, all in one cooperative launch with grid syncs
+//                between the sweeps (tiled_watershed.cuh's relax_capped,
+//                which watershed.cu's packed form runs too);
 //   4. ridge     one launch writes the labels, the ridge and the breast
 //                label off the ridge, then the opening's four window
 //                passes write the mask.
@@ -31,27 +30,21 @@ using namespace cadx_tiled;
 
 // pk = the markers' packed labels at distance 0: 1 on the eroded object, 2
 // outside the dilated one, 3 outside the breast (later ones win), else
-// kUnreachedPk; and the watershed's first dirty flags: a tile is dirty if
-// it holds an unreached pixel (a tile of markers alone never changes), and
-// the rounds' changed flags zeroed. The watershed relaxes the same kTile x
-// kTile tiles, so a tile's flag is its block's.
+// kUnreachedPk; and the first sweep's changed flag zeroed.
 __global__ void __launch_bounds__(kTileThreads)
 write_markers(const uint8_t* __restrict__ eroded, const uint8_t* __restrict__ dilated,
-              const uint8_t* __restrict__ breast, int* __restrict__ pk, uint8_t* dirty,
+              const uint8_t* __restrict__ breast, int* __restrict__ pk,
               int* __restrict__ changed, Tiles g) {
   const Tile tile = this_tile(g);
   const Pixel px = tile_pixel(g, tile);
-  bool open = false;
   if (px.inside) {
     const long long q = tile.img * g.n + px.p;
     int s = eroded[q] ? 1 : 0;
     if (!dilated[q]) s = 2;
     if (!breast[q]) s = 3;
     pk[q] = s ? s : kUnreachedPk;
-    open = s == 0;
   }
-  if (__syncthreads_or(open) && threadIdx.x == 0) dirty[blockIdx.x] = 1;
-  if (blockIdx.x == 0 && threadIdx.x < 3) changed[threadIdx.x] = 0;
+  if (blockIdx.x == 0 && threadIdx.x == 0) changed[0] = 0;
 }
 
 // labels = 255 / 128 / 64 / 0 from pk's label bits; boundary = a
@@ -80,20 +73,24 @@ write_ridge(const int* __restrict__ pk, int* __restrict__ labels, uint8_t* __res
 
 // equ, bin, breast: (B, H, W) uint8 (bin and breast nonzero where set);
 // labels: (B, H, W) int32; boundary, mask: (B, H, W) bytes 0/1; scratch:
-// 8-byte aligned, kernels/pectoral.py::scratch_bytes; rounds: a device int32
-// that receives the watershed's rounds, or null (then a slot of scratch
-// does). steps: 1-4 runs the plan up to and including that step (the
-// outputs are whole only at 4).
+// 8-byte aligned, kernels/pectoral.py::scratch_bytes; sweeps: a device
+// int32 that receives the watershed's sweeps, or null (then a slot of
+// scratch does). ws_max_iters and max_scan: the watershed's sweep cap and
+// scan window, as JAX's pectoral_tail_pallas takes them. steps: 1-4 runs
+// the plan up to and including that step (the outputs are whole only at
+// 4).
 //
-// Scratch: B uint64 keys, four int32 (the rounds' three changed flags and
-// the rounds slot), two int32 planes (the CCL's labels and roots, then pk
-// in the first), three byte planes and two dirty flags a tile.
+// Scratch: B uint64 keys, four int32 (the sweeps' three changed flags and
+// the sweeps slot), four int32 planes (the CCL's labels and roots, then pk
+// twice, srow and scol), three byte planes and two bytes a 32 x 32 tile
+// (the sweeps' tile flags).
 extern "C" int cadx_pectoral_tail(const void* equ, const void* bin, const void* breast,
                                   void* labels, void* boundary, void* mask, void* scratch,
-                                  void* rounds, int B, int H, int W, int morph_k, int n_morph,
-                                  int sm_k, int steps, void* stream) {
+                                  void* sweeps, int B, int H, int W, int morph_k, int n_morph,
+                                  int sm_k, int ws_max_iters, int max_scan, int steps,
+                                  void* stream) {
   if (B <= 0 || H <= 0 || W <= 0) return 0;
-  if (H > 512 || W > 512) return static_cast<int>(cudaErrorInvalidValue);
+  if (H > 512 || W > 512 || ws_max_iters < 0) return static_cast<int>(cudaErrorInvalidValue);
   const Tiles g = make_tiles(H, W);
   const long long blocks = static_cast<long long>(B) * g.per_image;
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
@@ -103,10 +100,10 @@ extern "C" int cadx_pectoral_tail(const void* equ, const void* bin, const void* 
   int* lab = changed + 4;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Planes p{lab, lab + n, keys, g, static_cast<unsigned>(blocks), s};
-  uint8_t* a = reinterpret_cast<uint8_t*>(p.aux + n);
+  uint8_t* a = reinterpret_cast<uint8_t*>(lab + 4 * n);
   uint8_t* obj = a + n;
   uint8_t* c = obj + n;
-  uint8_t* dirty = c + n;
+  uint8_t* tile_fell = c + n;
 
   // 1. the largest 8-connected object, holes filled -> obj
   cudaMemsetAsync(keys, 0, static_cast<size_t>(B) * sizeof(unsigned long long), s);
@@ -124,16 +121,16 @@ extern "C" int cadx_pectoral_tail(const void* equ, const void* bin, const void* 
   window_pass<false, false><<<grid, kTile, 0, s>>>(a, obj, keff, nullptr, nullptr, 0, 0,
                                                           g);
   int* pk = lab;
-  cudaMemsetAsync(dirty, 0, 2 * static_cast<size_t>(blocks), s);
   write_markers<<<grid, kTileThreads, 0, s>>>(c, obj, static_cast<const uint8_t*>(breast), pk,
-                                              dirty, changed, g);
+                                              changed, g);
   if (cudaError_t e = cudaGetLastError(); e != cudaSuccess || steps <= 2)
     return static_cast<int>(e);
 
-  // 3. the packed watershed to its fixpoint
-  int* rounds_at = rounds ? static_cast<int*>(rounds) : changed + 3;
-  if (cudaError_t e = relax_to_fixpoint(static_cast<const uint8_t*>(equ), pk, dirty, changed,
-                                        rounds_at, g, p.grid, s);
+  // 3. the packed watershed's sweeps; the result in pk
+  int* sweeps_at = sweeps ? static_cast<int*>(sweeps) : changed + 3;
+  if (cudaError_t e = relax_capped(static_cast<const uint8_t*>(equ), pk, lab + n, lab + 2 * n,
+                                   lab + 3 * n, changed, tile_fell, sweeps_at, B, H, W,
+                                   ws_max_iters, max_scan, s);
       e != cudaSuccess || steps <= 3)
     return static_cast<int>(e);
 

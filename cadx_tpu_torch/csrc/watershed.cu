@@ -14,10 +14,11 @@
 // programmatic dependent launches, so a sweep's blocks copy the costs
 // while the sweep before it ends.
 //
-// Packed form: three launches over 32 x 32 tiles x images, none of which
-// waits on the host: a prologue writes q = rint(img), the packed markers
-// and the first dirty flags; tiled_watershed.cuh's relax_to_fixpoint runs
-// the relaxation to its fixpoint in one cooperative launch; an epilogue
+// Packed form: three launches over the images, none of which waits on the
+// host: a prologue writes the packed markers; tiled_watershed.cuh's
+// relax_capped runs JAX's sweeps (the prefix sums, then sweeps over 64 x 64
+// tiles, or a warp a line where the window is wider than 8) until one
+// changes nothing or max_iters ran, in one cooperative launch; an epilogue
 // writes the labels and the ridge.
 #include <cmath>
 
@@ -463,31 +464,19 @@ struct Values {
   }
 };
 
-// q = rint(img); pk = the packed markers at distance 0, kUnreachedPk
-// elsewhere; the dirty flags of the first round (a tile holding an
-// unreached pixel) and the second round's zeroed, one thread each, and
-// the rounds' changed flags zeroed, so no memset runs. A block covers one
-// tile, relax_rounds' tile.
+// pk = the packed markers at distance 0, kUnreachedPk elsewhere, and the
+// first sweep's changed flag zeroed, so no memset runs.
 __global__ void __launch_bounds__(ct::kTileThreads)
-packed_prologue(const float* __restrict__ img, const int* __restrict__ markers,
-                int* __restrict__ q, int* __restrict__ pk, uint8_t* __restrict__ dirty,
-                int* __restrict__ changed, ct::Tiles g, unsigned tiles, Values values) {
+packed_prologue(const int* __restrict__ markers, int* __restrict__ pk,
+                int* __restrict__ changed, ct::Tiles g, Values values) {
   const ct::Tile tile = ct::this_tile(g);
   const ct::Pixel px = ct::tile_pixel(g, tile);
-  bool open = false;
   if (px.inside) {
     const long long i = tile.img * g.n + px.p;
-    q[i] = static_cast<int>(rintf(img[i]));
     const int s = values.small_of(markers[i]);
     pk[i] = s ? s : ct::kUnreachedPk;
-    open = s == 0;
   }
-  const int any = __syncthreads_or(open);
-  if (threadIdx.x == 0) {
-    dirty[blockIdx.x] = any ? 1 : 0;
-    dirty[tiles + blockIdx.x] = 0;
-  }
-  if (blockIdx.x == 0 && threadIdx.x < 3) changed[threadIdx.x] = 0;
+  if (blockIdx.x == 0 && threadIdx.x == 0) changed[0] = 0;
 }
 
 // labels = the values of pk's label bits (0 where unreached); boundary =
@@ -662,38 +651,37 @@ extern "C" int cadx_watershed_pair(const void* img, const void* markers, void* l
 
 // img: (B, H, W) float32 (integer-valued); markers, labels: (B, H, W)
 // int32; boundary: (B, H, W) bytes 0/1; scratch: 4-byte aligned,
-// kernels/watershed.py::packed_scratch_bytes: two (B, H, W) int32 planes
-// (q, pk), four int32 (the rounds' three changed flags and a rounds slot)
-// and two dirty flags a tile; rounds: a device int32 that receives the
-// relaxation's rounds, or null (then the scratch's slot does). Up to three
-// marker values, v1..v3, in tie order. Sides up to 512 (the packed
-// distances' int32 range). Runs to the fixpoint; nothing waits on the
-// host.
+// kernels/watershed.py::packed_scratch_bytes: four (B, H, W) int32 planes
+// (pk twice, srow, scol), four int32 (the sweeps' three changed flags and
+// a sweeps slot) and two bytes a 32 x 32 tile (the tiles' flags); sweeps: a device int32 that receives the sweeps run,
+// or null (then the scratch's slot does). Up to three marker values,
+// v1..v3, in tie order. Sides up to 512 (the packed distances' int32
+// range). Runs JAX's sweeps at max_scan until one changes nothing or
+// max_iters ran; nothing waits on the host.
 extern "C" int cadx_watershed_packed(const void* img, const void* markers, void* labels,
-                                     void* boundary, void* scratch, void* rounds, int B, int H,
-                                     int W, int v1, int v2, int v3, int n_values,
-                                     void* stream) {
+                                     void* boundary, void* scratch, void* sweeps, int B, int H,
+                                     int W, int v1, int v2, int v3, int n_values, int max_iters,
+                                     int max_scan, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0) return 0;
-  if (H > 512 || W > 512 || n_values < 0 || n_values > 3)
+  if (H > 512 || W > 512 || n_values < 0 || n_values > 3 || max_iters < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const ct::Tiles g = ct::make_tiles(H, W);
   const long long blocks = static_cast<long long>(B) * g.per_image;
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned tiles = static_cast<unsigned>(blocks);
   const long long n = static_cast<long long>(B) * g.n;
-  int* q = static_cast<int*>(scratch);
-  int* pk = q + n;
-  int* changed = pk + n;
-  uint8_t* dirty = reinterpret_cast<uint8_t*>(changed + 4);
-  int* rounds_at = rounds ? static_cast<int*>(rounds) : changed + 3;
+  int* pk = static_cast<int*>(scratch);
+  int* changed = pk + 4 * n;
+  uint8_t* tile_fell = reinterpret_cast<uint8_t*>(changed + 4);
+  int* sweeps_at = sweeps ? static_cast<int*>(sweeps) : changed + 3;
   const Values values{{v1, v2, v3}, n_values};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  packed_prologue<<<tiles, ct::kTileThreads, 0, st>>>(static_cast<const float*>(img),
-                                                      static_cast<const int*>(markers), q, pk,
-                                                      dirty, changed, g, tiles, values);
+  const unsigned tiles = static_cast<unsigned>(blocks);
+  packed_prologue<<<tiles, ct::kTileThreads, 0, st>>>(static_cast<const int*>(markers), pk,
+                                                      changed, g, values);
   if (cudaError_t e = cudaGetLastError(); e != cudaSuccess) return static_cast<int>(e);
-  if (cudaError_t e = ct::relax_to_fixpoint(static_cast<const int*>(q), pk, dirty, changed,
-                                            rounds_at, g, tiles, st);
+  if (cudaError_t e = ct::relax_capped(static_cast<const float*>(img), pk, pk + n, pk + 2 * n,
+                                       pk + 3 * n, changed, tile_fell, sweeps_at, B, H, W,
+                                       max_iters, max_scan, st);
       e != cudaSuccess)
     return static_cast<int>(e);
   packed_epilogue<<<tiles, ct::kTileThreads, 0, st>>>(pk, static_cast<int*>(labels),

@@ -46,13 +46,14 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _SIGNATURES = {
     "cadx_equalize_hist": (_P, _P, _P, _I, _I, _I, _P),
     "cadx_largest_obj": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "cadx_pectoral_tail": (_P,) * 8 + (_I,) * 7 + (_P,),
+    "cadx_pectoral_tail": (_P,) * 8 + (_I,) * 9 + (_P,),
     "cadx_ccl": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "cadx_largest_component_mask": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "cadx_watershed_pair": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _I, _I, _I, _P),
-    "cadx_watershed_packed": (_P,) * 6 + (_I,) * 7 + (_P,),
+    "cadx_watershed_packed": (_P,) * 6 + (_I,) * 9 + (_P,),
     "cadx_conv_leaky": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    "cadx_conv_leaky_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "cadx_pool": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     "cadx_upsample_nearest": (_P, _P, _I, _I, _I, _I, _I, _P),
     "cadx_batchnorm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
@@ -71,7 +72,7 @@ _LEGACY_SIGNATURES = {
     "cadx_jet_blend_two_pass": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "cadx_flood_from_one_block": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "cadx_largest_component_seeded_one_block": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "cadx_watershed_packed_one_block": (_P,) * 5 + (_I,) * 7 + (_P,),
+    "cadx_watershed_packed_rounds": (_P,) * 6 + (_I,) * 7 + (_P,),
 }
 
 

@@ -28,45 +28,43 @@ walks a tile, each lane sliding the window along its line with a count
 of the set pixels in it, two reads an output) and one that writes the
 packed markers; one that writes the labels, the ridge and the
 ridge-free breast label, and four window passes for the opening.
-The watershed relaxes the packed value (dist << 2) | label a tile of
-`TILE` x `TILE` pixels (32, the tiles of the other steps) a block of
-`TILE` threads: the block copies its tile of pk and of the image with a
-1-pixel halo to shared memory, relaxes it to its fixpoint under that
-halo (a thread a row scanning left to right then back, a thread a column
-down then up, the JAX line scan's own shape, until `__syncthreads_or`
-sees no change), writes back only the pixels that fell and marks dirty
-each neighbour along an edge where one fell. The markers' launch marks
-dirty the tiles that hold an unreached pixel (a tile of markers alone
-never changes). The relaxation runs in rounds, a round relaxing every
-dirty tile once, until a round marks no tile (B=64 at 256² and B=8 at
-512² took 5 rounds, the 512² upload 4), all in one cooperative launch: a
-grid of as many blocks as the card holds at once, each looping over its
-tiles, with a grid sync between rounds. So nothing reads back to the
-host, and the call returns once the plan is queued: `PLAN_LAUNCHES`
-launches in all. Every step cost ((|dq| * K + 1) << 2), K the next power
-of two >= H + W, is positive and values only fall, so the min-plus
-fixpoint is unique whatever the order of relaxation: the same bytes as
-the plain line scans, ties to the smaller label code. Unreached pixels
-keep 1 << 30, label 0; int32 holds every path value for sides <= 512.
+The watershed runs JAX's packed sweeps (`ops/geodesic_scan.py::
+sweep_packed`) at `max_scan` until one changes nothing or `ws_max_iters`
+ran, as `pectoral_tail_pallas` does, so its labels are JAX's also where
+the cap binds: one cooperative launch (`csrc/tiled_watershed.cuh::
+relax_capped`, shared with the packed marker watershed) whose persistent
+grid writes the prefix sums of the packed step costs ((|dq| * K + 1) << 2,
+K the next power of two >= H + W) along rows and columns, then runs the
+sweeps with a grid sync after each: at the default max_scan 8 a sweep is
+one pass over 64 x 64 tiles, each copied with a halo of 7 pixels to
+shared memory, where the four directional passes run (each a windowed
+min of pk -/+ s over the pre-pass values), and the tile's own pixels go
+to the other of two planes. The stop rule is read on the device, so
+nothing reads back to the host, and the call returns once the plan is
+queued: `PLAN_LAUNCHES` launches in all. The markers' packed values at
+the cleaner's inputs settle in 6-8 sweeps (the unlabeled strip between
+the bands is 15-22 pixels wide). Unreached pixels keep 1 << 30, label 0;
+int32 holds every path value for sides <= 512.
 Scratch (`scratch_bytes`): a uint64 key an image, four int32 (the
-rounds' changed flags and their count), two int32 planes (the CCL's
-labels and roots; pk then takes the first), three byte planes and two
-dirty bytes a tile: 11 bytes a pixel (the one-block kernel kept six
-int32 planes, 24).
+sweeps' changed flags and their count), four int32 planes (the CCL's
+labels and roots; then pk twice and the two prefix sums), three byte
+planes and two flags a tile (the sweeps skip a tile whose region did not
+change in the last sweep): 19 bytes a pixel (the one-block kernel kept six int32 planes,
+24).
 
 Bound: the function reads its three byte planes and writes labels,
 boundary and mask once (9 bytes a pixel), and does `ONCE_OPS` operations
 a pixel that no order of work avoids at the default windows (the largest
 label, the hole fill's certificate, the two 15-wide bands, the markers,
 the packed costs, the labels, the ridge and the 25-wide opening); the
-result is the unique fixpoint, so the sweeps a plain version runs to
-reach it belong to that algorithm, not to the function. This design's
+sweeps themselves depend on the data and are counted apart, beside it. This design's
 own floor is `PLAN_BYTES` a pixel, its launches each reading and writing
 their planes once: the two CCLs 14 each (a label written by the local
 pass, read and written by the flatten, the mask twice), the key and the
 selection 11, the fill 6, the bands' and the opening's window passes 2
-each, the markers 7, one watershed round 9 (pk read and written, the
-image read), the ridge 10.
+each, the markers 7, the prefix sums 9 (the image read, two int32 planes
+written), one sweep 16 (pk and the two prefix sums read, pk written), the
+ridge 10.
 """
 
 from __future__ import annotations
@@ -83,16 +81,16 @@ REPLACES = "cadx_tpu/kernels/pectoral.py:124"
 TILE = 32             # the tile side of every step (csrc/tiled_components.cuh)
 STEPS = 4             # object, bands and markers, watershed, ridge and opening
 PLAN_LAUNCHES = 20    # kernel launches a call, the watershed's one included
-PLAN_BYTES = 87       # bytes a pixel the plan's launches move at the least
+PLAN_BYTES = 103      # bytes a pixel the plan's launches move at the least, one sweep
 ONCE_OPS = 224        # operations a pixel the function does once, at the least
 
 
 def scratch_bytes(b: int, h: int, w: int) -> int:
     """The plan's scratch (`csrc/pectoral.cu`): a uint64 key an image,
-    four int32 (the watershed's changed flags and its rounds), two int32
-    planes, three byte planes and two dirty flags a tile."""
-    tiles = b * -(-h // TILE) * -(-w // TILE)
-    return 8 * b + 16 + 11 * b * h * w + 2 * tiles
+    four int32 (the watershed's changed flags and its sweeps), four int32
+    planes, three byte planes and two bytes a 32 x 32 tile (the sweeps'
+    tile flags)."""
+    return 8 * b + 16 + 19 * b * h * w + 2 * b * -(-h // TILE) * -(-w // TILE)
 
 
 def pectoral_tail_reference(img_equ: torch.Tensor, img_bin: torch.Tensor,
@@ -122,12 +120,12 @@ def pectoral_tail_reference(img_equ: torch.Tensor, img_bin: torch.Tensor,
 
 
 def run_plan(img_equ: torch.Tensor, img_bin: torch.Tensor, breast_mask: torch.Tensor,
-             morph_k: int = 3, n_morph: int = 7, sm_k: int = 25, steps: int = STEPS,
-             rounds: torch.Tensor | None = None):
+             morph_k: int = 3, n_morph: int = 7, sm_k: int = 25, ws_max_iters: int = 256,
+             max_scan: int = 8, steps: int = STEPS, sweeps: torch.Tensor | None = None):
     """The kernel's plan on CUDA tensors, up to `steps` of its steps (the
     outputs are whole only with all four; fewer serve timings by step).
-    `rounds`, a one-element int32 tensor on the same device, receives the
-    watershed's rounds."""
+    `sweeps`, a one-element int32 tensor on the same device, receives the
+    watershed's sweeps."""
     for t, name in ((img_equ, "img_equ"), (img_bin, "img_bin"),
                     (breast_mask, "breast_mask")):
         _build.check_input(t, torch.uint8, f"pectoral_tail {name}")
@@ -137,10 +135,12 @@ def run_plan(img_equ: torch.Tensor, img_bin: torch.Tensor, breast_mask: torch.Te
     b, h, w = img_equ.shape
     if max(h, w) > 512:
         raise ValueError(f"packed watershed needs sides <= 512, got {h}x{w}")
-    if rounds is not None:
-        _build.check_input(rounds, torch.int32, "pectoral_tail rounds", ndim=1)
-        if rounds.numel() != 1 or rounds.device != img_equ.device:
-            raise ValueError(f"pectoral_tail: rounds must be one int32 on {img_equ.device}")
+    if ws_max_iters < 0:
+        raise ValueError(f"pectoral_tail: ws_max_iters must be >= 0, got {ws_max_iters}")
+    if sweeps is not None:
+        _build.check_input(sweeps, torch.int32, "pectoral_tail sweeps", ndim=1)
+        if sweeps.numel() != 1 or sweeps.device != img_equ.device:
+            raise ValueError(f"pectoral_tail: sweeps must be one int32 on {img_equ.device}")
     dev = img_equ.device
     labels = torch.empty((b, h, w), dtype=torch.int32, device=dev)
     boundary = torch.empty((b, h, w), dtype=torch.bool, device=dev)
@@ -151,8 +151,8 @@ def run_plan(img_equ: torch.Tensor, img_bin: torch.Tensor, breast_mask: torch.Te
     rc = _build.load().cadx_pectoral_tail(
         img_equ.data_ptr(), img_bin.data_ptr(), breast_mask.data_ptr(),
         labels.data_ptr(), boundary.data_ptr(), mask.data_ptr(), scratch.data_ptr(),
-        None if rounds is None else rounds.data_ptr(), b, h, w, morph_k, n_morph, sm_k,
-        steps, _build.stream_ptr(dev))
+        None if sweeps is None else sweeps.data_ptr(), b, h, w, morph_k, n_morph, sm_k,
+        ws_max_iters, max_scan, steps, _build.stream_ptr(dev))
     _build.check(rc, "cadx_pectoral_tail")
     pectoral_tail.launches += 1
     return labels, boundary, mask
@@ -160,18 +160,23 @@ def run_plan(img_equ: torch.Tensor, img_bin: torch.Tensor, breast_mask: torch.Te
 
 def pectoral_tail(img_equ: torch.Tensor, img_bin: torch.Tensor,
                   breast_mask: torch.Tensor, morph_k: int = 3,
-                  n_morph: int = 7, sm_k: int = 25):
+                  n_morph: int = 7, sm_k: int = 25, ws_max_iters: int = 256,
+                  max_scan: int = 8):
     """(B, H, W) uint8 equalized image, high-threshold mask and breast
-    mask -> (labels int32, boundary bool, mask bool). A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel or raises."""
+    mask -> (labels int32, boundary bool, mask bool). The watershed runs
+    at most `ws_max_iters` sweeps at `max_scan`, as JAX's
+    `pectoral_tail_pallas`. A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel or raises."""
     if morph_k % 2 == 0 and n_morph > 1:
         raise ValueError(
             f"the pectoral tail needs an odd morph_k when n_morph > 1 (got "
             f"k={morph_k}); use the composed remove_pectoral path")
     if img_equ.device.type == "cpu":
-        return pectoral_tail_reference(img_equ, img_bin, breast_mask,
-                                       morph_k, n_morph, sm_k)
-    return run_plan(img_equ, img_bin, breast_mask, morph_k, n_morph, sm_k)
+        return pectoral_tail_reference(img_equ, img_bin, breast_mask, morph_k,
+                                       n_morph, sm_k, ws_max_iters=ws_max_iters,
+                                       max_scan=max_scan)
+    return run_plan(img_equ, img_bin, breast_mask, morph_k, n_morph, sm_k, ws_max_iters,
+                    max_scan)
 
 
 pectoral_tail.launches = 0

@@ -69,37 +69,45 @@ The tiles re-read their halos (1.5x the pixels at 64 x 64, partly from
 L2), and the walks' loads and doubling steps hit shared memory and
 registers.
 
-Packed form (redesigned for the whole card). An integer min-plus
-fixpoint is unique, so any relaxation order reaches the plain version's
-labels; the kernel runs to the fixpoint and ignores `max_iters` and
-`max_scan`, which change only how fast the plain version gets there (and
-where JAX's 256-sweep cap binds, the plain version and JAX stop short of
-it; ROADMAP Queue 3, "Noted"). `cadx_watershed_packed` issues three
-launches over 32 x 32 tiles x images and never waits on the host: a
-prologue writes q = rint(image) (int32: the plain version takes any
-integer-valued float32), the packed markers (dist << 2) | label and the
-first round's dirty flags (a tile holding an unreached pixel), with the
-second round's and the rounds' changed flags zeroed (no memset); the
-pectoral tail's relaxation
-(`csrc/tiled_watershed.cuh::relax_to_fixpoint`, on int32 costs here, on
-uint8 there) relaxes every dirty tile to its local fixpoint in shared
-memory under a 1-pixel halo, a warp a tile (its row and column passes
-alternating until one after the first changes nothing), in rounds with
-grid syncs between them, all in one cooperative launch of as many blocks
-as the card holds at once, until a round marks no tile; an epilogue writes the
-labels (values[label - 1], 0 unreached) and the ridge, folding the pair
-form's `boundary_kernel` into the same pass. `packed_form(...,
-rounds=t)` writes the rounds run into a one-element int32 CUDA tensor.
+Packed form (redesigned for the whole card; held to JAX's sweeps). The
+kernel runs JAX's own sweeps (`ops/geodesic_scan.py::sweep_packed`) at
+`max_scan` until one changes nothing or `max_iters` ran, so after every
+sweep its planes hold what the plain version's and JAX's hold, and where
+the cap binds (a serpentine corridor) it stops where they stop.
+`cadx_watershed_packed` issues three launches and never waits on the
+host: a prologue writes the packed markers (dist << 2) | label over 32 x
+32 tiles x images; the sweeps run in one cooperative launch
+(`csrc/tiled_watershed.cuh::relax_capped`, shared with the pectoral tail,
+which runs it on its uint8 equalized image): a persistent grid writes the
+prefix sums of the packed step costs along rows and columns (q =
+rint(image) read there; the plain version takes any integer-valued
+float32), then runs the sweeps with a grid sync after each and the stop
+rule on the device. Where both scan windows are at most 8 (max_scan <= 8,
+as the cleaner calls it), a sweep is one pass over 64 x 64 tiles (32 x 32
+where there would be fewer of those than SMs, `sweep_tile`): a
+block copies its tile of pk and the prefix sums with a halo of win - 1
+pixels to shared memory, runs the four passes there (each a windowed min of pk
+-/+ s over the pre-pass values, the positions outside the image standing
+for the unreached value as JAX's shift fill does) and writes its own
+pixels to the other of two planes; a tile whose region no pixel fell in
+during the last sweep is skipped (its output is its input, which the
+other plane already holds). Wider windows (the default max_scan
+256) take the line form: each pass a warp a line, the line in shared
+memory, JAX's doubling mins there, a grid sync between the passes. The
+arithmetic is int32, so every order of the mins is exact and only the
+pass structure must be JAX's. An epilogue writes the labels
+(values[label - 1], 0 unreached) and the ridge. `packed_form(...,
+sweeps=t)` writes the sweeps run into a one-element int32 CUDA tensor.
 
 Bound: bytes. The function reads the image and the markers and writes
 labels and boundary once, 13 bytes a pixel (0.0010 ms at B=1 512² over
 3.35 TB/s). This design's own floor is `packed_floor_bytes`: the
-prologue 16 bytes a pixel (image and markers in, q and pk out), a round
-12 (q read, pk read and written), the epilogue 9 (pk in, labels and
-boundary out). The one-block kernel it replaced (`csrc/legacy/
-watershed_packed_one_block.cu`, built only by `_build.load_legacy`) ran
-one block of 1,024 threads an image over the whole plane in global
-memory, a block barrier a Bellman-Ford sweep.
+prologue 8 bytes a pixel (markers in, pk out), the prefix sums 12 (the
+image in, srow and scol out), a tiled sweep 16 (pk, srow and scol in, pk
+out), the epilogue 9 (pk in, labels and boundary out). The form it
+replaced, `csrc/legacy/watershed_packed_rounds.cu` (tiles relaxed to
+their local fixpoints in rounds until the global fixpoint, which ran past
+JAX's cap), is built only by `_build.load_legacy`, for timings.
 """
 
 from __future__ import annotations
@@ -115,7 +123,8 @@ from cadx_tpu_torch.ops.watershed import marker_watershed_plain
 SOURCE = "cadx_tpu_torch/csrc/watershed.cu"
 REPLACES = "cadx_tpu/kernels/watershed_kernel.py:83"
 _PAIR_PLANES = 5     # srow, scol, d0, d1 (float32) and l1 (int32)
-PACKED_TILE = 32     # the packed form's tile side (kTile, csrc/tiled_components.cuh)
+PACKED_TILE = 32     # the packed form's marker and label tiles (kTile, csrc/tiled_components.cuh)
+SWEEP_TILES = (64, 32)   # a tiled sweep's tile sides (csrc/tiled_watershed.cuh)
 TILES = ((64, 64), (64, 128))   # the tiled sweep's tiles (rows, columns)
 MAX_HALO = 7              # the widest halo a tiled sweep takes (max_scan <= 8)
 CHECK_EVERY = 16          # sweeps between two host reads of the changed flags
@@ -178,7 +187,7 @@ def marker_watershed(image: torch.Tensor, markers: torch.Tensor,
     lib = _build.load()
     values = tuple(int(v) for v in marker_label_values)
     if values and G.use_packed((h, w), len(values)):
-        packed_form(img, mk, values, labels, boundary)
+        packed_form(img, mk, values, labels, boundary, max_iters, max_scan)
     else:
         scratch = torch.empty((_PAIR_PLANES, b, h, w), dtype=torch.float32,
                               device=dev)
@@ -204,44 +213,70 @@ marker_watershed.host_syncs = 0   # host synchronisations of the last pair-form 
 
 
 def packed_tiles(b: int, h: int, w: int) -> int:
-    """The packed form's tiles x images."""
+    """The packed form's marker and label tiles x images."""
     return b * -(-h // PACKED_TILE) * -(-w // PACKED_TILE)
 
 
+def sweep_tile(b: int, h: int, w: int, sms: int = 132) -> int:
+    """A tiled sweep's tile side for a (b, h, w) batch on a card of `sms`
+    SMs, the C launcher's rule: 64 where there are at least as many 64 x 64
+    tiles as SMs, else 32."""
+    big = SWEEP_TILES[0]
+    return big if b * -(-h // big) * -(-w // big) >= sms else SWEEP_TILES[1]
+
+
+def sweep_tiles(b: int, h: int, w: int, sms: int = 132) -> int:
+    """A tiled sweep's tiles x images."""
+    t = sweep_tile(b, h, w, sms)
+    return b * -(-h // t) * -(-w // t)
+
+
+def sweep_tiled(h: int, w: int, max_scan: int) -> bool:
+    """Whether the sweeps run over halo tiles (both windows at most 8) or
+    in the line form."""
+    return max(_scan_window(w, max_scan), _scan_window(h, max_scan)) <= MAX_HALO + 1
+
+
 def packed_scratch_bytes(b: int, h: int, w: int) -> int:
-    """`cadx_watershed_packed`'s scratch: two int32 planes (q, pk), four
-    int32 (the rounds' changed flags and a rounds slot) and two dirty
-    flags a tile."""
-    return 8 * b * h * w + 16 + 2 * packed_tiles(b, h, w)
+    """`cadx_watershed_packed`'s scratch: four int32 planes (pk twice, the
+    prefix sums along rows and columns), four int32 (the sweeps' changed
+    flags and a sweeps slot) and two bytes a 32 x 32 tile (the sweeps'
+    tile flags)."""
+    return 16 * b * h * w + 16 + 2 * packed_tiles(b, h, w)
 
 
-def packed_floor_bytes(b: int, h: int, w: int, rounds: int) -> int:
-    """The bytes the packed form's launches move at the least: the
-    prologue 16 a pixel, a round 12, the epilogue 9."""
-    return (16 + 12 * rounds + 9) * b * h * w
+def packed_floor_bytes(b: int, h: int, w: int, sweeps: int) -> int:
+    """The bytes the packed form's launches move at the least with tiled
+    sweeps: the prologue 8 a pixel, the prefix sums 12, a sweep 16, the
+    epilogue 9."""
+    return (8 + 12 + 16 * sweeps + 9) * b * h * w
 
 
 def packed_form(img: torch.Tensor, mk: torch.Tensor, values: tuple,
-                labels: torch.Tensor, boundary: torch.Tensor,
-                rounds: torch.Tensor | None = None) -> None:
+                labels: torch.Tensor, boundary: torch.Tensor, max_iters: int = 256,
+                max_scan: int = 256, sweeps: torch.Tensor | None = None) -> None:
     """The packed form's launches (`cadx_watershed_packed`) into labels and
-    boundary, for `marker_watershed`'s checked inputs; counted here apart
-    from the pair form (`packed_form.launches`) as well as in
-    `marker_watershed.launches`. `rounds`, a one-element int32 tensor on
-    the same device, receives the relaxation's rounds."""
+    boundary, for `marker_watershed`'s checked inputs: JAX's sweeps at
+    `max_scan`, at most `max_iters`. Counted here apart from the pair form
+    (`packed_form.launches`) as well as in `marker_watershed.launches`.
+    `sweeps`, a one-element int32 tensor on the same device, receives the
+    sweeps run."""
     b, h, w = img.shape
-    if rounds is not None:
-        _build.check_input(rounds, torch.int32, "packed_form rounds", ndim=1)
-        if rounds.device != img.device:
-            raise ValueError(f"packed_form: rounds on {rounds.device}, "
+    if sweeps is not None:
+        _build.check_input(sweeps, torch.int32, "packed_form sweeps", ndim=1)
+        if sweeps.device != img.device:
+            raise ValueError(f"packed_form: sweeps on {sweeps.device}, "
                              f"images on {img.device}")
+    if max_iters < 0:
+        raise ValueError(f"packed_form: max_iters must be >= 0, got {max_iters}")
     scratch = torch.empty((packed_scratch_bytes(b, h, w),), dtype=torch.uint8,
                           device=img.device)
     v = values + (0,) * (3 - len(values))
     rc = _build.load().cadx_watershed_packed(
         img.data_ptr(), mk.data_ptr(), labels.data_ptr(), boundary.data_ptr(),
-        scratch.data_ptr(), None if rounds is None else rounds.data_ptr(), b, h,
-        w, v[0], v[1], v[2], len(values), _build.stream_ptr(img.device))
+        scratch.data_ptr(), None if sweeps is None else sweeps.data_ptr(), b, h,
+        w, v[0], v[1], v[2], len(values), max_iters, max_scan,
+        _build.stream_ptr(img.device))
     _build.check(rc, "cadx_watershed_packed")
     packed_form.launches += 1
 

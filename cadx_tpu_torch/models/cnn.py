@@ -8,7 +8,9 @@ weights are Xavier-uniform and kept (in, out) as in JAX. The public
 functions take and return channel-last activations, as JAX does; the
 conv blocks run channel-first inside, through the conv_leaky and pool
 kernels (`ops.conv.conv2d_leaky`, `ops.pool.max_pool_ties`, whose
-backward is the reference's tie-broadcast).
+backward is the reference's tie-broadcast). `compute_dtype=torch.bfloat16`
+is JAX's opt-in mixed precision: the conv stack in bfloat16 (the bf16 form
+of the conv kernel), parameters and the head in float32.
 """
 
 from __future__ import annotations
@@ -161,11 +163,21 @@ def reference_softmax(z: torch.Tensor) -> torch.Tensor:
     return torch.where(s == 0, uniform, exps / (s + 1e-12))
 
 
-def conv_stack(model: CNN, x: torch.Tensor) -> torch.Tensor:
-    """(B, H, W, C) -> (B, h, w, F) activations after the conv+pool blocks."""
+def conv_stack(model: CNN, x: torch.Tensor, *,
+               compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """(B, H, W, C) -> (B, h, w, F) activations after the conv+pool blocks.
+
+    compute_dtype (torch.bfloat16): JAX's opt-in mixed precision. x and
+    each conv kernel are cast to it (the only casts: the convs return it,
+    and LeakyReLU and the pool keep it), each conv's sum is rounded to it,
+    plus the float32 bias, rounded again; the activations stay in it."""
     cfg = model.config
     out = x.permute(0, 3, 1, 2)
+    if compute_dtype is not None:
+        out = out.to(compute_dtype)
     for w, b in zip(model.conv_w, model.conv_b):
+        if compute_dtype is not None:
+            w = w.to(compute_dtype)
         out = max_pool_ties(conv2d_leaky(out, w, b, cfg.leaky_alpha,
                                          cfg.conv_padding), 2)
     return out.permute(0, 2, 3, 1)
@@ -189,10 +201,15 @@ def head_logits(model: CNN, feats: torch.Tensor, *, training: bool = False,
 
 
 def apply(model: CNN, x: torch.Tensor, training: bool = False,
-          generator: torch.Generator | None = None) -> torch.Tensor:
-    """Batched forward -> logits (B, num_classes); x (B, H, W, C) float32."""
-    return head_logits(model, conv_stack(model, x), training=training,
-                       generator=generator)
+          generator: torch.Generator | None = None, *,
+          compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Batched forward -> logits (B, num_classes); x (B, H, W, C) float32.
+    compute_dtype: see conv_stack (the conv stack in bf16, the head in
+    float32)."""
+    feats = conv_stack(model, x, compute_dtype=compute_dtype)
+    if compute_dtype is not None:
+        feats = feats.to(torch.float32)
+    return head_logits(model, feats, training=training, generator=generator)
 
 
 def forward(model: CNN, x: torch.Tensor) -> torch.Tensor:
@@ -216,19 +233,23 @@ def cross_entropy(probs: torch.Tensor, y_onehot: torch.Tensor) -> torch.Tensor:
 
 def loss_fn(model: CNN, x: torch.Tensor, y_onehot: torch.Tensor, *,
             training: bool = False,
-            generator: torch.Generator | None = None) -> torch.Tensor:
+            generator: torch.Generator | None = None,
+            compute_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Mean softmax cross-entropy of the logits, whose gradient is exactly
     (probs - y) / B, the reference's backward seed."""
-    logp = torch.log_softmax(apply(model, x, training, generator), dim=-1)
+    logp = torch.log_softmax(apply(model, x, training, generator,
+                                   compute_dtype=compute_dtype), dim=-1)
     return -(y_onehot * logp).sum(dim=-1).mean()
 
 
 def grads_fn(model: CNN, x: torch.Tensor, y_onehot: torch.Tensor, *,
-             training: bool = False, generator: torch.Generator | None = None):
+             training: bool = False, generator: torch.Generator | None = None,
+             compute_dtype: torch.dtype | None = None):
     """(loss, grads): grads of the batch-averaged loss, unclipped, one per
     tensor of `model.parameters()`."""
     with torch.enable_grad():
-        loss = loss_fn(model, x, y_onehot, training=training, generator=generator)
+        loss = loss_fn(model, x, y_onehot, training=training, generator=generator,
+                       compute_dtype=compute_dtype)
         grads = torch.autograd.grad(loss, list(model.parameters()))
     return loss.detach(), list(grads)
 

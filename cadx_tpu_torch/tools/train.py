@@ -22,9 +22,10 @@ Features modes:
            cleaning chain and 512² resize (`clean_for_unet`), the resnet
            encoder's conv1, a bilinear resize to --feature-size.
 
-Not ported yet, and refused rather than run in float32 on one device:
---data-parallel (ROADMAP Queue 1 item 11) and --bf16-compute (ROADMAP
-Queue 1 item 10, entry 3).
+--bf16-compute runs the conv stack in bfloat16 (`fit(compute_dtype=
+torch.bfloat16)`; parameters and evaluation stay float32). Not ported yet,
+and refused rather than run on one device: --data-parallel (ROADMAP Queue
+1, the `parallel/` slice).
 """
 
 from __future__ import annotations
@@ -106,16 +107,14 @@ def main(argv=None) -> dict:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--bf16-compute", action="store_true",
-                    help="bf16 conv compute (not ported yet)")
+                    help="bf16 conv compute (params/eval stay f32; "
+                         "tolerance-level parity)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (default the card; 'cpu' for the CPU)")
     args = ap.parse_args(argv)
     if args.data_parallel:
         raise SystemExit("--data-parallel is not ported to cadx_tpu_torch yet "
                          "(ROADMAP Queue 1 item 4)")
-    if args.bf16_compute:
-        raise SystemExit("--bf16-compute is not ported to cadx_tpu_torch yet "
-                         "(ROADMAP Queue 1 item 1)")
 
     from cadx_tpu_torch.data.dataset import split_train_test
     from cadx_tpu_torch.models import cnn
@@ -138,12 +137,13 @@ def main(argv=None) -> dict:
     )
     optimizer = "sgd" if args.pipeline == "basic" else "adam"
     lr = args.lr if args.lr is not None else (0.01 if optimizer == "sgd" else 1e-3)
+    cdt = torch.bfloat16 if args.bf16_compute else None
 
     if args.kfolds >= 2:
         res = crossval.cross_validate(
             config, X, labels, n_splits=args.kfolds, epochs=args.epochs,
             lr=lr, batch_size=args.batch_size, optimizer=optimizer,
-            log_fn=print, device=dev)
+            log_fn=print, compute_dtype=cdt, device=dev)
         agg = res.aggregate_metrics()
         print(f"[CV] mean acc {agg['mean_accuracy']:.4f} "
               f"± {agg['std_accuracy']:.4f}")
@@ -161,7 +161,7 @@ def main(argv=None) -> dict:
         optimizer=optimizer, seed=args.seed, log_fn=print,
         checkpoint_path=npz_path,
         state_path=os.path.join(args.out_dir, "train_state.pkl"),
-        resume=args.resume, device=dev,
+        resume=args.resume, compute_dtype=cdt, device=dev,
     )
 
     y_pred = step.predict_classes(res.model, Xte)

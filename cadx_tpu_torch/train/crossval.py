@@ -74,10 +74,12 @@ def cross_validate(
     optimizer: str = "sgd",
     seed: int = 0,
     log_fn=None,
+    compute_dtype: torch.dtype | None = None,
     device=None,
 ) -> CrossValResult:
     """Train and evaluate k folds on `device` (the card when None); fold
-    f starts from weights drawn with seed + f."""
+    f starts from weights drawn with seed + f. compute_dtype: the conv
+    stack's opt-in bfloat16 (see cnn.conv_stack)."""
     dev = resolve(device)
     X = np.asarray(X, dtype=np.float32)
     y_labels = np.asarray(y_labels)
@@ -89,7 +91,7 @@ def cross_validate(
         res = step.fit(
             model, X[train_idx], y_onehot[train_idx], X[test_idx], y_labels[test_idx],
             epochs=epochs, lr=lr, batch_size=batch_size, optimizer=optimizer,
-            seed=seed + fold, log_fn=log_fn, device=dev,
+            seed=seed + fold, log_fn=log_fn, compute_dtype=compute_dtype, device=dev,
         )
         preds = step.predict_classes(res.model, X[test_idx])
         evals.append(evaluation_block(y_labels[test_idx], preds, config.num_classes))

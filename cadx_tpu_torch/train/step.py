@@ -13,8 +13,12 @@ order is the JAX package's), zero-padded partial batches with a mask, lr
 x0.98 per epoch (SGD), a best-weights snapshot on a strictly better
 validation accuracy and its restore at the end. History rows {epoch,
 loss, val_acc} match training_History_advanced.json. Everything runs in
-float32 with TF32 off (`precision.full_fp32`). The JAX package's opt-in
-bfloat16 `compute_dtype` and `device_data_dtype` are not ported.
+float32 with TF32 off (`precision.full_fp32`), but for the JAX package's
+opt-in bfloat16 options: `compute_dtype=torch.bfloat16` runs the conv
+stack in bfloat16 (`models/cnn.py::conv_stack`; the bf16 form of the conv
+kernel on the card), parameters, Adam state and the head staying float32;
+`device_data_dtype=torch.bfloat16` stores the device-resident dataset in
+bfloat16, each batch gathered and cast to float32 as JAX does.
 """
 
 from __future__ import annotations
@@ -36,43 +40,47 @@ from cadx_tpu_torch.train import optim
 
 
 def masked_loss_fn(model: cnn.CNN, x, y_onehot, mask, *, training: bool,
-                   generator: torch.Generator | None) -> torch.Tensor:
+                   generator: torch.Generator | None,
+                   compute_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Cross-entropy of the log-softmax of the logits, averaged over the
     real (mask = 1) samples only: the padded tail batch averages over its
-    actual count, as the reference does (Classes/CNNModel.py:459-464)."""
-    logp = torch.log_softmax(cnn.apply(model, x, training, generator), dim=-1)
+    actual count, as the reference does (Classes/CNNModel.py:459-464).
+    compute_dtype: the conv stack's opt-in bfloat16 (cnn.conv_stack)."""
+    logp = torch.log_softmax(cnn.apply(model, x, training, generator,
+                                       compute_dtype=compute_dtype), dim=-1)
     per_sample = -(y_onehot * logp).sum(dim=-1)
     return (per_sample * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
 
 
-def _loss_and_grads(model, x, y_onehot, mask, training, generator):
+def _loss_and_grads(model, x, y_onehot, mask, training, generator, compute_dtype=None):
     params = list(model.parameters())
     with torch.enable_grad(), full_fp32():
         loss = masked_loss_fn(model, x, y_onehot, mask, training=training,
-                              generator=generator)
+                              generator=generator, compute_dtype=compute_dtype)
         grads = torch.autograd.grad(loss, params)
     return params, list(grads), loss.detach()
 
 
 def sgd_train_step(model: cnn.CNN, x, y_onehot, mask, lr: float,
                    generator: torch.Generator | None,
-                   training: bool = True) -> torch.Tensor:
+                   training: bool = True,
+                   compute_dtype: torch.dtype | None = None) -> torch.Tensor:
     """One basic-pipeline update in place: grads -> per-tensor clip(5.0)
     -> SGD. Returns the loss, a device scalar."""
     params, grads, loss = _loss_and_grads(model, x, y_onehot, mask, training,
-                                          generator)
+                                          generator, compute_dtype)
     optim.sgd_reference_update(params, grads, lr)
     return loss
 
 
-def make_adam_train_step(tx: optim.Adam):
+def make_adam_train_step(tx: optim.Adam, compute_dtype: torch.dtype | None = None):
     """Advanced-pipeline update: Adam on the softmax cross-entropy.
     `step(model, opt_state, x, y_onehot, mask, generator)` updates the model
     in place and returns (opt_state, loss)."""
 
     def step(model, opt_state, x, y_onehot, mask, generator):
         params, grads, loss = _loss_and_grads(model, x, y_onehot, mask, True,
-                                              generator)
+                                              generator, compute_dtype)
         return tx.step(params, grads, opt_state), loss
 
     return step
@@ -175,6 +183,11 @@ def fit(
     eval_every_batch: bool = False,    # reference evaluates test set per batch
     log_weight_stats: bool = False,    # reference per-layer stats per epoch
     device_data: bool | None = None,   # keep the dataset on the device
+    device_data_dtype: torch.dtype | None = None,  # e.g. torch.bfloat16: the
+                                       # device copy stored compressed (compute
+                                       # stays float32)
+    compute_dtype: torch.dtype | None = None,  # e.g. torch.bfloat16: the conv
+                                       # stack in bf16, parameters float32
     update_fn=None,                    # (model, opt_state, xb, yb, mb, lr, generator) -> (opt_state, loss)
     device=None,
 ) -> FitResult:
@@ -186,8 +199,10 @@ def fit(
     place). With `state_path`, the full training state (parameters,
     optimizer state, epoch, history, both generators' states) is written
     atomically after every epoch and `resume=True` continues from it.
-    `device_data` (on below 4 GB) puts the dataset on the device once and
-    gathers each batch there.
+    `device_data` (on below 4 GB) puts the dataset on the device once, in
+    `device_data_dtype` (float32 when None), and gathers each batch there,
+    cast to float32. `compute_dtype` reaches the built-in SGD and Adam
+    steps only; an `update_fn` takes its own.
     """
     dev = resolve(device)
     X = np.asarray(X, dtype=np.float32)
@@ -202,7 +217,7 @@ def fit(
     if device_data is None:
         device_data = X.nbytes + y_onehot.nbytes < 4 * 1024**3
     if device_data:
-        X_dev = torch.from_numpy(X).to(dev)
+        X_dev = torch.from_numpy(X).to(dev).to(device_data_dtype or torch.float32)
         y_dev = torch.from_numpy(y_onehot).to(dev)
 
     # the test set goes to the device once, in batches of up to 64
@@ -220,7 +235,7 @@ def fit(
 
     tx = optim.adam(lr) if optimizer == "adam" else None
     opt_state = tx.init(params) if tx is not None else None
-    adam_step = make_adam_train_step(tx) if tx is not None else None
+    adam_step = make_adam_train_step(tx, compute_dtype) if tx is not None else None
 
     best_acc, best_params = 0.0, None
     history: list[dict] = []
@@ -260,7 +275,8 @@ def fit(
                     idx = np.zeros((batch_size,), np.int64)
                     idx[:nb] = perm[i:i + nb]
                     idx_t = torch.from_numpy(idx).to(dev)
-                    xb, yb = X_dev.index_select(0, idx_t), y_dev.index_select(0, idx_t)
+                    xb = X_dev.index_select(0, idx_t).to(torch.float32)
+                    yb = y_dev.index_select(0, idx_t)
                 else:
                     xb = np.zeros((batch_size,) + X.shape[1:], np.float32)
                     yb = np.zeros((batch_size,) + y_onehot.shape[1:], np.float32)
@@ -275,7 +291,8 @@ def fit(
                 elif tx is not None:
                     opt_state, loss = adam_step(model, opt_state, xb, yb, mb, generator)
                 else:
-                    loss = sgd_train_step(model, xb, yb, mb, cur_lr, generator)
+                    loss = sgd_train_step(model, xb, yb, mb, cur_lr, generator,
+                                          compute_dtype=compute_dtype)
                 batch_losses.append(loss)
                 batch_weights.append(float(nb))
                 if eval_every_batch:

@@ -6,12 +6,14 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a):
     python3 chip_smoke.py
 
 Phases, each of which raises on failure (the script then exits nonzero):
-1. build the fifteen CUDA kernels from `cadx_tpu_torch/csrc` (one nvcc
-   per source, all at once);
+1. build the sixteen CUDA sources from `cadx_tpu_torch/csrc` (the
+   fifteen kernels and conv_leaky's bfloat16 form; one nvcc per source,
+   all at once);
 2. hold each kernel bit-exact against its plain PyTorch version on the
-   card (the plain versions run uncapped, max_iters = H*W, since the
-   kernels run to the fixpoint; the pair-form watershed, which has no
-   float32 fixpoint at real sizes, runs the same 256 sweeps in both):
+   card (the plain versions' CCLs run uncapped, max_iters = H*W, since
+   those kernels run to the fixpoint; both watershed forms run JAX's
+   sweeps to the same cap as the plain version, 256 unless a case says
+   otherwise, and the packed form at max_scan 8 and 256):
    - equalize, largest_obj, pectoral_tail: synthetic mammograms (B=16,
      256²) and random masks; pectoral_tail also on
      `synthetic.pectoral_tile_edge_inputs` at the six shapes below and at
@@ -120,7 +122,8 @@ Phases, each of which raises on failure (the script then exits nonzero):
    (fused tail); per pipeline classify, classify_and_roi (0, 1) and the
    overlay PNGs; eight concurrent micro-batched classify calls;
    classify_batch on B=8 at 512². The exact launch count of each of the
-   fifteen kernels, and of the packed watershed's form apart, is asserted
+   fifteen kernels, and of the packed watershed's and conv_leaky's bf16
+   forms apart, is asserted
    (cleaner_front once per cleaned batch, largest_obj once per composed
    pectoral branch, jet_blend once per overlay class);
 6. one 640x544 request on the card and on a CPU engine with the same
@@ -209,13 +212,14 @@ Phases, each of which raises on failure (the script then exits nonzero):
    one flood call at B=64 256² and at B=1 1536x1280 (one launch, at most
    one memset, no synchronising runtime call) and of one seeded call (no
    flood, every grid larger than the batch); the packed watershed beside
-   the one-block kernel it replaced and its plain version (B=1 512², B=8
-   512², B=16 256², cleaner markers; the record's row is B=1 512²), with
-   its rounds, bound, design floor and targets, the trace of one B=1 512²
-   call (three launches over tiles x images, no synchronising call), and
-   pectoral_tail at B=64 256² and B=1 512² beside its records from before
-   its relaxation moved into `csrc/tiled_watershed.cuh` (`python3
-   chip_smoke.py --packed-watershed-times`, in a fresh process); pectoral_tail and
+   the rounds-to-the-fixpoint form it replaced and its plain version (B=1
+   512², B=8 512², B=16 256², cleaner markers; the record's row is B=1
+   512²) and on serpentines where the cap binds, with its sweeps beside
+   the plain version's, bound, design floor and the rounds form's records, the trace
+   of one B=1 512² call (three launches, no synchronising call), and
+   pectoral_tail at B=64 256² and B=1 512² beside its records from the rounds design
+   (`python3 chip_smoke.py --packed-watershed-times`, in a fresh
+   process); pectoral_tail and
    gradcam_tail beside the one-block kernels they replaced (kept in
    `csrc/legacy/`; `python3 chip_smoke.py --tail-device-times`, in a
    fresh process): pectoral_tail by step (object, bands and markers,
@@ -275,12 +279,40 @@ Phases, each of which raises on failure (the script then exits nonzero):
    clock around the HTTP call, beside the engine's own p50 on the same
    image and phase 8's for the same shape, and each upload's decode p50
    by decoder (native or Python, with the native loader's state).
+10. the packed watershed's sweep cap: serpentines at SERPENTINE_SIDES
+   (a 1-pixel corridor where JAX's 256-sweep cap binds) through
+   `packed_form` and through the pectoral tail's relaxation (the
+   serpentine as its equalized image, caps 1, 3 and 256), and phase
+   4b's cleaner markers through `packed_form`, each bit-exact against
+   the plain version at the same cap; the sweeps run beside the plain
+   version's count;
+11. bf16 training at full width: one epoch (two Adam steps, B=32) of
+   the advanced configuration with `compute_dtype` and
+   `device_data_dtype` bfloat16 beside the same epoch in float32 on the
+   card, its launches exact (the record's "training_bf16" path:
+   conv_leaky_bf16 twice a step); at the epoch's initial weights the bf16
+   loss within 1e-3 of float32's and the logits within 2e-2 of their
+   largest; a basic SGD epoch in bf16 within 2e-3 of float32's loss; the bf16
+   conv_leaky form against its plain version at every layer shape of
+   that run and the basic classifier's (to 2^-6 of the plain output's
+   largest value: both round float32 sums taken in other orders to bf16,
+   twice) and its times beside the plain version, cuDNN's bf16
+   `F.conv2d` and the bound (bytes or dense bf16 operations); the
+   training CLI with --bf16-compute for one epoch on 24 small DICOMs;
+12. the compat API on the card: `CNNModel` train, predict, save_model
+   and `load_weights`, `ModelTrainer.cross_validate` (2 folds, 1 epoch),
+   `TinyUNetModel.fit` (2 steps), `ExplainableAI.generate_heatmap` and
+   `overlay_heatmap`, the ADCNNM exporter's round trip through the loader
+   (bit-exact at the advanced configuration); `utils.profiling.trace()`
+   of one run_pipeline batch summarised by `tools.trace_summary`, its
+   table and the window's completeness printed.
 
 The last line of standard output is {"ok": true, "device": {...}}; the
-line before it is the per-kernel JSON record: the fifteen kernels and the
+line before it is the per-kernel JSON record: the fifteen kernels, the
 packed watershed's form ("watershed_packed", its launches those of phase
-4b's path), which shares watershed.cu. Imports torch, numpy and
-the port only.
+4b's path), which shares watershed.cu, and conv_leaky's bfloat16 form
+("conv_leaky_bf16", its launches those of phase 11's path). Imports
+torch, numpy and the port only.
 """
 
 from __future__ import annotations
@@ -328,6 +360,8 @@ CLI_ARGS = ["--features", "encoder", "--feature-size", "32", "--conv-layers", "1
 HBM_BYTES_PER_S = 3.35e12
 TRACE_ATTEMPTS = 3
 FP32_OPS_PER_S = 67e12
+# dense bf16 on the tensor cores (the same data sheet)
+BF16_OPS_PER_S = 989e12
 
 
 def card_line() -> str:
@@ -836,6 +870,7 @@ def tail_device_times() -> int:
     from cadx_tpu_torch.kernels import _build
     from cadx_tpu_torch.kernels import gradcam_tail as KGT
     from cadx_tpu_torch.kernels import pectoral as KP
+    from cadx_tpu_torch.kernels import watershed as KW
     from cadx_tpu_torch.synthetic import synthetic_mammograms
 
     dev = torch.device("cuda", 0)
@@ -848,7 +883,7 @@ def tail_device_times() -> int:
     rows = []
     for name, inputs in pectoral_path_inputs(dev).items():
         b, h, w = inputs[0].shape
-        plain = KP.pectoral_tail_reference(*inputs, max_iters=h * w, ws_max_iters=h * w)
+        plain = KP.pectoral_tail_reference(*inputs, max_iters=h * w)
         for what, got in (("old one-block kernel", old_pectoral(legacy, *inputs)()),
                           ("tiled plan", KP.run_plan(*inputs))):
             torch.cuda.synchronize()
@@ -856,10 +891,10 @@ def tail_device_times() -> int:
                 if not torch.equal(a, c):
                     raise AssertionError(f"pectoral_tail [{part}, {what}, {name}] disagrees "
                                          f"with its plain version")
-        rounds = torch.zeros(1, dtype=torch.int32, device=dev)
-        KP.run_plan(*inputs, rounds=rounds)
-        watershed = {"tile": KP.TILE, "tiles": b * -(-h // KP.TILE) * -(-w // KP.TILE),
-                     "rounds": int(rounds.item())}
+        sweeps = torch.zeros(1, dtype=torch.int32, device=dev)
+        KP.run_plan(*inputs, sweeps=sweeps)
+        watershed = {"tile": KW.sweep_tile(b, h, w), "tiles": KW.sweep_tiles(b, h, w),
+                     "sweeps": int(sweeps.item())}
         runs = {"old": ([], []), "new": ([], [])}
         for steps in range(1, len(TAIL_STEPS) + 1):
             old = old_pectoral(legacy, *inputs, steps)
@@ -1561,13 +1596,16 @@ def flood_seeded_times() -> int:
 # the packed watershed's shapes: (B, H, W) of the timings (cleaner markers),
 # and the sides phase 2 and the card tests hold it at, for B = 1, 8 and 16
 PACKED_TIMED = ((1, 512, 512), (8, 512, 512), (16, 256, 256))
-PACKED_SIDES = ((1, 1), (31, 33), (32, 32), (33, 31), (200, 136), (511, 512), (512, 512))
-PACKED_TARGET_MS = {(1, 512, 512): 0.20, (8, 512, 512): 0.35, (16, 256, 256): 0.15}
-# pectoral_tail's records from before its relaxation moved into
-# csrc/tiled_watershed.cuh (PERF.md row 3; NVIDIA H100 80GB HBM3, 700 W):
-# (device time from the profiler, the highest CUDA-event time) in ms
-PECTORAL_RECORDS_MS = {"B=64 256x256 (run_pipeline)": (0.7222, 0.7554),
-                       "B=1 512x512 (the 512x512 upload)": (0.2737, 0.3085)}
+PACKED_SIDES = ((1, 1), (31, 33), (32, 32), (33, 31), (63, 65), (200, 136), (511, 512),
+                (512, 512))
+# serpentine sides where JAX's 256-sweep cap binds (phase 10 and the timings)
+SERPENTINE_SIDES = (128, 512)
+# the packed form's and pectoral_tail's times before the sweeps were held
+# to JAX's cap (PERF.md rows 3 and 7, the rounds design's last records; NVIDIA H100
+# 80GB HBM3, 700 W): device time from the profiler, in ms
+PACKED_RECORDS_MS = {(1, 512, 512): 0.0978, (8, 512, 512): 0.1736, (16, 256, 256): 0.1469}
+PECTORAL_RECORDS_MS = {"B=64 256x256 (run_pipeline)": (0.7071, 0.7302),
+                       "B=1 512x512 (the 512x512 upload)": (0.2624, 0.2910)}
 
 
 def packed_inputs(rng, b: int, h: int, w: int, n_values: int, case: str, dev):
@@ -1593,51 +1631,94 @@ def packed_inputs(rng, b: int, h: int, w: int, n_values: int, case: str, dev):
     return torch.from_numpy(img).to(dev), torch.from_numpy(mk).to(dev), values
 
 
+def watershed_serpentine(side: int, dev):
+    """(image, markers) (1, side, side): a 1-pixel corridor of value 0
+    winding down rows 0, 2, 4, ... (joined at alternate ends) between walls
+    of 200, marker 255 at its start and 128 beside it, where JAX's
+    256-sweep cap stops the relaxation before the corridor is flooded."""
+    img = np.full((side, side), 200, np.float32)
+    img[::2] = 0
+    for r in range(1, side, 2):
+        img[r, side - 1 if (r // 2) % 2 == 0 else 0] = 0
+    mk = np.zeros((side, side), np.int32)
+    mk[0, 0], mk[1, 0] = 255, 128
+    return torch.from_numpy(img)[None].to(dev), torch.from_numpy(mk)[None].to(dev)
+
+
+def plain_packed_sweeps(img, mk, values, max_iters: int, max_scan: int) -> int:
+    """The sweeps the plain packed relaxation runs on a batch: up to the
+    first that changes no image, at most max_iters."""
+    from cadx_tpu_torch.ops import geodesic_scan as G
+
+    h, w = img.shape[-2:]
+    k, big = G._pack_params(h, w)
+    srow, scol = G.axis_costs_packed(img, k)
+    small = torch.zeros_like(mk)
+    for i, v in enumerate(values):
+        small = torch.where(mk == v, i + 1, small)
+    pk = torch.where(small > 0, small, big)
+    for n in range(1, max_iters + 1):
+        new = G.sweep_packed(pk, srow, scol, max_scan, big)
+        if not bool((new != pk).any()):
+            return n
+        pk = new
+    return max_iters
+
+
 def old_packed(lib, img, mk, values):
-    """The replaced one-block packed watershed (`csrc/legacy/`) on
-    preallocated outputs, called as the wrapper called it."""
+    """The replaced packed form that relaxed tiles to the fixpoint in
+    rounds (`csrc/legacy/watershed_packed_rounds.cu`) on preallocated
+    outputs, as its wrapper called it; `run.rounds` holds its rounds."""
     from cadx_tpu_torch.kernels import _build
 
     b, h, w = img.shape
     labels = torch.empty((b, h, w), dtype=torch.int32, device=img.device)
     boundary = torch.empty((b, h, w), dtype=torch.bool, device=img.device)
-    scratch = torch.empty((b, 2, h, w), dtype=torch.int32, device=img.device)
+    tiles = b * -(-h // 32) * -(-w // 32)
+    scratch = torch.empty((8 * b * h * w + 16 + 2 * tiles,), dtype=torch.uint8,
+                          device=img.device)
+    rounds = torch.zeros(1, dtype=torch.int32, device=img.device)
     v = values + (0,) * (3 - len(values))
 
     def run():
-        rc = lib.cadx_watershed_packed_one_block(
+        rc = lib.cadx_watershed_packed_rounds(
             img.data_ptr(), mk.data_ptr(), labels.data_ptr(), boundary.data_ptr(),
-            scratch.data_ptr(), b, h, w, v[0], v[1], v[2], len(values),
+            scratch.data_ptr(), rounds.data_ptr(), b, h, w, v[0], v[1], v[2], len(values),
             _build.stream_ptr(img.device))
-        _build.check(rc, "cadx_watershed_packed_one_block")
+        _build.check(rc, "cadx_watershed_packed_rounds")
         return labels, boundary
+    run.rounds = rounds
     return run
 
 
 def packed_watershed_times() -> int:
-    """`--packed-watershed-times`: the packed marker watershed beside the
-    one-block kernel it replaced (`csrc/legacy/watershed_packed_one_block.cu`,
-    built apart by `_build.load_legacy`) and beside its plain version, and
-    pectoral_tail, whose relaxation moved into the shared
-    `csrc/tiled_watershed.cuh`, beside its records; in a fresh process,
-    where the profiler keeps every record.
+    """`--packed-watershed-times`: the packed marker watershed, its sweeps
+    held to JAX's cap, beside the form it replaced that relaxed tiles to
+    the fixpoint in rounds (`csrc/legacy/watershed_packed_rounds.cu`, built
+    apart by `_build.load_legacy`) and beside its plain version, and
+    pectoral_tail, which runs the same sweeps, beside its records; in a
+    fresh process, where the profiler keeps every record.
 
     - the packed watershed on the equalized images and cleaner markers of
       synthetic mammograms at PACKED_TIMED (seed 30), as the cleaner's
-      composed branch calls it (max_scan 8): new and old bit-exact against
-      the plain version uncapped and twice to the same bytes, then CUDA
-      events and profiler device time in turns old, new, new, old
-      (`timing_row`), the plain version as the cleaner runs it (its
-      256-sweep cap) before and after; the rounds of the relaxation (the
-      kernel's own count), the bound (13 bytes a pixel: image and markers
-      in, labels and boundary out) and this design's floor
-      (`packed_floor_bytes` over the HBM rate), each beside its target;
+      composed branch calls it (max_scan 8, 256 sweeps at most): new and
+      old bit-exact against the plain version at that cap and twice to the
+      same bytes, then CUDA events and profiler device time in turns old,
+      new, new, old (`timing_row`), the plain version before and after; the
+      sweeps the kernel ran beside the plain version's and the old form's
+      rounds, the bound (13 bytes a pixel: image and markers in, labels and
+      boundary out), this design's floor (`packed_floor_bytes` over the HBM
+      rate) and the rounds design's record (PACKED_RECORDS_MS);
+    - the serpentines at SERPENTINE_SIDES, where the cap binds: bit-exact
+      against the plain version at 256 sweeps (max_scan 8), the sweeps run
+      and the times (the old form's fixpoint differs from them);
     - a trace of one call at B=1 512²: three launches (prologue, the
-      cooperative relaxation, epilogue), none of one block an image, no
+      cooperative sweeps, epilogue), none of one block an image, no
       synchronising runtime call;
     - pectoral_tail at `pectoral_path_inputs`' B=64 256² and B=1 512²:
-      bit-exact to its plain version uncapped, CUDA events and device time
-      over TAIL_ITERS calls after TAIL_WARMUP, beside PECTORAL_RECORDS_MS.
+      bit-exact to its plain version at its 256-sweep cap, its sweeps,
+      CUDA events and device time over TAIL_ITERS calls after TAIL_WARMUP,
+      beside PECTORAL_RECORDS_MS.
 
     Prints one JSON line a row, then one with all of them."""
     if not torch.cuda.is_available():
@@ -1662,26 +1743,46 @@ def packed_watershed_times() -> int:
     KW.marker_watershed(img, mk, max_scan=8, marker_label_values=values)
     trace = {"shape": "B=1 512x512 cleaner markers", "images": 1, **one_call_trace(
         lambda: KW.marker_watershed(img, mk, max_scan=8, marker_label_values=values))}
+
+    def kernel_sweeps(img, mk):
+        sweeps = torch.zeros(1, dtype=torch.int32, device=dev)
+        KW.packed_form(img, mk, values, torch.empty_like(mk),
+                       torch.empty(img.shape, dtype=torch.bool, device=dev), 256, 8,
+                       sweeps=sweeps)
+        return int(sweeps.item())
+
     rows = []
     for b, h, w in PACKED_TIMED:
         img, mk = packed_in[(b, h, w)]
-        exact = KW.marker_watershed_reference(img, mk, max_iters=h * w, max_scan=8,
-                                              marker_label_values=values)
-        rounds = torch.zeros(1, dtype=torch.int32, device=dev)
-        KW.packed_form(img, mk, values, torch.empty_like(mk),
-                       torch.empty(img.shape, dtype=torch.bool, device=dev), rounds=rounds)
-        n_rounds = int(rounds.item())
-        floor_ms = KW.packed_floor_bytes(b, h, w, n_rounds) / HBM_BYTES_PER_S * 1e3
+        capped = KW.marker_watershed_reference(img, mk, max_iters=256, max_scan=8,
+                                               marker_label_values=values)
+        n_sweeps = kernel_sweeps(img, mk)
+        old = old_packed(legacy, img, mk, values)
+        old()
+        floor_ms = KW.packed_floor_bytes(b, h, w, n_sweeps) / HBM_BYTES_PER_S * 1e3
         rows.append(timing_row(
             card, "watershed_packed", f"B={b} {h}x{w} cleaner markers", (img, mk),
             lambda img=img, mk=mk: KW.marker_watershed(img, mk, max_scan=8,
                                                        marker_label_values=values),
-            old_packed(legacy, img, mk, values),
+            old, lambda img=img, mk=mk: KW.marker_watershed_reference(
+                img, mk, max_scan=8, marker_label_values=values), capped,
+            extra={"sweeps": n_sweeps,
+                   "plain_sweeps": plain_packed_sweeps(img, mk, values, 256, 8),
+                   "old_rounds": int(old.rounds.item()), "tiles": KW.sweep_tiles(b, h, w),
+                   "floor_ms": floor_ms, "floor_bytes_a_pixel": 29 + 16 * n_sweeps,
+                   "record_device_ms": PACKED_RECORDS_MS[(b, h, w)]}))
+    for side in SERPENTINE_SIDES:
+        img, mk = watershed_serpentine(side, dev)
+        capped = KW.marker_watershed_reference(img, mk, max_iters=256, max_scan=8,
+                                               marker_label_values=values)
+        rows.append(timing_row(
+            card, "watershed_packed", f"B=1 {side}x{side} serpentine (the 256-sweep cap binds)",
+            (img, mk), lambda img=img, mk=mk: KW.marker_watershed(
+                img, mk, max_scan=8, marker_label_values=values), None,
             lambda img=img, mk=mk: KW.marker_watershed_reference(
-                img, mk, max_scan=8, marker_label_values=values), exact,
-            extra={"rounds": n_rounds, "tiles": KW.packed_tiles(b, h, w),
-                   "floor_ms": floor_ms, "floor_bytes_a_pixel": 25 + 12 * n_rounds,
-                   "target_ms": PACKED_TARGET_MS[(b, h, w)]}))
+                img, mk, max_scan=8, marker_label_values=values), capped,
+            extra={"sweeps": kernel_sweeps(img, mk),
+                   "plain_sweeps": plain_packed_sweeps(img, mk, values, 256, 8)}))
     print(json.dumps({"watershed_packed_trace": trace}), flush=True)
     if (len(trace["grids"]) != 3 or trace["sync_calls"]
             or any(g[0] * g[1] * g[2] <= trace["images"] for g in trace["grids"])):
@@ -1693,20 +1794,21 @@ def packed_watershed_times() -> int:
         if name not in PECTORAL_RECORDS_MS:
             continue
         h, w = inputs[0].shape[1:]
-        plain = KP.pectoral_tail_reference(*inputs, max_iters=h * w, ws_max_iters=h * w)
+        plain = KP.pectoral_tail_reference(*inputs, max_iters=h * w)
         same_bytes(KP.run_plan(*inputs), plain, f"pectoral_tail [{name}]")
+        sweeps = torch.zeros(1, dtype=torch.int32, device=dev)
+        KP.run_plan(*inputs, sweeps=sweeps)
 
         def plan(inputs=inputs):
             return KP.run_plan(*inputs)
         ev = [cuda_ms(plan, TAIL_ITERS, TAIL_WARMUP) for _ in range(2)]
         dv = [device_ms(plan, TAIL_ITERS) for _ in range(2)]
         rec_device, rec_ms = PECTORAL_RECORDS_MS[name]
-        dev_ms = captured_mean(*dv)
         row = {"kernel": "pectoral_tail", "shape": name, "card": card,
-               "ms": sum(ev) / 2, "runs_ms": ev, "device_ms": dev_ms, "device_runs_ms": dv,
+               "ms": sum(ev) / 2, "runs_ms": ev, "device_ms": captured_mean(*dv),
+               "device_runs_ms": dv, "sweeps": int(sweeps.item()),
                "record_device_ms": rec_device, "record_ms": rec_ms,
-               "device_within_10pct": None if dev_ms is None else dev_ms <= 1.1 * rec_device,
-               "events_within_10pct": sum(ev) / 2 <= 1.1 * rec_ms}
+               "device_ms_by_kernel": device_ms_by_kernel(plan)}
         print(json.dumps(row), flush=True)
         tail_rows.append(row)
     print(json.dumps({"card": card, "watershed_packed": rows, "trace": trace,
@@ -2125,6 +2227,7 @@ def main() -> int:
     sources = {name: (mod.SOURCE, mod.REPLACES) for name, mod in modules.items()}
     sources["largest_component_seeded"] = (KL.SEEDED_SOURCE, KL.SEEDED_REPLACES)
     sources["watershed_packed"] = (KW.SOURCE, KW.REPLACES)
+    sources["conv_leaky_bf16"] = (KCL.BF16_SOURCE, KCL.REPLACES)
     wrappers = {"largest_obj": KL.largest_obj, "equalize": KE.equalize,
                 "pectoral_tail": KP.pectoral_tail, "ccl": KC.label_components,
                 "mode": KM.largest_component_mask, "watershed": KW.marker_watershed,
@@ -2133,7 +2236,8 @@ def main() -> int:
                 "jet_blend": KOv.jet_blend, "gradcam_tail": KGT.gradcam_tail,
                 "cleaner_front": KF.cleaner_front,
                 "largest_component_seeded": KL.largest_component_seeded,
-                "flood": KFl.flood_from, "watershed_packed": KW.packed_form}
+                "flood": KFl.flood_from, "watershed_packed": KW.packed_form,
+                "conv_leaky_bf16": KCL.conv_leaky_bf16}
 
     def zero_counts():
         for fn in wrappers.values():
@@ -2250,8 +2354,9 @@ def main() -> int:
         # noise costs and a corner of background (the third marker)
         p_in = tuple(torch.from_numpy(a).to(dev) for a in pectoral_tile_edge_inputs(h, w))
         agree_twice("pectoral_tail", lambda: KP.pectoral_tail(*p_in),
-                    KP.pectoral_tail_reference(*p_in, max_iters=h * w, ws_max_iters=h * w),
-                    f"pectoral_tile_edge_inputs B=12 {h}x{w}, plain uncapped", pect_parts)
+                    KP.pectoral_tail_reference(*p_in, max_iters=h * w),
+                    f"pectoral_tile_edge_inputs B=12 {h}x{w}, plain uncapped, its watershed "
+                    f"at the 256-sweep cap", pect_parts)
         ws_marks = torch.zeros(edge_cases.shape, dtype=torch.int32, device=dev)
         ws_marks[:, :max(h // 5, 1), :max(w // 5, 1)] = 255
         ws_marks[:, -max(h // 5, 1):, -max(w // 5, 1):] = 128
@@ -2329,8 +2434,9 @@ def main() -> int:
         if cleaner.use_packed((h, w), 3):
             p_in = (equ_, high_, breast_)
             agree_twice("pectoral_tail", lambda p_in=p_in: KP.pectoral_tail(*p_in),
-                        KP.pectoral_tail_reference(*p_in, max_iters=cap, ws_max_iters=cap),
-                        f"{what}, plain uncapped", pect_parts)
+                        KP.pectoral_tail_reference(*p_in, max_iters=cap),
+                        f"{what}, plain uncapped, its watershed at the 256-sweep cap",
+                        pect_parts)
             if b == 1:
                 pect_b1 = p_in
             continue
@@ -2408,8 +2514,8 @@ def main() -> int:
     # count, and the call never waits on the host (its watershed loops on
     # the card)
     tiles = KF.tiles_per_image(*pect_b1[0].shape[1:])
-    ws_rounds = torch.zeros(1, dtype=torch.int32, device=dev)
-    events = trace_events(lambda: KP.run_plan(*pect_b1, rounds=ws_rounds))
+    ws_sweeps = torch.zeros(1, dtype=torch.int32, device=dev)
+    events = trace_events(lambda: KP.run_plan(*pect_b1, sweeps=ws_sweeps))
     p_grids = [e["args"]["grid"] for e in events
                if e.get("cat") == "kernel" and "grid" in e.get("args", {})]
     p_blocks = [g[0] * g[1] * g[2] for g in p_grids]
@@ -2417,7 +2523,7 @@ def main() -> int:
     print(f"pectoral_tail at B=1 {tuple(pect_b1[0].shape[1:])}: {tiles} tiles of "
           f"{KF.TILE}x{KF.TILE}; {len(p_blocks)} kernel launches in the profiler trace of the "
           f"plan's {KP.PLAN_LAUNCHES}, blocks {sorted(set(p_blocks))}; the watershed took "
-          f"{int(ws_rounds.item())} rounds in one launch; {waits} synchronising runtime calls "
+          f"{int(ws_sweeps.item())} sweeps in one launch; {waits} synchronising runtime calls "
           f"in the trace", flush=True)
     if len(p_blocks) != KP.PLAN_LAUNCHES:
         raise AssertionError(f"pectoral_tail's trace holds {len(p_blocks)} kernel launches, "
@@ -2425,9 +2531,9 @@ def main() -> int:
     if any(n < min(132, tiles) for n in p_blocks):
         raise AssertionError(f"pectoral_tail launched grids {p_grids}, some under "
                              f"{min(132, tiles)} blocks")
-    if waits or int(ws_rounds.item()) < 1:
+    if waits or int(ws_sweeps.item()) < 1:
         raise AssertionError(f"pectoral_tail synchronised the host {waits} times, its watershed "
-                             f"ran {int(ws_rounds.item())} rounds")
+                             f"ran {int(ws_sweeps.item())} sweeps")
     # a 256-sweep pair-form watershed call at the same shape waits on the
     # host once every CHECK_EVERY sweeps, not once a sweep
     ws_equ, ws_markers = cli_pectoral[CLI_SHAPES[0]]
@@ -2586,7 +2692,7 @@ def main() -> int:
             (ws_img, ws_mk, (), 256, "pair form, random B=16"),
             (equ, markers16, (255, 128, 64), 8, f"packed form, cleaner markers B=16 {HW}x{HW}"),
             (equ, markers16, (), 8, f"pair form, cleaner markers B=16 {HW}x{HW}")):
-        cap = uncapped if values else 256
+        cap = 256
         agree_twice("watershed_packed" if values else "watershed",
                     lambda i=img_, k=mk_, s_=max_scan, v=values: KW.marker_watershed(
                         i, k, max_scan=s_, marker_label_values=v),
@@ -2594,23 +2700,28 @@ def main() -> int:
                                                   marker_label_values=values),
                     f"{what}, max_scan {max_scan}, plain cap {cap}", ("labels", "boundary"))
     # the packed form over tiles x images at B = 1, 8, 16 on both sides of
-    # its 32 x 32 tiles up to 512 x 512, with one, two and three marker
-    # values, and markers that leave nothing unreached or that are absent
-    # (the plain version uncapped; max_scan 256 reaches the same fixpoint
-    # in fewer sweeps)
+    # its 32 x 32 and 64 x 64 tiles up to 512 x 512, with one, two and three
+    # marker values, and markers that leave nothing unreached or that are
+    # absent, at max_scan 8 (tiled sweeps) and 256 (the line form) and the
+    # default 256-sweep cap, the plain version at the same cap; caps of 1,
+    # 2 and 17 sweeps at B=1 and B=8
     packed_cases = [(b, hw, n, "some") for b in (1, 8, 16) for hw in PACKED_SIDES
                     for n in (1, 2, 3)]
     packed_cases += [(b, hw, 3, case) for b in (1, 8, 16) for hw in PACKED_SIDES
                      for case in ("all", "none")]
     for b, (h, w), n_values, case in packed_cases:
         img_, mk_, values = packed_inputs(rng, b, h, w, n_values, case, dev)
-        agree_twice("watershed_packed",
-                    lambda i=img_, k=mk_, v=values: KW.marker_watershed(
-                        i, k, max_scan=8, marker_label_values=v),
-                    KW.marker_watershed_reference(img_, mk_, max_iters=h * w + 1, max_scan=256,
-                                                  marker_label_values=values),
-                    f"B={b} {h}x{w}, {n_values} values, markers {case}, plain uncapped",
-                    ("labels", "boundary"))
+        runs = [(256, 8), (256, 256)]
+        if n_values == 3 and case == "some" and b < 16:
+            runs += [(1, 8), (2, 8), (17, 8), (2, 256)]
+        for cap, scan in runs:
+            agree_twice("watershed_packed",
+                        lambda i=img_, k=mk_, v=values, c=cap, s_=scan: KW.marker_watershed(
+                            i, k, max_iters=c, max_scan=s_, marker_label_values=v),
+                        KW.marker_watershed_reference(img_, mk_, max_iters=cap, max_scan=scan,
+                                                      marker_label_values=values),
+                        f"B={b} {h}x{w}, {n_values} values, markers {case}, max_scan {scan}, "
+                        f"plain cap {cap}", ("labels", "boundary"))
 
     # the training slice's kernels, at the shapes of the conv layers of the
     # basic (B=8 training, B=64 pipeline) and advanced (B=32 training, B=1
@@ -2780,7 +2891,8 @@ def main() -> int:
                 "conv_leaky": 4 * N_MAIN_BATCHES, "pool": 4 * N_MAIN_BATCHES,
                 "upsample": 0, "batchnorm": 0, "jet_blend": 0,
                 "gradcam_tail": 2 * N_MAIN_BATCHES, "cleaner_front": N_MAIN_BATCHES,
-                "largest_component_seeded": 0, "flood": 0, "watershed_packed": 0}
+                "largest_component_seeded": 0, "flood": 0, "watershed_packed": 0,
+                "conv_leaky_bf16": 0}
     print(f"fused pipeline: {N_MAIN_BATCHES} batches of B={BATCH} at {HW}x{HW}, "
           f"launches {pipe_launches}", flush=True)
     if pipe_launches != expected:
@@ -2839,7 +2951,8 @@ def main() -> int:
                              f"(pectoral_tail {even_launches['pectoral_tail']}): "
                              f"{even_launches}")
     # the packed watershed's inputs on the way through a second run, against
-    # its plain version uncapped; the second run's bytes equal the first's
+    # its plain version at the same cap; the second run's bytes equal the
+    # first's
     seen = []
     ws_fn = cleaner.marker_watershed
 
@@ -2855,8 +2968,8 @@ def main() -> int:
     for (img_, mk_, kwargs, (labels, boundary)), name in zip(seen, even_in):
         h, w = img_.shape[1:]
         plain_l, plain_b = KW.marker_watershed_reference(
-            img_.to(torch.float32), mk_, max_iters=h * w + 1, max_scan=kwargs["max_scan"],
-            marker_label_values=kwargs["marker_label_values"])
+            img_.to(torch.float32), mk_, max_iters=kwargs.get("max_iters", 256),
+            max_scan=kwargs["max_scan"], marker_label_values=kwargs["marker_label_values"])
         agree("watershed_packed", labels, plain_l, f"even-kernel process, {name}, labels")
         agree("watershed_packed", boundary, plain_b, f"even-kernel process, {name}, boundary")
     for name, x in even_in.items():
@@ -2934,7 +3047,8 @@ def main() -> int:
                 "watershed": 2, "ccl": 4 + n_flushes, "mode": 4 + n_flushes,
                 "conv_leaky": 2 * stacks, "pool": 2 * stacks, "upsample": 0,
                 "batchnorm": 0, "jet_blend": 2 * 2, "gradcam_tail": 0, "cleaner_front": 4,
-                "largest_component_seeded": 0, "flood": 0, "watershed_packed": 0}
+                "largest_component_seeded": 0, "flood": 0, "watershed_packed": 0,
+                "conv_leaky_bf16": 0}
     print(f"serving path: 3 uploads, 2 pipelines, {N_BATCHED} batched requests in "
           f"{n_flushes} flushes, classify_batch B={N_BATCHED}; launches {serve_launches}",
           flush=True)
@@ -3438,7 +3552,7 @@ def main() -> int:
             for i in range(equ_.shape[0]):
                 n = equ_[i].numel()
                 KP.pectoral_tail_reference(equ_[i:i + 1], high_[i:i + 1], breast_[i:i + 1],
-                                           max_iters=n, ws_max_iters=n)
+                                           max_iters=n)
         finally:
             TC._run_to_fixpoint, TGS.sweep_packed = run, sweep_packed
         return 22 * counted["ccl"] + 20 * counted["flood"] + 24 * counted["watershed"]
@@ -3818,15 +3932,18 @@ def main() -> int:
     bounds["watershed_packed"] = (wp["bound_ms"], wp["bound_by"])
     dev_times["watershed_packed"] = (wp["device_ms"], None, None)
     for row in pw["watershed_packed"]:
-        print(f"time watershed_packed {row['shape']}: device {ms_text(row['device_ms'])} ms "
-              f"(target {row['target_ms']}), events {row['ms']:.4f}, the one-block kernel "
-              f"device {ms_text(row['old_device_ms'])}, events {row['old_ms']:.4f}, plain "
-              f"{row['plain_ms']:.4f}; {row['rounds']} rounds, bound {row['bound_ms']:.4f} "
-              f"({row['bound_by']}), floor {row['floor_ms']:.4f} on {card}", flush=True)
+        old = (f", the rounds form to the fixpoint device {ms_text(row['old_device_ms'])}, "
+               f"events {row['old_ms']:.4f} ({row['old_rounds']} rounds; its record "
+               f"{row['record_device_ms']})" if "old_ms" in row else "")
+        floor = f", floor {row['floor_ms']:.4f}" if "floor_ms" in row else ""
+        print(f"time watershed_packed {row['shape']}: device {ms_text(row['device_ms'])} ms, "
+              f"events {row['ms']:.4f}{old}, plain {row['plain_ms']:.4f}; {row['sweeps']} "
+              f"sweeps (plain {row['plain_sweeps']}), bound {row['bound_ms']:.4f} "
+              f"({row['bound_by']}){floor} on {card}", flush=True)
     for row in pw["pectoral_tail"]:
-        print(f"time pectoral_tail {row['shape']} after the shared header: device "
-              f"{ms_text(row['device_ms'])} ms (record {row['record_device_ms']}), events "
-              f"{row['ms']:.4f} (record {row['record_ms']}) on {card}", flush=True)
+        print(f"time pectoral_tail {row['shape']} with JAX's sweeps ({row['sweeps']}): device "
+              f"{ms_text(row['device_ms'])} ms (rounds design {row['record_device_ms']}), events "
+              f"{row['ms']:.4f} (rounds design {row['record_ms']}) on {card}", flush=True)
     cam6 = torch.from_numpy(rng.random((1, 6, 6)).astype(np.float32)).to(dev)
     hot6 = cam6 >= 0.6 * cam6.amax(dim=(1, 2), keepdim=True)
     lab6 = KC.label_components(hot6, 8)
@@ -4004,16 +4121,286 @@ def main() -> int:
     front_launches = front_phase(uploads, engine_p50, zero_counts, read_counts, card)
     print(f"front phase: {time.perf_counter() - t9:.1f} s", flush=True)
     phase_done("9")
+
+    # ---- 10. the packed watershed's sweep cap ------------------------------------
+    # serpentines where JAX's 256-sweep cap binds, through the packed form
+    # and through the pectoral tail's relaxation (the same sweeps on a
+    # uint8 image): bit-exact against the plain version capped at 256
+    # sweeps, the sweeps run printed
+    values = (255, 128, 64)
+    for side in SERPENTINE_SIDES:
+        s_img, s_mk = watershed_serpentine(side, dev)
+        sweeps_t = torch.zeros(1, dtype=torch.int32, device=dev)
+        out_l = torch.empty_like(s_mk)
+        out_b = torch.empty(s_img.shape, dtype=torch.bool, device=dev)
+        KW.packed_form(s_img, s_mk, values, out_l, out_b, 256, 8, sweeps=sweeps_t)
+        plain = KW.marker_watershed_reference(s_img, s_mk, 256, 8, values)
+        agree("watershed_packed", out_l, plain[0], f"serpentine {side}x{side}, labels, cap 256")
+        agree("watershed_packed", out_b, plain[1], f"serpentine {side}x{side}, ridge, cap 256")
+        n_plain = plain_packed_sweeps(s_img, s_mk, values, 256, 8)
+        print(f"sweep cap: serpentine {side}x{side} packed form ran {int(sweeps_t.item())} "
+              f"sweeps, the plain version {n_plain}", flush=True)
+        if int(sweeps_t.item()) != n_plain:
+            raise AssertionError("the packed form's sweeps differ from the plain version's")
+        # the pectoral tail on the serpentine as its equalized image: its
+        # markers from a top-left quarter object, breast all but a column
+        equ_s = s_img.to(torch.uint8)
+        bin_s = torch.zeros_like(equ_s)
+        bin_s[:, : side // 2, : side // 2] = 255
+        breast_s = torch.full_like(equ_s, 255)
+        breast_s[:, :, -1] = 0
+        for cap in (1, 3, 256):
+            got = KP.run_plan(equ_s, bin_s, breast_s, ws_max_iters=cap, sweeps=sweeps_t)
+            want = KP.pectoral_tail_reference(equ_s, bin_s, breast_s, max_iters=side * side,
+                                              ws_max_iters=cap)
+            for part, a, b in zip(("labels", "boundary", "mask"), got, want):
+                agree("pectoral_tail", a, b, f"serpentine {side}x{side}, {part}, ws cap {cap}")
+            print(f"sweep cap: pectoral_tail on the {side}x{side} serpentine, cap {cap}: "
+                  f"{int(sweeps_t.item())} sweeps", flush=True)
+    # phase 4b's inputs' cleaner markers: the packed form at the cleaner's cap
+    for name, (b, side, seed) in {"B=8 512x512": (8, 512, 40),
+                                  f"B={BATCH} {HW}x{HW}": (BATCH, HW, 50)}.items():
+        x = torch.from_numpy(synthetic_mammograms(b, side, seed=seed)).to(dev)
+        _, _, _, equ_e, high_e, breast_e = clean_stage_inputs(x)
+        mk_e = pectoral_markers(equ_e, high_e, breast_e)
+        img_e = equ_e.to(torch.float32)
+        sweeps_t = torch.zeros(1, dtype=torch.int32, device=dev)
+        out_l = torch.empty_like(mk_e)
+        out_b = torch.empty(img_e.shape, dtype=torch.bool, device=dev)
+        KW.packed_form(img_e, mk_e, values, out_l, out_b, 256, 8, sweeps=sweeps_t)
+        plain = KW.marker_watershed_reference(img_e, mk_e, 256, 8, values)
+        agree("watershed_packed", out_l, plain[0], f"cleaner markers {name}, labels")
+        agree("watershed_packed", out_b, plain[1], f"cleaner markers {name}, ridge")
+        print(f"sweep cap: cleaner markers {name}: {int(sweeps_t.item())} sweeps, the plain "
+              f"version {plain_packed_sweeps(img_e, mk_e, values, 256, 8)}", flush=True)
+    phase_done("10")
+
+    # ---- 11. bfloat16 training at full width -------------------------------------
+    # one epoch (two Adam steps, B=32) of the advanced configuration with
+    # the conv stack and the device dataset in bf16, beside the same epoch
+    # in float32 on the card, its launches exact. Adam's first update moves
+    # every parameter by about lr * sign(g), so where a gradient's bf16
+    # rounding straddles 0 the two runs part, and across the 67M-weight
+    # dense layer the second step's loss differs by whole units (3.82
+    # against 4.99 on an H100): the losses are printed, and held where the
+    # two runs start from the same weights. At those initial
+    # weights the bf16 forward's loss on the epoch's first batch within
+    # 1e-3 of float32's (measured 3.6e-5 and 7.8e-5 on two batches; JAX's
+    # own bf16-against-f32 bound is 0.05), its logits within 2e-2 of their
+    # largest magnitude (measured 0.5%); a basic SGD epoch (B=8, 8 steps) in
+    # bf16 within 2e-3 of float32's loss (measured 3.3e-4). The bf16 conv
+    # form against its plain version at every layer shape of that run and
+    # the basic classifier's (to 2^-6 of the plain output's largest value:
+    # both round float32 sums taken in other orders to bf16, twice, so an
+    # output may land a bf16 step or two away); the training CLI with
+    # --bf16-compute
+    n11 = 64
+    cfg11 = dataclasses.replace(BT.ADVANCED, dropout_rate=0.0)
+    init11 = cnn.init_params(torch.Generator().manual_seed(0), cfg11, device=dev)
+    x11 = torch.from_numpy(Xa[:32]).to(dev)
+    y11 = torch.from_numpy(eye[ya[:32]]).to(dev)
+    with torch.no_grad(), full_fp32():
+        logit_f, logit_b = (cnn.apply(init11, x11, compute_dtype=dt) for dt in (None, torch.bfloat16))
+        first_f, first_b = (float(cnn.loss_fn(init11, x11, y11, compute_dtype=dt))
+                            for dt in (None, torch.bfloat16))
+    logit_err = float((logit_f - logit_b).abs().max())
+    logit_top = float(logit_f.abs().max())
+    del init11, x11, y11
+    fits11 = {}
+    zero_counts()
+    for dt in (torch.bfloat16, None):
+        fits11[dt] = step.fit(
+            cnn.init_params(torch.Generator().manual_seed(0), cfg11),
+            Xa[:n11], eye[ya[:n11]], Xa[n11:], ya[n11:], epochs=1, lr=1e-3, batch_size=32,
+            optimizer="adam", device_data=True, device_data_dtype=dt, compute_dtype=dt,
+            device=dev)
+        if dt is not None:
+            bf16_launches = read_counts()
+    basic11 = {dt: step.fit(cnn.init_params(torch.Generator().manual_seed(1),
+                                            dataclasses.replace(BT.BASIC, dropout_rate=0.0)),
+                            Xb[:n11], eye[yb[:n11]], Xb[n11:], yb[n11:], epochs=1, lr=0.01,
+                            batch_size=8, optimizer="sgd", compute_dtype=dt, device=dev)
+               for dt in (torch.bfloat16, None)}
+    loss_b, loss_f = fits11[torch.bfloat16].history[0]["loss"], fits11[None].history[0]["loss"]
+    basic_b, basic_f = (basic11[dt].history[0]["loss"] for dt in (torch.bfloat16, None))
+    print(f"bf16 training: advanced at its initial weights, B=32: loss bf16 {first_b} vs "
+          f"float32 {first_f} (tolerance 1e-3), logits max_abs_err {logit_err} of "
+          f"{logit_top} (tolerance 2e-2 of it); one advanced Adam epoch ({n11 // 32} steps): "
+          f"loss bf16 {loss_b}, float32 {loss_f} (apart after Adam's first update); one basic "
+          f"SGD epoch (B=8): loss bf16 {basic_b} vs float32 {basic_f} (tolerance 2e-3); "
+          f"launches of the bf16 Adam epoch {bf16_launches}", flush=True)
+    # a conv stack (two conv blocks) a step and one for the test batch
+    want11 = {name: 0 for name in wrappers}
+    want11.update(conv_leaky_bf16=2 * (n11 // 32), conv_leaky=2, pool=2 * (n11 // 32 + 1))
+    if bf16_launches != want11:
+        raise AssertionError(f"bf16 training launches {bf16_launches}, expected {want11}")
+    if not (abs(first_b - first_f) <= 1e-3 and logit_err <= 2e-2 * logit_top
+            and abs(basic_b - basic_f) <= 2e-3 and np.isfinite(loss_b)):
+        raise AssertionError("bf16 training is not within its tolerances of float32")
+    for a in fits11[torch.bfloat16].model.parameters():
+        if a.dtype != torch.float32 or not bool(torch.isfinite(a).all()):
+            raise AssertionError("bf16 training left parameters not float32 or not finite")
+    bgen = torch.Generator(device=dev).manual_seed(11)
+
+    def brandn(*shape, scale=1.0):
+        return torch.randn(shape, generator=bgen, device=dev) * scale
+
+    # (what, x, F, k, pad, the function's operations): the advanced layers
+    # at B=32 (layer 1 on the NHWC view of the device batch, layer 2 on the
+    # pool's NCHW output), the test batch's B=16, and the basic layers at B=8
+    bf16_shapes = []
+    for what, shape, f, k, pad, nhwc in (
+            ("advanced layer 1, B=32 (training)", (32, 256, 256, 64), 32, 3, 1, True),
+            ("advanced layer 2, B=32 (training)", (32, 32, 128, 128), 64, 3, 1, False),
+            ("advanced layer 1, B=16 (the test batch)", (16, 256, 256, 64), 32, 3, 1, True),
+            ("advanced layer 2, B=16 (the test batch)", (16, 32, 128, 128), 64, 3, 1, False),
+            ("basic layer 1, B=8", (8, 32, 32, 64), 128, 3, 0, True),
+            ("basic layer 2, B=8", (8, 128, 15, 15), 64, 3, 0, False)):
+        x = brandn(*shape).to(torch.bfloat16)
+        x = x.permute(0, 3, 1, 2) if nhwc else x
+        c = x.shape[1]
+        w = brandn(f, c, k, k, scale=(2.0 / (c * k * k)) ** 0.5).to(torch.bfloat16)
+        b = brandn(f, scale=0.1)
+        got = KCL.conv_leaky_bf16(x, w, b, 0.01, pad)
+        want = KCL.conv_leaky_bf16_reference(x, w, b, 0.01, pad)
+        torch.cuda.synchronize()
+        err = max_abs_err(got.float(), want.float())
+        tol = 2.0 ** -6 * float(want.float().abs().max())
+        errs["conv_leaky_bf16"] = max(errs["conv_leaky_bf16"], err)
+        differ = float((got != want).float().mean())
+        print(f"check conv_leaky_bf16 [{what}]: max_abs_err {err} (tolerance 2^-6 of the plain "
+              f"output's largest, {tol}); outputs that differ {differ}", flush=True)
+        if err > tol or got.dtype != torch.bfloat16:
+            raise AssertionError(f"conv_leaky_bf16 [{what}] disagrees with its plain version")
+        oh, ow = got.shape[2:]
+        ops = 2 * shape[0] * oh * ow * f * c * k * k
+        bf16_shapes.append((what, x, w, b, pad, got, ops))
+    bf16_rows = []
+    for what, x, w, b, pad, out, ops in bf16_shapes:
+        if "test batch" in what:
+            continue
+        k_ms, p_ms, l_ms, runs = turns_ms(
+            lambda: KCL.conv_leaky_bf16(x, w, b, 0.01, pad),
+            lambda: KCL.conv_leaky_bf16_reference(x, w, b, 0.01, pad), 10, 3,
+            lambda: F.conv2d(x, w, padding=pad))
+        t_bytes = (nbytes((x, w, b)) + nbytes(out)) / HBM_BYTES_PER_S
+        t_ops = ops / BF16_OPS_PER_S
+        row = {"shape": what, "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+               "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "device_ms": device_ms(lambda: KCL.conv_leaky_bf16(x, w, b, 0.01, pad), 5),
+               "library_device_ms": device_ms(lambda: F.conv2d(x, w, padding=pad), 5),
+               "runs_ms": runs, "card": card}
+        bf16_rows.append(row)
+        print(f"time conv_leaky_bf16 {what}: {k_ms:.4f} ms (device {ms_text(row['device_ms'])}), "
+              f"plain {p_ms:.4f}, F.conv2d bf16 {l_ms:.4f} (device "
+              f"{ms_text(row['library_device_ms'])}), bound {row['bound_ms']:.4f} by "
+              f"{row['bound_by']} on {card}", flush=True)
+    top11 = bf16_rows[0]
+    times["conv_leaky_bf16"] = (top11["ms"], top11["plain_ms"], top11["library_ms"])
+    bounds["conv_leaky_bf16"] = (top11["bound_ms"], top11["bound_by"])
+    dev_times["conv_leaky_bf16"] = (top11["device_ms"], None, top11["library_device_ms"])
+    compared["conv_leaky_bf16"] = bf16_rows
+    # the training CLI with --bf16-compute, one epoch on small DICOMs
+    with tempfile.TemporaryDirectory() as tmp:
+        rows_csv = ["dicom_file_path,pathology"]
+        crng = np.random.default_rng(5)
+        for i in range(24):
+            im = crng.normal(1000, 150, (48, 48)).clip(0, 4095)
+            if i % 2:
+                im[14:34, 14:34] += 1200
+            pth = os.path.join(tmp, f"c{i}.dcm")
+            TDicom.dcmwrite_minimal(pth, im.clip(0, 4095).astype(np.uint16), f"P{i}")
+            rows_csv.append(f"{pth},{'MALIGNANT' if i % 2 else 'BENIGN'}")
+        csv_path = os.path.join(tmp, "mapping.csv")
+        Path(csv_path).write_text("\n".join(rows_csv) + "\n")
+        zero_counts()
+        cli11 = TT.main(["--csv", csv_path, "--out-dir", os.path.join(tmp, "out"),
+                         "--pipeline", "advanced", "--features", "raw", "--resize", "24",
+                         "--epochs", "1", "--batch-size", "8", "--conv-layers", "4x3",
+                         "--hidden-units", "16", "--dropout", "0.0", "--bf16-compute"])
+        cli11_launches = read_counts()
+        print(f"training CLI --bf16-compute: 1 epoch on 24 DICOMs at 48x48, device "
+              f"{cli11['training']['device']}, test accuracy "
+              f"{cli11['evaluation']['test_accuracy']}; launches {cli11_launches}", flush=True)
+        if (not cli11_launches["conv_leaky_bf16"] or cli11["training"]["device"] != "cuda"
+                or not os.path.exists(os.path.join(tmp, "out", "cnn_model_advanced.npz"))):
+            raise AssertionError("the training CLI's --bf16-compute run is wrong")
+    phase_done("11")
+
+    # ---- 12. the compat API and the profiling tools on the card -------------------
+    from cadx_tpu_torch import compat as TCompat
+    from cadx_tpu_torch.compat import adcnnm as TAD
+    from cadx_tpu_torch.tools import trace_summary as TTS
+    from cadx_tpu_torch.utils import profiling as TProf
+
+    crng = np.random.default_rng(12)
+    yc = crng.integers(0, 2, 48)
+    Xc = crng.standard_normal((48, 12, 12, 2)).astype(np.float32) * 0.1
+    Xc[yc == 1, 3:7, 3:7, :] += 2.0
+    cm = TCompat.CNNModel(input_shape=(12, 12, 2), num_classes=2, conv_layers=[(4, 3)],
+                          hidden_units=[16], dropout_rate=0.0)
+    res12 = cm.train(Xc, eye[yc], Xc[:16], yc[:16], epochs=3, lr=0.05, batch_size=16,
+                     log=lambda m: None)
+    cls12, probs12 = cm.predict(Xc[0])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cnn_model.npz")
+        cm.save_model(path)
+        back12 = TCompat.load_weights(TCompat.CNNModel, path)
+        same12 = np.array_equal(back12.forward(Xc[0], training=False),
+                                cm.forward(Xc[0], training=False))
+        trainer = TCompat.ModelTrainer(cm)
+        cv12 = trainer.cross_validate(Xc, yc, n_splits=2, epochs=1, lr=0.05, batch_size=8)
+        tu = TCompat.tiny_unet((16, 16, 1))
+        tu.compile(learning_rate=3e-3)
+        hist12 = tu.fit(np.random.default_rng(3).random((16, 16, 16, 1)).astype(np.float32),
+                        epochs=1, batch_size=8)
+        xai = TCompat.ExplainableAI(cm)
+        hm12 = xai.generate_heatmap(Xc[1], class_idx=1)
+        ov12 = xai.overlay_heatmap(crng.integers(0, 256, (32, 32), dtype=np.uint8))
+        # the advanced exporter's round trip through the loader
+        adv_cfg = dataclasses.replace(BT.ADVANCED, dropout_rate=0.0)
+        adv = cnn.init_params(torch.Generator().manual_seed(4), adv_cfg, device=dev)
+        pth = os.path.join(tmp, "advanced.pth")
+        TAD.save_trained_model(adv, adv_cfg, pth)
+        adv_back = TAD.params_from_torch_state_dict(torch.load(pth, weights_only=True),
+                                                    adv_cfg, dev)
+        same_adv = all(torch.equal(a, c) for a, c in zip(adv_back.parameters(),
+                                                         adv.parameters()))
+        # one run_pipeline batch in a trace() window, summarised
+        trace_dir = os.path.join(tmp, "trace")
+        with TProf.trace(trace_dir):
+            fused.run_pipeline(params, batches[0], config)
+        rows12, total12 = TTS.summarize(trace_dir, top=8)
+        whole12 = TTS.completeness(TTS.load_events(trace_dir))
+    print(f"compat: CNNModel trained 3 epochs on the card, best_val_acc {res12.best_val_acc}, "
+          f"predict {cls12} {probs12}; save_model -> load_weights same output {same12}; "
+          f"ModelTrainer.cross_validate 2 folds {cv12.fold_accuracies}; TinyUNetModel.fit "
+          f"2 steps mse {hist12}; ExplainableAI heatmap {hm12.shape} in "
+          f"[{hm12.min()}, {hm12.max()}], overlay {ov12.shape} {ov12.dtype}; the advanced "
+          f"exporter's round trip bit-exact {same_adv}", flush=True)
+    print(f"trace_summary of one run_pipeline batch (B={BATCH} {HW}x{HW}) on {card}: total "
+          f"device {total12:.3f} ms; window {'complete' if whole12['complete'] else 'incomplete'}"
+          f" ({whole12['launches']} launches, {whole12['kernels']} kernel records)", flush=True)
+    for name, ms, n in rows12:
+        print(f"  {ms:10.3f} ms {n:5d}  {name[:90]}", flush=True)
+    if not (same12 and same_adv and res12.best_val_acc >= 0.9 and len(hist12) == 1
+            and np.isfinite(hist12[0]) and hm12.min() >= 0.0 and hm12.max() <= 1.0
+            and ov12.shape == (32, 32, 3) and len(cv12.fold_accuracies) == 2
+            and total12 > 0 and rows12):
+        raise AssertionError("the compat API or the profiling tools failed on the card")
+    phase_done("12")
     by_path = {"pipeline": pipe_launches, "serving": serve_launches,
                "reference_gradcam": ref_launches, "training": train_launches,
                "training_cli": cli_launches, "front": front_launches,
-               "even_kernel_process": even_launches}
+               "even_kernel_process": even_launches, "training_bf16": bf16_launches}
     # the seeded component lies on no path (as in JAX): 0 on each
     own_path = {"conv_leaky": "training", "pool": "training", "upsample": "training",
                 "batchnorm": "reference_gradcam", "jet_blend": "reference_gradcam",
                 "gradcam_tail": "pipeline", "cleaner_front": "training_cli",
                 "largest_component_seeded": "training_cli",
-                "watershed_packed": "even_kernel_process"}
+                "watershed_packed": "even_kernel_process",
+                "conv_leaky_bf16": "training_bf16"}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1],

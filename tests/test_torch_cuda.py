@@ -78,23 +78,23 @@ def test_pectoral_kernel(dev, hw):
     equ, high, breast = _pectoral_inputs(x)
     for a, b in zip(KP.pectoral_tail(equ, high, breast),
                     KP.pectoral_tail_reference(equ, high, breast,
-                                               max_iters=hw * hw,
-                                               ws_max_iters=hw * hw)):
+                                               max_iters=hw * hw)):
         _eq(a, b)
 
 
 def _pectoral_agrees_twice(equ, high, breast):
-    """The plan bit-exact against the plain version uncapped, and a second
-    run giving the same bytes; one launch a call; the watershed's rounds
-    counted on the card, at least one."""
+    """The plan bit-exact against the plain version (its CCLs uncapped, its
+    watershed at the 256-sweep cap both run), and a second run giving the
+    same bytes; one launch a call; the watershed's sweeps counted on the
+    card, 1 to 256."""
     h, w = equ.shape[1:]
     before = KP.pectoral_tail.launches
     got = KP.pectoral_tail(equ, high, breast)
-    rounds = torch.zeros(1, dtype=torch.int32, device=equ.device)
-    again = KP.run_plan(equ, high, breast, rounds=rounds)
+    sweeps = torch.zeros(1, dtype=torch.int32, device=equ.device)
+    again = KP.run_plan(equ, high, breast, sweeps=sweeps)
     assert KP.pectoral_tail.launches == before + 2
-    assert 1 <= int(rounds.item()) <= h * w + 1
-    plain = KP.pectoral_tail_reference(equ, high, breast, max_iters=h * w, ws_max_iters=h * w)
+    assert 1 <= int(sweeps.item()) <= 256
+    plain = KP.pectoral_tail_reference(equ, high, breast, max_iters=h * w)
     for a, b, c in zip(got, plain, again):
         _eq(a, b)
         _eq(a, c)
@@ -180,12 +180,12 @@ def _ws_inputs(rng, b, h, w, dev):
 @pytest.mark.parametrize("max_scan", [8, 256])
 @pytest.mark.parametrize("hw", [(64, 48), (96, 80), (520, 544)])
 def test_watershed_kernel(dev, rng, values, max_scan, hw):
-    """The packed form runs to its fixpoint, so its plain version runs
-    uncapped; the pair form's float32 sweeps may never settle at larger
-    sizes, so both run the same 256."""
+    """Both forms run JAX's sweeps to the same cap as the plain version:
+    256 (the pair form's float32 sweeps may never settle at larger
+    sizes)."""
     img, mk = _ws_inputs(rng, 2, *hw, dev)
     kw = dict(max_scan=max_scan, marker_label_values=values)
-    cap = hw[0] * hw[1] if values else 256
+    cap = 256
     for a, b in zip(KW.marker_watershed(img, mk, **kw),
                     KW.marker_watershed_reference(img, mk, max_iters=cap, **kw)):
         _eq(a, b)
@@ -254,6 +254,56 @@ def test_conv_leaky_kernel(dev, rng, shape, pad):
     assert err <= 1e-5 * float(ref.abs().max()) + 1e-6, err
     zero_rows = got[:, 0, : max(0, h // 2 - k + 1 - p)]
     assert bool((zero_rows == 0).all())        # z == 0 -> 0 exactly
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 9, 11, 7, 3), (1, 64, 34, 34, 128, 3),
+                                   (3, 3, 20, 17, 33, 5), (2, 24, 19, 21, 70, 3),
+                                   (2, 9, 16, 16, 16, 1)])
+@pytest.mark.parametrize("pad", ["VALID", "SAME"])
+@pytest.mark.parametrize("nhwc", [False, True])
+def test_conv_leaky_bf16_kernel(dev, rng, shape, pad, nhwc):
+    """The bf16 form against its plain version (cuDNN's bf16 conv, the same
+    epilogue): float32 sums in other orders rounded to bf16 twice, so an
+    output may land a bf16 step or two away: max |d| <= 2^-6 * max
+    |plain|; most outputs equal. One launch a call, NCHW or the NHWC view."""
+    b, c, h, w, f, k = shape
+    x = torch.from_numpy(rng.standard_normal((b, h, w, c) if nhwc else (b, c, h, w))
+                         .astype(np.float32)).to(dev, torch.bfloat16)
+    x = x.permute(0, 3, 1, 2) if nhwc else x
+    wt = torch.from_numpy((rng.standard_normal((f, c, k, k)) * 0.2).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    bias = torch.from_numpy(rng.standard_normal(f).astype(np.float32)).to(dev)
+    p = 0 if pad == "VALID" else k // 2
+    before = KCL.conv_leaky_bf16.launches
+    got = KCL.conv_leaky_bf16(x, wt, bias, 0.01, p)
+    assert KCL.conv_leaky_bf16.launches == before + 1
+    ref = KCL.conv_leaky_bf16_reference(x, wt, bias, 0.01, p)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    err = float((got.float() - ref.float()).abs().max())
+    assert err <= 2 ** -6 * float(ref.float().abs().max()), err
+    assert float((got != ref).float().mean()) < 0.01
+
+
+def test_conv_stack_bf16_launches_the_bf16_form(dev, rng):
+    """A bf16 conv stack launches conv_leaky_bf16 a block (never the
+    float32 form); a float32 input to the bf16 wrapper raises."""
+    cfg = TCNN.CNNConfig(input_shape=(16, 16, 8), num_classes=2,
+                         conv_layers=((16, 3), (8, 3)), hidden_units=(8,),
+                         dropout_rate=0.0, conv_padding="SAME")
+    model = TCNN.init_params(torch.Generator().manual_seed(0), cfg, device=dev)
+    x = torch.from_numpy(rng.standard_normal((4, 16, 16, 8)).astype(np.float32)).to(dev)
+    before = (KCL.conv_leaky_bf16.launches, KCL.conv_leaky.launches)
+    feats = TCNN.conv_stack(model, x, compute_dtype=torch.bfloat16)
+    assert feats.dtype == torch.bfloat16
+    assert (KCL.conv_leaky_bf16.launches, KCL.conv_leaky.launches) == (before[0] + 2,
+                                                                        before[1])
+    cpu = TCNN.conv_stack(model.cpu(), x.cpu(), compute_dtype=torch.bfloat16)
+    err = float((feats.float().cpu() - cpu.float()).abs().max())
+    assert err <= 2 ** -5 * float(cpu.float().abs().max()), err
+    with pytest.raises(ValueError):
+        KCL.conv_leaky_bf16(x.permute(0, 3, 1, 2), model.conv_w[0].detach().to(dev),
+                            model.conv_b[0].detach().to(dev))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1178,7 +1228,8 @@ def test_jet_blend_kernel_odd_values_and_refusal(dev, monkeypatch):
 
 # ---- the packed marker watershed over tiles x images -------------------------
 
-_PACKED_SIDES = [(1, 1), (31, 33), (32, 32), (33, 31), (200, 136), (511, 512), (512, 512)]
+_PACKED_SIDES = [(1, 1), (31, 33), (32, 32), (33, 31), (63, 65), (200, 136), (511, 512),
+                 (512, 512)]
 
 
 def _packed_inputs(rng, b, h, w, n_values, case, dev):
@@ -1204,23 +1255,25 @@ def _packed_inputs(rng, b, h, w, n_values, case, dev):
     return torch.from_numpy(img).to(dev), torch.from_numpy(mk).to(dev), values
 
 
-def _packed_twice(img, mk, values):
-    """One packed launch a call, bit-exact to the plain version run
-    uncapped, the same bytes on a second run."""
-    h, w = img.shape[1:]
+def _packed_twice(img, mk, values, max_iters=256, max_scan=8):
+    """One packed launch a call, bit-exact to the plain version at the
+    same cap and scan window, the same bytes on a second run; returns the
+    sweeps run."""
     before = KW.packed_form.launches
-    got = KW.marker_watershed(img, mk, max_scan=8, marker_label_values=values)
-    rounds = torch.zeros(1, dtype=torch.int32, device=img.device)
+    got = KW.marker_watershed(img, mk, max_iters=max_iters, max_scan=max_scan,
+                              marker_label_values=values)
+    sweeps = torch.zeros(1, dtype=torch.int32, device=img.device)
     labels = torch.empty_like(mk)
     boundary = torch.empty(img.shape, dtype=torch.bool, device=img.device)
-    KW.packed_form(img, mk, values, labels, boundary, rounds=rounds)
+    KW.packed_form(img, mk, values, labels, boundary, max_iters, max_scan, sweeps=sweeps)
     assert KW.packed_form.launches == before + 2
-    assert 1 <= int(rounds.item()) <= h * w + 1
-    plain = KW.marker_watershed_reference(img, mk, max_iters=h * w + 1, max_scan=256,
+    assert (max_iters == 0) <= (int(sweeps.item()) == 0) and int(sweeps.item()) <= max_iters
+    plain = KW.marker_watershed_reference(img, mk, max_iters=max_iters, max_scan=max_scan,
                                           marker_label_values=values)
     for a, b, c in zip(got, plain, (labels, boundary)):
         _eq(a, b)
         _eq(a, c)
+    return int(sweeps.item())
 
 
 @pytest.mark.parametrize("n_values", [1, 2, 3])
@@ -1230,18 +1283,40 @@ def test_packed_watershed_kernel(dev, rng, b, hw, n_values):
     _packed_twice(*_packed_inputs(rng, b, *hw, n_values, "some", dev))
 
 
+@pytest.mark.parametrize("max_scan", [1, 2, 4, 8, 9, 256])
+@pytest.mark.parametrize("max_iters", [0, 1, 2, 5, 256])
+def test_packed_watershed_kernel_capped(dev, rng, max_iters, max_scan):
+    """The cap and the scan window honoured: tiled sweeps up to max_scan 8,
+    the line form beyond, at B=2 200x136 and B=1 512x512."""
+    for b, h, w in ((2, 200, 136), (1, 512, 512)):
+        n = _packed_twice(*_packed_inputs(rng, b, h, w, 3, "some", dev), max_iters, max_scan)
+        assert n <= max_iters
+
+
+@pytest.mark.parametrize("side", [128, 512])
+def test_packed_watershed_kernel_serpentine(dev, side):
+    """A serpentine corridor where JAX's 256-sweep cap binds: the kernel
+    runs all 256 sweeps and stops with the plain version's labels."""
+    img = np.full((side, side), 200, np.float32)
+    img[::2] = 0
+    for r in range(1, side, 2):
+        img[r, side - 1 if (r // 2) % 2 == 0 else 0] = 0
+    mk = np.zeros((side, side), np.int32)
+    mk[0, 0], mk[1, 0] = 255, 128
+    n = _packed_twice(torch.from_numpy(img)[None].to(dev), torch.from_numpy(mk)[None].to(dev),
+                      (255, 128, 64))
+    assert n == 256
+
+
 @pytest.mark.parametrize("case", ["all", "none"])
 @pytest.mark.parametrize("hw", _PACKED_SIDES)
 @pytest.mark.parametrize("b", [1, 8, 16])
 def test_packed_watershed_kernel_edge_markers(dev, rng, b, hw, case):
-    """Markers that leave nothing unreached (no tile dirty), and no markers
-    at all (every tile dirty, nothing falls): one round either way."""
+    """Markers that leave nothing unreached (one sweep), and no markers at
+    all (the shift fill lowers unreached pixels, as in JAX)."""
     img, mk, values = _packed_inputs(rng, b, *hw, 3, case, dev)
-    _packed_twice(img, mk, values)
-    rounds = torch.zeros(1, dtype=torch.int32, device=dev)
-    KW.packed_form(img, mk, values, torch.empty_like(mk),
-                   torch.empty(img.shape, dtype=torch.bool, device=dev), rounds=rounds)
-    assert int(rounds.item()) == 1
+    n = _packed_twice(img, mk, values)
+    assert n == 1 or case == "none"
 
 
 def test_packed_watershed_kernel_trace(dev, rng):
@@ -1279,7 +1354,7 @@ def test_packed_watershed_kernel_rejects_wrong_inputs(dev):
     mk = torch.zeros((1, 8, 8), dtype=torch.int32, device=dev)
     out = torch.empty_like(mk), torch.empty((1, 8, 8), dtype=torch.bool, device=dev)
     with pytest.raises(ValueError):
-        KW.packed_form(img, mk, (255,), *out, rounds=torch.zeros(1, device=dev))
+        KW.packed_form(img, mk, (255,), *out, sweeps=torch.zeros(1, device=dev))
     with pytest.raises(RuntimeError):   # sides beyond 512: the C entry refuses
         big = torch.zeros((1, 513, 8), dtype=torch.float32, device=dev)
         KW.packed_form(big, big.to(torch.int32), (255,),

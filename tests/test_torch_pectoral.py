@@ -1,16 +1,15 @@
 """The premise of the tiled pectoral tail, on the CPU.
 
-The CUDA plan (`csrc/pectoral.cu`) relaxes the packed watershed
-(dist << 2) | label a tile at a time, each tile to its own fixpoint under
-a 1-pixel halo of its neighbours' current values, in whatever order the
-blocks run, until no tile is dirty. Every step cost is positive and
-values only fall, so the min-plus fixpoint is unique: here a numpy
-relaxation done that way, 8 x 8 tiles at 64² in shuffled tile orders,
-gives the labels of the port's `marker_watershed_plain` and of the JAX
-package's packed watershed (`cadx_tpu/ops/watershed.py::marker_watershed`,
-which takes `geodesic_scan.relax_to_fixpoint_packed` at these sizes) on the
-same seeded inputs. Also the wrapper's host-side helpers, and that a CPU
-call launches nothing.
+The CUDA plan (`csrc/pectoral.cu`) runs the packed watershed
+(dist << 2) | label as JAX's sweeps over 64 x 64 halo tiles
+(`csrc/tiled_watershed.cuh`, modelled in numpy by
+`test_torch_packed_watershed.sweep_model`): on the pectoral tail's own
+markers at 64² that model gives the labels of the port's
+`marker_watershed_plain` and of the JAX package's packed watershed
+(`cadx_tpu/ops/watershed.py::marker_watershed`, which takes
+`geodesic_scan.relax_to_fixpoint_packed` at these sizes) after as many
+sweeps. Also the wrapper's host-side helpers, and that a CPU call
+launches nothing.
 """
 
 import jax.numpy as jnp
@@ -22,15 +21,15 @@ from cadx_tpu.ops import watershed as JW
 from cadx_tpu_torch.kernels import cleaner_front as KF
 from cadx_tpu_torch.kernels import gradcam_tail as KGT
 from cadx_tpu_torch.kernels import pectoral as KP
+from cadx_tpu_torch.kernels import watershed as KW
 from cadx_tpu_torch.kernels.largest_obj import largest_obj_reference
 from cadx_tpu_torch.ops.morphology import dilate, erode
 from cadx_tpu_torch.ops.watershed import marker_watershed_plain
 from cadx_tpu_torch.synthetic import pectoral_tile_edge_inputs
+from test_torch_packed_watershed import model_labels, sweep_model
 
 HW = 64
-TILE = 8
 VALUES = (255, 128, 64)
-UNREACHED = 1 << 30
 
 
 def _markers(equ, img_bin, breast):
@@ -41,72 +40,6 @@ def _markers(equ, img_bin, breast):
     markers = torch.where(erode(pect, 3, 7) > 0, 255, markers)
     markers = torch.where(dilate(pect, 3, 7) == 0, 128, markers)
     return torch.where(torch.from_numpy(breast)[None] == 0, 64, markers)[0].numpy()
-
-
-def _relax_tile(pk, q, y0, x0, log_k):
-    """One tile of pk (in place) to its fixpoint under its halo's current
-    values: rows left to right and back, then columns down and up, until a
-    round changes nothing; returns which of its edges (top, bottom, left,
-    right) a pixel fell on."""
-    h, w = pk.shape
-    ys, xs = slice(y0, min(y0 + TILE, h)), slice(x0, min(x0 + TILE, w))
-    start = pk[ys, xs].copy()
-
-    def scan(line_pk, line_q, lo, hi, step):
-        prev = line_pk[lo - step] if 0 <= lo - step < len(line_pk) else UNREACHED
-        qprev = line_q[lo - step] if 0 <= lo - step < len(line_q) else 0
-        fell = False
-        for i in range(lo, hi, step):
-            cand = prev + (((abs(int(line_q[i]) - int(qprev)) << log_k) + 1) << 2)
-            if cand < line_pk[i]:
-                line_pk[i] = cand
-                fell = True
-            prev, qprev = line_pk[i], line_q[i]
-        return fell
-
-    more = True
-    while more:
-        more = False
-        for y in range(ys.start, ys.stop):
-            more |= scan(pk[y], q[y], xs.start, xs.stop, 1)
-            more |= scan(pk[y], q[y], xs.stop - 1, xs.start - 1, -1)
-        for x in range(xs.start, xs.stop):
-            more |= scan(pk[:, x], q[:, x], ys.start, ys.stop, 1)
-            more |= scan(pk[:, x], q[:, x], ys.stop - 1, ys.start - 1, -1)
-    fell = pk[ys, xs] < start
-    last_row, last_col = fell.shape[0] == TILE, fell.shape[1] == TILE
-    return (fell[0].any(), last_row and fell[-1].any(), fell[:, 0].any(),
-            last_col and fell[:, -1].any())
-
-
-def _tiled_watershed(equ, markers, order_seed):
-    """The packed watershed relaxed tile by tile in shuffled orders: each
-    pass takes the dirty tiles in a random order, and a tile whose edge
-    pixel fell marks that neighbour dirty for the next pass."""
-    h, w = equ.shape
-    log_k = max(h + w - 1, 1).bit_length()
-    small = np.zeros(markers.shape, np.int64)
-    for i, v in enumerate(VALUES):
-        small[markers == v] = i + 1
-    pk = np.where(small > 0, small, UNREACHED)
-    ty, tx = -(-h // TILE), -(-w // TILE)
-    dirty = {(a, b) for a in range(ty) for b in range(tx)}
-    rng = np.random.default_rng(order_seed)
-    passes = 0
-    while dirty:
-        passes += 1
-        todo, dirty = sorted(dirty), set()
-        for k in rng.permutation(len(todo)):
-            a, b = todo[k]
-            top, bottom, left, right = _relax_tile(pk, equ, a * TILE, b * TILE, log_k)
-            for on, nb in ((top, (a - 1, b)), (bottom, (a + 1, b)), (left, (a, b - 1)),
-                           (right, (a, b + 1))):
-                if on and 0 <= nb[0] < ty and 0 <= nb[1] < tx:
-                    dirty.add(nb)
-    labels = np.zeros(markers.shape, np.int32)
-    for i, v in enumerate(VALUES):
-        labels[(pk & 3) == i + 1] = v
-    return labels, passes
 
 
 @pytest.mark.parametrize("image", [0, 3, 8, 9])
@@ -120,25 +53,27 @@ def test_tile_relaxation_reaches_the_plain_and_jax_labels(image):
                                         max_iters=HW * HW, max_scan=8,
                                         marker_label_values=VALUES)
     np.testing.assert_array_equal(plain[0].numpy(), np.asarray(jax_labels))
-    for seed in range(3):
-        labels, passes = _tiled_watershed(equ.astype(np.int64), markers, seed)
-        np.testing.assert_array_equal(labels, plain[0].numpy())
-        assert passes >= 1
+    pk, sweeps = sweep_model(equ.astype(np.float32), markers, VALUES, HW * HW, 8)
+    np.testing.assert_array_equal(model_labels(pk, VALUES), plain[0].numpy())
+    assert 1 <= sweeps < HW * HW
 
 
 def test_watershed_tiles_fill_the_card():
-    """The watershed runs the tiles of the plan's other steps, which give
-    one image of the 512² upload 256 blocks a launch, at least one an SM
-    of the H100's 132."""
+    """The plan's steps run cleaner_front's tiles, which give one image of
+    the 512² upload 256 blocks a launch, at least one an SM of the H100's
+    132; so do the watershed's sweeps there (32 x 32, there being fewer
+    64 x 64 tiles than SMs), and 64 x 64 at run_pipeline's B=64 256²."""
     assert KP.TILE == KF.TILE
+    assert KW.sweep_tiles(1, 512, 512) == (-(-512 // KP.TILE)) ** 2
+    assert KW.sweep_tile(64, 256, 256) == 2 * KP.TILE
     assert (-(-512 // KP.TILE)) ** 2 >= 132
 
 
 def test_scratch_bytes():
     """A uint64 key an image, four int32 (the watershed's changed flags and
-    rounds), two int32 planes, three byte planes and two dirty bytes a
-    tile; under the one-block kernel's six int32 planes an image."""
-    assert KP.scratch_bytes(2, 45, 70) == 8 * 2 + 16 + 11 * 2 * 45 * 70 + 2 * 2 * 2 * 3
+    sweeps), four int32 planes, three byte planes and two bytes a tile;
+    under the one-block kernel's six int32 planes an image."""
+    assert KP.scratch_bytes(2, 45, 70) == 8 * 2 + 16 + 19 * 2 * 45 * 70 + 2 * 2 * 2 * 3
     assert KP.scratch_bytes(64, 256, 256) < 24 * 64 * 256 * 256
 
 

@@ -103,8 +103,9 @@ def test_train_cli_encoder_features(tmp_path, rng):
     assert os.path.exists(os.path.join(out, "cnn_model_advanced.npz"))
 
 
-@pytest.mark.parametrize("flag,where", [("--data-parallel", r"Queue 1 item 4\)"),
-                                        ("--bf16-compute", r"Queue 1 item 1\)")])
+# --bf16-compute trains since the bf16 slice (tests/test_torch_bf16.py::
+# test_train_cli_bf16_compute); --data-parallel waits on parallel/
+@pytest.mark.parametrize("flag,where", [("--data-parallel", r"Queue 1 item 4\)")])
 def test_unported_flags_raise(tmp_path, flag, where):
     with pytest.raises(SystemExit, match=where):
         TT.main(["--csv", str(tmp_path / "none.csv"), "--out-dir", str(tmp_path / "o"),
