@@ -490,13 +490,10 @@ class CrossValidator:
     def cross_validate(self, config: _cnn.CNNConfig, X, y_labels, *,
                        epochs=10, lr=0.01, batch_size=8, optimizer="sgd",
                        mesh=None, log=None):
-        if mesh is not None:
-            raise NotImplementedError("mesh-sharded folds wait on the port's parallel/ "
-                                      "slice (ROADMAP Queue 1 item 4)")
         self.last_result = _crossval.cross_validate(
             config, X, y_labels, n_splits=self.n_splits, epochs=epochs,
-            lr=lr, batch_size=batch_size, optimizer=optimizer, log_fn=log,
-            device=self.device,
+            lr=lr, batch_size=batch_size, optimizer=optimizer, mesh=mesh, log_fn=log,
+            device=None if mesh is not None else self.device,
         )
         return self.last_result
 

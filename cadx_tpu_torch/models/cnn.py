@@ -183,33 +183,48 @@ def conv_stack(model: CNN, x: torch.Tensor, *,
     return out.permute(0, 2, 3, 1)
 
 
+def dropout_uniforms(config: CNNConfig, batch: int, generator: torch.Generator,
+                     device=None) -> list[torch.Tensor]:
+    """The uniforms a training forward of `batch` rows draws from
+    `generator`, one (batch, units) tensor a hidden layer, in its order:
+    a data-parallel shard takes its rows of the whole batch's draw, as
+    JAX draws over the global batch and shards the result."""
+    return [torch.rand((batch, units), generator=generator, device=device)
+            for units in config.hidden_units]
+
+
 def head_logits(model: CNN, feats: torch.Tensor, *, training: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                uniforms: list[torch.Tensor] | None = None) -> torch.Tensor:
     """Row-major (h, w, F) flatten, dense + LeakyReLU chain, output logits.
     In training, with dropout_rate > 0 and a generator, each hidden
     activation keeps where uniform > rate, scaled by 1 / (1 - rate); the
-    uniforms are drawn from `generator` on the activations' device."""
+    uniforms are drawn from `generator` on the activations' device, or
+    given (`uniforms`, one tensor a hidden layer, `dropout_uniforms`)."""
     alpha, rate = model.config.leaky_alpha, model.config.dropout_rate
-    drop = training and rate > 0.0 and generator is not None
+    drop = training and rate > 0.0 and (generator is not None or uniforms is not None)
     out = feats.reshape(feats.shape[0], -1)
-    for w, b in zip(model.dense_w, model.dense_b):
+    for i, (w, b) in enumerate(zip(model.dense_w, model.dense_b)):
         out = leaky_relu(out @ w + b, alpha)
         if drop:
-            keep = torch.rand(out.shape, generator=generator, device=out.device) > rate
-            out = out * keep.to(out.dtype) / (1.0 - rate)
+            u = (uniforms[i] if uniforms is not None else
+                 torch.rand(out.shape, generator=generator, device=out.device))
+            out = out * (u > rate).to(out.dtype) / (1.0 - rate)
     return out @ model.out_w + model.out_b
 
 
 def apply(model: CNN, x: torch.Tensor, training: bool = False,
           generator: torch.Generator | None = None, *,
-          compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+          compute_dtype: torch.dtype | None = None,
+          uniforms: list[torch.Tensor] | None = None) -> torch.Tensor:
     """Batched forward -> logits (B, num_classes); x (B, H, W, C) float32.
     compute_dtype: see conv_stack (the conv stack in bf16, the head in
-    float32)."""
+    float32); uniforms: see head_logits."""
     feats = conv_stack(model, x, compute_dtype=compute_dtype)
     if compute_dtype is not None:
         feats = feats.to(torch.float32)
-    return head_logits(model, feats, training=training, generator=generator)
+    return head_logits(model, feats, training=training, generator=generator,
+                       uniforms=uniforms)
 
 
 def forward(model: CNN, x: torch.Tensor) -> torch.Tensor:

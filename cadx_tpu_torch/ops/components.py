@@ -174,16 +174,22 @@ def label_components_plain(mask: torch.Tensor, connectivity: int = 8,
     return _label_core(mask, connectivity, max_iters, init)
 
 
-def largest_from_labels(labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Mask of the most frequent foreground label, the smallest label on
-    ties (argmax returns the first maximum); empty for an empty mask."""
+def component_areas(labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Pixel count per component, indexed by the component's root label:
+    (B, H*W) int32 for a (B, H, W) batch."""
     b, h, w = mask.shape
     n = h * w
     flat = torch.where(mask, labels, torch.full_like(labels, n)).view(b, n).long()
     areas = torch.zeros((b, n + 1), dtype=torch.int32, device=mask.device)
     areas.scatter_add_(1, flat, torch.ones_like(flat, dtype=torch.int32))
-    best = areas[:, :n].argmax(dim=1).to(torch.int32)
-    return mask & (labels == best.view(b, 1, 1))
+    return areas[:, :n]
+
+
+def largest_from_labels(labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mask of the most frequent foreground label, the smallest label on
+    ties (argmax returns the first maximum); empty for an empty mask."""
+    best = component_areas(labels, mask).argmax(dim=1).to(torch.int32)
+    return mask & (labels == best.view(-1, 1, 1))
 
 
 def largest_component(mask: torch.Tensor, connectivity: int = 8,

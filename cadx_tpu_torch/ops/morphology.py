@@ -44,6 +44,11 @@ def opening(img: torch.Tensor, ksize: int, iterations: int = 1) -> torch.Tensor:
     return dilate(erode(img, ksize, iterations), ksize, iterations)
 
 
+def closing(img: torch.Tensor, ksize: int, iterations: int = 1) -> torch.Tensor:
+    """MORPH_CLOSE: dilate then erode."""
+    return erode(dilate(img, ksize, iterations), ksize, iterations)
+
+
 def median_blur(img: torch.Tensor, ksize: int = 3) -> torch.Tensor:
     """k x k median of each (H, W) image of a (B, H, W) batch, borders
     replicated (cv2.medianBlur), through float32 and back to the input's

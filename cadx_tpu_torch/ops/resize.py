@@ -29,6 +29,21 @@ def resize_linear(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     return out.permute(0, 2, 3, 1)
 
 
+def resize_nearest(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Nearest-neighbour resize of (B, H, W) or channel-last (B, H, W, C),
+    dtype kept: jax.image's 'nearest', output i sampling input
+    floor((i + 0.5) * n_in / n_out) in float32."""
+    out = img
+    for dim, n_out in ((1, out_hw[0]), (2, out_hw[1])):
+        n_in = img.shape[dim]
+        if n_in == n_out:
+            continue
+        pos = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * np.float32(n_in)
+        idx = np.floor(pos / np.float32(n_out)).astype(np.int64)
+        out = out.index_select(dim, torch.from_numpy(idx).to(img.device))
+    return out
+
+
 def resize_area(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     """cv2.INTER_AREA. Integer downscale factors: the box mean, as the box
     sum times 1/(fh*fw), the order XLA computes it in. Other factors:

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 
-def _image_max(img: torch.Tensor) -> torch.Tensor:
+def image_max(img: torch.Tensor) -> torch.Tensor:
     """Per-image max over (H, W); uint16 is widened, as torch has no
     uint16 max on the CPU."""
     if img.dtype == torch.uint16:
@@ -38,14 +38,18 @@ def binary_threshold(img: torch.Tensor, thresh, maxval=255) -> torch.Tensor:
     return torch.where(wide > t, on, torch.zeros((), dtype=img.dtype, device=img.device))
 
 
-def relative_threshold_value(img: torch.Tensor, frac) -> torch.Tensor:
+def relative_threshold_value(img: torch.Tensor, frac, mx: torch.Tensor | None = None
+                             ) -> torch.Tensor:
     """Per-image threshold: frac >= 1 is absolute; otherwise
     int(max * frac) in float64 for u8/u16 images (a host table over all
-    maxima), or floor(f32 max * frac). Returns int32 of shape (B,)."""
+    maxima), or floor(f32 max * frac). Returns int32 of shape (B,).
+    `mx`: the images' maxima (`image_max`) where the caller has them, as
+    a row-sharded image's all-reduced max."""
     b = img.shape[0]
     if isinstance(frac, (int, float)) and frac >= 1.0:
         return torch.full((b,), int(frac), dtype=torch.int32, device=img.device)
-    mx = _image_max(img)
+    if mx is None:
+        mx = image_max(img)
     if isinstance(frac, float) and img.dtype in (torch.uint8, torch.uint16):
         n = 1 << (8 * img.element_size())
         table = torch.as_tensor(_trunc_table(frac, n), device=img.device)
@@ -66,7 +70,10 @@ def max_pix_val(dtype: torch.dtype) -> int:
     raise ValueError(f"Unknown dtype found in input image array: {dtype}")
 
 
-def to_uint8(img: torch.Tensor) -> torch.Tensor:
-    """(img / max * 255) truncated to uint8, with the max taken per image."""
-    maxv = _image_max(img).to(torch.float32).clamp_min(1e-12).view(-1, 1, 1)
+def to_uint8(img: torch.Tensor, mx: torch.Tensor | None = None) -> torch.Tensor:
+    """(img / max * 255) truncated to uint8, with the max taken per image
+    (or given: `mx`, as in relative_threshold_value)."""
+    if mx is None:
+        mx = image_max(img)
+    maxv = mx.to(torch.float32).clamp_min(1e-12).view(-1, 1, 1)
     return (img.to(torch.float32) / maxv * 255.0).to(torch.uint8)

@@ -26,8 +26,10 @@ resnet34 `.pth` for the encoder, and a torchvision resnet50 `.pth` for the
 reference Grad-CAM, which `write_gradcam_overlays` then runs in place of
 the explain-own-classifier CAM. A missing artifact keeps its seeded
 weights. Everything runs on one device, `device`: the card unless the
-caller passes `device="cpu"` (construction raises without a card). The
-mesh data-parallel bulk path of the JAX engine is not ported.
+caller passes `device="cpu"` (construction raises without a card), but
+for `classify_batch`, which fans a batch out over a mesh
+(`EngineConfig.bulk_data_parallel`): the `mesh` given, or every visible
+card where there are two or more.
 """
 
 from __future__ import annotations
@@ -89,6 +91,10 @@ class EngineConfig:
     # bucketed shape (bucket_clean_hw) before cleaning; None cleans at any
     # native size, as the reference does.
     native_clean_max_side: int | None = 1536
+    # Shard classify_batch's rows over a mesh's data axis (params
+    # replicated, `parallel.data_parallel.make_dp_pipeline`): the engine's
+    # `mesh`, else every visible card. One card keeps the plain path.
+    bulk_data_parallel: bool = True
     basic_classifier: cnn.CNNConfig = dataclasses.field(
         default_factory=lambda: cnn.CNNConfig(
             input_shape=(32, 32, 64), num_classes=2,
@@ -149,7 +155,8 @@ class InferenceEngine:
                  advanced_summary_json: str | None = None,
                  advanced_pth: str | None = None,
                  encoder_pth: str | None = None,
-                 gradcam_pth: str | None = None):
+                 gradcam_pth: str | None = None,
+                 mesh=None):
         """Weights: `state` (e.g. from `convert.convert_engine_params`), or
         random weights from `seed`; then each artifact that exists replaces
         its part, as the reference deployment loads them: `basic_npz` the
@@ -161,7 +168,8 @@ class InferenceEngine:
         Grad-CAM (GRADCAM.py:16-53); one without a head raises ValueError
         here rather than on every request. Everything runs on `device`,
         the card when None; without a card that raises unless
-        device="cpu"."""
+        device="cpu". `mesh` (`parallel.mesh.Mesh`): classify_batch's
+        fan-out (see EngineConfig.bulk_data_parallel)."""
         self.config = config or EngineConfig()
         self.device = resolve(device)
         if state is None:
@@ -200,6 +208,9 @@ class InferenceEngine:
         self._feats_lock = threading.Lock()
         self._batchers: dict = {}
         self._batchers_lock = threading.Lock()
+        self._mesh = mesh
+        self._dp_runners: dict = {}
+        self.last_bulk_devices = 0
 
     # ------------------------------------------------------------------
     # segmentation (upload-single path)
@@ -336,9 +347,27 @@ class InferenceEngine:
     # ------------------------------------------------------------------
     # batched bulk classification
     # ------------------------------------------------------------------
+    def _bulk_mesh(self):
+        """classify_batch's mesh, or None when the fan-out is off or the
+        mesh would hold fewer than two shards (the common one-card case)."""
+        if not self.config.bulk_data_parallel:
+            return None
+        if self._mesh is None and self.device.type == "cuda" and torch.cuda.device_count() > 1:
+            from cadx_tpu_torch.parallel.mesh import make_mesh
+
+            self._mesh = make_mesh(devices=[torch.device("cuda", i)
+                                            for i in range(torch.cuda.device_count())])
+        if self._mesh is None or self._mesh.shape["data"] < 2:
+            return None
+        return self._mesh
+
     def classify_batch(self, images_u8: np.ndarray, pipeline: str = "basic") -> list[dict]:
         """(B, H, W) uint8 at segment_hw -> one result row per image, through
-        the port's `run_pipeline` with bf16 feature storage, no CAMs."""
+        the port's `run_pipeline` with bf16 feature storage, no CAMs. On a
+        mesh (`_bulk_mesh`) the batch is padded to a multiple of its data
+        axis by repeating the last image, run by `make_dp_pipeline` and
+        trimmed; `last_bulk_devices` is the shards it ran on (1 on the
+        plain path)."""
         from cadx_tpu_torch.pipeline import fused
 
         cfg = (self.config.basic_classifier if pipeline == "basic"
@@ -351,10 +380,25 @@ class InferenceEngine:
         params = fused.PipelineParams(
             encoder=self.encoder_params,
             classifier=self.basic_params if pipeline == "basic" else self.advanced_params)
-        out = fused.run_pipeline(
-            params, torch.as_tensor(np.asarray(images_u8), device=self.device), pcfg)
+        arr = torch.as_tensor(np.asarray(images_u8), device=self.device)
+        b = arr.shape[0]
+        mesh = self._bulk_mesh()
+        if mesh is not None and b > 1:
+            from cadx_tpu_torch.parallel.data_parallel import make_dp_pipeline
+
+            n_data = mesh.shape["data"]
+            if pcfg not in self._dp_runners:
+                self._dp_runners[pcfg] = make_dp_pipeline(pcfg, mesh)
+            pad = (-b) % n_data
+            if pad:
+                arr = torch.cat([arr, arr[-1:].expand(pad, *arr.shape[1:])])
+            out = self._dp_runners[pcfg](params, arr)
+            self.last_bulk_devices = n_data
+        else:
+            out = fused.run_pipeline(params, arr, pcfg)
+            self.last_bulk_devices = 1
         fetched = torch.cat([out.probs, out.predicted[:, None].to(torch.float32)],
-                            dim=1).cpu().numpy()
+                            dim=1)[:b].cpu().numpy()
         probs, preds = fetched[:, :-1], fetched[:, -1].astype(int)
         return [
             {

@@ -23,9 +23,18 @@ Features modes:
            encoder's conv1, a bilinear resize to --feature-size.
 
 --bf16-compute runs the conv stack in bfloat16 (`fit(compute_dtype=
-torch.bfloat16)`; parameters and evaluation stay float32). Not ported yet,
-and refused rather than run on one device: --data-parallel (ROADMAP Queue
-1, the `parallel/` slice).
+torch.bfloat16)`; parameters and evaluation stay float32).
+
+--data-parallel shards every batch over a mesh (`parallel/`): under
+torchrun, one rank a card,
+
+    torchrun --nproc_per_node=N -m cadx_tpu_torch.tools.train --data-parallel ...
+
+on the world's ranks (NCCL; gloo with --device cpu), and in a plain
+process on the local mesh of the visible cards, or of the devices that
+--device lists (e.g. `--device cuda:0,cuda:0`, `--device cpu,cpu`). The
+batch size must split evenly over the mesh. Only rank 0 writes
+--out-dir; the other ranks wait at a barrier.
 """
 
 from __future__ import annotations
@@ -103,25 +112,33 @@ def main(argv=None) -> dict:
     ap.add_argument("--dropout", type=float, default=0.3)
     ap.add_argument("--kfolds", type=int, default=0, help="run k-fold CV instead of a split")
     ap.add_argument("--data-parallel", action="store_true",
-                    help="shard batches over all devices (not ported yet)")
+                    help="shard batches over a mesh: torchrun's ranks, else the "
+                         "visible cards or the devices --device lists")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--bf16-compute", action="store_true",
                     help="bf16 conv compute (params/eval stay f32; "
                          "tolerance-level parity)")
     ap.add_argument("--device", default="cuda",
-                    help="torch device to train on (default the card; 'cpu' for the CPU)")
+                    help="torch device to train on (default the card; 'cpu' for the CPU); "
+                         "with --data-parallel in one process, a comma-separated list "
+                         "makes the mesh")
     args = ap.parse_args(argv)
-    if args.data_parallel:
-        raise SystemExit("--data-parallel is not ported to cadx_tpu_torch yet "
-                         "(ROADMAP Queue 1 item 4)")
 
     from cadx_tpu_torch.data.dataset import split_train_test
     from cadx_tpu_torch.models import cnn
     from cadx_tpu_torch.train import crossval, step, summary
 
-    dev = resolve(args.device)
-    os.makedirs(args.out_dir, exist_ok=True)
+    mesh, rank = None, 0
+    if args.data_parallel:
+        mesh = data_parallel_mesh(args.device)
+        dev = mesh.home
+        if mesh.distributed:
+            rank = torch.distributed.get_rank()
+    else:
+        dev = resolve(args.device)
+    if rank == 0:
+        os.makedirs(args.out_dir, exist_ok=True)
     images, labels, encoder = load_images(args.csv)
     X = build_features(images, args.features, (args.resize, args.resize),
                        (args.feature_size, args.feature_size), device=dev)
@@ -138,17 +155,29 @@ def main(argv=None) -> dict:
     optimizer = "sgd" if args.pipeline == "basic" else "adam"
     lr = args.lr if args.lr is not None else (0.01 if optimizer == "sgd" else 1e-3)
     cdt = torch.bfloat16 if args.bf16_compute else None
+    log = print if rank == 0 else None
+
+    update_fn = None
+    if mesh is not None:
+        from cadx_tpu_torch.parallel import data_parallel as dp
+
+        if optimizer == "sgd":
+            update_fn = dp.make_dp_sgd_update(config, mesh, compute_dtype=cdt)
+        else:
+            update_fn, _ = dp.make_dp_adam_update(config, mesh, lr, compute_dtype=cdt)
 
     if args.kfolds >= 2:
         res = crossval.cross_validate(
             config, X, labels, n_splits=args.kfolds, epochs=args.epochs,
             lr=lr, batch_size=args.batch_size, optimizer=optimizer,
-            log_fn=print, compute_dtype=cdt, device=dev)
+            mesh=mesh, log_fn=log, compute_dtype=cdt, device=dev)
         agg = res.aggregate_metrics()
-        print(f"[CV] mean acc {agg['mean_accuracy']:.4f} "
-              f"± {agg['std_accuracy']:.4f}")
-        with open(os.path.join(args.out_dir, "crossval_summary.json"), "w") as f:
-            json.dump(agg, f, indent=2)
+        if rank == 0:
+            print(f"[CV] mean acc {agg['mean_accuracy']:.4f} "
+                  f"± {agg['std_accuracy']:.4f}")
+            with open(os.path.join(args.out_dir, "crossval_summary.json"), "w") as f:
+                json.dump(agg, f, indent=2)
+        _barrier(mesh)
         return agg
 
     Xtr, Xte, ytr, yte = split_train_test(X, labels, args.test_size, seed=args.seed)
@@ -158,10 +187,11 @@ def main(argv=None) -> dict:
     res = step.fit(
         model, Xtr, np.eye(n_classes)[ytr], Xte, yte,
         epochs=args.epochs, lr=lr, batch_size=args.batch_size,
-        optimizer=optimizer, seed=args.seed, log_fn=print,
+        optimizer=optimizer, seed=args.seed, log_fn=log,
         checkpoint_path=npz_path,
         state_path=os.path.join(args.out_dir, "train_state.pkl"),
-        resume=args.resume, compute_dtype=cdt, device=dev,
+        resume=args.resume, save=rank == 0, update_fn=update_fn,
+        compute_dtype=cdt, device=dev,
     )
 
     y_pred = step.predict_classes(res.model, Xte)
@@ -172,13 +202,41 @@ def main(argv=None) -> dict:
         best_val_acc=res.best_val_acc, y_true=yte, y_pred=y_pred,
         label_encoder=encoder, train_seconds=res.train_seconds,
     )
-    summary.write_summary(s, os.path.join(args.out_dir, f"training_summary_{name}.json"))
-    summary.write_history(res.history,
-                          os.path.join(args.out_dir, f"training_History_{name}.json"))
-    print(f"[DONE] best_val_acc={res.best_val_acc:.4f} "
-          f"test_acc={s['evaluation']['test_accuracy']:.4f} "
-          f"time={s['Training Time']}")
+    if rank == 0:
+        summary.write_summary(s, os.path.join(args.out_dir, f"training_summary_{name}.json"))
+        summary.write_history(res.history,
+                              os.path.join(args.out_dir, f"training_History_{name}.json"))
+        print(f"[DONE] best_val_acc={res.best_val_acc:.4f} "
+              f"test_acc={s['evaluation']['test_accuracy']:.4f} "
+              f"time={s['Training Time']}")
+    _barrier(mesh)
     return s
+
+
+def data_parallel_mesh(device: str):
+    """--data-parallel's mesh: under torchrun (WORLD_SIZE > 1) the world's
+    ranks, each on cuda:LOCAL_RANK over NCCL, or on the CPU over gloo
+    with `--device cpu`; in one process a local mesh over the devices
+    `device` lists, "cuda" meaning every visible card."""
+    from cadx_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+
+    names = [d.strip() for d in device.split(",") if d.strip()]
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 or torch.distributed.is_initialized():
+        if len(names) != 1:
+            raise SystemExit("under torchrun --device names one device type a rank")
+        cpu = torch.device(names[0]).type == "cpu"
+        initialize_distributed(backend="gloo" if cpu else None)
+        return make_mesh(device="cpu" if cpu else None)
+    if names == ["cuda"]:
+        resolve("cuda")
+        return make_mesh()
+    return make_mesh(devices=[resolve(d) for d in names])
+
+
+def _barrier(mesh) -> None:
+    """Rank 0 writes the outputs; every rank leaves together."""
+    if mesh is not None and mesh.distributed:
+        torch.distributed.barrier()
 
 
 if __name__ == "__main__":

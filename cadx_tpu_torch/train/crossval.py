@@ -1,10 +1,10 @@
-"""K-fold cross-validation on one device.
+"""K-fold cross-validation, on one device or data-parallel over a mesh.
 
 Port of `cadx_tpu/train/crossval.py`: the reference `CrossValidator`
 (Classes/CrossValidator.py:10-17) wraps sklearn KFold(n_splits=5) and
 leaves `split_data`/`aggregate_metrics` unimplemented; here the folds are
-sklearn-identical, each fold trains through `step.fit`, and the metrics
-are aggregated. The JAX package's mesh data-parallel folds are not ported.
+sklearn-identical, each fold trains through `step.fit` (with a mesh, on
+the `parallel.data_parallel` updates), and the metrics are aggregated.
 """
 
 from __future__ import annotations
@@ -73,17 +73,29 @@ def cross_validate(
     batch_size: int = 8,
     optimizer: str = "sgd",
     seed: int = 0,
+    mesh=None,
     log_fn=None,
     compute_dtype: torch.dtype | None = None,
     device=None,
 ) -> CrossValResult:
-    """Train and evaluate k folds on `device` (the card when None); fold
-    f starts from weights drawn with seed + f. compute_dtype: the conv
-    stack's opt-in bfloat16 (see cnn.conv_stack)."""
-    dev = resolve(device)
+    """Train and evaluate k folds on `device` (the card when None; the
+    mesh's home device with a `mesh`, whose data axis then shards each
+    fold's batches); fold f starts from weights drawn with seed + f.
+    compute_dtype: the conv stack's opt-in bfloat16 (see cnn.conv_stack)."""
+    dev = resolve(mesh.home if mesh is not None and device is None else device)
     X = np.asarray(X, dtype=np.float32)
     y_labels = np.asarray(y_labels)
     y_onehot = np.eye(config.num_classes, dtype=np.float32)[y_labels]
+
+    update_fn = None
+    if mesh is not None:
+        from cadx_tpu_torch.parallel import data_parallel as dp
+
+        if optimizer == "adam":
+            update_fn, _ = dp.make_dp_adam_update(config, mesh, lr,
+                                                  compute_dtype=compute_dtype)
+        else:
+            update_fn = dp.make_dp_sgd_update(config, mesh, compute_dtype=compute_dtype)
 
     results, accs, evals = [], [], []
     for fold, (train_idx, test_idx) in enumerate(KFold(n_splits).split(len(X))):
@@ -91,7 +103,8 @@ def cross_validate(
         res = step.fit(
             model, X[train_idx], y_onehot[train_idx], X[test_idx], y_labels[test_idx],
             epochs=epochs, lr=lr, batch_size=batch_size, optimizer=optimizer,
-            seed=seed + fold, log_fn=log_fn, compute_dtype=compute_dtype, device=dev,
+            seed=seed + fold, log_fn=log_fn, update_fn=update_fn,
+            compute_dtype=compute_dtype, device=dev,
         )
         preds = step.predict_classes(res.model, X[test_idx])
         evals.append(evaluation_block(y_labels[test_idx], preds, config.num_classes))

@@ -3,8 +3,10 @@
 Port of `cadx_tpu/train/segmentation.py` (BASELINE.json "U-Net ROI
 segmentation"): Adam on Dice + BCE, batched, with IoU/Dice of the
 thresholded predictions on a validation set after every epoch. The
-forward runs the pool and upsample kernels on the card. The JAX
-package's mesh data-parallel step is not ported.
+forward runs the pool and upsample kernels on the card. With a mesh the
+batches shard over its data axis (`parallel.data_parallel.dp_step`):
+each shard's loss is its share of the batch's, and the gradients are
+summed over the axis.
 """
 
 from __future__ import annotations
@@ -23,13 +25,22 @@ from cadx_tpu_torch.train import optim
 
 
 def dice_bce_loss(model: unet.UNet, x: torch.Tensor, y: torch.Tensor,
-                  bce_weight: float = 0.5, eps: float = 1e-6) -> torch.Tensor:
-    """Weighted BCE + soft Dice of the clipped sigmoid output."""
+                  bce_weight: float = 0.5, eps: float = 1e-6,
+                  batch: int | None = None) -> torch.Tensor:
+    """Weighted BCE + soft Dice of the clipped sigmoid output, both batch
+    means of per-sample terms. `batch`: the whole batch's size when x is
+    a data-parallel shard of it; the loss is then the shard's share, so
+    the shards' losses sum to the batch's."""
     p = torch.clamp(unet.unet_apply(model, x), eps, 1 - eps)
-    bce = -(y * torch.log(p) + (1 - y) * torch.log(1 - p)).mean()
+    terms = -(y * torch.log(p) + (1 - y) * torch.log(1 - p))
     inter = (p * y).sum(dim=(1, 2, 3))
     denom = p.sum(dim=(1, 2, 3)) + y.sum(dim=(1, 2, 3))
-    dice = 1.0 - ((2 * inter + eps) / (denom + eps)).mean()
+    per_dice = (2 * inter + eps) / (denom + eps)
+    if batch is None:
+        bce, dice = terms.mean(), 1.0 - per_dice.mean()
+    else:
+        bce = terms.sum() / (batch * terms[0].numel())
+        dice = (x.shape[0] - per_dice.sum()) / batch
     return bce_weight * bce + (1 - bce_weight) * dice
 
 
@@ -44,9 +55,25 @@ def iou_dice(pred_mask: torch.Tensor, true_mask: torch.Tensor, eps: float = 1e-6
             ((2 * inter + eps) / (denom + eps)).mean())
 
 
-def make_seg_train_step(tx: optim.Adam):
+def make_seg_train_step(tx: optim.Adam, mesh=None):
     """`step(model, opt_state, x, y)`: one Adam update of the Dice + BCE
-    loss in place; returns (opt_state, loss)."""
+    loss in place; returns (opt_state, loss). With a mesh the batch's
+    rows shard over its data axis."""
+    if mesh is not None:
+        from cadx_tpu_torch.parallel import data_parallel as dp
+        from cadx_tpu_torch.parallel.mesh import DATA_AXIS, row_slices
+
+        replicas = dp.Replicas(mesh.axis(DATA_AXIS))
+
+        def sharded_step(model, opt_state, x, y):
+            slices = row_slices(x.shape[0], replicas.axis)
+            return dp.dp_step(
+                replicas, model, opt_state,
+                lambda m, k, dev: dice_bce_loss(m, x[slices[k]].to(dev), y[slices[k]].to(dev),
+                                                batch=x.shape[0]),
+                tx.step)
+
+        return sharded_step
 
     def step(model, opt_state, x, y):
         params = list(model.parameters())
@@ -68,20 +95,22 @@ def fit_segmentation(
     model: unet.UNet, X, Y, X_val, Y_val, *,
     epochs: int = 10, lr: float = 1e-3, batch_size: int = 8,
     threshold: float = 0.5, seed: int = 0,
-    log_fn: Callable[[str], None] | None = None, device=None,
+    log_fn: Callable[[str], None] | None = None, mesh=None, device=None,
 ) -> SegFitResult:
     """Train a copy of a UNet on X (N, H, W, C) in [0, 1] and binary masks
-    Y (N, H, W, 1), on `device` (the card when None). A tail batch smaller
-    than batch_size wraps around to the start of the epoch's permutation,
-    as in JAX, so every step has batch_size samples."""
-    dev = resolve(device)
+    Y (N, H, W, 1), on `device` (the card when None; the mesh's home
+    device with a `mesh`, whose data axis then shards each batch). A tail
+    batch smaller than batch_size wraps around to the start of the
+    epoch's permutation, as in JAX, so every step has batch_size
+    samples."""
+    dev = resolve(mesh.home if mesh is not None and device is None else device)
     log = log_fn or (lambda s: None)
     X = np.asarray(X, np.float32)
     Y = np.asarray(Y, np.float32)
     model = copy.deepcopy(model).to(dev)
     tx = optim.adam(lr)
     opt_state = tx.init(model.parameters())
-    train_step = make_seg_train_step(tx)
+    train_step = make_seg_train_step(tx, mesh)
     xv = torch.from_numpy(np.asarray(X_val, np.float32)).to(dev)
     yv = torch.from_numpy(np.asarray(Y_val, np.float32)).to(dev)
 

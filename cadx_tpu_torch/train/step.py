@@ -41,15 +41,23 @@ from cadx_tpu_torch.train import optim
 
 def masked_loss_fn(model: cnn.CNN, x, y_onehot, mask, *, training: bool,
                    generator: torch.Generator | None,
-                   compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+                   compute_dtype: torch.dtype | None = None,
+                   count: torch.Tensor | None = None,
+                   uniforms: list[torch.Tensor] | None = None) -> torch.Tensor:
     """Cross-entropy of the log-softmax of the logits, averaged over the
     real (mask = 1) samples only: the padded tail batch averages over its
     actual count, as the reference does (Classes/CNNModel.py:459-464).
-    compute_dtype: the conv stack's opt-in bfloat16 (cnn.conv_stack)."""
+    compute_dtype: the conv stack's opt-in bfloat16 (cnn.conv_stack).
+    A data-parallel shard passes the whole batch's real `count` (so the
+    shards' losses sum to the batch's) and its rows of the batch's
+    dropout `uniforms` (cnn.dropout_uniforms)."""
     logp = torch.log_softmax(cnn.apply(model, x, training, generator,
-                                       compute_dtype=compute_dtype), dim=-1)
+                                       compute_dtype=compute_dtype,
+                                       uniforms=uniforms), dim=-1)
     per_sample = -(y_onehot * logp).sum(dim=-1)
-    return (per_sample * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    if count is None:
+        count = torch.clamp_min(mask.sum(), 1.0)
+    return (per_sample * mask).sum() / count
 
 
 def _loss_and_grads(model, x, y_onehot, mask, training, generator, compute_dtype=None):
@@ -180,6 +188,8 @@ def fit(
     checkpoint_path: str | None = None,
     state_path: str | None = None,     # full train-state checkpoint (resume)
     resume: bool = False,
+    save: bool = True,                 # write checkpoint_path and state_path
+                                       # (one rank of a data-parallel world)
     eval_every_batch: bool = False,    # reference evaluates test set per batch
     log_weight_stats: bool = False,    # reference per-layer stats per epoch
     device_data: bool | None = None,   # keep the dataset on the device
@@ -198,7 +208,8 @@ def fit(
     `update_fn` replaces the built-in step (it updates the model in
     place). With `state_path`, the full training state (parameters,
     optimizer state, epoch, history, both generators' states) is written
-    atomically after every epoch and `resume=True` continues from it.
+    atomically after every epoch and `resume=True` continues from it;
+    `save=False` reads a resume state but writes neither file.
     `device_data` (on below 4 GB) puts the dataset on the device once, in
     `device_data_dtype` (float32 when None), and gathers each batch there,
     cast to float32. `compute_dtype` reaches the built-in SGD and Adam
@@ -316,12 +327,12 @@ def fit(
             if val_acc > best_acc:
                 best_acc = val_acc
                 best_params = [p.detach().clone() for p in params]
-                if checkpoint_path:
+                if checkpoint_path and save:
                     ckpt.save_npz(model, checkpoint_path)
             if optimizer == "sgd":
                 cur_lr *= lr_decay
 
-            if state_path:
+            if state_path and save:
                 ckpt.save_train_state(state_path, {
                     "params": [p.detach() for p in params],
                     "opt_state": _adam_state_to_host(opt_state),

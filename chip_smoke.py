@@ -305,7 +305,33 @@ Phases, each of which raises on failure (the script then exits nonzero):
    `overlay_heatmap`, the ADCNNM exporter's round trip through the loader
    (bit-exact at the advanced configuration); `utils.profiling.trace()`
    of one run_pipeline batch summarised by `tools.trace_summary`, its
-   table and the window's completeness printed.
+   table and the window's completeness printed;
+13. data parallelism and H sharding (`cadx_tpu_torch/parallel/`): (a) a
+   local mesh of [cuda:0, cuda:0], two shards on the one card:
+   `make_dp_pipeline` at phase 3's B=64 256² against `run_pipeline` on
+   the same batch (clean_u8 and predicted exact, probs and features 1e-5,
+   heatmaps +-2 and overlays under phase 6's rule), the dp SGD update at
+   the basic configuration (B=8) and the dp Adam update at the advanced
+   one (B=32), dropout on, two steps each against the single-device step
+   with the replicas bit-identical (SGD's weights to 1e-5; Adam's
+   gradients at each step to one device's at the same weights, to the
+   larger of 1e-5 and twice one device's own order noise, Adam from them
+   bit-exact, at most ADAM_BEYOND_1E5 weights beyond 1e-5 of one
+   device's run), `make_dp_eval`, the engine's
+   classify_batch fanned out on 5 images at 512² (padded to 6, trimmed)
+   against the plain path, the spatial encoder at B=1 512² (1e-5) and
+   the spatial cleaner at 3328x2560 u16 (bit-exact) over 2 shards against
+   the unsharded calls, and cross_validate, fit_segmentation and the
+   training CLI on the mesh (small); (b) a NCCL world of one in this process (the dp
+   SGD steps and the dp pipeline bit-exact to the non-dp calls) and a
+   2-rank gloo world spawned on cuda:0 (`run_world`, torch.multiprocessing;
+   each rank loads the library phase 1 built and runs (a)'s dp pipeline
+   and dp SGD checks, the ranks' replicas bit-identical), each world
+   with its own timeout. The launch counters of rows 2, 3, 8, 10, 11 and
+   12 of every run are printed and held to one set a shard (the record's
+   "data_parallel" path: (a)'s windows); the dp pipeline's and the dp
+   steps' ms beside the non-dp calls' (CUDA events, in turns) with the
+   card's name and power limit.
 
 The last line of standard output is {"ok": true, "device": {...}}; the
 line before it is the per-kernel JSON record: the fifteen kernels, the
@@ -318,6 +344,7 @@ torch, numpy and the port only.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import copy
 import dataclasses
 import http.client
@@ -421,9 +448,9 @@ def device_ms_by_kernel(fn, iters: int = 3) -> dict:
 
 def trace_events(fn) -> list:
     """The events of a torch.profiler trace (host and card) of one call of
-    fn. Late in a long process the profiler can drop the card's records of
-    the port's ctypes launches (PERF.md §7): a trace whose host side holds
-    launch calls but whose card side holds no kernel is taken again, up to
+    fn. The profiler can drop the card's records of the port's ctypes
+    launches (PERF.md §7): a trace whose card side holds fewer kernels
+    than its host side holds launch calls is taken again, up to
     TRACE_ATTEMPTS times."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -437,7 +464,7 @@ def trace_events(fn) -> list:
             prof.export_chrome_trace(path)
             with open(path) as fh:
                 events = json.load(fh).get("traceEvents", [])
-        if any(e.get("cat") == "kernel" for e in events) or not runtime_calls(
+        if sum(e.get("cat") == "kernel" for e in events) >= runtime_calls(
                 events, ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchCooperativeKernel")):
             break
     return events
@@ -2166,6 +2193,602 @@ def front_phase(uploads: dict, engine_p50: dict, zero_counts, read_counts, card:
     return front
 
 
+# phase 13: the kernels a data-parallel shard runs (rows 2, 3, 8, 10, 11
+# and 12 of PERF.md's table), and each's launches a shard of one
+# run_pipeline batch with both classes explained (phase 3's counts)
+DP_ROWS = ("equalize", "pectoral_tail", "cleaner_front", "gradcam_tail", "conv_leaky", "pool")
+DP_PIPELINE_SHARD = {"equalize": 1, "pectoral_tail": 1, "cleaner_front": 1,
+                     "gradcam_tail": 2, "conv_leaky": 4, "pool": 4}
+DP_WORLD_TIMEOUT = 300
+# the full-width dp Adam's weights beyond 1e-5 of one device's after two
+# steps: 108 of 67M measured on the H100; a fault in the dp update moves many
+ADAM_BEYOND_1E5 = 500
+
+
+def dp_wrappers() -> dict:
+    """The wrappers of DP_ROWS' kernels, whose `launches` count."""
+    from cadx_tpu_torch.kernels import cleaner_front as KF
+    from cadx_tpu_torch.kernels import conv_leaky as KCL
+    from cadx_tpu_torch.kernels import equalize as KE
+    from cadx_tpu_torch.kernels import gradcam_tail as KGT
+    from cadx_tpu_torch.kernels import pectoral as KP
+    from cadx_tpu_torch.kernels import pool as KPool
+
+    return {"equalize": KE.equalize, "pectoral_tail": KP.pectoral_tail,
+            "cleaner_front": KF.cleaner_front, "gradcam_tail": KGT.gradcam_tail,
+            "conv_leaky": KCL.conv_leaky, "pool": KPool.pool}
+
+
+def jet_slope_of() -> int:
+    """The largest step of the JET table between adjacent levels."""
+    from cadx_tpu_torch.ops.colormap import apply_jet
+
+    levels = apply_jet(torch.arange(256, dtype=torch.uint8)).int()
+    return int((levels[1:] - levels[:-1]).abs().max())
+
+
+def scaled(counts: dict, shards: int) -> dict:
+    return {k: v * shards for k, v in counts.items()}
+
+
+def pipeline_checks(what: str, got, want, jet_slope: int) -> list:
+    """(name, err, tolerance) of a data-parallel PipelineOutput against
+    run_pipeline's on the same batch: the cleaner works on each image
+    alone (exact), the classifier and its CAMs to 1e-5 and phase 6's
+    overlay rule (cuDNN may take another algorithm at another batch)."""
+    checks = [(f"{what} clean_u8", max_abs_err(got.clean_u8, want.clean_u8), 0),
+              (f"{what} predicted", max_abs_err(got.predicted, want.predicted), 0),
+              (f"{what} probs", max_abs_err(got.probs, want.probs), 1e-5),
+              (f"{what} features", max_abs_err(got.features, want.features), 1e-5)]
+    if got.overlays.shape != want.overlays.shape or got.heatmaps.shape != want.heatmaps.shape:
+        return checks + [(f"{what} overlay shapes", 1.0, 0)]
+    for c in range(want.overlays.shape[1]):
+        checks += overlay_checks(f"{what} class {c}", got.overlays[:, c].cpu(),
+                                 got.heatmaps[:, c].cpu(), want.overlays[:, c].cpu(),
+                                 want.heatmaps[:, c].cpu(), want.clean_u8.cpu(), 2, jet_slope)
+    return checks
+
+
+def dp_batches(cfg, b: int, real: int, dev, seed: int) -> list:
+    """Two (x, y one-hot, mask) batches of b rows, `real` of them real."""
+    from cadx_tpu_torch.tools import bench_train as BT
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(2):
+        x, labels = BT.synthetic_features(rng, b, cfg.input_shape)
+        mask = np.zeros(b, np.float32)
+        mask[:real] = 1.0
+        out.append(tuple(torch.from_numpy(a).to(dev) for a in
+                         (x, np.eye(2, dtype=np.float32)[labels], mask)))
+    return out
+
+
+def two_steps(cfg, batches, optimizer: str, lr: float, dev, update=None, init=None):
+    """(model, optimizer state, losses) after a step on each batch from
+    seed 1's weights, dropout drawn from a card generator of seed 5:
+    `update` (a data-parallel update) or the single-device step."""
+    from cadx_tpu_torch.models import cnn
+    from cadx_tpu_torch.train import optim, step
+
+    model = cnn.init_params(torch.Generator().manual_seed(1), cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    state, tx = None, optim.adam(lr)
+    if optimizer == "adam":
+        state = (init or tx.init)(list(model.parameters()))
+    adam_step = step.make_adam_train_step(tx)
+    losses = []
+    for x, y, m in batches:
+        if update is not None:
+            state, loss = update(model, state, x, y, m, lr, gen)
+        elif optimizer == "sgd":
+            loss = step.sgd_train_step(model, x, y, m, lr, gen)
+        else:
+            state, loss = adam_step(model, state, x, y, m, gen)
+        losses.append(float(loss))
+    return model, state, losses
+
+
+def adam_checks(what: str, cfg, batches, lr: float, dev, mesh, model, single) -> list:
+    """Checks of two dp Adam steps (`model`) against two single-device
+    ones (`single`) at full width. Adam moves a weight by ~lr * g / (|g| +
+    eps), so where a gradient lies within rounding of 0, the order of its
+    float32 sum (16 + 16 rows against 32) moves the weight by up to 2 lr a
+    step (phase 7's rule, card against CPU). So, at each step: the dp
+    gradients against one device's at the same weights (the dp update's
+    before that step) and dropout uniforms, to the larger of 1e-5 (the
+    tests' gradient tolerance) and twice one device's own float32 order
+    noise (its gradients of the same rows reversed, and with the halves
+    swapped, against its own); Adam applied on one device to the dp
+    gradients, step by step, bit-exact to the dp update. Then the weights
+    beyond 1e-5 of one device's are counted and held to ADAM_BEYOND_1E5,
+    and the largest difference to 2 lr a step as a backstop."""
+    from cadx_tpu_torch.models import cnn
+    from cadx_tpu_torch.parallel import data_parallel as DP
+    from cadx_tpu_torch.precision import full_fp32
+    from cadx_tpu_torch.train import optim, step
+
+    def one_device(x, y, m, uniforms):
+        with torch.enable_grad(), full_fp32():
+            loss = step.masked_loss_fn(ref, x, y, m, training=True, generator=None,
+                                       uniforms=uniforms)
+            return torch.autograd.grad(loss, list(ref.parameters()))
+
+    def grads_err(a, b) -> float:
+        return max(max_abs_err(t, c) for t, c in zip(a, b, strict=True))
+
+    grads_fn = DP.make_dp_grads(cfg, mesh)
+    ref = cnn.init_params(torch.Generator().manual_seed(1), cfg, device=dev)
+    tx = optim.adam(lr)
+    state = tx.init(list(ref.parameters()))
+    gen = torch.Generator(device=dev).manual_seed(5)    # two_steps' dropout stream
+    checks = []
+    for k, (x, y, m) in enumerate(batches, 1):
+        fork = torch.Generator(device=dev)
+        fork.set_state(gen.get_state())
+        uniforms = cnn.dropout_uniforms(cfg, x.shape[0], fork, dev)
+        g_one = one_device(x, y, m, uniforms)
+        b = x.shape[0]
+        orders = (torch.arange(b - 1, -1, -1, device=dev),
+                  torch.arange(b, device=dev).roll(b // 2))
+        noise = max(grads_err(one_device(x[o], y[o], m[o], [u[o] for u in uniforms]), g_one)
+                    for o in orders)
+        _, g_dp = grads_fn(ref, x, y, m, gen)
+        checks.append((f"{what}: gradients at step {k} vs one device at the same weights "
+                       f"(one device's own order noise {noise:.4g})", grads_err(g_dp, g_one),
+                       max(1e-5, 2 * noise)))
+        state = tx.step(list(ref.parameters()), [t.clone() for t in g_dp], state)
+    diff = torch.cat([(a.detach() - c.detach()).abs().flatten()
+                      for a, c in zip(model.parameters(), single.parameters())])
+    return checks + [
+        (f"{what}: vs Adam on one device from the dp gradients (bit-exact)",
+         params_err(model, ref), 0),
+        (f"{what}: weights beyond 1e-5 of one device's, of {diff.numel()}",
+         float((diff > 1e-5).sum()), ADAM_BEYOND_1E5),
+        (f"{what}: parameters vs one device", float(diff.max()), 2 * lr * len(batches))]
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms inside: its weight-gradient
+    convolutions may otherwise sum with atomics, so two runs of one step
+    differ in the last bits (and Adam amplifies that where g ~ 0)."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def params_err(a, b) -> float:
+    return max(max_abs_err(x.detach(), y.detach()) for x, y in
+               zip(a.parameters(), b.parameters(), strict=True))
+
+
+def params_digest(model) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _world_rank(rank: int, fn, args, nprocs: int, port: int, out_dir: str) -> None:
+    """A spawned rank: torchrun's environment, then `fn(*args)`, its
+    result pickled into `out_dir`."""
+    import pickle
+
+    import torch.distributed as dist
+
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(nprocs),
+                      LOCAL_WORLD_SIZE=str(nprocs), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    result = fn(*args)
+    Path(out_dir, f"{rank}.pkl").write_bytes(pickle.dumps(result))
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def run_world(fn, nprocs: int, args=(), timeout: float = 120.0) -> list:
+    """Each rank's `fn(*args)`, in rank order, from `nprocs` spawned
+    processes; a rank that fails raises here, and a world that outlasts
+    `timeout` seconds is killed and raises."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(_world_rank, (fn, args, nprocs, free_port(), tmp),
+                                 nprocs=nprocs, join=False, start_method="spawn")
+        deadline = time.monotonic() + timeout
+        try:
+            while not ctx.join(max(deadline - time.monotonic(), 0.0)):
+                if time.monotonic() >= deadline:
+                    raise TimeoutError(f"{fn.__name__} on {nprocs} ranks outlasted {timeout} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        return [pickle.loads(Path(tmp, f"{r}.pkl").read_bytes()) for r in range(nprocs)]
+
+
+def gloo_rank(device: str) -> dict:
+    """One rank of phase 13's 2-rank gloo world, every rank on `device`
+    (cuda:0): the library phase 1 built is loaded, not built again; the
+    dp pipeline at phase 3's B=64 256² and two dp SGD steps at the basic
+    configuration, each against the non-dp call on the same inputs in
+    this rank."""
+    import torch.distributed as dist
+
+    from cadx_tpu_torch.kernels import _build
+    from cadx_tpu_torch.parallel import data_parallel as DP
+    from cadx_tpu_torch.parallel import mesh as M
+    from cadx_tpu_torch.pipeline import fused
+    from cadx_tpu_torch.synthetic import synthetic_mammograms
+    from cadx_tpu_torch.tools import bench_train as BT
+
+    M.initialize_distributed(backend="gloo")
+    prebuilt = _build.library_path().exists()
+    _build.load()
+    dev = torch.device(device)
+    wrappers = dp_wrappers()
+    mesh = M.make_mesh(device=dev)
+
+    def counted(fn):
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {name: w.launches for name, w in wrappers.items()}
+
+    config = fused.PipelineConfig(image_hw=(HW, HW))
+    params = fused.init_pipeline_params(torch.Generator().manual_seed(0), config, device=dev)
+    batch = torch.from_numpy(synthetic_mammograms(BATCH, HW, seed=10)).to(dev)
+    want = fused.run_pipeline(params, batch, config)
+    got, pipe_counts = counted(lambda: DP.make_dp_pipeline(config, mesh)(params, batch))
+    checks = pipeline_checks("gloo world dp pipeline", got, want, jet_slope_of())
+    batches = dp_batches(BT.BASIC, 8, 7, dev, seed=31)
+    with cudnn_deterministic():
+        single, _, s_losses = two_steps(BT.BASIC, batches, "sgd", 0.01, dev)
+        (model, _, d_losses), sgd_counts = counted(lambda: two_steps(
+            BT.BASIC, batches, "sgd", 0.01, dev, DP.make_dp_sgd_update(BT.BASIC, mesh)))
+    checks.append(("gloo world dp SGD (basic, B=8, dropout 0.3), 2 steps: parameters vs one "
+                   "device", params_err(model, single), 1e-5))
+    checks.append(("gloo world dp SGD losses, relative",
+                   max(abs(a - b) / abs(b) for a, b in zip(d_losses, s_losses)), 1e-5))
+    return {"rank": dist.get_rank(), "backend": dist.get_backend(), "prebuilt": prebuilt,
+            "shape": mesh.shape, "pipeline_counts": pipe_counts, "sgd_counts": sgd_counts,
+            "checks": checks, "digest": params_digest(model)}
+
+
+def kernel_wrappers() -> dict:
+    """Each kernel's wrapper (its `launches` counts), by the record's name."""
+    from cadx_tpu_torch.kernels import batchnorm as KBN
+    from cadx_tpu_torch.kernels import ccl as KC
+    from cadx_tpu_torch.kernels import cleaner_front as KF
+    from cadx_tpu_torch.kernels import conv_leaky as KCL
+    from cadx_tpu_torch.kernels import equalize as KE
+    from cadx_tpu_torch.kernels import flood as KFl
+    from cadx_tpu_torch.kernels import gradcam_tail as KGT
+    from cadx_tpu_torch.kernels import largest_obj as KL
+    from cadx_tpu_torch.kernels import mode as KM
+    from cadx_tpu_torch.kernels import overlay as KOv
+    from cadx_tpu_torch.kernels import pectoral as KP
+    from cadx_tpu_torch.kernels import pool as KPool
+    from cadx_tpu_torch.kernels import upsample as KUp
+    from cadx_tpu_torch.kernels import watershed as KW
+
+    return {"largest_obj": KL.largest_obj, "equalize": KE.equalize,
+            "pectoral_tail": KP.pectoral_tail, "ccl": KC.label_components,
+            "mode": KM.largest_component_mask, "watershed": KW.marker_watershed,
+            "conv_leaky": KCL.conv_leaky, "pool": KPool.pool,
+            "upsample": KUp.upsample_nearest, "batchnorm": KBN.batchnorm,
+            "jet_blend": KOv.jet_blend, "gradcam_tail": KGT.gradcam_tail,
+            "cleaner_front": KF.cleaner_front,
+            "largest_component_seeded": KL.largest_component_seeded,
+            "flood": KFl.flood_from, "watershed_packed": KW.packed_form,
+            "conv_leaky_bf16": KCL.conv_leaky_bf16}
+
+
+def counters(wrappers: dict):
+    """(zero_counts, read_counts) over the wrappers' launch counters."""
+    def zero_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def read_counts():
+        torch.cuda.synchronize()
+        return {name: fn.launches for name, fn in wrappers.items()}
+
+    return zero_counts, read_counts
+
+
+def data_parallel_only() -> int:
+    """`python3 chip_smoke.py --data-parallel`: phase 13 alone in a fresh
+    process, on phase 3's configuration and weights and phase 5's
+    `EngineConfig()` engine, seeded as there."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from cadx_tpu_torch.kernels import _build
+    from cadx_tpu_torch.pipeline import fused
+    from cadx_tpu_torch.serve import engine as E
+    from cadx_tpu_torch.synthetic import synthetic_mammograms
+
+    _build.load()
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    wrappers = kernel_wrappers()
+    config = fused.PipelineConfig(image_hw=(HW, HW))
+    params = fused.init_pipeline_params(torch.Generator().manual_seed(0), config, device=dev)
+    batch = torch.from_numpy(synthetic_mammograms(BATCH, HW, seed=10)).to(dev)
+    eng = E.InferenceEngine(E.EngineConfig(), seed=0, device=dev)
+    out = data_parallel_phase(dev, card, config, params, batch, eng, wrappers,
+                              *counters(wrappers))
+    print(json.dumps({"data_parallel": out}), flush=True)
+    return 0
+
+
+def data_parallel_phase(dev, card: str, config, params, batch, eng, wrappers,
+                        zero_counts, read_counts) -> dict:
+    """Phase 13 (see the module's docstring). Returns the launches of
+    (a)'s windows (the record's "data_parallel" path) and the times."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from cadx_tpu_torch.models import unet
+    from cadx_tpu_torch.ops.morphology import median_blur3
+    from cadx_tpu_torch.ops.threshold import (binary_threshold, image_max,
+                                              relative_threshold_value, to_uint8)
+    from cadx_tpu_torch.parallel import data_parallel as DP
+    from cadx_tpu_torch.parallel import mesh as M
+    from cadx_tpu_torch.parallel import spatial as SP
+    from cadx_tpu_torch.pipeline import fused
+    from cadx_tpu_torch.precision import full_fp32
+    from cadx_tpu_torch.serve import engine as E
+    from cadx_tpu_torch.synthetic import synthetic_mammograms, synthetic_native_mammogram
+    from cadx_tpu_torch.data import dicom as TDicom
+    from cadx_tpu_torch.tools import bench_train as BT
+    from cadx_tpu_torch.tools import train as TT
+    from cadx_tpu_torch.train import crossval, optim, segmentation, step
+
+    jet_slope = jet_slope_of()
+    total = {name: 0 for name in wrappers}
+    checks = []
+
+    def rows(counts):
+        return {k: counts[k] for k in DP_ROWS}
+
+    def hold(what, counts, expect, exact=True):
+        print(f"data parallel [{what}]: launches of rows 2, 3, 8, 10, 11, 12 {rows(counts)}",
+              flush=True)
+        wrong = {k: (counts[k], v) for k, v in expect.items() if counts[k] != v}
+        if exact:
+            wrong.update({k: (v, 0) for k, v in counts.items() if k not in expect and v})
+        if wrong:
+            raise AssertionError(f"data parallel [{what}]: launches (got, expected) {wrong}")
+
+    def counted(what, fn, expect, exact=True, record=True):
+        """fn's result; its launches are held to `expect` and, in (a)'s
+        windows (`record`), added to the record's "data_parallel" path."""
+        zero_counts()
+        out = fn()
+        counts = read_counts()
+        for k, v in counts.items():
+            total[k] += v * record
+        hold(what, counts, expect, exact)
+        return out
+
+    # ---- (a) a local mesh of two shards on the one card
+    local = M.make_mesh(devices=[dev, dev])
+    want = fused.run_pipeline(params, batch, config)
+    dp_run = DP.make_dp_pipeline(config, local)
+    got = counted("local mesh cuda:0 x2: make_dp_pipeline B=64", lambda: dp_run(params, batch),
+                  scaled(DP_PIPELINE_SHARD, 2))
+    checks += pipeline_checks("local mesh dp pipeline", got, want, jet_slope)
+    dp_ms, plain_ms, _, runs = turns_ms(lambda: dp_run(params, batch),
+                                        lambda: fused.run_pipeline(params, batch, config), 5, 5)
+    times = {"pipeline": {"dp_ms": dp_ms, "run_pipeline_ms": plain_ms, "runs_ms": runs}}
+    print(f"time data parallel: make_dp_pipeline on the local mesh (cuda:0 x2) {dp_ms:.3f} ms "
+          f"a batch of B={BATCH} {HW}x{HW}, run_pipeline {plain_ms:.3f} ms (CUDA events, in "
+          f"turns {[round(r, 3) for r in runs[:4]]}) on {card}", flush=True)
+
+    for name, cfg, b, real, lr, opt in (("basic SGD", BT.BASIC, 8, 7, 0.01, "sgd"),
+                                        ("advanced Adam", BT.ADVANCED, 32, 30, 1e-3, "adam")):
+        batches = dp_batches(cfg, b, real, dev, seed=13)
+        if opt == "sgd":
+            update, init = DP.make_dp_sgd_update(cfg, local), None
+        else:
+            update, init = DP.make_dp_adam_update(cfg, local, lr)
+        what = f"local mesh dp {name} (B={b}, dropout {cfg.dropout_rate}), 2 steps"
+        with cudnn_deterministic():
+            single, s_state, s_losses = two_steps(cfg, batches, opt, lr, dev)
+            model, state, d_losses = counted(
+                f"local mesh: dp {name} B={b}, 2 steps",
+                lambda: two_steps(cfg, batches, opt, lr, dev, update, init),
+                {"conv_leaky": 8, "pool": 8})
+            if opt == "sgd":
+                checks.append((f"{what}: parameters vs one device", params_err(model, single),
+                               1e-5))
+            else:
+                checks += adam_checks(what, cfg, batches, lr, dev, local, model, single)
+        checks.append((f"{what}: losses vs one device, relative",
+                       max(abs(a - c) / abs(c) for a, c in zip(d_losses, s_losses)), 1e-5))
+        replicas = update.replicas.models
+        checks.append((f"{what}: replica 1 vs replica 0 (bit-identical)",
+                       params_err(replicas[1], replicas[0]), 0))
+        x, y, m = batches[0]
+        preds = counted(f"local mesh: make_dp_eval {name.split()[0]} B={b}",
+                        lambda: DP.make_dp_eval(cfg, local)(model, x),
+                        {"conv_leaky": 4, "pool": 4})
+        checks.append((f"local mesh make_dp_eval ({name.split()[0]}, B={b}) vs eval_step",
+                       max_abs_err(preds, step.eval_step(model, x)), 0))
+        # the step's time beside fit's built-in step, each threading its state
+        box_dp, box_1 = [state], [s_state]
+        gen_dp, gen_1 = (torch.Generator(device=dev).manual_seed(9) for _ in range(2))
+        adam_step = step.make_adam_train_step(optim.adam(lr))
+
+        def dp_step():
+            box_dp[0], _ = update(model, box_dp[0], x, y, m, lr, gen_dp)
+
+        def one_step():
+            if opt == "sgd":
+                step.sgd_train_step(single, x, y, m, lr, gen_1)
+            else:
+                box_1[0], _ = adam_step(single, box_1[0], x, y, m, gen_1)
+
+        s_ms, f_ms, _, runs = turns_ms(dp_step, one_step, 10, 10, warmup=2)
+        times[name] = {"dp_ms": s_ms, "fit_step_ms": f_ms, "runs_ms": runs, "batch": b}
+        print(f"time data parallel: dp {name} step (B={b}, 2 shards on cuda:0) {s_ms:.3f} ms, "
+              f"fit's built-in step {f_ms:.3f} ms (CUDA events, in turns "
+              f"{[round(r, 3) for r in runs[:4]]}) on {card}", flush=True)
+
+    # the engine's bulk fan-out on a mesh passed in, against its plain path
+    state = E.EngineState(eng.encoder_params, eng.basic_params, eng.advanced_params)
+    eng_dp = E.InferenceEngine(eng.config, state=state, device=dev, mesh=local)
+    eng_1 = E.InferenceEngine(dataclasses.replace(eng.config, bulk_data_parallel=False),
+                              state=state, device=dev, mesh=local)
+    side = eng.config.segment_hw[0]
+    imgs5 = synthetic_mammograms(5, side, seed=21)
+    rows_dp = counted(f"local mesh: engine classify_batch, 5 images at {side}², fanned out",
+                      lambda: eng_dp.classify_batch(imgs5),
+                      {"cleaner_front": 2, "conv_leaky": 4, "pool": 4, "gradcam_tail": 0},
+                      exact=False)
+    rows_1 = eng_1.classify_batch(imgs5)
+    if (eng_dp.last_bulk_devices, eng_1.last_bulk_devices, len(rows_dp)) != (2, 1, 5):
+        raise AssertionError(f"classify_batch fan-out: last_bulk_devices "
+                             f"{eng_dp.last_bulk_devices}, {eng_1.last_bulk_devices}, "
+                             f"{len(rows_dp)} rows")
+    checks.append(("engine classify_batch fanned out vs plain: classes",
+                   float(sum(a["predicted_class"] != c["predicted_class"]
+                             for a, c in zip(rows_dp, rows_1))), 0))
+    checks.append(("engine classify_batch fanned out vs plain: probs", float(np.abs(
+        np.subtract([r["prediction_probabilities"] for r in rows_dp],
+                    [r["prediction_probabilities"] for r in rows_1])).max()), 1e-5))
+
+    # the entry points wired to a mesh: crossval, fit_segmentation, the CLI
+    crng = np.random.default_rng(7)
+    cv_x, cv_y = BT.synthetic_features(crng, 32, BT.BASIC.input_shape, signal=0.08)
+    cv = counted("local mesh: cross_validate(mesh=), basic, 2 folds of 1 epoch",
+                 lambda: crossval.cross_validate(BT.BASIC, cv_x, cv_y, n_splits=2, epochs=1,
+                                                 lr=0.01, batch_size=8, mesh=local), {},
+                 exact=False)
+    xu, yu = blobs(crng, 16, 64)
+    ucfg = unet.UNetConfig(features=(8, 16))
+    seg = counted("local mesh: fit_segmentation(mesh=), U-Net (8, 16) at 64², 1 epoch",
+                  lambda: segmentation.fit_segmentation(
+                      unet.init_unet(torch.Generator().manual_seed(2), ucfg), xu, yu, xu[:4],
+                      yu[:4], epochs=1, batch_size=8, mesh=local), {}, exact=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        rows_csv = ["dicom_file_path,pathology"]
+        for i in range(24):
+            im = crng.normal(1000, 150, (48, 48)).clip(0, 4095)
+            if i % 2:
+                im[14:34, 14:34] += 1200
+            pth = os.path.join(tmp, f"c{i}.dcm")
+            TDicom.dcmwrite_minimal(pth, im.clip(0, 4095).astype(np.uint16), f"P{i}")
+            rows_csv.append(f"{pth},{'MALIGNANT' if i % 2 else 'BENIGN'}")
+        csv_path = os.path.join(tmp, "mapping.csv")
+        Path(csv_path).write_text("\n".join(rows_csv) + "\n")
+        cli = counted("the training CLI --data-parallel --device cuda:0,cuda:0, 1 epoch",
+                      lambda: TT.main(["--csv", csv_path, "--out-dir", os.path.join(tmp, "out"),
+                                       "--features", "raw", "--resize", "24", "--epochs", "1",
+                                       "--batch-size", "8", "--conv-layers", "4x3",
+                                       "--hidden-units", "16", "--data-parallel", "--device",
+                                       f"{dev},{dev}"]), {}, exact=False)
+        cli_npz = os.path.exists(os.path.join(tmp, "out", "cnn_model_basic.npz"))
+    print(f"data parallel entry points: cross_validate folds {cv.fold_accuracies}; "
+          f"fit_segmentation loss {seg.history[0]['loss']}; the CLI on {cli['training']['device']},"
+          f" test accuracy {cli['evaluation']['test_accuracy']}, npz written {cli_npz}",
+          flush=True)
+    if not (len(cv.fold_accuracies) == 2 and np.isfinite(seg.history[0]["loss"]) and cli_npz
+            and cli["training"]["device"] == "cuda" and total["upsample"] > 0):
+        raise AssertionError("a mesh entry point failed on the card")
+
+    # H sharding: conv1 at B=1 512² and the cleaner stages at 3328x2560 u16
+    img = torch.rand((1, 512, 512, 1), generator=torch.Generator(device=dev).manual_seed(3),
+                     device=dev)
+    enc = SP.make_spatial_encoder(local)(params.encoder, img)
+    with full_fp32(), torch.no_grad():
+        enc_ref = unet.encoder_first_features(params.encoder, img)
+    checks.append(("spatial encoder B=1 512², 2 shards, vs unsharded", max_abs_err(enc, enc_ref),
+                   1e-5))
+    native = torch.from_numpy(synthetic_native_mammogram(3328, 2560, seed=5)).to(dev)
+    half = native.shape[0] // 2
+    halves = [int(image_max(native[None, :half])), int(image_max(native[None, half:]))]
+    cleaned = SP.make_spatial_cleaner(local)(native)
+    smoothed = median_blur3(to_uint8(native[None]))
+    clean_ref = binary_threshold(smoothed, relative_threshold_value(smoothed, 0.05), 255)[0]
+    checks.append((f"spatial cleaner 3328x2560 u16, 2 shards (maxima of the halves {halves}), "
+                   f"vs unsharded", max_abs_err(cleaned, clean_ref), 0))
+    if halves[0] == halves[1]:
+        raise AssertionError("the spatial cleaner's image has its max in both shards")
+
+    # ---- (b) distributed: a NCCL world of one here, a 2-rank gloo world spawned
+    M.initialize_distributed(backend="nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                             world_size=1, rank=0, timeout=datetime.timedelta(seconds=120))
+    try:
+        world = M.make_mesh()
+        if not world.distributed or world.shape != {"data": 1, "model": 1}:
+            raise AssertionError(f"the NCCL world's mesh is {world.shape}")
+        got = counted("NCCL world of one: make_dp_pipeline B=64",
+                      lambda: DP.make_dp_pipeline(config, world)(params, batch),
+                      DP_PIPELINE_SHARD, record=False)
+        for f in got._fields:
+            checks.append((f"NCCL world of one dp pipeline {f} vs run_pipeline (bit-exact)",
+                           max_abs_err(getattr(got, f), getattr(want, f)), 0))
+        batches = dp_batches(BT.BASIC, 8, 7, dev, seed=17)
+        with cudnn_deterministic():
+            single, _, _ = two_steps(BT.BASIC, batches, "sgd", 0.01, dev)
+            model, _, _ = counted("NCCL world of one: dp SGD B=8, 2 steps", lambda: two_steps(
+                BT.BASIC, batches, "sgd", 0.01, dev, DP.make_dp_sgd_update(BT.BASIC, world)),
+                {"conv_leaky": 4, "pool": 4}, record=False)
+        checks.append(("NCCL world of one dp SGD (dropout 0.3), 2 steps, vs sgd_train_step "
+                       "(bit-exact)", params_err(model, single), 0))
+        print(f"NCCL world of one: backend {dist.get_backend()}, mesh {world.shape}", flush=True)
+    finally:
+        dist.destroy_process_group()
+
+    t0 = time.perf_counter()
+    ranks = run_world(gloo_rank, 2, args=(str(dev),), timeout=DP_WORLD_TIMEOUT)
+    print(f"gloo world of 2 ranks on cuda:0: {time.perf_counter() - t0:.1f} s, backends "
+          f"{[r['backend'] for r in ranks]} (all_gather and all_reduce of the ranks' CUDA "
+          f"tensors; gloo stages them through host memory itself, the port copies none), "
+          f"meshes {[r['shape'] for r in ranks]}, library prebuilt "
+          f"{[r['prebuilt'] for r in ranks]}", flush=True)
+    for r in ranks:
+        hold(f"gloo rank {r['rank']}: make_dp_pipeline, its 32 rows", r["pipeline_counts"],
+             DP_PIPELINE_SHARD)
+        hold(f"gloo rank {r['rank']}: dp SGD B=8 (4 rows), 2 steps", r["sgd_counts"],
+             {"conv_leaky": 4, "pool": 4})
+        checks += [(f"rank {r['rank']}: {n}", e, t) for n, e, t in r["checks"]]
+        if not r["prebuilt"]:
+            raise AssertionError(f"gloo rank {r['rank']} found no built library")
+    checks.append(("gloo world: the ranks' dp SGD replicas differ",
+                   float(ranks[0]["digest"] != ranks[1]["digest"]), 0))
+
+    for name, err, tol in checks:
+        print(f"data parallel {name}: max_abs_err {err} (tolerance {tol})", flush=True)
+    bad = [(name, err, tol) for name, err, tol in checks if not err <= tol]
+    if bad:
+        raise AssertionError(f"data parallel checks failed: {bad}")
+    return {"launches": total, "times": times}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2228,24 +2851,8 @@ def main() -> int:
     sources["largest_component_seeded"] = (KL.SEEDED_SOURCE, KL.SEEDED_REPLACES)
     sources["watershed_packed"] = (KW.SOURCE, KW.REPLACES)
     sources["conv_leaky_bf16"] = (KCL.BF16_SOURCE, KCL.REPLACES)
-    wrappers = {"largest_obj": KL.largest_obj, "equalize": KE.equalize,
-                "pectoral_tail": KP.pectoral_tail, "ccl": KC.label_components,
-                "mode": KM.largest_component_mask, "watershed": KW.marker_watershed,
-                "conv_leaky": KCL.conv_leaky, "pool": KPool.pool,
-                "upsample": KUp.upsample_nearest, "batchnorm": KBN.batchnorm,
-                "jet_blend": KOv.jet_blend, "gradcam_tail": KGT.gradcam_tail,
-                "cleaner_front": KF.cleaner_front,
-                "largest_component_seeded": KL.largest_component_seeded,
-                "flood": KFl.flood_from, "watershed_packed": KW.packed_form,
-                "conv_leaky_bf16": KCL.conv_leaky_bf16}
-
-    def zero_counts():
-        for fn in wrappers.values():
-            fn.launches = 0
-
-    def read_counts():
-        torch.cuda.synchronize()
-        return {name: fn.launches for name, fn in wrappers.items()}
+    wrappers = kernel_wrappers()
+    zero_counts, read_counts = counters(wrappers)
 
     t_start = time.perf_counter()
 
@@ -4390,10 +4997,16 @@ def main() -> int:
             and total12 > 0 and rows12):
         raise AssertionError("the compat API or the profiling tools failed on the card")
     phase_done("12")
+
+    # ---- 13. data parallelism and H sharding ---------------------------------------
+    dp13 = data_parallel_phase(dev, card, config, params, batches[0], eng, wrappers,
+                               zero_counts, read_counts)
+    phase_done("13")
     by_path = {"pipeline": pipe_launches, "serving": serve_launches,
                "reference_gradcam": ref_launches, "training": train_launches,
                "training_cli": cli_launches, "front": front_launches,
-               "even_kernel_process": even_launches, "training_bf16": bf16_launches}
+               "even_kernel_process": even_launches, "training_bf16": bf16_launches,
+               "data_parallel": dp13["launches"]}
     # the seeded component lies on no path (as in JAX): 0 on each
     own_path = {"conv_leaky": "training", "pool": "training", "upsample": "training",
                 "batchnorm": "reference_gradcam", "jet_blend": "reference_gradcam",
@@ -4432,4 +5045,6 @@ if __name__ == "__main__":
         sys.exit(flood_seeded_times())
     if sys.argv[1:] == ["--packed-watershed-times"]:
         sys.exit(packed_watershed_times())
+    if sys.argv[1:] == ["--data-parallel"]:
+        sys.exit(data_parallel_only())
     sys.exit(main())

@@ -225,8 +225,15 @@ def test_cross_validator(rng, monkeypatch):
     agg_t, agg_j = cv_t.aggregate_metrics(), cv_j.aggregate_metrics()
     assert agg_t["n_splits"] == 2 and 0 <= agg_t["mean_accuracy"] <= 1
     assert agg_t["fold_accuracies"] == agg_j["fold_accuracies"]
-    with pytest.raises(NotImplementedError):
-        cv_t.cross_validate(tcfg, X, y, mesh=object())
+    # mesh-sharded folds (the parallel slice; they raised before it) on two
+    # CPU devices, within one test sample of the single-device folds
+    from cadx_tpu_torch.parallel.mesh import make_mesh
+
+    cv_t.cross_validate(tcfg, X, y, epochs=2, lr=0.05, batch_size=8,
+                        mesh=make_mesh(devices=[CPU, CPU]))
+    for a, b in zip(cv_t.aggregate_metrics()["fold_accuracies"], agg_j["fold_accuracies"],
+                    strict=True):
+        assert abs(a - b) <= 1 / 16
 
 
 def test_model_evaluator_predictor_trainer(tmp_path, rng):

@@ -104,10 +104,23 @@ def test_train_cli_encoder_features(tmp_path, rng):
 
 
 # --bf16-compute trains since the bf16 slice (tests/test_torch_bf16.py::
-# test_train_cli_bf16_compute); --data-parallel waits on parallel/
-@pytest.mark.parametrize("flag,where", [("--data-parallel", r"Queue 1 item 4\)")])
-def test_unported_flags_raise(tmp_path, flag, where):
-    with pytest.raises(SystemExit, match=where):
-        TT.main(["--csv", str(tmp_path / "none.csv"), "--out-dir", str(tmp_path / "o"),
-                 flag] + SMALL)
-    assert not os.path.exists(tmp_path / "o")
+# test_train_cli_bf16_compute); --data-parallel, which raised until the
+# port had parallel/, trains on a mesh (a 2-rank world:
+# tests/test_torch_parallel_world.py::test_train_cli_data_parallel_world)
+@pytest.mark.parametrize("flag", ["--data-parallel"])
+def test_unported_flags_raise(tmp_path, rng, flag):
+    """The flags that once raised now train: --data-parallel on a local
+    mesh of four CPU devices, for one epoch, with the artifacts of a plain
+    run; a batch that does not split over the mesh raises."""
+    cp = _make_dataset(tmp_path, rng, n=16)
+    out = str(tmp_path / "o")
+    small = SMALL[:-1] + ["cpu,cpu,cpu,cpu"]
+    s = TT.main(["--csv", cp, "--out-dir", out, "--features", "raw", "--resize", "24",
+                 "--epochs", "1", "--lr", "0.05", "--batch-size", "8", flag] + small)
+    assert s["training"]["device"] == "cpu"
+    for name in ("cnn_model_basic.npz", "train_state.pkl", "training_History_basic.json",
+                 "training_summary_basic.json"):
+        assert os.path.exists(os.path.join(out, name)), name
+    with pytest.raises(ValueError, match="split evenly"):
+        TT.main(["--csv", cp, "--out-dir", out, "--features", "raw", "--resize", "24",
+                 "--epochs", "1", "--batch-size", "6", flag] + small)
