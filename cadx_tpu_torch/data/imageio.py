@@ -22,14 +22,25 @@ the file's first bytes, as cv2 takes it:
 - JPEG: baseline, extended sequential and progressive, through
   `data/jpg.py`'s `jpeg_luma_decode` (libjpeg's grayscale output: the Y
   plane of YCbCr, RGB, CMYK and YCCK converted as libjpeg and cv2
-  convert them), within +-2 codes of libjpeg's integer IDCT, turned as
-  its EXIF orientation says, as cv2.imread turns it.
+  convert them), within +-2 codes of libjpeg's integer IDCT; lossless
+  (SOF3) frames of 2-8 bits through `codecs.jpeg_lossless_decode`,
+  exact (cv2 reads none above 8 bits); either turned as its EXIF
+  orientation says, as cv2.imread turns it.
 - BMP (`bmp_gray`) and PBM/PGM/PPM (`pxm_gray`) as cv2's own decoders
-  read them.
+  read them, and PAM (`pam_gray`), Sun raster (`ras_gray`), Radiance HDR
+  (`hdr_gray`) and gray PFM (`pfm_gray`) likewise.
+- TIFF (`data/tiff.py`): the first page, uint8, uint16 or float32 (and
+  32-bit integers) as libtiff and cv2 give it.
+- Lossless WebP (`data/webp.py`, VP8L); lossy WebP gives None.
+- JPEG 2000, JP2 boxes or a raw codestream, through `data/j2k.py`: exact
+  on reversible streams, an irreversible (9/7) one within the DICOM J2K
+  tests' tolerance of cv2's OpenJPEG decode.
 - DICOM: `dicom.primary_frame(dicom.dcmread(path))`, uint8/uint16 kept,
   signed data shifted to start at 0, as the JAX front does.
 
-What it cannot read gives None, as cv2.imread does.
+What comes back is (H, W) uint8, uint16 or float32 (HDR, PFM, float
+TIFF), as cv2 gives it. What it cannot read gives None, as cv2.imread
+does; AVIF and lossy WebP stay unread (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -55,7 +66,9 @@ class ImageError(ValueError):
 
 
 def imread_gray(path: str) -> np.ndarray | None:
-    """(H, W) uint8 or uint16 of any image the module reads, else None."""
+    """(H, W) uint8, uint16 or float32 (TIFF also int32 or uint32, as cv2
+    gives them) of any image the module reads, else None: the dtype and
+    values cv2.imread(path, IMREAD_GRAYSCALE | IMREAD_ANYDEPTH) gives."""
     try:
         with open(path, "rb") as f:
             data = f.read()
@@ -67,13 +80,29 @@ def imread_gray(path: str) -> np.ndarray | None:
         if data[:6] in (b"GIF87a", b"GIF89a"):
             return gif_gray(data)
         if data[:3] == b"\xff\xd8\xff":
-            from cadx_tpu_torch.data.jpg import jpeg_luma_decode
-
-            return _orient(jpeg_luma_decode(data)[0], _exif_orientation(data))
+            return _orient(jpeg_gray(data), _exif_orientation(data))
         if data[:2] == b"BM":
             return bmp_gray(data)
         if len(data) >= 3 and data[0] == 0x50 and 0x31 <= data[1] <= 0x36 and data[2] in _SPACE:
             return pxm_gray(data)
+        if data[:4] in (b"II*\x00", b"MM\x00*"):
+            from cadx_tpu_torch.data.tiff import tiff_gray
+
+            return tiff_gray(data)
+        if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+            from cadx_tpu_torch.data.webp import webp_gray
+
+            return webp_gray(data)
+        if data[:12] == _JP2_SIG or data[:4] == b"\xff\x4f\xff\x51":
+            return jp2_gray(data)
+        if data[:2] == b"P7":
+            return pam_gray(data)
+        if data[:4] == b"\x59\xa6\x6a\x95":
+            return ras_gray(data)
+        if data[:10] == b"#?RADIANCE" or data[:6] == b"#?RGBE":
+            return hdr_gray(data)
+        if data[:2] in (b"Pf", b"PF"):
+            return pfm_gray(data)
     except Exception:  # noqa: BLE001 — unreadable upload -> None like cv2
         pass
     try:
@@ -348,6 +377,54 @@ def _orient(img: np.ndarray, orientation: int) -> np.ndarray:
             7: t[::-1, ::-1], 8: t[::-1]}.get(orientation, img).copy()
 
 
+def _gray15(r, g, b) -> np.ndarray:
+    """cv2.cvtColor's RGB to gray: (9798 R + 19235 G + 3735 B + 16384) >> 15."""
+    r, g, b = (np.asarray(c, np.int64) for c in (r, g, b))
+    return (9798 * r + 19235 * g + 3735 * b + 16384) >> 15
+
+
+# ---- JPEG, lossless JPEG, JPEG 2000 -------------------------------------------
+
+_JP2_SIG = b"\x00\x00\x00\x0cjP  \r\n\x87\n"
+
+
+def jpeg_gray(data: bytes) -> np.ndarray:
+    """A JPEG's gray, unturned: a lossless (SOF3) frame through
+    `codecs.jpeg_lossless_decode`, kept at its precision as cv2's 8-bit
+    libjpeg reads it (2-8 bits, uint8; cv2 gives no image above 8 bits,
+    nor does this reader), one component only; any other frame through
+    `jpg.jpeg_luma_decode`."""
+    pos = 2
+    while pos + 4 <= len(data) and data[pos] == 0xFF:
+        marker = data[pos + 1]
+        if marker == 0xC3:
+            from cadx_tpu_torch.data.codecs import jpeg_lossless_decode
+
+            if not 2 <= data[pos + 4] <= 8:
+                raise ImageError(f"lossless JPEG of {data[pos + 4]} bits")
+            return jpeg_lossless_decode(data)[0].astype(np.uint8)
+        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC) or marker == 0xDA:
+            break
+        (n,) = struct.unpack_from(">H", data, pos + 2)
+        pos += 2 + n
+    from cadx_tpu_torch.data.jpg import jpeg_luma_decode
+
+    return jpeg_luma_decode(data)[0]
+
+
+def jp2_gray(data: bytes) -> np.ndarray:
+    """A JP2 file or a raw J2K codestream through `j2k.j2k_decode`, as cv2's
+    OpenJPEG reader gives it in gray: one component as decoded (uint8 up
+    to 8 bits, else uint16), three or more through cvtColor's 15-bit
+    weights on the first three, R first."""
+    from cadx_tpu_torch.data.j2k import j2k_decode
+
+    img = j2k_decode(data)
+    if img.ndim == 2:
+        return img
+    return _gray15(img[..., 0], img[..., 1], img[..., 2]).astype(img.dtype)
+
+
 # ---- GIF ---------------------------------------------------------------------
 
 def gif_gray(data: bytes) -> np.ndarray:
@@ -413,8 +490,7 @@ def gif_gray(data: bytes) -> np.ndarray:
     frame = rgb[top:top + h, left:left + w]
     drawn = idx != transparent if transparent is not None else slice(None)
     frame[drawn] = pal[idx[drawn]]
-    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
-    return ((9798 * r + 19235 * g + 3735 * b + 16384) >> 15).astype(np.uint8)
+    return _gray15(rgb[..., 0], rgb[..., 1], rgb[..., 2]).astype(np.uint8)
 
 
 def _gif_blocks(data: bytes, pos: int) -> tuple[bytes, int]:
@@ -760,3 +836,250 @@ def _pxm_number(data: bytes, pos: int, one_digit: bool = False) -> tuple[int, in
     if pos >= n:
         raise ImageError("PxM data too short")
     return val, pos + 1
+
+
+# ---- PAM ---------------------------------------------------------------------
+
+_PAM_FIELDS = (b"WIDTH", b"HEIGHT", b"DEPTH", b"MAXVAL", b"TUPLTYPE", b"ENDHDR")
+# TUPLTYPE -> the DEPTH cv2 requires of it
+_PAM_TUPLTYPES = {b"BLACKANDWHITE": 1, b"GRAYSCALE": 1, b"GRAYSCALE_ALPHA": 2, b"RGB": 3,
+                  b"RGB_ALPHA": 4}
+
+
+def _pam_int(text: bytes) -> int:
+    """cv2's ParseInt: decimal digits, spaces around them allowed."""
+    t = text.strip(_SPACE)
+    if not t.isdigit():
+        raise ImageError("PAM: not a number")
+    return int(t)
+
+
+def pam_gray(data: bytes) -> np.ndarray | None:
+    """A PAM (P7) file as cv2's PAMDecoder reads it in gray with ANYDEPTH:
+    the WIDTH, HEIGHT, DEPTH, MAXVAL, ENDHDR header (each once, decimal
+    numbers; TUPLTYPE, if any, one of cv2's five and matching
+    DEPTH; without it DEPTH 1 or 3 at MAXVAL below 256); MAXVAL above 255
+    gives big-endian uint16 samples, kept as stored (no scaling to MAXVAL).
+    DEPTH 1 reads as it is; RGB through cv2's 14-bit weights (R first);
+    GRAYSCALE_ALPHA and RGB_ALPHA through cv2's basic_conversion, which
+    writes sample DEPTH (j // 3) of a row to its column j while it reads
+    the row's first W samples: at DEPTH 2 past the row's end (cv2 then
+    writes past its image's buffer), at DEPTH 4 short of it, leaving the
+    columns from 3 ceil(W / 4) on unwritten (this reader gives 0 there,
+    cv2 whatever its buffer held); MAXVAL 1 reads each row's bytes as
+    packed bits, 0 and 255, as cv2's bit mode does."""
+    if len(data) < 3 or data[:2] != b"P7" or data[2] not in (0x0A, 0x0D):
+        raise ImageError("not a PAM")
+    pos, n = 3, len(data)
+    fields: dict[bytes, bytes] = {}
+    while b"ENDHDR" not in fields:
+        while pos < n and data[pos] in _SPACE:
+            pos += 1
+        if pos >= n:
+            raise ImageError("PAM header too short")
+        if data[pos] == 0x23:    # '#': to the end of the line
+            while pos < n and data[pos] not in (0x0A, 0x0D):
+                pos += 1
+            pos += 1
+            continue
+        start = pos
+        while pos < n and data[pos] not in _SPACE:
+            pos += 1
+        ident = data[start:pos]
+        if ident not in _PAM_FIELDS or ident in fields or pos >= n:
+            raise ImageError("bad PAM header field")
+        end = data[pos]
+        pos += 1
+        value = b""
+        if end not in (0x0A, 0x0D):
+            while pos < n and data[pos] in _SPACE:
+                pos += 1
+            start = pos
+            while pos < n and data[pos] not in (0x0A, 0x0D):
+                pos += 1
+            value = data[start:pos]
+            pos += 1
+        fields[ident] = value
+    if not all(f in fields for f in _PAM_FIELDS if f != b"TUPLTYPE"):
+        raise ImageError("PAM header without a required field")
+    w, h = _pam_int(fields[b"WIDTH"]), _pam_int(fields[b"HEIGHT"])
+    depth, maxval = _pam_int(fields[b"DEPTH"]), _pam_int(fields[b"MAXVAL"])
+    tupl = fields[b"TUPLTYPE"].strip(_SPACE) if b"TUPLTYPE" in fields else None
+    if tupl is None:
+        if depth not in (1, 3) or maxval >= 256:
+            raise ImageError("PAM without TUPLTYPE")
+        tupl = b"GRAYSCALE" if depth == 1 else b"RGB"
+    if _PAM_TUPLTYPES.get(tupl) != depth:
+        raise ImageError(f"PAM TUPLTYPE {tupl!r} at DEPTH {depth}")
+    if w <= 0 or h <= 0 or not 0 <= maxval <= 65535 or w * h > _MAX_PIXELS:
+        raise ImageError("PAM header out of range")
+    wide = maxval > 255
+    size = w * h * depth * (2 if wide else 1)
+    if pos + size > n:
+        raise ImageError("PAM data too short")
+    raw = data[pos:pos + size]
+    if maxval == 1:      # bit mode: a row's bytes read as packed bits
+        rows = np.frombuffer(raw, np.uint8).reshape(h, w * depth)
+        return np.unpackbits(rows, axis=1)[:, :w] * np.uint8(255)
+    v = np.frombuffer(raw, ">u2" if wide else np.uint8).reshape(h, w, depth).astype(np.int64)
+    if depth == 1:
+        out = v[..., 0]
+    elif depth == 3:
+        out = (_CR * v[..., 0] + _CG * v[..., 1] + _CB * v[..., 2] + (1 << 13)) >> 14
+    else:
+        flat = v.reshape(h, w * depth)
+        cols = np.arange(w)
+        src = depth * (cols // 3)
+        out = np.where(src < w, flat[:, np.minimum(src, w - 1)], 0)
+    return out.astype(np.uint16 if wide else np.uint8)
+
+
+# ---- Sun raster ------------------------------------------------------------------
+
+def ras_gray(data: bytes) -> np.ndarray:
+    """A Sun raster file as cv2's SunRasterDecoder reads it in gray: depths
+    1, 8, 24 and 32 of types old (0) and standard (1) (cv2 5.0 refuses the
+    byte-encoded and RGB types); no colour map, or an RGB one of at most
+    2^depth entries at depths 1 and 8. Depths 1 and 8 go through the map's
+    gray (cv2's 14-bit weights; entries past the map 0); without a map cv2's
+    gray table stays zero, so every pixel reads 0. 24 bits are BGR, 32 bits
+    XBGR, gray with the same weights. Rows are padded to 16 bits."""
+    if len(data) < 32:
+        raise ImageError("truncated Sun raster")
+    _, w, h, depth, _, kind, maptype, maplen = struct.unpack_from(">8I", data, 0)
+    pal_size = 3 << depth if 0 < depth <= 8 else 0
+    if w <= 0 or h <= 0 or depth not in (1, 8, 24, 32) or w * h > _MAX_PIXELS:
+        raise ImageError("Sun raster header out of range")
+    if kind not in (0, 1):
+        raise ImageError(f"Sun raster type {kind}")
+    if not ((maptype == 0 and maplen == 0)
+            or (maptype == 1 and 0 < maplen <= pal_size and depth <= 8)):
+        raise ImageError("Sun raster colour map")
+    pos = 32
+    gray_pal = np.zeros(256, np.uint8)
+    if maplen:
+        if pos + maplen > len(data):
+            raise ImageError("Sun raster colour map too short")
+        k = maplen // 3
+        cmap = np.frombuffer(data, np.uint8, 3 * k, pos).reshape(3, k)  # R, G, B planes
+        gray_pal[:k] = _gray14(cmap[2], cmap[1], cmap[0])
+        pos += maplen
+    pitch = ((w * depth + 7) // 8 + 1) & ~1
+    if pos + pitch * h > len(data):
+        raise ImageError("Sun raster data too short")
+    rows = np.frombuffer(data, np.uint8, pitch * h, pos).reshape(h, pitch)
+    if depth == 1:
+        return gray_pal[np.unpackbits(rows, axis=1)[:, :w]]
+    if depth == 8:
+        return gray_pal[rows[:, :w]]
+    px = rows[:, :w * depth // 8].reshape(h, w, depth // 8)[..., depth // 8 - 3:]
+    return _gray14(px[..., 0], px[..., 1], px[..., 2])
+
+
+# ---- Radiance HDR and PFM ------------------------------------------------------
+
+def _gray_f32(r, g, b) -> np.ndarray:
+    """cv2.cvtColor's RGB to gray on float32 channels: 0.299 R + 0.587 G +
+    0.114 B in float32 (cv2 may fuse the products, so the two agree to a
+    float32 rounding of the sum)."""
+    f = np.float32
+    return (b * f(0.114) + g * f(0.587) + r * f(0.299)).astype(np.float32)
+
+
+def hdr_gray(data: bytes) -> np.ndarray:
+    """A Radiance RGBE file as cv2's HdrDecoder reads it in gray: "#?RADIANCE"
+    or "#?RGBE", header lines up to an empty one, among them
+    "FORMAT=32-bit_rle_rgbe" (cv2 refuses a header without it), then "-Y H
+    +X W"; scanlines flat or new-style RLE
+    (2 2 and the width, then each of the four channels as runs: n > 128
+    repeats the next byte n - 128 times, else n bytes follow), flat where W
+    is under 8 or over 32767 or a scanline does not start 2 2; each pixel
+    m * 2^(e - 136), 0 where e = 0 (rgbe.c's rgbe2float, no 0.5 offset);
+    gray from R, G, B as cvtColor takes it. (H, W) float32."""
+    end = data.find(b"\n\n")
+    if end < 0 or b"FORMAT=32-bit_rle_rgbe" not in data[:end].split(b"\n")[1:]:
+        raise ImageError("HDR header without FORMAT=32-bit_rle_rgbe")
+    pos = end + 2
+    nl = data.find(b"\n", pos)
+    dims = data[pos:nl].split() if nl >= 0 else []
+    if len(dims) != 4 or dims[0] != b"-Y" or dims[2] != b"+X":
+        raise ImageError("HDR without -Y H +X W")
+    h, w = int(dims[1]), int(dims[3])
+    if w <= 0 or h <= 0 or w * h > _MAX_PIXELS:
+        raise ImageError("HDR size out of range")
+    pos = nl + 1
+    rgbe = np.zeros((h, w, 4), np.uint8)
+    flat_from = None     # the first pixel read flat
+    if w < 8 or w > 0x7FFF:
+        flat_from = 0
+    else:
+        for y in range(h):
+            head = data[pos:pos + 4]
+            if len(head) < 4:
+                raise ImageError("HDR data too short")
+            if head[0] != 2 or head[1] != 2 or head[2] & 0x80:
+                flat_from = y * w
+                break
+            if (head[2] << 8 | head[3]) != w:
+                raise ImageError("HDR scanline of the wrong width")
+            pos += 4
+            for ch in range(4):
+                x = 0
+                while x < w:
+                    if pos + 2 > len(data):
+                        raise ImageError("HDR data too short")
+                    count = data[pos]
+                    if count > 128:
+                        count -= 128
+                        if count > w - x:
+                            raise ImageError("bad HDR scanline data")
+                        rgbe[y, x:x + count, ch] = data[pos + 1]
+                        pos += 2
+                    else:
+                        if count == 0 or count > w - x or pos + 1 + count > len(data):
+                            raise ImageError("bad HDR scanline data")
+                        rgbe[y, x:x + count, ch] = np.frombuffer(data, np.uint8, count, pos + 1)
+                        pos += 1 + count
+                    x += count
+    if flat_from is not None:
+        need = (h * w - flat_from) * 4
+        if pos + need > len(data):
+            raise ImageError("HDR data too short")
+        rgbe.reshape(-1, 4)[flat_from:] = np.frombuffer(data, np.uint8, need, pos).reshape(-1, 4)
+    e = rgbe[..., 3].astype(np.int32)
+    scale = np.where(e > 0, np.ldexp(1.0, e - 136), 0.0).astype(np.float32)
+    c = [rgbe[..., i].astype(np.float32) * scale for i in range(3)]
+    return _gray_f32(c[0], c[1], c[2])
+
+
+def _pfm_token(data: bytes, pos: int) -> tuple[bytes, int]:
+    """cv2's read_number: the bytes up to the next whitespace, which is
+    consumed."""
+    end = pos
+    while end < len(data) and data[end] not in _SPACE:
+        end += 1
+    if end >= len(data):
+        raise ImageError("PFM header too short")
+    return data[pos:end], end + 1
+
+
+def pfm_gray(data: bytes) -> np.ndarray:
+    """A PFM file as cv2's PFMDecoder reads it in gray: "Pf" and a line
+    break, then width, height and scale, each ended by one whitespace byte;
+    float32 samples, little-endian where the scale is negative, rows bottom
+    up, times 1 / |scale| in float32. A colour file ("PF") gives no image
+    (cv2 cannot convert it to one channel), nor does any other."""
+    if data[:3] != b"Pf\n":
+        raise ImageError("not a gray PFM")
+    tok, pos = _pfm_token(data, 3)
+    w = int(tok) if tok.isdigit() else 0
+    tok, pos = _pfm_token(data, pos)
+    h = int(tok) if tok.isdigit() else 0
+    tok, pos = _pfm_token(data, pos)
+    scale = float(tok)
+    if w <= 0 or h <= 0 or scale == 0 or w * h > _MAX_PIXELS:
+        raise ImageError("PFM header out of range")
+    if pos + 4 * w * h > len(data):
+        raise ImageError("PFM data too short")
+    v = np.frombuffer(data, "<f4" if scale < 0 else ">f4", w * h, pos).reshape(h, w)[::-1]
+    return (v.astype(np.float32) * np.float32(1.0 / abs(scale))).astype(np.float32)

@@ -14,7 +14,8 @@ an error.
 
 `csrc/legacy/` holds the kernels that the redesigned ones replaced, for
 timings only (`chip_smoke.py --tail-device-times`, `--equalize-ccl-times`,
-`--mode-jet-times`, `--flood-seeded-times` and `--packed-watershed-times`);
+`--mode-jet-times`, `--flood-seeded-times`, `--packed-watershed-times` and
+`--bf16-conv-times`);
 `load_legacy` builds them into a library of their own, and no path loads
 it.
 
@@ -73,6 +74,7 @@ _LEGACY_SIGNATURES = {
     "cadx_flood_from_one_block": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "cadx_largest_component_seeded_one_block": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "cadx_watershed_packed_rounds": (_P,) * 6 + (_I,) * 7 + (_P,),
+    "cadx_conv_leaky_bf16_sync": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 

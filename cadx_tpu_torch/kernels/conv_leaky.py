@@ -36,9 +36,12 @@ The bfloat16 form (`conv_leaky_bf16`, source `csrc/conv_leaky_bf16.cu`):
 the classifiers' opt-in mixed precision (`models/cnn.py::conv_stack(...,
 compute_dtype=torch.bfloat16)`, JAX's `compute_dtype=jnp.bfloat16`). x and
 w bfloat16, b float32; the products on the tensor cores (mma.sync
-m16n8k16, bf16 operands, float32 accumulators) over an implicit GEMM of 8 x
-16 output pixels by 32 or 64 filters a block, K in chunks of 16 channels
-staged in shared memory; the epilogue repeats JAX's rounding order: the
+m16n8k16, bf16 operands, float32 accumulators) over an implicit GEMM in
+persistent blocks, one an SM, that stage their filters' weights once and
+walk output tiles of 256 or 512 pixels by 32 or 64 filters, the halo
+windows of the next steps copied ahead by TMA into a ring in shared memory
+and each output tile written by one TMA store (the design and its reasons
+in the source's note); the epilogue repeats JAX's rounding order: the
 sum rounded to bf16 (XLA's conv result type), plus the float32 bias,
 rounded to bf16, then LeakyReLU in bf16 with alpha rounded to bf16. The
 output is NCHW bfloat16. Its plain version is `F.conv2d` on the bf16
@@ -166,9 +169,9 @@ def conv_leaky_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if oh < 1 or ow < 1:
         raise ValueError(f"conv_leaky_bf16: a {k}x{k} kernel with pad {pad} leaves no "
                          f"output of a {h}x{wd} input")
-    if bsz > 65535:
-        raise ValueError(f"conv_leaky_bf16: at most 65535 images a call, got {bsz}")
-    wt = w.permute(2, 3, 0, 1).contiguous()       # (k, k, F, C)
+    # (k, k, F, C8): channels zero-padded to a multiple of 8, whole 16-byte
+    # copies for the kernel
+    wt = (F.pad(w, (0, 0, 0, 0, 0, -c % 8)) if c % 8 else w).permute(2, 3, 0, 1).contiguous()
     b = b.to(torch.float32).contiguous()
     out = torch.empty((bsz, f, oh, ow), dtype=torch.bfloat16, device=x.device)
     if out.numel():

@@ -72,8 +72,10 @@ def max_pix_val(dtype: torch.dtype) -> int:
 
 def to_uint8(img: torch.Tensor, mx: torch.Tensor | None = None) -> torch.Tensor:
     """(img / max * 255) truncated to uint8, with the max taken per image
-    (or given: `mx`, as in relative_threshold_value)."""
+    (or given: `mx`, as in relative_threshold_value); saturated to [0, 255]
+    first, as JAX's float to uint8 conversion saturates (a float upload
+    with negative values, a PFM's, reads 0 there, not its value mod 256)."""
     if mx is None:
         mx = image_max(img)
     maxv = mx.to(torch.float32).clamp_min(1e-12).view(-1, 1, 1)
-    return (img.to(torch.float32) / maxv * 255.0).to(torch.uint8)
+    return (img.to(torch.float32) / maxv * 255.0).clamp(0.0, 255.0).to(torch.uint8)

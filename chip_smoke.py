@@ -297,7 +297,10 @@ Phases, each of which raises on failure (the script then exits nonzero):
    that run and the basic classifier's (to 2^-6 of the plain output's
    largest value: both round float32 sums taken in other orders to bf16,
    twice) and its times beside the plain version, cuDNN's bf16
-   `F.conv2d` and the bound (bytes or dense bf16 operations); the
+   `F.conv2d` and the bound (bytes or dense bf16 operations); the rows
+   of `python3 chip_smoke.py --bf16-conv-times`, a fresh process (the
+   kernel's device time, whole call and conv kernel alone, beside the
+   replaced design's in turns old, new, new, old and cuDNN's); the
    training CLI with --bf16-compute for one epoch on 24 small DICOMs;
 12. the compat API on the card: `CNNModel` train, predict, save_model
    and `load_weights`, `ModelTrainer.cross_validate` (2 folds, 1 epoch),
@@ -1840,6 +1843,140 @@ def packed_watershed_times() -> int:
         tail_rows.append(row)
     print(json.dumps({"card": card, "watershed_packed": rows, "trace": trace,
                       "pectoral_tail": tail_rows}), flush=True)
+    return 0
+
+
+# phase 11's conv layer shapes: (what, x's shape, F, k, pad, the NHWC view
+# of x): the advanced layers at B=32 (layer 1 on the NHWC view of the device
+# batch, layer 2 on the pool's NCHW output), the test batch's B=16, and the
+# basic layers at B=8
+BF16_CONV_SHAPES = (
+    ("advanced layer 1, B=32 (training)", (32, 256, 256, 64), 32, 3, 1, True),
+    ("advanced layer 2, B=32 (training)", (32, 32, 128, 128), 64, 3, 1, False),
+    ("advanced layer 1, B=16 (the test batch)", (16, 256, 256, 64), 32, 3, 1, True),
+    ("advanced layer 2, B=16 (the test batch)", (16, 32, 128, 128), 64, 3, 1, False),
+    ("basic layer 1, B=8", (8, 32, 32, 64), 128, 3, 0, True),
+    ("basic layer 2, B=8", (8, 128, 15, 15), 64, 3, 0, False))
+
+
+def bf16_conv_inputs(dev) -> list:
+    """(what, x, w, b, pad, the function's operations) at BF16_CONV_SHAPES:
+    x and w bf16 from a generator seeded 11 on the card, He-scaled w, b
+    float32."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    out = []
+    for what, shape, f, k, pad, nhwc in BF16_CONV_SHAPES:
+        x = randn(*shape).to(torch.bfloat16)
+        x = x.permute(0, 3, 1, 2) if nhwc else x
+        bsz, c, h, w = x.shape
+        wt = randn(f, c, k, k, scale=(2.0 / (c * k * k)) ** 0.5).to(torch.bfloat16)
+        b = randn(f, scale=0.1)
+        oh, ow = h + 2 * pad - k + 1, w + 2 * pad - k + 1
+        out.append((what, x, wt, b, pad, 2 * bsz * oh * ow * f * c * k * k))
+    return out
+
+
+def old_conv_bf16(lib, x, w, b, pad: int):
+    """The bf16 conv form before its redesign (`csrc/legacy/
+    conv_leaky_bf16_sync.cu`) through its former wrapper's transpose and
+    allocation."""
+    from cadx_tpu_torch.kernels import _build
+    from cadx_tpu_torch.kernels import conv_leaky as KCL
+
+    bsz, c, h, wd = x.shape
+    f, _, k, _ = w.shape
+    layout = KCL._layout(x)
+
+    def run():
+        wt = w.permute(2, 3, 0, 1).contiguous()
+        out = torch.empty((bsz, f, h + 2 * pad - k + 1, wd + 2 * pad - k + 1),
+                          dtype=torch.bfloat16, device=x.device)
+        _build.check(lib.cadx_conv_leaky_bf16_sync(
+            x.data_ptr(), wt.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, c, h, wd, f, k, pad,
+            layout, 0.01, _build.stream_ptr(x.device)), "cadx_conv_leaky_bf16_sync")
+        return out
+    return run
+
+
+def kernel_device_ms(fn, name_part: str, iters: int) -> float | None:
+    """Device milliseconds a call of fn spends in the kernels whose names
+    hold name_part (the wrapper's weight transpose left out); None where
+    the profiler kept none."""
+    found = [v for k, v in device_ms_by_kernel(fn, iters).items() if name_part in k]
+    return sum(v["ms"] * v["calls"] for v in found) if found else None
+
+
+def bf16_conv_times() -> int:
+    """`--bf16-conv-times`: conv_leaky's bf16 form beside the design it
+    replaced (`csrc/legacy/conv_leaky_bf16_sync.cu`, built apart by
+    `_build.load_legacy`) at phase 11's shapes, in a fresh process, where
+    the profiler keeps every record. Each shape: new and old held to the
+    plain version within 2^-6 of its largest output (the tolerance of
+    phase 11), the new kernel twice to the same bytes; then CUDA events
+    and profiler device time in turns old, new, new, old (`calls_for`
+    calls a timing), each call's device time whole (the wrapper's weight
+    transpose included) and the conv kernel's alone; cuDNN's bf16
+    F.conv2d on the same tensors (events and device time); the bound
+    (bytes or dense bf16 operations). Prints one JSON line a row, then
+    one with all of them."""
+    if not torch.cuda.is_available():
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch.nn.functional as F
+
+    from cadx_tpu_torch.kernels import _build
+    from cadx_tpu_torch.kernels import conv_leaky as KCL
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    legacy = _build.load_legacy()
+    rows = []
+    for what, x, w, b, pad, ops in bf16_conv_inputs(dev):
+        new = (lambda x=x, w=w, b=b, pad=pad: KCL.conv_leaky_bf16(x, w, b, 0.01, pad))
+        old = old_conv_bf16(legacy, x, w, b, pad)
+        lib = (lambda x=x, w=w, pad=pad: F.conv2d(x, w, padding=pad))
+        want = KCL.conv_leaky_bf16_reference(x, w, b, 0.01, pad)
+        tol = 2.0 ** -6 * float(want.float().abs().max())
+        errs = {}
+        for name, fn in (("new", new), ("old", old)):
+            got = fn()
+            torch.cuda.synchronize()
+            errs[name] = max_abs_err(got.float(), want.float())
+            if errs[name] > tol or got.dtype != torch.bfloat16 or got.shape != want.shape:
+                raise AssertionError(f"conv_leaky_bf16 [{name}, {what}] disagrees with its "
+                                     f"plain version: {errs[name]} > {tol}")
+        same_bytes(new(), new(), f"conv_leaky_bf16 [{what}] on a second run")
+        fns = [old, new, new, old]
+        iters = [calls_for(fn) for fn in fns]
+        ev = [cuda_ms(fn, n) for fn, n in zip(fns, iters)]
+        l_ev = cuda_ms(lib, iters[1])
+        dv = [device_ms(fn, n) for fn, n in zip(fns, iters)]
+        kdv = [kernel_device_ms(fn, part, n) for fn, n, part in
+               zip(fns, iters, ("conv_bf16_kernel", "conv_bf16_persistent",
+                                "conv_bf16_persistent", "conv_bf16_kernel"))]
+        l_dv = device_ms(lib, iters[1])
+        t_bytes = (nbytes((x, w, b)) + nbytes(want)) / HBM_BYTES_PER_S
+        t_ops = ops / BF16_OPS_PER_S
+        row = {"kernel": "conv_leaky_bf16", "shape": what, "card": card,
+               "ms": (ev[1] + ev[2]) / 2, "old_ms": (ev[0] + ev[3]) / 2,
+               "device_ms": captured_mean(dv[1], dv[2]),
+               "old_device_ms": captured_mean(dv[0], dv[3]),
+               "kernel_device_ms": captured_mean(kdv[1], kdv[2]),
+               "old_kernel_device_ms": captured_mean(kdv[0], kdv[3]),
+               "library_ms": l_ev, "library_device_ms": l_dv,
+               "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "max_abs_err": errs["new"], "old_max_abs_err": errs["old"], "tolerance": tol,
+               "runs_ms": ev, "device_runs_ms": dv, "kernel_device_runs_ms": kdv,
+               "calls": iters, "device_ms_by_kernel": device_ms_by_kernel(new),
+               "library_device_ms_by_kernel": device_ms_by_kernel(lib)}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    print(json.dumps({"card": card, "conv_leaky_bf16": rows}), flush=True)
     return 0
 
 
@@ -4847,27 +4984,8 @@ def main() -> int:
     for a in fits11[torch.bfloat16].model.parameters():
         if a.dtype != torch.float32 or not bool(torch.isfinite(a).all()):
             raise AssertionError("bf16 training left parameters not float32 or not finite")
-    bgen = torch.Generator(device=dev).manual_seed(11)
-
-    def brandn(*shape, scale=1.0):
-        return torch.randn(shape, generator=bgen, device=dev) * scale
-
-    # (what, x, F, k, pad, the function's operations): the advanced layers
-    # at B=32 (layer 1 on the NHWC view of the device batch, layer 2 on the
-    # pool's NCHW output), the test batch's B=16, and the basic layers at B=8
     bf16_shapes = []
-    for what, shape, f, k, pad, nhwc in (
-            ("advanced layer 1, B=32 (training)", (32, 256, 256, 64), 32, 3, 1, True),
-            ("advanced layer 2, B=32 (training)", (32, 32, 128, 128), 64, 3, 1, False),
-            ("advanced layer 1, B=16 (the test batch)", (16, 256, 256, 64), 32, 3, 1, True),
-            ("advanced layer 2, B=16 (the test batch)", (16, 32, 128, 128), 64, 3, 1, False),
-            ("basic layer 1, B=8", (8, 32, 32, 64), 128, 3, 0, True),
-            ("basic layer 2, B=8", (8, 128, 15, 15), 64, 3, 0, False)):
-        x = brandn(*shape).to(torch.bfloat16)
-        x = x.permute(0, 3, 1, 2) if nhwc else x
-        c = x.shape[1]
-        w = brandn(f, c, k, k, scale=(2.0 / (c * k * k)) ** 0.5).to(torch.bfloat16)
-        b = brandn(f, scale=0.1)
+    for what, x, w, b, pad, ops in bf16_conv_inputs(dev):
         got = KCL.conv_leaky_bf16(x, w, b, 0.01, pad)
         want = KCL.conv_leaky_bf16_reference(x, w, b, 0.01, pad)
         torch.cuda.synchronize()
@@ -4879,8 +4997,6 @@ def main() -> int:
               f"output's largest, {tol}); outputs that differ {differ}", flush=True)
         if err > tol or got.dtype != torch.bfloat16:
             raise AssertionError(f"conv_leaky_bf16 [{what}] disagrees with its plain version")
-        oh, ow = got.shape[2:]
-        ops = 2 * shape[0] * oh * ow * f * c * k * k
         bf16_shapes.append((what, x, w, b, pad, got, ops))
     bf16_rows = []
     for what, x, w, b, pad, out, ops in bf16_shapes:
@@ -4903,11 +5019,28 @@ def main() -> int:
               f"plain {p_ms:.4f}, F.conv2d bf16 {l_ms:.4f} (device "
               f"{ms_text(row['library_device_ms'])}), bound {row['bound_ms']:.4f} by "
               f"{row['bound_by']} on {card}", flush=True)
+    # the kernel's device time beside cuDNN's and the replaced design's, in
+    # turns, from a fresh process (bf16_conv_times), where the profiler
+    # keeps every record
+    bc_run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                             "--bf16-conv-times"], capture_output=True, text=True, timeout=600)
+    if bc_run.returncode != 0:
+        raise AssertionError(f"the bf16 conv timing run failed:\n{bc_run.stderr[-4000:]}")
+    bc = json.loads(bc_run.stdout.strip().splitlines()[-1])["conv_leaky_bf16"]
+    for row in bc:
+        print(f"time conv_leaky_bf16 {row['shape']} (fresh process, in turns): device "
+              f"{ms_text(row['device_ms'])} ms (the conv kernel "
+              f"{ms_text(row['kernel_device_ms'])}), events {row['ms']:.4f}; the replaced "
+              f"design device {ms_text(row['old_device_ms'])} (kernel "
+              f"{ms_text(row['old_kernel_device_ms'])}), events {row['old_ms']:.4f}; F.conv2d "
+              f"bf16 device {ms_text(row['library_device_ms'])}, events "
+              f"{row['library_ms']:.4f}; bound {row['bound_ms']:.4f} by {row['bound_by']} on "
+              f"{row['card']}", flush=True)
     top11 = bf16_rows[0]
     times["conv_leaky_bf16"] = (top11["ms"], top11["plain_ms"], top11["library_ms"])
     bounds["conv_leaky_bf16"] = (top11["bound_ms"], top11["bound_by"])
-    dev_times["conv_leaky_bf16"] = (top11["device_ms"], None, top11["library_device_ms"])
-    compared["conv_leaky_bf16"] = bf16_rows
+    dev_times["conv_leaky_bf16"] = (bc[0]["device_ms"], None, bc[0]["library_device_ms"])
+    compared["conv_leaky_bf16"] = bf16_rows + [{"fresh_process": bc}]
     # the training CLI with --bf16-compute, one epoch on small DICOMs
     with tempfile.TemporaryDirectory() as tmp:
         rows_csv = ["dicom_file_path,pathology"]
@@ -5045,6 +5178,8 @@ if __name__ == "__main__":
         sys.exit(flood_seeded_times())
     if sys.argv[1:] == ["--packed-watershed-times"]:
         sys.exit(packed_watershed_times())
+    if sys.argv[1:] == ["--bf16-conv-times"]:
+        sys.exit(bf16_conv_times())
     if sys.argv[1:] == ["--data-parallel"]:
         sys.exit(data_parallel_only())
     sys.exit(main())

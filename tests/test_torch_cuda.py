@@ -258,14 +258,28 @@ def test_conv_leaky_kernel(dev, rng, shape, pad):
 
 @pytest.mark.parametrize("shape", [(2, 5, 9, 11, 7, 3), (1, 64, 34, 34, 128, 3),
                                    (3, 3, 20, 17, 33, 5), (2, 24, 19, 21, 70, 3),
-                                   (2, 9, 16, 16, 16, 1)])
+                                   (2, 9, 16, 16, 16, 1),
+                                   # the persistent design's edges: 128 filters
+                                   # (two groups) and C = 40 (a half chunk), 37 rows
+                                   # and 70 columns (partial tiles both ways)
+                                   (2, 40, 37, 70, 128, 3),
+                                   # 512 tiles of 8 x 64: more than 132 blocks
+                                   # hold, so the persistent walk wraps
+                                   (4, 32, 256, 256, 32, 3),
+                                   # B = 1, F = 61 (not a multiple of 8), 4 chunks
+                                   (1, 128, 40, 136, 61, 3),
+                                   # k = 5 with 96 channels: three chunks a tile
+                                   (2, 96, 24, 48, 24, 5)])
 @pytest.mark.parametrize("pad", ["VALID", "SAME"])
 @pytest.mark.parametrize("nhwc", [False, True])
 def test_conv_leaky_bf16_kernel(dev, rng, shape, pad, nhwc):
     """The bf16 form against its plain version (cuDNN's bf16 conv, the same
     epilogue): float32 sums in other orders rounded to bf16 twice, so an
     output may land a bf16 step or two away: max |d| <= 2^-6 * max
-    |plain|; most outputs equal. One launch a call, NCHW or the NHWC view."""
+    |plain|; most outputs equal. One launch a call, NCHW or the NHWC view;
+    shapes that take each way of staging the input (cp.async on the NHWC
+    view, cp.async and a transpose in shared memory on NCHW with W a
+    multiple of 8, plain loads otherwise)."""
     b, c, h, w, f, k = shape
     x = torch.from_numpy(rng.standard_normal((b, h, w, c) if nhwc else (b, c, h, w))
                          .astype(np.float32)).to(dev, torch.bfloat16)

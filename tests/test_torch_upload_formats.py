@@ -20,6 +20,18 @@ used to differ.
   binary, 8 and 16 bits), read whatever the extension. Exact, None where
   cv2 gives None.
 - `resize_area_cv2` zooming a uint8 axis, cv2's fixed point, exact.
+- TIFF (`data/tiff.py`; files written here by hand: strips and tiles,
+  planar 1 and 2, little- and big-endian, none/LZW/Deflate/PackBits,
+  predictor 2, 1/4/8/16-bit, palette, min-is-white, alpha, float and
+  integer samples, orientations), lossless WebP (`data/webp.py`; cv2's
+  encodes, which use the predictor, colour and colour-indexing
+  transforms), JPEG 2000 (JP2 boxes and raw codestreams), lossless JPEG
+  (SOF3), PAM, Sun raster, Radiance HDR and PFM: the port against cv2 on
+  the same bytes, exact but for JP2's irreversible streams (the DICOM J2K
+  tests' tolerance) and HDR (1e-6 relative: the order of the float32 sums
+  of the gray), None where cv2 gives None.
+- A float32 upload (HDR, PFM, float TIFF) through both engines: the same
+  features and clean image.
 - The formats left open: cv2 reads each, the port gives None (ROADMAP
   Queue 3).
 """
@@ -570,23 +582,554 @@ def test_resize_area_cv2_zoom_uint8(rng, shapes):
         np.testing.assert_array_equal(got, ref.astype(np.float32))
 
 
+
+
+# ---- TIFF ----------------------------------------------------------------------
+
+def _lzw_encode(data: bytes) -> bytes:
+    """TIFF LZW as libtiff writes it: a clear code first, codes MSB-first,
+    the width growing when the next code would not fit, an end code."""
+    out = bytearray()
+    acc = nacc = 0
+
+    def put(code, width):
+        nonlocal acc, nacc
+        acc, nacc = (acc << width) | code, nacc + width
+        while nacc >= 8:
+            nacc -= 8
+            out.append((acc >> nacc) & 0xFF)
+        acc &= (1 << nacc) - 1
+
+    table, nxt, width = {bytes([i]): i for i in range(256)}, 258, 9
+    put(256, width)
+    w = b""
+    for c in data:
+        wc = w + bytes([c])
+        if wc in table:
+            w = wc
+            continue
+        put(table[w], width)
+        table[wc] = nxt
+        nxt += 1
+        if nxt == 4094:
+            put(256, width)
+            table, nxt, width = {bytes([i]): i for i in range(256)}, 258, 9
+        elif nxt > (1 << width) - 1:
+            width += 1
+        w = bytes([c])
+    if w:
+        put(table[w], width)
+        nxt += 1
+        if nxt > (1 << width) - 1 and width < 12:
+            width += 1
+    put(257, width)
+    if nacc:
+        out.append((acc << (8 - nacc)) & 0xFF)
+    return bytes(out)
+
+
+def _tiff(arr, *, bits=None, compression=1, predictor=1, photometric=None, tile=None,
+          rows_per_strip=None, planar=1, big=False, cmap=None, orientation=None,
+          extra_samples=None) -> bytes:
+    """A TIFF of arr ((h, w) or (h, w, samples)) written by hand."""
+    bo = ">" if big else "<"
+    a = np.asarray(arr)
+    a = a[..., None] if a.ndim == 2 else a
+    h, w, spp = a.shape
+    bits = bits or a.dtype.itemsize * 8
+    fmt = {"f": 3, "i": 2}.get(a.dtype.kind, 1)
+    photometric = photometric if photometric is not None else 2 if spp >= 3 else 1
+
+    def encode(block):
+        rows, cols, s = block.shape
+        if predictor == 2:
+            block = block.copy()
+            block[:, 1:] = (block[:, 1:].astype(np.int64) - block[:, :-1]).astype(a.dtype)
+        if bits % 8:
+            v = block.reshape(rows, cols * s).astype(np.uint16)
+            planes = ((v[..., None] >> np.arange(bits - 1, -1, -1)) & 1).reshape(rows, -1)
+            raw = np.packbits(planes, axis=1).tobytes()
+        else:
+            raw = block.astype(a.dtype.newbyteorder(bo) if a.dtype.itemsize > 1
+                               else a.dtype).tobytes()
+        if compression == 5:
+            return _lzw_encode(raw)
+        if compression in (8, 32946):
+            return zlib.compress(raw)
+        if compression == 32773:
+            step = len(raw) // rows
+            return b"".join(codecs._packbits_encode(raw[r * step:(r + 1) * step])
+                            for r in range(rows))
+        return raw
+
+    planes = [a[..., i:i + 1] for i in range(spp)] if planar == 2 else [a]
+    chunks = []
+    if tile:
+        tw, th = tile
+        for pl in planes:
+            for ty in range(0, h, th):
+                for tx in range(0, w, tw):
+                    blk = np.zeros((th, tw, pl.shape[2]), a.dtype)
+                    part = pl[ty:ty + th, tx:tx + tw]
+                    blk[:part.shape[0], :part.shape[1]] = part
+                    chunks.append(encode(blk))
+    else:
+        rps = rows_per_strip or h
+        chunks = [encode(pl[y:y + rps]) for pl in planes for y in range(0, h, rps)]
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp), 259: (3, [compression]),
+            262: (3, [photometric]), 277: (3, [spp]), 284: (3, [planar]), 339: (3, [fmt] * spp)}
+    if predictor != 1:
+        tags[317] = (3, [predictor])
+    if orientation:
+        tags[274] = (3, [orientation])
+    if cmap is not None:
+        tags[320] = (3, [int(c) for c in np.asarray(cmap).reshape(-1)])
+    if extra_samples is not None:
+        tags[338] = (3, list(extra_samples))
+    if tile:
+        tags[322], tags[323] = (4, [tile[0]]), (4, [tile[1]])
+        off_tag, cnt_tag = 324, 325
+    else:
+        tags[278] = (4, [rows_per_strip or h])
+        off_tag, cnt_tag = 273, 279
+    body = bytearray(b"MM\0*" if big else b"II*\0") + b"\0\0\0\0"
+    offsets = []
+    for c in chunks:
+        offsets.append(len(body))
+        body += c + b"\0" * (len(c) % 2)
+    tags[off_tag], tags[cnt_tag] = (4, offsets), (4, [len(c) for c in chunks])
+    blobs = {}
+    for t in sorted(tags):
+        typ, vals = tags[t]
+        if len(vals) * (2 if typ == 3 else 4) > 4:
+            blobs[t] = len(body)
+            body += struct.pack(bo + ("H" if typ == 3 else "I") * len(vals), *vals)
+            body += b"\0" * (len(body) % 2)
+    body[4:8] = struct.pack(bo + "I", len(body))
+    body += struct.pack(bo + "H", len(tags))
+    for t in sorted(tags):
+        typ, vals = tags[t]
+        if t in blobs:
+            body += struct.pack(bo + "HHII", t, typ, len(vals), blobs[t])
+        else:
+            raw = struct.pack(bo + ("H" if typ == 3 else "I") * len(vals), *vals)
+            body += struct.pack(bo + "HHI", t, typ, len(vals)) + raw.ljust(4, b"\0")
+    return bytes(body + b"\0\0\0\0")
+
+
+def _samples(rng, kind, h=37, w=53):
+    return {"u8": lambda: rng.integers(0, 256, (h, w)).astype(np.uint8),
+            "u16": lambda: rng.integers(0, 65536, (h, w)).astype(np.uint16),
+            "rgb": lambda: rng.integers(0, 256, (h, w, 3)).astype(np.uint8),
+            "rgb16": lambda: rng.integers(0, 65536, (h, w, 3)).astype(np.uint16)}[kind]()
+
+
+@pytest.mark.parametrize("kind", ["u8", "u16", "rgb", "rgb16"])
+@pytest.mark.parametrize("compression", [1, 5, 8, 32946, 32773])
+def test_tiff_compressions_and_predictor(tmp_path, rng, kind, compression):
+    """Strips of 10 rows, predictor 1 and 2 (libtiff applies 2 only under
+    LZW and Deflate), little- and big-endian; uint8 (RGB through libtiff's
+    RGBA interface and cv2's 14-bit weights) and uint16 (kept, RGB to
+    uint16 gray), exact."""
+    arr = _samples(rng, kind)
+    for predictor in (1, 2):
+        for big in (False, True):
+            data = _tiff(arr, compression=compression, predictor=predictor, big=big,
+                         rows_per_strip=10)
+            ref, got = _read_both(tmp_path, "t.tif", data)
+            assert ref is not None and ref.dtype == (np.uint16 if "16" in kind else np.uint8)
+            _same(tmp_path, "t.tif", data)
+
+
+@pytest.mark.parametrize("case", ["cv2 u8", "cv2 u16", "cv2 bgr", "cv2 f32", "tiles", "tiles MM lzw",
+                                  "planar rgb", "planar rgb tiles", "min-is-white", "min-is-white 16",
+                                  "1-bit", "1-bit min-is-white", "1-bit palette",
+                                  "4-bit palette", "palette 8-bit map", "palette 16-bit map",
+                                  "rgba", "rgba associated", "rgba unassociated", "rgba16",
+                                  "gray alpha", "float", "float MM deflate", "int32", "uint32",
+                                  "2-bit", "4-bit gray", "10-bit", "12-bit min-is-white",
+                                  "14-bit tiles"])
+def test_tiff_layouts_and_samples(tmp_path, rng, case):
+    """Every layout and sample kind the reader takes, against cv2 (gray
+    10-14-bit samples shifted up to 16 bits); cv2's refusals (2-bit
+    samples, 4 bits without a palette) give None both ways."""
+    u8, u16 = _samples(rng, "u8"), _samples(rng, "u16")
+    rgb = _samples(rng, "rgb")
+    rgba = rng.integers(0, 256, (37, 53, 4)).astype(np.uint8)
+    idx = {b: rng.integers(0, 1 << b, (37, 53)).astype(np.uint8) for b in (1, 2, 4)}
+    f32 = (rng.random((37, 53)) * 100 - 50).astype(np.float32)
+    data = {
+        "cv2 u8": lambda: cv2.imencode(".tiff", u8)[1].tobytes(),
+        "cv2 u16": lambda: cv2.imencode(".tiff", u16)[1].tobytes(),
+        "cv2 bgr": lambda: cv2.imencode(".tiff", rgb)[1].tobytes(),
+        "cv2 f32": lambda: cv2.imencode(".tiff", f32)[1].tobytes(),
+        "tiles": lambda: _tiff(u16, tile=(16, 32), compression=32773),
+        "tiles MM lzw": lambda: _tiff(u8, tile=(32, 16), big=True, compression=5, predictor=2),
+        "planar rgb": lambda: _tiff(rgb, planar=2, compression=5, rows_per_strip=8),
+        "planar rgb tiles": lambda: _tiff(rgb, planar=2, tile=(16, 16), compression=8),
+        "min-is-white": lambda: _tiff(u8, photometric=0),
+        "min-is-white 16": lambda: _tiff(u16, photometric=0),
+        "1-bit": lambda: _tiff(idx[1], bits=1),
+        "1-bit min-is-white": lambda: _tiff(idx[1], bits=1, photometric=0, compression=32773),
+        "1-bit palette": lambda: _tiff(idx[1], bits=1, photometric=3,
+                                       cmap=rng.integers(0, 65536, 6)),
+        "4-bit palette": lambda: _tiff(idx[4], bits=4, photometric=3,
+                                       cmap=rng.integers(0, 65536, 48)),
+        "palette 8-bit map": lambda: _tiff(u8, photometric=3, cmap=rng.integers(0, 256, 768)),
+        "palette 16-bit map": lambda: _tiff(u8, photometric=3,
+                                            cmap=rng.integers(0, 65536, 768)),
+        "rgba": lambda: _tiff(rgba),
+        "rgba associated": lambda: _tiff(rgba, extra_samples=(1,)),
+        "rgba unassociated": lambda: _tiff(rgba, extra_samples=(2,)),
+        "rgba16": lambda: _tiff(rgba.astype(np.uint16) * 257, extra_samples=(2,)),
+        "gray alpha": lambda: _tiff(rgba[..., :2], extra_samples=(2,)),
+        "float": lambda: _tiff(f32),
+        "float MM deflate": lambda: _tiff(f32, big=True, compression=8),
+        "int32": lambda: _tiff(rng.integers(-5000, 5000, (37, 53)).astype(np.int32)),
+        "uint32": lambda: _tiff(rng.integers(0, 5000, (37, 53)).astype(np.uint32)),
+        "2-bit": lambda: _tiff(idx[2], bits=2),
+        "4-bit gray": lambda: _tiff(idx[4], bits=4),
+        "10-bit": lambda: _tiff(u16 >> 6, bits=10, rows_per_strip=9),
+        "12-bit min-is-white": lambda: _tiff(u16 >> 4, bits=12, photometric=0),
+        "14-bit tiles": lambda: _tiff(u16 >> 2, bits=14, tile=(16, 16)),
+    }[case]()
+    ref, got = _read_both(tmp_path, "t.tiff", data)
+    assert (ref is None) == (case in ("2-bit", "4-bit gray")), case
+    _same(tmp_path, "t.tiff", data)
+
+
+@pytest.mark.parametrize("orientation", range(1, 9))
+def test_tiff_orientation(tmp_path, rng, orientation):
+    """Tag 274 turns the image as cv2 turns it; cv2 5.0 gives no image for
+    the transposing orientations 5-8 unless the image is square."""
+    img = _samples(rng, "u8")
+    for arr in (img, img[:37, :37]):
+        _same(tmp_path, "o.tif", _tiff(arr, orientation=orientation))
+    ref, got = _read_both(tmp_path, "o.tif", _tiff(img, orientation=orientation))
+    assert (got is None) == (orientation >= 5)
+
+
+def test_tiff_16bit_mammogram_and_refusals(tmp_path):
+    """A 1024 x 832 16-bit mammogram as cv2 writes it (LZW, predictor 2)
+    comes back uint16, exact, in seconds; 16-bit colour planes (cv2 reads
+    them past their strips' ends, into uninitialised memory) raise."""
+    img = synthetic_native_mammogram(1024, 832, seed=3)
+    data = cv2.imencode(".tiff", img)[1].tobytes()
+    t0 = time.perf_counter()
+    ref, got = _read_both(tmp_path, "m.tiff", data)
+    assert time.perf_counter() - t0 < 10
+    assert got.dtype == np.uint16 and np.array_equal(got, ref)
+    from cadx_tpu_torch.data import tiff
+
+    rgb16 = np.zeros((8, 8, 3), np.uint16)
+    with pytest.raises(tiff.TiffError):
+        tiff.tiff_gray(_tiff(rgb16, planar=2))
+    assert imageio.imread_gray(str(tmp_path / "missing.tif")) is None
+
+
+# ---- JPEG 2000 and lossless JPEG ---------------------------------------------------
+
+def _jp2_sources(rng):
+    yy, xx = np.mgrid[0:48, 0:64]
+    smooth = ((xx * 3 + yy * 2) % 256).astype(np.uint8)
+    noisy = (smooth * 0.7 + rng.integers(0, 256, smooth.shape) * 0.3).astype(np.uint8)
+    return {"gray": noisy, "u16": noisy.astype(np.uint16) * 257,
+            "12-bit": noisy.astype(np.uint16) * 16,
+            "colour": np.dstack([noisy, smooth, 255 - smooth])}
+
+
+@pytest.mark.parametrize("kind", ["gray", "u16", "12-bit", "colour"])
+@pytest.mark.parametrize("raw", [False, True])
+def test_jp2_and_j2k_codestreams(tmp_path, rng, kind, raw):
+    """JP2 box files and their raw codestreams (the `jp2c` box alone). A
+    reversible stream (cv2's compression 1000) reads exactly as cv2 reads
+    it, colour through cvtColor's weights; an irreversible one (cv2's
+    default and 200) decodes with other float rounding than OpenJPEG, so
+    it is held to the DICOM J2K tests' rule (test_j2k.py: the port's RMSE
+    against the source within max(1.3 x, + 1) of cv2's), its dtype and
+    shape equal to cv2's, and closer to cv2's decode than cv2's is to the
+    source."""
+    from cadx_tpu_torch.data.j2k import _unwrap_jp2
+
+    src = _jp2_sources(rng)[kind]
+    for q in (1000, None, 200):
+        data = cv2.imencode(".jp2", src, [] if q is None else
+                            [cv2.IMWRITE_JPEG2000_COMPRESSION_X1000, q])[1].tobytes()
+        data = _unwrap_jp2(data) if raw else data
+        if q == 1000:
+            _same(tmp_path, "r.jp2", data)
+            continue
+        ref, got = _read_both(tmp_path, "r.jp2", data)
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        gray_src = cv2.cvtColor(src, cv2.COLOR_BGR2GRAY) if src.ndim == 3 else src
+        rmse = {k: float(np.sqrt(((v.astype(np.float64) - gray_src) ** 2).mean()))
+                for k, v in (("cv2", ref), ("port", got))}
+        assert rmse["port"] < max(rmse["cv2"] * 1.3, rmse["cv2"] + 1.0), rmse
+        apart = float(np.sqrt(((got.astype(np.float64) - ref) ** 2).mean()))
+        assert apart <= rmse["cv2"] + 1.0, (apart, rmse)
+
+
+def _with_exif(jpeg: bytes, orientation: int) -> bytes:
+    exif = Image.Exif()
+    exif[0x0112] = orientation
+    body = exif.tobytes()
+    body = body if body.startswith(b"Exif\x00\x00") else b"Exif\x00\x00" + body
+    return jpeg[:2] + b"\xff\xe1" + struct.pack(">H", len(body) + 2) + body + jpeg[2:]
+
+
+@pytest.mark.parametrize("precision", [2, 4, 8, 12, 16])
+def test_lossless_jpeg_sof3(tmp_path, rng, precision):
+    """A lossless (SOF3) JPEG read as cv2's libjpeg reads it: 2-8 bits
+    exact and unscaled, uint8; above 8 bits cv2 gives no image and neither
+    does the port; an EXIF orientation turns it as any JPEG."""
+    img = rng.integers(0, 1 << precision, (37, 53)).astype(
+        np.uint16 if precision > 8 else np.uint8)
+    data = codecs.jpeg_lossless_encode(img, precision=precision)
+    ref, got = _read_both(tmp_path, "l.jpg", data)
+    assert (ref is None) == (precision > 8)
+    _same(tmp_path, "l.jpg", data)
+    for orientation in (3, 6):
+        _same(tmp_path, "l.jpg", _with_exif(data, orientation))
+
+
+# ---- lossless WebP -------------------------------------------------------------
+
+@pytest.mark.parametrize("case", ["smooth gray", "noise gray", "natural", "colour", "colour alpha",
+                                  "2 colours", "4 colours", "16 colours", "100 colours",
+                                  "wide", "quality 101"])
+def test_webp_lossless(tmp_path, rng, case, monkeypatch):
+    """cv2's lossless encodes (its default), read exactly as cv2 reads them:
+    the predictor transform on smooth and natural images, the colour and
+    subtract-green transforms on colour ones, colour indexing with pixel
+    bundling on palettes of 2, 4 and 16 colours and without it on 100, the
+    alpha dropped; each transform the stream holds is undone."""
+    from cadx_tpu_torch.data import webp
+
+    nat, bgr = _scene(rng)
+    noise = rng.integers(0, 256, nat.shape).astype(np.uint8)
+    img = {"smooth gray": lambda: bgr[..., 1], "noise gray": lambda: noise,
+           "natural": lambda: nat, "colour": lambda: bgr,
+           "colour alpha": lambda: np.dstack([bgr, noise]),
+           "2 colours": lambda: (noise > 128).astype(np.uint8) * 255,
+           "4 colours": lambda: noise // 64 * 80, "16 colours": lambda: noise // 16 * 16,
+           "100 colours": lambda: np.dstack([noise % 10 * 25, noise // 26 * 7, 255 - noise % 10]),
+           "wide": lambda: cv2.resize(nat, (400, 300)),
+           "quality 101": lambda: bgr}[case]()
+    params = [cv2.IMWRITE_WEBP_QUALITY, 101] if case == "quality 101" else []
+    data = cv2.imencode(".webp", np.ascontiguousarray(img).astype(np.uint8), params)[1].tobytes()
+    assert data[12:16] == b"VP8L"
+    undone = []
+    for name in ("_undo_predictor", "_undo_color", "_undo_index"):
+        orig = getattr(webp, name)
+        monkeypatch.setattr(webp, name, lambda *a, _o=orig, _n=name: undone.append(_n) or _o(*a))
+    _same(tmp_path, "w.webp", data)
+    expect = {"2 colours": "_undo_index", "4 colours": "_undo_index", "16 colours": "_undo_index",
+              "smooth gray": "_undo_predictor", "natural": "_undo_predictor",
+              "colour": "_undo_color"}.get(case)
+    assert expect is None or expect in undone, (case, undone)
+
+
+# ---- PAM, Sun raster, HDR, PFM ---------------------------------------------------
+
+def _pam(w, h, depth, maxval, tupltype, samples: bytes) -> bytes:
+    return (f"P7\nWIDTH {w}\nHEIGHT {h}\nDEPTH {depth}\nMAXVAL {maxval}\n"
+            + (f"TUPLTYPE {tupltype}\n" if tupltype else "") + "ENDHDR\n").encode() + samples
+
+
+@pytest.mark.parametrize("maxval", [1, 100, 255, 1000, 65535])
+def test_pam_depths(tmp_path, rng, maxval):
+    """PAM as cv2's PAMDecoder reads it: DEPTH 1 as stored (16-bit samples
+    big-endian above MAXVAL 255, unscaled), RGB through cv2's 14-bit
+    weights, BLACKANDWHITE, MAXVAL 1 as packed bits, no TUPLTYPE (cv2
+    guesses DEPTH 1 and 3 below 256 only, else gives None). RGB_ALPHA: cv2
+    writes only the first 3 ceil(W / 4) columns of a row (the rest is
+    whatever its buffer held), so those are compared. GRAYSCALE_ALPHA is
+    not read through cv2 here: cv2 writes past its image's buffer."""
+    w, h = 53, 37
+    for depth, tupl in ((1, "GRAYSCALE"), (1, "BLACKANDWHITE"), (3, "RGB"), (4, "RGB_ALPHA"),
+                        (1, None), (3, None)):
+        v = rng.integers(0, maxval + 1, (h, w, depth))
+        data = _pam(w, h, depth, maxval, tupl, v.astype(">u2" if maxval > 255 else np.uint8)
+                    .tobytes())
+        ref, got = _read_both(tmp_path, "p.pam", data)
+        assert (ref is None) == (tupl is None and maxval > 255), (depth, tupl)
+        if ref is None:
+            assert got is None
+            continue
+        cols = 3 * -(-w // 4) if depth == 4 and maxval > 1 else w
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        np.testing.assert_array_equal(got[:, :cols], ref[:, :cols])
+
+
+def test_pam_headers_and_cv2_files(tmp_path, rng):
+    """Comments, spaces, decimal numbers only (cv2's ParseInt), a TUPLTYPE
+    that does not fit DEPTH, a field without a value; cv2's own files."""
+    px = bytes(range(8))
+    for head in (b"P7\n# c\nWIDTH 4\n  HEIGHT   2\nDEPTH 1\n#x\nMAXVAL 010\nENDHDR\n",
+                 b"P7\nWIDTH 4 \nHEIGHT 2\nDEPTH 1\nMAXVAL 255\nTUPLTYPE GRAYSCALE \nENDHDR\n",
+                 b"P7\nWIDTH 4\nHEIGHT 2\nDEPTH 1\nMAXVAL 0x10\nENDHDR\n",
+                 b"P7\nWIDTH\n4\nHEIGHT 2\nDEPTH 1\nMAXVAL 255\nENDHDR\n",
+                 b"P7\nWIDTH 4\nHEIGHT 2\nDEPTH 1\nMAXVAL 255\nTUPLTYPE RGB\nENDHDR\n",
+                 b"P7\nWIDTH 4\nHEIGHT 2\nDEPTH 1\nENDHDR\n"):
+        _same(tmp_path, "h.pam", head + px)
+    for arr in (rng.integers(0, 256, (37, 53)), rng.integers(0, 256, (37, 53, 3))):
+        _same(tmp_path, "c.pam", cv2.imencode(".pam", arr.astype(np.uint8))[1].tobytes())
+
+
+def _ras(w, h, depth, kind, cmap: bytes, body: bytes) -> bytes:
+    return struct.pack(">8I", 0x59A66A95, w, h, depth, len(body), kind, 1 if cmap else 0,
+                       len(cmap)) + cmap + body
+
+
+def _ras_rle(rng, w, h) -> bytes:
+    """A byte-encoded stream of rows of w bytes: runs (0x80 n v) and 0x80 0
+    escapes among literals."""
+    out = bytearray()
+    for _ in range(h):
+        x = 0
+        while x < w:
+            r = rng.integers(0, 4)
+            if r == 0 and w - x >= 3:
+                n = int(rng.integers(2, min(w - x, 20) + 1))
+                out += bytes([0x80, n - 1, int(rng.integers(0, 256))])
+                x += n
+            else:
+                out += b"\x80\x00" if r == 1 else bytes([int(rng.integers(0, 128))])
+                x += 1
+    return bytes(out)
+
+
+@pytest.mark.parametrize("depth", [1, 8, 24, 32])
+@pytest.mark.parametrize("kind", [0, 1, 2, 3])
+def test_sun_raster(tmp_path, rng, depth, kind):
+    """Sun rasters as cv2's SunRasterDecoder reads them: types old and
+    standard (byte-encoded RLE and RGB rasters give None, as in cv2 5.0),
+    with and without a colour map (without one cv2's gray table is zero:
+    1 and 8-bit pixels read 0), 24-bit BGR and 32-bit XBGR, rows padded to
+    16 bits."""
+    w, h = 53, 37
+    pitch = ((w * depth + 7) // 8 + 1) & ~1
+    body = _ras_rle(rng, w, h) if kind == 2 else rng.integers(0, 256, pitch * h).astype(
+        np.uint8).tobytes()
+    for cmap in (b"", rng.integers(0, 256, 3 << min(depth, 8)).astype(np.uint8).tobytes()):
+        data = _ras(w, h, depth, kind, cmap, body)
+        ref, got = _read_both(tmp_path, "s.ras", data)
+        assert (ref is None) == (kind >= 2 or (depth > 8 and bool(cmap)))
+        _same(tmp_path, "s.ras", data)
+
+
+def test_sun_raster_cv2_files(tmp_path, rng):
+    """cv2's own rasters: 8-bit gray without a map (reads 0: the probe's
+    250-code difference from the source) and 24-bit colour; a map shorter
+    than its depth's."""
+    for arr in (rng.integers(0, 256, (37, 53)), rng.integers(0, 256, (37, 53, 3))):
+        data = cv2.imencode(".ras", arr.astype(np.uint8))[1].tobytes()
+        _same(tmp_path, "c.ras", data)
+    gray_map = np.tile(np.arange(256, dtype=np.uint8), 3).tobytes()[:300]
+    _same(tmp_path, "m.ras", _ras(53, 37, 8, 1, gray_map, bytes(54 * 37)))
+
+
+def _same_float(tmp_path, name, data, rel):
+    ref, got = _read_both(tmp_path, name, data)
+    if ref is None:
+        assert got is None
+        return
+    assert got.dtype == ref.dtype == np.float32 and got.shape == ref.shape
+    assert np.abs(got.astype(np.float64) - ref).max() <= rel * max(1.0, float(np.abs(ref).max()))
+
+
+@pytest.mark.parametrize("case", ["colour", "gray", "narrow", "wide", "flat", "no FORMAT", "black"])
+def test_radiance_hdr(tmp_path, rng, case):
+    """Radiance HDR as cv2's HdrDecoder reads it: new-style RLE scanlines
+    (cv2's writes), flat ones (hand-written, and where W < 8), RGBE to
+    float without rgbe.c's 0.5 offset, gray from R, G, B; within 1e-6 of
+    the largest value: cv2's cvtColor may fuse the float32 products of its
+    gray sum, numpy rounds each. A header without FORMAT gives None."""
+    f = (rng.random((37, 53, 3)) * 4).astype(np.float32)
+    flat = rng.integers(0, 256, (37, 53, 4)).astype(np.uint8)
+    flat[..., 3] = rng.integers(120, 140, (37, 53))
+    data = {"colour": lambda: cv2.imencode(".hdr", f)[1].tobytes(),
+            "gray": lambda: cv2.imencode(".hdr", f[..., 0].copy())[1].tobytes(),
+            "narrow": lambda: cv2.imencode(".hdr", f[:, :5].copy())[1].tobytes(),
+            "wide": lambda: cv2.imencode(".hdr", cv2.resize(f, (300, 37)) * 1000)[1].tobytes(),
+            "flat": lambda: b"#?RGBE\nFORMAT=32-bit_rle_rgbe\n\n-Y 37 +X 53\n" + flat.tobytes(),
+            "no FORMAT": lambda: b"#?RADIANCE\n\n-Y 37 +X 53\n" + flat.tobytes(),
+            "black": lambda: cv2.imencode(".hdr", f * 0)[1].tobytes()}[case]()
+    _same_float(tmp_path, "r.hdr", data, 1e-6)
+
+
+@pytest.mark.parametrize("scale", [-1.0, 1.0, -2.5, 3.0, -0.1])
+def test_pfm(tmp_path, rng, scale):
+    """PFM as cv2's PFMDecoder reads it: little-endian where the scale is
+    negative, rows bottom up, values times 1 / |scale| in float32, exact;
+    a colour PFM gives None (cv2 cannot make one channel of it)."""
+    g = (rng.random((37, 53)) * 10 - 5).astype(np.float32)
+    dt = "<f4" if scale < 0 else ">f4"
+    head = b"Pf\n53 37\n%s\n" % repr(scale).encode()
+    _same_float(tmp_path, "g.pfm", head + g[::-1].astype(dt).tobytes(), 0.0)
+    colour = b"PF\n53 37\n%s\n" % repr(scale).encode()
+    _same_float(tmp_path, "c.pfm", colour + np.dstack([g] * 3)[::-1].astype(dt).tobytes(), 0.0)
+    _same_float(tmp_path, "e.pfm", cv2.imencode(".pfm", g)[1].tobytes(), 0.0)
+
+
+# ---- a float32 upload through both engines ---------------------------------------
+
+@pytest.fixture(scope="module")
+def engines():
+    """test_serve.py's small JAX engine and the port's engine on its
+    weights (test_torch_serve.py's `_port_of`), built once."""
+    from test_serve import _small_engine
+    from test_torch_serve import _port_of
+
+    j = _small_engine()
+    return j, _port_of(j)
+
+
+@pytest.mark.parametrize("kind", ["hdr", "pfm", "float tiff"])
+def test_float32_upload_through_both_engines(tmp_path, engines, kind):
+    """A float32 upload (HDR, PFM with negative values, float TIFF) goes to
+    process_single_image in both fronts; the port's engine gives JAX's
+    answer: features 1e-4, clean image +-1 (test_torch_serve.py's
+    tolerances). JAX's uint8 rescale saturates negative values to 0, and
+    so does the port's `to_uint8`."""
+    from test_serve import _mammo_png
+
+    up = cv2.imdecode(np.frombuffer(_mammo_png(), np.uint8), cv2.IMREAD_GRAYSCALE)
+    f = up.astype(np.float32)
+    data = {"hdr": lambda: cv2.imencode(".hdr", np.dstack([f / 64] * 3))[1].tobytes(),
+            "pfm": lambda: cv2.imencode(".pfm", f / 50 - 2)[1].tobytes(),
+            "float tiff": lambda: cv2.imencode(".tiff", f / 255 * 4 - 1)[1].tobytes()}[kind]()
+    ref, img = _read_both(tmp_path, "f.png", data)
+    assert img.dtype == np.float32 and ref.dtype == np.float32
+    j, t = engines
+    fj, cj = j.process_single_image(ref)
+    ft, ct = t.process_single_image(img)
+    np.testing.assert_allclose(ft, np.asarray(fj), rtol=0, atol=1e-4)
+    assert np.abs(ct.astype(np.int64) - np.asarray(cj)).max() <= 1
+
+
 # ---- the formats left open -------------------------------------------------------
 
 def _open_format_files() -> dict:
     """One small file of each format cv2 reads here that the port leaves
-    open, in ROADMAP Queue 3's order."""
+    open (ROADMAP Queue 3): AVIF, lossy WebP (VP8), the TIFF compressions
+    the reader does not decode (JPEG, CCITT group 4) and colour TIFF
+    samples of 10-14 bits."""
     img = (np.arange(48 * 64) % 251).reshape(48, 64).astype(np.uint8)
-    files = {ext: cv2.imencode(ext, img)[1].tobytes()
-             for ext in (".tiff", ".webp", ".avif", ".jp2", ".ras", ".pam")}
-    files[".jpg (lossless, SOF3)"] = codecs.jpeg_lossless_encode(img)
-    f32 = img.astype(np.float32) / 255
-    files[".hdr"] = cv2.imencode(".hdr", np.dstack([f32] * 3))[1].tobytes()
-    files[".pfm"] = cv2.imencode(".pfm", f32)[1].tobytes()
+    files = {".avif": cv2.imencode(".avif", img)[1].tobytes(),
+             ".webp (lossy)": cv2.imencode(".webp", img, [cv2.IMWRITE_WEBP_QUALITY, 90])[1]
+             .tobytes()}
+    for name, mode, comp in ((".tiff (JPEG)", "L", "jpeg"), (".tiff (CCITT G4)", "1", "group4")):
+        buf = io.BytesIO()
+        Image.fromarray(img if mode == "L" else img > 128).save(buf, "TIFF", compression=comp)
+        files[name] = buf.getvalue()
+    files[".tiff (12-bit RGB)"] = _tiff(np.dstack([img, img, 255 - img]).astype(np.uint16) * 16,
+                                        bits=12)
     return files
 
 
-@pytest.mark.parametrize("name", [".tiff", ".webp", ".avif", ".jp2", ".jpg (lossless, SOF3)",
-                                  ".ras", ".hdr", ".pfm", ".pam"])
+@pytest.mark.parametrize("name", [".avif", ".webp (lossy)", ".tiff (JPEG)", ".tiff (CCITT G4)",
+                                  ".tiff (12-bit RGB)"])
 def test_open_formats_cv2_reads_the_port_does_not(tmp_path, name):
     """The standing gaps (ROADMAP Queue 3): cv2 reads each of these here,
     the port answers None, as /upload-single answers "Could not read
