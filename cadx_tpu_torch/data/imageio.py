@@ -21,17 +21,23 @@ the file's first bytes, as cv2 takes it:
   cv2.cvtColor's RGB2GRAY: (9798 R + 19235 G + 3735 B + 16384) >> 15.
 - JPEG: baseline, extended sequential and progressive, through
   `data/jpg.py`'s `jpeg_luma_decode` (libjpeg's grayscale output: the Y
-  plane of YCbCr, RGB, CMYK and YCCK converted as libjpeg and cv2
-  convert them), within +-2 codes of libjpeg's integer IDCT; lossless
-  (SOF3) frames of 2-8 bits through `codecs.jpeg_lossless_decode`,
-  exact (cv2 reads none above 8 bits); either turned as its EXIF
-  orientation says, as cv2.imread turns it.
+  plane of YCbCr; RGB, CMYK and YCCK, subsampled or not, upsampled as
+  libjpeg-turbo's jdsample.c does and converted as libjpeg and cv2
+  convert them); 8-bit frames bit-exact through libjpeg's integer IDCT,
+  12-bit ones within +-2 codes; lossless (SOF3) frames of 2-8 bits
+  through `codecs.jpeg_lossless_decode`, exact (cv2 reads none above 8
+  bits); either turned as its EXIF orientation says, as cv2.imread turns
+  it.
 - BMP (`bmp_gray`) and PBM/PGM/PPM (`pxm_gray`) as cv2's own decoders
   read them, and PAM (`pam_gray`), Sun raster (`ras_gray`), Radiance HDR
   (`hdr_gray`) and gray PFM (`pfm_gray`) likewise.
 - TIFF (`data/tiff.py`): the first page, uint8, uint16 or float32 (and
-  32-bit integers) as libtiff and cv2 give it.
-- Lossless WebP (`data/webp.py`, VP8L); lossy WebP gives None.
+  32-bit integers) as libtiff and cv2 give it, JPEG-compressed (with
+  JPEGTables, YCbCr subsampled) and the CCITT fax codes (`data/ccitt.py`)
+  included, and colour samples of 10-14 bits.
+- WebP (`data/webp.py`): lossless (VP8L) and lossy (`data/vp8.py`, VP8 as
+  libwebp decodes it, bit-exact), still or the first frame of an
+  animation.
 - JPEG 2000, JP2 boxes or a raw codestream, through `data/j2k.py`: exact
   on reversible streams, an irreversible (9/7) one within the DICOM J2K
   tests' tolerance of cv2's OpenJPEG decode.
@@ -40,7 +46,9 @@ the file's first bytes, as cv2 takes it:
 
 What comes back is (H, W) uint8, uint16 or float32 (HDR, PFM, float
 TIFF), as cv2 gives it. What it cannot read gives None, as cv2.imread
-does; AVIF and lossy WebP stay unread (ROADMAP Queue 3).
+does. cv2 reads two more kinds that stay unread here (ROADMAP Queue 3):
+AVIF, which needs an AV1 intra decoder, and arithmetic-coded JPEG
+(SOF9-11), which no encoder here writes to hold a decoder against.
 """
 
 from __future__ import annotations

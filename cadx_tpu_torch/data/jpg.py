@@ -14,15 +14,20 @@ Two entry points with two contracts, sharing the IDCT (`_samples`):
 - `jpeg_luma_decode`, the HTTP front's uploads: what cv2.imread's
   IMREAD_GRAYSCALE returns through libjpeg-turbo, for baseline, extended
   and progressive huffman files, any scan layout, gray, YCbCr, Adobe RGB,
-  CMYK and YCCK; a segment cut short reads as zeros, as libjpeg reads it.
-  Its entropy decoders look codes up 16 bits at a time, so a 3328 x 2560
-  progressive frame decodes in seconds.
+  CMYK and YCCK, subsampled components upsampled as jdsample.c does; a
+  segment cut short reads as zeros, as libjpeg reads it; an abbreviated
+  stream after its tables-only stream. `frame_planes` gives the
+  components themselves (no conversion, or YCbCr to RGB), as libtiff's
+  JPEG codec asks libjpeg for them. Their entropy decoders look codes up
+  16 bits at a time, so a 3328 x 2560 progressive frame decodes in
+  seconds.
 
-The IDCT is the exact float-point 2-D DCT-III (numpy matmul form);
-integer-IDCT decoders (libjpeg) may differ by +-1-2 codes, which is
-within T.81's decoder accuracy allowance — the tests bound the
-difference against cv2/libjpeg on natural images and pin DC-only blocks
-exactly.
+The DICOM path's IDCT is the exact floating-point 2-D DCT-III (numpy
+matmul form), as JAX's: integer-IDCT decoders (libjpeg) may differ by
++-1-2 codes, within T.81's decoder accuracy allowance. The upload path's
+8-bit frames go through libjpeg's own integer IDCT (`_islow`, jidctint.c
+with its range limit), so they come out bit-exact to cv2; 12-bit ones
+keep the float IDCT.
 
 Verification (tests/test_jpg.py): cv2.imencode produces the fixtures,
 so encoder and decoder share no code; plus a self-written minimal
@@ -301,17 +306,20 @@ def _decode(data: bytes, expect_hw) -> tuple[np.ndarray, int]:
 
 
 def _samples(coefs: np.ndarray, quant: np.ndarray, bh: int, bw: int, h: int,
-             w: int, precision: int) -> np.ndarray:
+             w: int, precision: int, islow: bool = False) -> np.ndarray:
     """(bh * bw, 64) zigzag coefficients of a component -> its (h, w)
-    samples: dequantize, de-zigzag, exact 2-D IDCT, level shift, crop the
-    right/bottom padding. The IDCT runs on threads over chunks of blocks
-    (einsum releases the GIL; each block's sum is the same whatever the
-    chunk)."""
+    samples: dequantize, de-zigzag, 2-D IDCT, level shift, crop the
+    right/bottom padding. The IDCT is the exact float one, or with
+    `islow` (8 bits) libjpeg's integer one (`_islow`). The IDCT runs on
+    threads over chunks of blocks (numpy releases the GIL; each block's
+    result is the same whatever the chunk)."""
     level = 1 << (precision - 1)
     maxval = (1 << precision) - 1
     dtype = np.uint8 if precision == 8 else np.uint16
 
     def idct(c: np.ndarray) -> np.ndarray:
+        if islow:
+            return _islow(c, quant)
         blocks = np.zeros((len(c), 64), np.float64)
         blocks[:, _ZIGZAG] = (c * quant[None, :]).astype(np.float64)
         spatial = np.einsum("nk,bkl,ml->bnm", _IDCT_C, blocks.reshape(-1, 8, 8), _IDCT_C)
@@ -321,6 +329,53 @@ def _samples(coefs: np.ndarray, quant: np.ndarray, bh: int, bw: int, h: int,
     with concurrent.futures.ThreadPoolExecutor(len(chunks)) as pool:
         img = np.concatenate(list(pool.map(idct, chunks)))
     return img.reshape(bh, bw, 8, 8).transpose(0, 2, 1, 3).reshape(bh * 8, bw * 8)[:h, :w]
+
+
+# libjpeg's jidctint.c (jpeg_idct_islow): 13-bit constants, two passes
+_FIX = {k: v for k, v in zip(
+    ("0_298631336", "0_390180644", "0_541196100", "0_765366865", "0_899976223", "1_175875602",
+     "1_501321110", "1_847759065", "1_961570560", "2_053119869", "2_562915447", "3_072711026"),
+    (2446, 3196, 4433, 6270, 7373, 9633, 12299, 15137, 16069, 16819, 20995, 25172))}
+# the post-IDCT range limit, indexed by the value & 1023: x + 128 clipped for
+# |x| < 512 (libjpeg's prepare_range_limit_table)
+_RANGE = np.concatenate([np.arange(128, 256), np.full(384, 255), np.zeros(384),
+                         np.arange(0, 128)]).astype(np.uint8)
+
+
+def _islow_1d(x: list, shift: int) -> list:
+    """One pass of jpeg_idct_islow over the 8 inputs x[0..7] (arrays),
+    descaled by `shift` bits."""
+    f = _FIX
+    z1 = (x[2] + x[6]) * f["0_541196100"]
+    tmp2 = z1 - x[6] * f["1_847759065"]
+    tmp3 = z1 + x[2] * f["0_765366865"]
+    tmp0 = (x[0] + x[4]) << 13
+    tmp1 = (x[0] - x[4]) << 13
+    tmp10, tmp13, tmp11, tmp12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, tmp1 - tmp2
+    t0, t1, t2, t3 = x[7], x[5], x[3], x[1]
+    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
+    z5 = (z3 + z4) * f["1_175875602"]
+    t0, t1, t2, t3 = (t0 * f["0_298631336"], t1 * f["2_053119869"], t2 * f["3_072711026"],
+                      t3 * f["1_501321110"])
+    z1, z2 = z1 * -f["0_899976223"], z2 * -f["2_562915447"]
+    z3, z4 = z3 * -f["1_961570560"] + z5, z4 * -f["0_390180644"] + z5
+    t0, t1, t2, t3 = t0 + z1 + z3, t1 + z2 + z4, t2 + z2 + z3, t3 + z1 + z4
+    half = 1 << (shift - 1)
+    return [(v + half) >> shift for v in (tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
+                                          tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3)]
+
+
+def _islow(c: np.ndarray, quant: np.ndarray) -> np.ndarray:
+    """libjpeg's integer IDCT of (N, 64) zigzag coefficients -> (N, 8, 8)
+    uint8, bit-exact: columns descaled by 11 bits, rows by 18, then the
+    range limit."""
+    d = np.zeros((len(c), 64), np.int64)
+    d[:, _ZIGZAG] = c.astype(np.int64) * quant[None, :]
+    d = d.reshape(-1, 8, 8)
+    cols = _islow_1d([d[:, k, :] for k in range(8)], 11)     # [n, col] for each row k
+    ws = np.stack(cols, axis=1)                                 # [n, row, col]
+    rows = _islow_1d([ws[:, :, k] for k in range(8)], 18)      # [n, row] for each col k
+    return _RANGE[np.stack(rows, axis=2) & 1023]
 
 
 def _decode_block(r: _BitReader, dc_tab: _HuffTable, ac_tab: _HuffTable,
@@ -423,6 +478,7 @@ class _Frame:
         self.progressive, self.tables = progressive, tables
         self.comps = [_Component(seg[6 + 3 * c], seg[7 + 3 * c] >> 4, seg[7 + 3 * c] & 15,
                                  seg[8 + 3 * c]) for c in range(nf)]
+        self.sampling = [(c.h, c.v) for c in self.comps]   # as the SOF gives them
         if nf == 1:  # one component: one block an MCU, whatever H, V
             self.comps[0].h = self.comps[0].v = 1
         if any(not (1 <= f <= 4) for c in self.comps for f in (c.h, c.v)):
@@ -754,23 +810,66 @@ def _ac_refine(intervals, blocks, look, ss, se, al, coefs, idx, val) -> np.ndarr
     return bl[rows[at]] * 64 + cols_np[at] + ss
 
 
-def jpeg_luma_decode(data: bytes) -> tuple[np.ndarray, int]:
-    """A JPEG file as libjpeg's grayscale output, what cv2.imread's
-    IMREAD_GRAYSCALE returns, up to the IDCT's +-1-2 codes: baseline,
-    extended sequential (8 and 12 bits) or progressive huffman, any scan
-    layout and restart interval. The colour space is libjpeg's guess
-    (`_colour_space`): gray and YCbCr give the first component's plane;
-    RGB goes to gray as libjpeg's rgb_gray_convert; CMYK and YCCK (YCCK
-    to CMYK as libjpeg's ycck_cmyk_convert) as cv2's
-    icvCvt_CMYK2Gray_8u_C4C1R. Arithmetic-coded and lossless frames, and
-    RGB, CMYK or YCCK with subsampled components, raise JpegError."""
+def _tables_only(tables: bytes, htables: dict, quant: dict) -> None:
+    """The DQT and DHT segments of an abbreviated tables-only stream (SOI,
+    tables, EOI; TIFF's JPEGTables) into htables and quant, as libjpeg
+    keeps them for the image streams read after it."""
+    if len(tables) < 4 or tables[0] != 0xFF or tables[1] != 0xD8:
+        raise JpegError("JPEG tables without SOI")
+    pos = 2
+    while pos + 4 <= len(tables) and tables[pos] == 0xFF:
+        marker = tables[pos + 1]
+        if marker == 0xD9:
+            return
+        (n,) = struct.unpack_from(">H", tables, pos + 2)
+        seg = tables[pos + 4:pos + 2 + n]
+        if marker == 0xC4:
+            _dht(seg, htables)
+        elif marker == 0xDB:
+            _dqt(seg, quant)
+        elif marker not in (0xDD, 0xFE) and not 0xE0 <= marker <= 0xEF:
+            raise JpegError(f"marker 0x{marker:02x} in a tables-only stream")
+        pos += 2 + n
+
+
+def _dht(seg: bytes, htables: dict) -> None:
+    off = 0
+    while off < len(seg):
+        counts = bytes(seg[off + 1:off + 17])
+        if len(counts) < 16 or seg[off] >> 4 > 1:
+            raise JpegError("bad DHT segment")
+        n = sum(counts)
+        htables[(seg[off] >> 4, seg[off] & 15)] = _lookup(counts, bytes(seg[off + 17:off + 17 + n]))
+        off += 17 + n
+
+
+def _dqt(seg: bytes, quant: dict) -> None:
+    off = 0
+    while off < len(seg):
+        pq, size = seg[off] >> 4, 129 if seg[off] >> 4 else 65
+        if off + size > len(seg):
+            raise JpegError("truncated DQT segment")
+        quant[seg[off] & 15] = np.frombuffer(
+            seg[off + 1:off + size], ">u2" if pq else np.uint8).astype(np.int32)
+        off += size
+
+
+def _read_frame(data: bytes, tables: bytes = b"", every: bool = False) -> tuple:
+    """Parse a JPEG stream and decode its scans: (frame, libjpeg's colour
+    space guess). `tables` is a tables-only stream read first (a TIFF's
+    JPEGTables, for its abbreviated strips and tiles). Only the first
+    component's coefficients are decoded for a gray or YCbCr frame unless
+    `every`."""
     if len(data) < 4 or data[0] != 0xFF or data[1] != 0xD8:
         raise JpegError("not a JPEG stream (missing SOI)")
     pos, f, jfif, adobe = 2, None, False, None
     htables: dict = {}
-    tables: dict = {}
+    quant: dict = {}
+    if tables:
+        _tables_only(tables, htables, quant)
     restart = 0
     keep: set = set()
+    space = None
     while pos + 2 <= len(data):
         if data[pos] != 0xFF:
             raise JpegError(f"expected marker, got 0x{data[pos]:02x}")
@@ -794,9 +893,10 @@ def jpeg_luma_decode(data: bytes) -> tuple[np.ndarray, int]:
         if marker in _SEQUENTIAL or marker == _PROGRESSIVE:
             if f is not None:
                 raise JpegError("second SOF")
-            f = _Frame(seg, marker == _PROGRESSIVE, tables)
+            f = _Frame(seg, marker == _PROGRESSIVE, quant)
             space = _colour_space(f, jfif, adobe)
-            keep = {f.comps[0].id} if space in ("gray", "ycc") else {c.id for c in f.comps}
+            keep = ({f.comps[0].id} if space in ("gray", "ycc") and not every
+                    else {c.id for c in f.comps})
         elif 0xC3 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
             raise JpegError(f"SOF 0x{marker:02x} unsupported")
         elif marker == 0xE0 and seg[:5] == b"JFIF\x00":
@@ -804,24 +904,9 @@ def jpeg_luma_decode(data: bytes) -> tuple[np.ndarray, int]:
         elif marker == 0xEE and seg[:5] == b"Adobe" and len(seg) >= 12:
             adobe = seg[11]
         elif marker == 0xC4:
-            off = 0
-            while off < len(seg):
-                counts = bytes(seg[off + 1:off + 17])
-                if len(counts) < 16 or seg[off] >> 4 > 1:
-                    raise JpegError("bad DHT segment")
-                n = sum(counts)
-                htables[(seg[off] >> 4, seg[off] & 15)] = _lookup(
-                    counts, bytes(seg[off + 17:off + 17 + n]))
-                off += 17 + n
+            _dht(seg, htables)
         elif marker == 0xDB:
-            off = 0
-            while off < len(seg):
-                pq, size = seg[off] >> 4, 129 if seg[off] >> 4 else 65
-                if off + size > len(seg):
-                    raise JpegError("truncated DQT segment")
-                tables[seg[off] & 15] = np.frombuffer(
-                    seg[off + 1:off + size], ">u2" if pq else np.uint8).astype(np.int32)
-                off += size
+            _dqt(seg, quant)
         elif marker == 0xDD:
             if len(seg) < 2:
                 raise JpegError("truncated DRI segment")
@@ -832,7 +917,49 @@ def jpeg_luma_decode(data: bytes) -> tuple[np.ndarray, int]:
             pos = _decode_scan(data, pos, f, seg, htables, restart, keep)
     if f is None or any(c.quant is None for c in f.comps if c.id in keep):
         raise JpegError("no scan data")
+    return f, space
+
+
+def jpeg_luma_decode(data: bytes, tables: bytes = b"") -> tuple[np.ndarray, int]:
+    """A JPEG file as libjpeg's grayscale output, what cv2.imread's
+    IMREAD_GRAYSCALE returns: baseline, extended sequential (8 and 12
+    bits) or progressive huffman, any scan layout and restart interval,
+    an abbreviated stream after its `tables`. The colour space is
+    libjpeg's guess (`_colour_space`): gray and YCbCr give the first
+    component's plane; RGB goes to gray as libjpeg's rgb_gray_convert;
+    CMYK and YCCK (YCCK to CMYK as libjpeg's ycck_cmyk_convert) as cv2's
+    icvCvt_CMYK2Gray_8u_C4C1R; subsampled components are upsampled first
+    as libjpeg's jdsample.c does (`_upsampled`). 8-bit frames go through
+    libjpeg's integer IDCT and come out bit-exact; 12-bit ones through the
+    float IDCT, within +-2 codes. Arithmetic-coded and lossless frames
+    raise JpegError."""
+    f, space = _read_frame(data, tables)
     return _to_gray(f, space), f.precision
+
+
+def frame_planes(f: _Frame, ycc_to_rgb: bool = False) -> list:
+    """An 8-bit frame's components (`_read_frame` with `every`), each
+    upsampled to the frame's size as libjpeg does (int64 planes), with no
+    colour conversion (libjpeg's JCS_UNKNOWN, as libtiff asks for it) or,
+    with `ycc_to_rgb`, YCbCr converted to RGB (jdcolor.c's ycc_rgb_convert,
+    libtiff's JPEGCOLORMODE_RGB)."""
+    if f.precision != 8:
+        raise JpegError(f"{f.precision}-bit JPEG components unsupported")
+    planes = [_upsampled(f, c).astype(np.int64) for c in f.comps]
+    if ycc_to_rgb:
+        if len(planes) != 3:
+            raise JpegError("YCbCr to RGB needs three components")
+        planes = ycc_rgb(*planes)
+    return planes
+
+
+def ycc_rgb(y, cb, cr) -> list:
+    """jdcolor.c's ycc_rgb_convert (FIX(1.402), FIX(0.34414), FIX(0.71414),
+    FIX(1.772) at 16 bits), clipped to 0..255."""
+    cb, cr = cb - 128, cr - 128
+    return [np.clip(y + ((91881 * cr + 32768) >> 16), 0, 255),
+            np.clip(y + ((-22554 * cb - 46802 * cr + 32768) >> 16), 0, 255),
+            np.clip(y + ((116130 * cb + 32768) >> 16), 0, 255)]
 
 
 def _colour_space(f: _Frame, jfif: bool, adobe) -> str:
@@ -850,25 +977,59 @@ def _colour_space(f: _Frame, jfif: bool, adobe) -> str:
     return "cmyk" if adobe is None or adobe == 0 else "ycck"
 
 
+def _upsampled(f: _Frame, c: _Component) -> np.ndarray:
+    """A component's samples at the frame's size, as libjpeg-turbo's
+    jdsample.c gives them with fancy upsampling on (libjpeg's default, and
+    cv2's and libtiff's): a full-size component as decoded; h2v1 and h2v2
+    (where the component is more than 2 samples wide) through the
+    triangle filters (3/4 the nearer sample, 1/4 the further, edges
+    repeated; h2v2 vertical then horizontal, +8 and +7 rounding); h1v2
+    through its vertical filter; any other integral ratio by replication.
+    Other ratios raise, as libjpeg refuses them."""
+    rows, cols = f.comp_dims(c)
+    x = _samples(f.coefs[c.first:c.first + c.bw * c.bh], c.quant, c.bh, c.bw, rows, cols,
+                 f.precision, islow=f.precision == 8)
+    hx, vx = f.hmax // c.h, f.vmax // c.v
+    if f.hmax % c.h or f.vmax % c.v:
+        raise JpegError("fractional sampling ratio")
+    if (hx, vx) == (1, 1):
+        return x
+    v = x.astype(np.int64)
+    fancy_h = hx == 2 and cols > 2
+    if (hx, vx) == (1, 2) or ((hx, vx) == (2, 2) and fancy_h):
+        above = np.concatenate([v[:1], v[:-1]])
+        below = np.concatenate([v[1:], v[-1:]])
+        if hx == 1:      # h1v2_fancy_upsample
+            out = np.empty((2 * rows, cols), np.int64)
+            out[0::2], out[1::2] = (3 * v + above + 1) >> 2, (3 * v + below + 2) >> 2
+            return out[:f.h, :f.w]
+        out = np.empty((2 * rows, 2 * cols), np.int64)   # h2v2_fancy_upsample
+        for k, s in ((0, 3 * v + above), (1, 3 * v + below)):
+            left = np.concatenate([s[:, :1], s[:, :-1]], axis=1)
+            right = np.concatenate([s[:, 1:], s[:, -1:]], axis=1)
+            out[k::2, 0::2] = (3 * s + left + 8) >> 4
+            out[k::2, 1::2] = (3 * s + right + 7) >> 4
+        return out[:f.h, :f.w]
+    if (hx, vx) == (2, 1) and fancy_h:                   # h2v1_fancy_upsample
+        left = np.concatenate([v[:, :1], v[:, :-1]], axis=1)
+        right = np.concatenate([v[:, 1:], v[:, -1:]], axis=1)
+        out = np.empty((rows, 2 * cols), np.int64)
+        out[:, 0::2], out[:, 1::2] = (3 * v + left + 1) >> 2, (3 * v + right + 2) >> 2
+        return out[:f.h, :f.w]
+    return np.repeat(np.repeat(v, vx, axis=0), hx, axis=1)[:f.h, :f.w]
+
+
 def _to_gray(f: _Frame, space: str) -> np.ndarray:
-    planes = []
-    for c in f.comps if space not in ("gray", "ycc") else f.comps[:1]:
-        if (c.h, c.v) != (f.hmax, f.vmax):
-            raise JpegError(f"{space} component subsampled against another")
-        planes.append(_samples(f.coefs[c.first:c.first + c.bw * c.bh], c.quant, c.bh, c.bw,
-                               f.h, f.w, f.precision))
     if space in ("gray", "ycc"):
-        return planes[0]
+        g = _upsampled(f, f.comps[0])
+        return g.astype(np.uint8 if f.precision == 8 else np.uint16)
     if f.precision != 8:
         raise JpegError(f"{space} at {f.precision} bits unsupported")
-    p = [x.astype(np.int64) for x in planes]
+    p = [_upsampled(f, c).astype(np.int64) for c in f.comps]
     if space == "rgb":  # jdcolor.c rgb_gray_convert: FIX(0.299, 0.587, 0.114) at 16 bits
         return ((19595 * p[0] + 38470 * p[1] + 7471 * p[2] + 32768) >> 16).astype(np.uint8)
     if space == "ycck":  # jdcolor.c ycck_cmyk_convert: YCC -> RGB, inverted; K kept
-        y, cb, cr = p[0], p[1] - 128, p[2] - 128
-        p[0] = np.clip(255 - (y + ((91881 * cr + 32768) >> 16)), 0, 255)
-        p[1] = np.clip(255 - (y + ((-22554 * cb - 46802 * cr + 32768) >> 16)), 0, 255)
-        p[2] = np.clip(255 - (y + ((116130 * cb + 32768) >> 16)), 0, 255)
+        p[:3] = (255 - x for x in ycc_rgb(*p[:3]))
     # cv2's icvCvt_CMYK2Gray_8u_C4C1R on libjpeg's (Adobe-inverted) CMYK
     c, m, y, k = p
     c, m, y = (k - (((255 - x) * k) >> 8) for x in (c, m, y))

@@ -4,16 +4,21 @@ IMREAD_ANYDEPTH) reads it through libtiff.
 What is read: strips or tiles, planar configuration 1 (samples of a pixel
 together) or 2 (a plane a sample); compression none (1), LZW (5; codes
 MSB-first, the width growing one code early, as libtiff writes it),
-Deflate (8 and 32946) and PackBits (32773); predictor 2 (horizontal
-differencing) at 8 and 16 bits under LZW and Deflate (libtiff ignores it
-elsewhere); 1, 8 and 16-bit unsigned samples, 10, 12 and 14-bit gray
-ones, 4-bit palette indices,
-32-bit floats (sample format 3) and 32-bit integers; photometric 0
-(min-is-white), 1 (min-is-black), 2 (RGB, with or without an alpha
-sample) and 3 (palette). cv2 refuses 2-bit samples and 4-bit ones
-without a palette, and so does this reader.
+Deflate (8 and 32946), PackBits (32773), the CCITT fax codes (2 Modified
+Huffman, 3 T.4 1-D or 2-D, 4 T.6; `data/ccitt.py`) on 1-bit samples, and
+JPEG (7; `data/jpg.py`, the JPEGTables of tag 347 read before each strip's
+or tile's abbreviated stream); predictor 2 (horizontal differencing) at 8
+and 16 bits under LZW and Deflate (libtiff ignores it elsewhere); fill
+order 2 (tag 266: libtiff reverses each byte's bits before decoding,
+except under JPEG, whose codec reads the bytes as stored); 1, 8 and
+16-bit unsigned samples, 10, 12 and 14-bit gray and RGB ones, 4-bit
+palette indices, 32-bit floats (sample format 3) and 32-bit integers;
+photometric 0 (min-is-white), 1 (min-is-black), 2 (RGB, with or without an
+alpha sample), 3 (palette) and 6 (YCbCr, under JPEG with contiguous
+samples). cv2 refuses 2-bit samples and 4-bit ones without a palette, and
+so does this reader.
 
-What comes back follows cv2's two paths:
+What comes back follows cv2's paths:
 
 - 1-8 bits: cv2 reads through libtiff's RGBA interface, so the samples
   go to 8 bits as libtiff maps them ((v * 255) // (2^bits - 1), inverted
@@ -21,19 +26,25 @@ What comes back follows cv2's two paths:
   shifted down 8 unless every entry is below 256), an unassociated alpha
   (extra sample 2) premultiplies the colour ((v * a + 127) // 255), and
   the RGB goes to gray as cv2's icvCvt_BGRA2Gray: (4899 R + 9617 G + 1868
-  B + 8192) >> 14. uint8.
+  B + 8192) >> 14. uint8. Under JPEG, libtiff has libjpeg convert YCbCr
+  (subsampled at tag 530's factors, upsampled as libjpeg does) to RGB and
+  takes any other photometric's components as decoded.
 - 16 bits: the samples as stored, gray kept (min-is-white not inverted,
   as cv2 copies them), RGB through the same 14-bit weights. uint16. Gray
   samples of 10, 12 and 14 bits are shifted up to 16, as cv2 shifts them;
-  colour at those depths stays open.
+  RGB ones go through the 14-bit weights as stored and the gray is
+  shifted up to 16.
 - 32 bits: one sample a pixel, float32, int32 or uint32 as stored; cv2
   refuses more.
 
 Tag 274 (orientation) turns the image as cv2's EXIF transform turns it;
 cv2 5.0 gives no image for orientations 5-8 (those that transpose) unless
-the image is square, and neither does this reader. JPEG-in-TIFF (6, 7),
-CCITT bilevel (2, 3, 4) and the rest of what libtiff reads stay open:
-`tiff_gray` raises TiffError for them, and the upload reader answers None.
+the image is square, and neither does this reader. Old-style JPEG (6),
+which no encoder here writes, YCbCr without JPEG and the rest of what
+libtiff reads stay open: `tiff_gray` raises TiffError for them, and the
+upload reader answers None. So do strips cv2 reads into memory it never
+wrote (colour planes above 8 bits) and fax or JPEG data cut short (libtiff
+then hands cv2 whatever its buffer held past the rows it decoded).
 """
 
 from __future__ import annotations
@@ -49,8 +60,9 @@ _MAX_PIXELS = 1 << 28  # the codecs' decode-size bound
 # TIFF field types -> struct code
 _TYPES = {1: "B", 2: "s", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i",
           10: "ii", 11: "f", 12: "d"}
-_OPEN_COMPRESSIONS = {2: "CCITT RLE", 3: "CCITT group 3", 4: "CCITT group 4",
-                      6: "old-style JPEG", 7: "JPEG"}
+_OPEN_COMPRESSIONS = {6: "old-style JPEG"}
+_FAX = (2, 3, 4)
+_REVERSED = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))   # fill order 2
 
 
 class TiffError(ValueError):
@@ -168,14 +180,43 @@ def _undo_predictor(a: np.ndarray, bits: int) -> np.ndarray:
     return np.cumsum(a, axis=1, dtype=a.dtype)
 
 
+def _jpeg_chunk(chunk: bytes, tags: dict, rows: int, cols: int, spp: int,
+                last_strip: bool) -> np.ndarray:
+    """A strip's or tile's JPEG stream (compression 7, after the JPEGTables
+    of tag 347) as libtiff's JPEG codec gives it to TIFFReadRGBA*: YCbCr
+    (photometric 6, contiguous) converted to RGB by libjpeg, anything else
+    as the components decode, each upsampled to the stream's size.
+    libtiff's checks: the components and precision the directory says,
+    component 0 at the YCbCrSubsampling factors (1, 1 unless YCbCr) and
+    the others at 1, 1; a stream of the strip's or tile's size (the last
+    strip's may be taller: it is cut to the rows left)."""
+    from cadx_tpu_torch.data.jpg import _read_frame, frame_planes
+
+    tables = bytes(tags.get(347, ()))
+    ycc = _one(tags, 262, 2 if spp >= 3 else 1) == 6 and _one(tags, 284, 1) == 1
+    f, _ = _read_frame(chunk, tables, every=True)
+    want = tuple(tags.get(530, (2, 2))) if ycc else (1, 1)
+    if (len(f.comps) != spp or f.precision != 8 or f.sampling[0] != want[:2]
+            or any(hv != (1, 1) for hv in f.sampling[1:])):
+        raise TiffError("JPEG stream unlike its TIFF directory")
+    if f.w != cols or f.h < rows or (f.h > rows and not last_strip):
+        raise TiffError("JPEG stream of another size than its strip or tile")
+    return np.stack(frame_planes(f, ycc), axis=-1)[:rows].astype(np.uint8)
+
+
 def _pixels(data: bytes, bo: str, tags: dict, w: int, h: int, spp: int, bits: int,
             dtype) -> np.ndarray:
     """(h, w, spp) samples of the first page, in their stored type."""
     comp = _one(tags, 259, 1)
     planar = _one(tags, 284, 1)
     predictor = _one(tags, 317, 1)
+    reverse = _one(tags, 266, 1) == 2
     if predictor not in (1, 2):
         raise TiffError(f"TIFF predictor {predictor}")
+    if comp in _FAX and (bits != 1 or spp != 1):
+        raise TiffError("fax codes of more than one bit a pixel")
+    if comp == 7 and bits != 8:
+        raise TiffError(f"JPEG TIFF of {bits}-bit samples")
     if 322 in tags:
         cw, ch = _one(tags, 322), _one(tags, 323)
         offsets, counts = tags.get(324, ()), tags.get(325, ())
@@ -196,13 +237,28 @@ def _pixels(data: bytes, bo: str, tags: dict, w: int, h: int, spp: int, bits: in
             for tx in range(across):
                 off, cnt = offsets[k], counts[k]
                 k += 1
+                chunk = data[off:off + cnt]
                 # a strip holds only the rows left; a tile is always whole
                 rows = ch if 322 in tags else min(ch, h - ty * ch)
-                size = rows * ((cw * per_chunk * bits + 7) // 8)
-                a = _samples(_decompress(comp, data[off:off + cnt], size), rows, cw,
-                             per_chunk, bits, dtype)
-                if predictor == 2 and comp in (5, 8, 32946):   # libtiff's codecs with one
-                    a = _undo_predictor(a, bits)
+                if comp == 7:       # libtiff's JPEG codec reads its bits as stored
+                    a = _jpeg_chunk(chunk, tags, rows, cw, per_chunk,
+                                    322 not in tags and ty == down - 1)
+                else:
+                    if reverse:     # libtiff reverses each byte's bits first
+                        chunk = chunk.translate(_REVERSED)
+                    if comp in _FAX:
+                        from cadx_tpu_torch.data.ccitt import CcittError, ccitt_decode
+
+                        try:
+                            raw = ccitt_decode(chunk, cw, rows, comp, _one(tags, 292, 0))
+                        except CcittError as e:
+                            raise TiffError(str(e)) from e
+                    else:
+                        size = rows * ((cw * per_chunk * bits + 7) // 8)
+                        raw = _decompress(comp, chunk, size)
+                    a = _samples(raw, rows, cw, per_chunk, bits, dtype)
+                    if predictor == 2 and comp in (5, 8, 32946):   # libtiff's codecs with one
+                        a = _undo_predictor(a, bits)
                 y0, x0 = ty * ch, tx * cw
                 y1, x1 = min(y0 + rows, h), min(x0 + cw, w)
                 dst = out[y0:y1, x0:x1]
@@ -261,13 +317,17 @@ def tiff_gray(data: bytes) -> np.ndarray | None:
     photometric = _one(tags, 262, 2 if spp >= 3 else 1)
     if w <= 0 or h <= 0 or w * h > _MAX_PIXELS or spp < 1 or any(b != bits for b in bits_all):
         raise TiffError("TIFF header out of range")
-    if _one(tags, 266, 1) != 1:
-        raise TiffError("TIFF fill order 2")
+    if _one(tags, 266, 1) not in (1, 2):
+        raise TiffError("TIFF fill order other than 1 or 2")
     if bits == 2 or (bits == 4 and photometric != 3):
         raise TiffError(f"{bits}-bit TIFF (cv2 reads 4 bits only through a palette)")
+    comp = _one(tags, 259, 1)
+    if photometric == 6 and not (comp == 7 and _one(tags, 284, 1) == 1):
+        raise TiffError("YCbCr TIFF other than contiguous JPEG")
     if bits in (1, 4, 8) and fmt in (1, 2):
         px = _pixels(data, bo, tags, w, h, spp, bits, np.uint8)
-        img = _rgba8(px, tags, photometric, bits, spp)
+        # libtiff's RGBA interface has libjpeg convert YCbCr to RGB
+        img = _rgba8(px, tags, 2 if photometric == 6 else photometric, bits, spp)
     elif bits == 16 and fmt in (1, 2) and photometric in (0, 1, 2):
         px = _pixels(data, bo, tags, w, h, spp, bits, np.dtype(bo + "u2")).astype(np.uint16)
         if spp == 1:
@@ -283,6 +343,13 @@ def tiff_gray(data: bytes) -> np.ndarray | None:
     elif bits in (10, 12, 14) and spp == 1 and fmt in (1, 2) and photometric in (0, 1):
         px = _pixels(data, bo, tags, w, h, 1, bits, np.uint16)[..., 0]
         img = (px << (16 - bits)).astype(np.uint16)
+    elif bits in (10, 12, 14) and spp >= 3 and fmt in (1, 2) and photometric == 2:
+        if _one(tags, 284, 1) == 2:
+            # as at 16 bits: cv2 reads separate planes past their strips' ends
+            raise TiffError(f"{bits}-bit TIFF of separate colour planes")
+        # cv2 weighs the samples as stored, then shifts the gray up to 16 bits
+        px = _pixels(data, bo, tags, w, h, spp, bits, np.uint16)
+        img = (_gray14(px[..., 0], px[..., 1], px[..., 2]) << (16 - bits)).astype(np.uint16)
     elif bits == 32 and spp == 1 and fmt in (1, 2, 3):
         kind = {1: "u4", 2: "i4", 3: "f4"}[fmt]
         img = _pixels(data, bo, tags, w, h, 1, 32, np.dtype(bo + kind))[..., 0]

@@ -1,9 +1,12 @@
-"""Lossless WebP (VP8L, RFC 9649) to gray, as cv2.imread(path,
-IMREAD_GRAYSCALE | IMREAD_ANYDEPTH) reads it.
+"""WebP to gray, as cv2.imread(path, IMREAD_GRAYSCALE | IMREAD_ANYDEPTH)
+reads it.
 
-The container is `RIFF....WEBP` with a `VP8L` chunk, directly or after a
-`VP8X` header; a lossy `VP8 ` chunk (or an animation) raises WebPError,
-and the upload reader answers None for it. The decoder follows the RFC:
+The container is `RIFF....WEBP` with a `VP8L` (lossless) or `VP8 ` (lossy)
+chunk, directly or after a `VP8X` header (an `ALPH` chunk beside a lossy
+image does not change the gray); an animation reads as its first frame on
+a canvas of zeros, as cv2's WebPAnimDecoder path gives it. Lossy frames go
+to `data/vp8.py` (libwebp's decode, bit-exact). The lossless decoder
+follows the RFC:
 prefix codes (simple and normal, canonical, read bit by bit from an
 LSB-first stream), LZ77 backward references with the 120 short-distance
 plane codes, the colour cache, meta prefix codes over an entropy image,
@@ -378,21 +381,82 @@ def vp8l_decode(data: bytes) -> np.ndarray:
     return img
 
 
-def webp_gray(data: bytes) -> np.ndarray:
-    """A lossless WebP file as cv2 reads it in gray: uint8 (H, W)."""
-    if len(data) < 20 or data[:4] != b"RIFF" or data[8:12] != b"WEBP":
-        raise WebPError("not a WebP file")
-    pos = 12
-    while pos + 8 <= len(data):
+def _chunks(data: bytes, pos: int, end: int) -> list[tuple[bytes, bytes]]:
+    """The (tag, body) chunks of data[pos:end], each padded to even size."""
+    out = []
+    while pos + 8 <= end:
         tag = data[pos:pos + 4]
         (size,) = struct.unpack_from("<I", data, pos + 4)
-        body = data[pos + 8:pos + 8 + size]
-        if tag == b"VP8L":
-            from cadx_tpu_torch.data.imageio import _gray15
+        if pos + 8 + size > end:
+            raise WebPError(f"WebP chunk {tag!r} past the file")
+        out.append((tag, data[pos + 8:pos + 8 + size]))
+        pos += 8 + size + (size & 1)
+    return out
 
+
+def _image_gray(chunks: list) -> np.ndarray:
+    """The gray of the first `VP8 ` or `VP8L` chunk: a lossy frame through
+    `vp8.vp8_gray`, a lossless one's RGB through cvtColor's weights. An
+    `ALPH` chunk beside a lossy frame leaves the gray as it is (libwebp's
+    BGRA output is not premultiplied), so it is not decoded."""
+    from cadx_tpu_torch.data.imageio import _gray15
+
+    for tag, body in chunks:
+        if tag == b"VP8L":
             _, r, g, b = _channels(vp8l_decode(body))
             return _gray15(r, g, b).astype(np.uint8)
-        if tag in (b"VP8 ", b"ANIM", b"ANMF"):
-            raise WebPError(f"WebP chunk {tag!r} (lossy or animated)")
-        pos += 8 + size + (size & 1)
-    raise WebPError("WebP without a VP8L chunk")
+        if tag == b"VP8 ":
+            from cadx_tpu_torch.data.vp8 import VP8Error, vp8_gray
+
+            try:
+                return vp8_gray(body)
+            except VP8Error as e:
+                raise WebPError(str(e)) from e
+    raise WebPError("WebP without a VP8 or VP8L chunk")
+
+
+def _int24(b: bytes) -> int:
+    return b[0] | (b[1] << 8) | (b[2] << 16)
+
+
+def webp_gray(data: bytes) -> np.ndarray:
+    """A WebP file as cv2 reads it in gray: uint8 (H, W). A still image is
+    libwebp's decode of its `VP8 ` or `VP8L` chunk (directly or after a
+    `VP8X` header, whose canvas must be the image's size); an animation
+    (VP8X's animation flag) reads as cv2 reads it through WebPAnimDecoder:
+    the first frame on a canvas of zeros, at its offset."""
+    if len(data) < 20 or data[:4] != b"RIFF" or data[8:12] != b"WEBP":
+        raise WebPError("not a WebP file")
+    (riff,) = struct.unpack_from("<I", data, 4)
+    if 8 + riff > len(data):
+        raise WebPError("WebP file shorter than its RIFF size")   # libwebp refuses it
+    chunks = _chunks(data, 12, 8 + riff)
+    if not chunks:
+        raise WebPError("WebP without chunks")
+    if chunks[0][0] != b"VP8X":
+        return _image_gray(chunks[:1])
+    head = chunks[0][1]
+    if len(head) < 10:
+        raise WebPError("short VP8X chunk")
+    cw, ch = 1 + _int24(head[4:7]), 1 + _int24(head[7:10])
+    if cw * ch > _MAX_PIXELS:
+        raise WebPError("WebP canvas too large")
+    if not head[0] & 0x02:
+        img = _image_gray(chunks[1:])
+        if img.shape != (ch, cw):
+            raise WebPError("VP8X canvas and image sizes differ")
+        return img
+    frames = [body for tag, body in chunks if tag == b"ANMF"]
+    if not frames or len(frames[0]) < 16:
+        raise WebPError("animated WebP without a frame")
+    f = frames[0]
+    x, y = 2 * _int24(f[0:3]), 2 * _int24(f[3:6])
+    fw, fh = 1 + _int24(f[6:9]), 1 + _int24(f[9:12])
+    if x + fw > cw or y + fh > ch:
+        raise WebPError("WebP frame outside its canvas")
+    img = _image_gray(_chunks(f, 16, len(f)))
+    if img.shape != (fh, fw):
+        raise WebPError("WebP frame and image sizes differ")
+    canvas = np.zeros((ch, cw), np.uint8)
+    canvas[y:y + fh, x:x + fw] = img
+    return canvas

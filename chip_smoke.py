@@ -259,14 +259,18 @@ Phases, each of which raises on failure (the script then exits nonzero):
    uploads of a 512² u8 PNG, a 1024x832 16-bit PNG, a 3328x2560 u16
    image as explicit VR little endian, JPEG lossless SV1 and RLE DICOMs
    (written by the port's `dcmwrite_minimal`), a 512² progressive JPEG
-   (`tests/data/upload_progressive.jpg`) and a 512² 24-bit BMP named
-   `.png`; per upload /upload-single,
+   (`tests/data/upload_progressive.jpg`), a 512² 24-bit BMP named
+   `.png`, and under .png names a 512² lossy WebP, a 512² YCbCr 4:2:0
+   JPEG TIFF and a 1024x832 CCITT group 4 TIFF (`tests/data/upload_*`,
+   each read held bit-exact to cv2's decode committed beside it as a
+   PNG); per upload /upload-single,
    /view_segmentation (64 masks), /classify and /roi for both pipelines;
-   then a zip of 8 PNGs through /upload-bulk, /bulk-classify for both
-   pipelines and /upload-bulk-image. Every answer is held against the
-   same engine called directly on the decoded image: the stored upload
-   equal to the image written (for the JPEG and the BMP, the reader's
-   image of the file), features to 1e-6, probabilities to 1e-6,
+   then a zip of 8 PNGs and the JPEG TIFF through /upload-bulk,
+   /bulk-classify for both pipelines and /upload-bulk-image. Every
+   answer is held against the same engine called directly on the
+   decoded image: the stored upload equal to the image written (for the
+   JPEG, the BMP and the newer formats, the reader's image of the file),
+   features to 1e-6, probabilities to 1e-6,
    ROI boxes, clean, overlay and heatmap PNGs equal, bulk rows equal to
    `classify_batch` on the same resized stack; an HTTP 500, an "error"
    field or an exception stored by an artifact job fails the phase. The
@@ -2094,6 +2098,34 @@ def front_phase(uploads: dict, engine_p50: dict, zero_counts, read_counts, card:
             check_read = files[kind][2]
             if check_read is None or check_read.shape != u8.shape:
                 raise AssertionError(f"front: the reader cannot read the {kind}")
+    # the reader's newer formats (tests/data/make_upload_fixtures.py made
+    # them where cv2 and PIL are): each read held to cv2's gray decode,
+    # committed beside it as a PNG (all three decoders are bit-exact), and
+    # uploaded under a .png name, as the front takes only the reference's
+    # extensions and reads by content
+    data_dir = Path(__file__).resolve().parent / "tests" / "data"
+    decoders = {}
+    for kind, src, fname, shape, decoder in (
+            ("512x512 lossy WebP", "upload_lossy.webp", "case512w.png", "512x512 u8",
+             "lossy WebP (VP8), Python (numpy)"),
+            ("512x512 YCbCr JPEG TIFF", "upload_jpeg_ycbcr.tif", "case512t.png", "512x512 u8",
+             "TIFF JPEG 4:2:0, Python (numpy)"),
+            ("1024x832 CCITT G4 TIFF", "upload_g4.tif", "deep1024g.png", "1024x832 u8",
+             "TIFF CCITT G4, Python (numpy)")):
+        data = (data_dir / src).read_bytes()
+        want = imageio.png_gray((data_dir / (src + ".png")).read_bytes())
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, fname)
+            with open(path, "wb") as fh:
+                fh.write(data)
+            got = imageio.imread_gray(path)
+        if got is None or got.dtype != want.dtype or not np.array_equal(got, want):
+            raise AssertionError(f"front: the reader's {kind} is not cv2's decode "
+                                 f"({src}.png)")
+        files[kind] = (fname, data, got, shape)
+        decoders[kind] = decoder
+        print(f"front: {kind} ({src}, {len(data)} bytes) read equal to cv2's decode, "
+              f"{got.shape} {got.dtype}", flush=True)
 
     front = {}
     ws_root = tempfile.TemporaryDirectory()
@@ -2212,6 +2244,9 @@ def front_phase(uploads: dict, engine_p50: dict, zero_counts, read_counts, card:
         with zipfile.ZipFile(zbuf, "w") as zf:
             for name, im in zip(names, bulk_imgs):
                 zf.writestr(name, TPng.encode_png(im))
+            # and the JPEG TIFF upload, read and resized with the PNGs
+            zf.writestr(f"bulk{N_FRONT_BULK}t.png", files["512x512 YCbCr JPEG TIFF"][1])
+        names.append(f"bulk{N_FRONT_BULK}t.png")
         zip_bytes = zbuf.getvalue()
         client.post("/upload-bulk", {}, {"bulk_images_zip": ("bulk.zip", zip_bytes)},
                     "/bulk-select-parameters")
@@ -2221,7 +2256,8 @@ def front_phase(uploads: dict, engine_p50: dict, zero_counts, read_counts, card:
                      for p in ("basic", "advanced")}
         counts = read_counts()
         add(counts)
-        print(f"front launches, bulk round (/bulk-classify x 2 pipelines, B={N_FRONT_BULK}): "
+        print(f"front launches, bulk round (/bulk-classify x 2 pipelines, B={len(names)}: "
+              f"{N_FRONT_BULK} PNGs and the JPEG TIFF): "
               f"{({k: v for k, v in counts.items() if v})}", flush=True)
         missing = [k for k in ("cleaner_front", "equalize", "pectoral_tail", "conv_leaky", "pool")
                    if counts[k] == 0]
@@ -2244,7 +2280,8 @@ def front_phase(uploads: dict, engine_p50: dict, zero_counts, read_counts, card:
         (case,) = ws.read_cases()
         check("/upload-bulk-image", case["image_name"] == names[0]
               and np.array_equal(np.load(case["preprocessed_file_path"]), bulk_imgs[0]), case)
-        print(f"front bulk: {N_FRONT_BULK} PNGs at {FRONT_BULK_HW}, rows equal to "
+        print(f"front bulk: {N_FRONT_BULK} PNGs at {FRONT_BULK_HW} and a 512x512 JPEG TIFF, "
+              f"rows equal to "
               f"classify_batch on the same resized stack (probabilities max_abs_err "
               f"{max(b_errs)}); /upload-bulk-image stored {names[0]}", flush=True)
 
@@ -2265,7 +2302,7 @@ def front_phase(uploads: dict, engine_p50: dict, zero_counts, read_counts, card:
             imageio.imread_gray(raw)
             used = sorted(f"{c} {how}" for (c, how), v in TDicom.DECODER_RUNS.items()
                           if v != before.get((c, how), 0))
-            decoder = ", ".join(used) if used else {
+            decoder = ", ".join(used) if used else decoders.get(kind) or {
                 b"\x89P": "PNG, Python (numpy, zlib)", b"\xff\xd8": "JPEG, Python (numpy)",
                 b"BM": "BMP, Python (numpy)"}.get(data[:2], "uncompressed")
             dec_ms = route_p50(lambda: imageio.imread_gray(raw))
@@ -2304,13 +2341,15 @@ def front_phase(uploads: dict, engine_p50: dict, zero_counts, read_counts, card:
         ws.wait("gradcam")
         ms = route_p50(lambda: client.post("/upload-bulk", {}, {
             "bulk_images_zip": ("bulk.zip", zip_bytes)}, "/bulk-select-parameters"))
-        print(f"time front POST /upload-bulk ({N_FRONT_BULK} PNGs, {len(zip_bytes)} bytes): p50 "
+        print(f"time front POST /upload-bulk ({N_FRONT_BULK} PNGs and a JPEG TIFF, "
+              f"{len(zip_bytes)} bytes): p50 "
               f"{ms:.3f} ms over {N_TIMED} requests on {card}", flush=True)
         for pipeline in ("basic", "advanced"):
             ms = route_p50(lambda: client.get(f"/bulk-classify?pipeline={pipeline}"))
             direct_ms = p50_ms(lambda: eng.classify_batch(stack, pipeline), N_TIMED)
-            print(f"time front GET /bulk-classify?pipeline={pipeline} (B={N_FRONT_BULK} "
-                  f"{FRONT_BULK_HW[0]}x{FRONT_BULK_HW[1]} PNGs, read and resized on each "
+            print(f"time front GET /bulk-classify?pipeline={pipeline} (B={len(names)}: "
+                  f"{N_FRONT_BULK} {FRONT_BULK_HW[0]}x{FRONT_BULK_HW[1]} PNGs and a 512x512 "
+                  f"JPEG TIFF, read and resized on each "
                   f"request): p50 {ms:.3f} ms over {N_TIMED} requests; the engine's "
                   f"classify_batch on the resized stack p50 {direct_ms:.3f} ms; on {card}",
                   flush=True)

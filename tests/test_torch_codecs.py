@@ -256,12 +256,17 @@ def test_j2k_hand_built_layer_streams():
 
 @pytest.mark.parametrize("q,rst", [(95, 0), (80, 0), (50, 2), (20, 1)])
 def test_jpeg_baseline_from_libjpeg(q, rst):
-    """test_jpg.py's cv2 streams: the port's float IDCT is JAX's, bit for bit."""
+    """test_jpg.py's cv2 streams: the port's float IDCT is JAX's, bit for bit;
+    the upload path (`jpeg_luma_decode`, libjpeg's integer IDCT) is cv2's
+    decode bit for bit and within T.81's +-2 codes of the DICOM path."""
     img = _natural(np.random.default_rng(0))[:101, :67]
     flags = [cv2.IMWRITE_JPEG_QUALITY, q] + ([cv2.IMWRITE_JPEG_RST_INTERVAL, rst] if rst else [])
     data = cv2.imencode(".jpg", img, flags)[1].tobytes()
     _same_outcome(_outcome(TP.jpeg_lossy_decode, data), _outcome(JP.jpeg_lossy_decode, data))
-    np.testing.assert_array_equal(TP.jpeg_luma_decode(data)[0], TP.jpeg_lossy_decode(data)[0])
+    upload = TP.jpeg_luma_decode(data)[0]
+    np.testing.assert_array_equal(upload, cv2.imdecode(np.frombuffer(data, np.uint8),
+                                                       cv2.IMREAD_GRAYSCALE))
+    assert np.abs(upload.astype(np.int64) - TP.jpeg_lossy_decode(data)[0]).max() <= 2
     colour = cv2.imencode(".jpg", np.dstack([img, img[::-1], img[:, ::-1]]))[1].tobytes()
     _same_outcome(_outcome(TP.jpeg_lossy_decode, colour), _outcome(JP.jpeg_lossy_decode, colour))
 

@@ -1374,3 +1374,34 @@ def test_packed_watershed_kernel_rejects_wrong_inputs(dev):
         KW.packed_form(big, big.to(torch.int32), (255,),
                        torch.empty((1, 513, 8), dtype=torch.int32, device=dev),
                        torch.empty((1, 513, 8), dtype=torch.bool, device=dev))
+
+
+# ---- the upload reader's formats through the engine -----------------------------
+
+@pytest.mark.parametrize("name", ["upload_lossy.webp", "upload_jpeg_ycbcr.tif",
+                                  "upload_g4.tif"])
+def test_reader_fixture_through_the_engine(dev, name):
+    """Each upload fixture in the reader's newer formats (lossy WebP, YCbCr
+    JPEG in TIFF, group 4 fax TIFF) decodes to the PNG of cv2's read
+    committed beside it, and goes through `process_single_image` on the
+    card as through a CPU engine on the same weights: the clean image
+    equal, the features within 1e-5 (chip_smoke.py phase 6's tolerances)."""
+    import copy
+    from pathlib import Path
+
+    from cadx_tpu_torch.data import imageio
+    from cadx_tpu_torch.serve import engine as E
+
+    here = Path(__file__).parent / "data"
+    img = imageio.imread_gray(str(here / name))
+    want = imageio.png_gray((here / (name + ".png")).read_bytes())
+    assert img is not None and img.dtype == want.dtype and np.array_equal(img, want)
+    eng = E.InferenceEngine(E.EngineConfig(), seed=0, device=dev)
+    state = E.EngineState(copy.deepcopy(eng.encoder_params).cpu(),
+                          copy.deepcopy(eng.basic_params).cpu(),
+                          copy.deepcopy(eng.advanced_params).cpu())
+    cpu_eng = E.InferenceEngine(eng.config, state=state, device="cpu")
+    fg, cg = eng.process_single_image(img)
+    fc, cc = cpu_eng.process_single_image(img)
+    assert np.array_equal(cg, cc)
+    assert fg.shape == fc.shape and float(np.abs(fg - fc).max()) <= 1e-5

@@ -4,11 +4,11 @@ used to differ.
 
 - JPEG (`data/jpg.py::jpeg_luma_decode`): progressive (spectral selection
   and successive approximation, restart intervals) in gray and YCbCr at
-  the chroma subsamplings PIL and cv2 write, within +-2 codes (a float
-  IDCT against libjpeg-turbo's integer one); a 3328 x 2560 frame under
-  10 s; Adobe RGB (APP14 transform 0), CMYK and YCCK: the colour to gray
-  formulas exact on images of flat 8 x 8 blocks (whose IDCT both decoders
-  give exactly), +-2 codes end to end.
+  the chroma subsamplings PIL and cv2 write, within +-2 codes (the bound
+  of a float IDCT; the upload path now runs libjpeg-turbo's integer one
+  and meets it with 0); a 3328 x 2560 frame under 10 s; Adobe RGB (APP14
+  transform 0), CMYK and YCCK: the colour to gray formulas exact on
+  images of flat 8 x 8 blocks, +-2 codes end to end.
 - PNG: 16-bit colour with gAMA/sRGB (libpng's 16-bit gamma tables, with
   sBIT's shift), eXIf orientations 1-8 wherever the chunk sits, APNG
   (the IDAT image), all exact.
@@ -32,8 +32,17 @@ used to differ.
   of the gray), None where cv2 gives None.
 - A float32 upload (HDR, PFM, float TIFF) through both engines: the same
   features and clean image.
-- The formats left open: cv2 reads each, the port gives None (ROADMAP
-  Queue 3).
+- JPEG inside TIFF (PIL's libtiff files, gray, RGB and YCbCr; hand-made
+  YCbCr ones of cv2's streams subsampled 2x2, 2x1 and 1x2, strips and
+  tiles, with and without JPEGTables; libtiff's refusals), RGB TIFF at
+  10-14 bits, fill order 2 under every compression, and RGB, CMYK and
+  YCCK JPEGs with subsampled components: exact, libjpeg's integer IDCT
+  and upsampling being the port's now. The fax codes and lossy WebP have
+  files of their own (test_torch_ccitt.py, test_torch_vp8.py).
+- The front's fixtures in these formats (tests/data/upload_*), each the
+  PNG of cv2's decode committed beside it.
+- The formats left open: AVIF; cv2 reads it, the port gives None (ROADMAP
+  Queue 3). The four once open read as cv2 reads them.
 """
 
 import io
@@ -630,9 +639,13 @@ def _lzw_encode(data: bytes) -> bytes:
 
 def _tiff(arr, *, bits=None, compression=1, predictor=1, photometric=None, tile=None,
           rows_per_strip=None, planar=1, big=False, cmap=None, orientation=None,
-          extra_samples=None) -> bytes:
-    """A TIFF of arr ((h, w) or (h, w, samples)) written by hand."""
+          extra_samples=None, tags=None, encoder=None) -> bytes:
+    """A TIFF of arr ((h, w) or (h, w, samples)) written by hand; `tags`
+    adds or replaces directory entries ({tag: (type, [values])}), and
+    `encoder` (a strip's or tile's (rows, cols, samples) array -> bytes)
+    replaces the compressions written here."""
     bo = ">" if big else "<"
+    tags_in = tags or {}
     a = np.asarray(arr)
     a = a[..., None] if a.ndim == 2 else a
     h, w, spp = a.shape
@@ -642,6 +655,8 @@ def _tiff(arr, *, bits=None, compression=1, predictor=1, photometric=None, tile=
 
     def encode(block):
         rows, cols, s = block.shape
+        if encoder is not None:
+            return encoder(block)
         if predictor == 2:
             block = block.copy()
             block[:, 1:] = (block[:, 1:].astype(np.int64) - block[:, :-1]).astype(a.dtype)
@@ -692,6 +707,7 @@ def _tiff(arr, *, bits=None, compression=1, predictor=1, photometric=None, tile=
     else:
         tags[278] = (4, [rows_per_strip or h])
         off_tag, cnt_tag = 273, 279
+    tags.update(tags_in)
     body = bytearray(b"MM\0*" if big else b"II*\0") + b"\0\0\0\0"
     offsets = []
     for c in chunks:
@@ -699,21 +715,26 @@ def _tiff(arr, *, bits=None, compression=1, predictor=1, photometric=None, tile=
         body += c + b"\0" * (len(c) % 2)
     tags[off_tag], tags[cnt_tag] = (4, offsets), (4, [len(c) for c in chunks])
     blobs = {}
+    # type -> struct code; a RATIONAL's values are numerator, denominator, ...
+    codes = {1: "B", 3: "H", 4: "I", 5: "I", 7: "B"}
+
+    def packed(typ, vals):
+        return struct.pack(bo + codes[typ] * len(vals), *vals)
     for t in sorted(tags):
         typ, vals = tags[t]
-        if len(vals) * (2 if typ == 3 else 4) > 4:
+        if len(packed(typ, vals)) > 4:
             blobs[t] = len(body)
-            body += struct.pack(bo + ("H" if typ == 3 else "I") * len(vals), *vals)
+            body += packed(typ, vals)
             body += b"\0" * (len(body) % 2)
     body[4:8] = struct.pack(bo + "I", len(body))
     body += struct.pack(bo + "H", len(tags))
     for t in sorted(tags):
         typ, vals = tags[t]
+        count = len(vals) // 2 if typ == 5 else len(vals)
         if t in blobs:
-            body += struct.pack(bo + "HHII", t, typ, len(vals), blobs[t])
+            body += struct.pack(bo + "HHII", t, typ, count, blobs[t])
         else:
-            raw = struct.pack(bo + ("H" if typ == 3 else "I") * len(vals), *vals)
-            body += struct.pack(bo + "HHI", t, typ, len(vals)) + raw.ljust(4, b"\0")
+            body += struct.pack(bo + "HHI", t, typ, count) + packed(typ, vals).ljust(4, b"\0")
     return bytes(body + b"\0\0\0\0")
 
 
@@ -1111,10 +1132,10 @@ def test_float32_upload_through_both_engines(tmp_path, engines, kind):
 # ---- the formats left open -------------------------------------------------------
 
 def _open_format_files() -> dict:
-    """One small file of each format cv2 reads here that the port leaves
-    open (ROADMAP Queue 3): AVIF, lossy WebP (VP8), the TIFF compressions
-    the reader does not decode (JPEG, CCITT group 4) and colour TIFF
-    samples of 10-14 bits."""
+    """One small file of each format cv2 reads here that the port left open
+    until the lossy WebP, JPEG and fax TIFF readers came (AVIF stays open,
+    ROADMAP Queue 3): AVIF, lossy WebP (VP8), the TIFF compressions JPEG and
+    CCITT group 4, and colour TIFF samples of 12 bits."""
     img = (np.arange(48 * 64) % 251).reshape(48, 64).astype(np.uint8)
     files = {".avif": cv2.imencode(".avif", img)[1].tobytes(),
              ".webp (lossy)": cv2.imencode(".webp", img, [cv2.IMWRITE_WEBP_QUALITY, 90])[1]
@@ -1128,8 +1149,7 @@ def _open_format_files() -> dict:
     return files
 
 
-@pytest.mark.parametrize("name", [".avif", ".webp (lossy)", ".tiff (JPEG)", ".tiff (CCITT G4)",
-                                  ".tiff (12-bit RGB)"])
+@pytest.mark.parametrize("name", [".avif"])
 def test_open_formats_cv2_reads_the_port_does_not(tmp_path, name):
     """The standing gaps (ROADMAP Queue 3): cv2 reads each of these here,
     the port answers None, as /upload-single answers "Could not read
@@ -1139,3 +1159,246 @@ def test_open_formats_cv2_reads_the_port_does_not(tmp_path, name):
     assert ref is not None and ref.shape[:2] == (48, 64)
     assert got is None
     assert math.isfinite(float(ref.astype(np.float64).mean()))
+
+
+@pytest.mark.parametrize("name", [".webp (lossy)", ".tiff (JPEG)", ".tiff (CCITT G4)",
+                                  ".tiff (12-bit RGB)"])
+def test_formats_once_open_read_as_cv2_reads_them(tmp_path, name):
+    """The four formats the port used to leave open now read as cv2 reads
+    them, exact."""
+    ref, got = _read_both(tmp_path, "open" + name.split()[0], _open_format_files()[name])
+    assert ref is not None and got is not None and ref.shape[:2] == (48, 64)
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    np.testing.assert_array_equal(got, ref)
+
+
+# ---- JPEG inside TIFF, colour TIFF at 10-14 bits, fill order 2 --------------------
+
+def split_tables(jpeg: bytes) -> tuple[bytes, bytes]:
+    """A JPEG stream -> (a tables-only stream of its DQT and DHT segments,
+    the abbreviated image stream without them or its APPn segments), as
+    libtiff keeps them apart."""
+    pos, tables, rest = 2, [], []
+    while True:
+        marker = jpeg[pos + 1]
+        (n,) = struct.unpack(">H", jpeg[pos + 2:pos + 4])
+        seg = jpeg[pos:pos + 2 + n]
+        if marker in (0xC4, 0xDB):
+            tables.append(seg)
+        elif marker == 0xDA:
+            rest.append(jpeg[pos:])
+            break
+        elif not 0xE0 <= marker <= 0xEF:
+            rest.append(seg)
+        pos += 2 + n
+    return b"\xff\xd8" + b"".join(tables) + b"\xff\xd9", b"\xff\xd8" + b"".join(rest)
+
+
+_SAMPLING = {(2, 2): cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420,
+             (2, 1): cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422,
+             (1, 1): cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444,
+             (1, 2): cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440}
+
+
+def jpeg_ycbcr_tiff(rgb: np.ndarray, rows_per_strip: int = 64, quality: int = 90,
+                    sampling=(2, 2), tile=None, abbreviated: bool = True) -> bytes:
+    """A YCbCr JPEG TIFF of (h, w, 3) RGB written by hand: each strip or
+    tile cv2's JPEG (YCbCr, component 0 at `sampling`); abbreviated, the
+    tables in tag 347 (JPEGTables), or whole streams."""
+    tables = []
+
+    def encode(block):
+        jpeg = cv2.imencode(".jpg", np.ascontiguousarray(block[..., ::-1]),
+                            [cv2.IMWRITE_JPEG_QUALITY, quality,
+                             cv2.IMWRITE_JPEG_SAMPLING_FACTOR, _SAMPLING[sampling]])[1].tobytes()
+        t, body = split_tables(jpeg)
+        tables.append(t)
+        return body if abbreviated else jpeg
+
+    tags = {530: (3, list(sampling)),
+            532: (5, [0, 1, 255, 1, 128, 1, 255, 1, 128, 1, 255, 1])}
+    _tiff(rgb, compression=7, photometric=6, rows_per_strip=rows_per_strip, tile=tile,
+          tags=tags, encoder=encode)
+    assert len(set(tables)) == 1
+    if abbreviated:
+        tags[347] = (7, list(tables[0]))
+    return _tiff(rgb, compression=7, photometric=6, rows_per_strip=rows_per_strip, tile=tile,
+                 tags=tags, encoder=encode)
+
+
+@pytest.mark.parametrize("mode", ["L", "RGB", "YCbCr"])
+@pytest.mark.parametrize("layout", ["one strip", "strips of 16", "strips of 32", "fill order 2"])
+def test_tiff_jpeg_pil(tmp_path, rng, mode, layout):
+    """PIL's JPEG TIFFs (libtiff's codec: JPEGTables and abbreviated
+    strips or tiles): gray, RGB (photometric 2, the components as decoded)
+    and YCbCr (photometric 6, which libtiff has libjpeg turn to RGB), then
+    libtiff's RGBA interface and cv2's 14-bit gray weights, exact; fill
+    order 2 leaves a JPEG stream as it is. (PIL writes no tiles; the
+    hand-made files below have them.)"""
+    gray, rgb = _scene(rng, 67, 93)
+    img = Image.fromarray(gray if mode == "L" else rgb)
+    if mode == "YCbCr":
+        img = img.convert("YCbCr")
+    info = {"one strip": {}, "strips of 16": {278: 16}, "strips of 32": {278: 32},
+            "fill order 2": {266: 2}}[layout]
+    buf = io.BytesIO()
+    img.save(buf, "TIFF", compression="jpeg", tiffinfo=info)
+    from cadx_tpu_torch.data import tiff
+
+    _, tags = tiff._ifd(buf.getvalue())
+    assert tags[259] == (7,) and 347 in tags and all(tags[t] == (v,) for t, v in info.items())
+    _same(tmp_path, "j.tif", buf.getvalue())
+
+
+@pytest.mark.parametrize("sampling", [(2, 2), (2, 1), (1, 2), (1, 1)])
+@pytest.mark.parametrize("layout", ["strips", "tiles", "strips, whole streams"])
+def test_tiff_jpeg_ycbcr_subsampled(tmp_path, rng, sampling, layout):
+    """YCbCr JPEG TIFFs with subsampled chroma (cv2's encoder; tag 530 at
+    the stream's factors): libjpeg's fancy upsampling and YCbCr to RGB,
+    per strip or tile, exact; with and without JPEGTables."""
+    _, rgb = _scene(rng, 67, 93)
+    data = jpeg_ycbcr_tiff(rgb, rows_per_strip=16, sampling=sampling,
+                           tile=(32, 32) if layout == "tiles" else None,
+                           abbreviated=layout != "strips, whole streams")
+    _same(tmp_path, "y.tif", data)
+
+
+def test_tiff_jpeg_refusals(tmp_path, rng):
+    """What libtiff refuses, the port refuses: YCbCr subsampling other than
+    the stream's, an RGB TIFF whose stream is subsampled, a JPEG strip of
+    another size than the strip; None both ways."""
+    from cadx_tpu_torch.data import tiff
+
+    _, rgb = _scene(rng, 32, 48)
+    sub = jpeg_ycbcr_tiff(rgb, rows_per_strip=32, sampling=(2, 2))
+    wrong = sub.replace(struct.pack("<HHIHH", 530, 3, 2, 2, 2), struct.pack("<HHIHH", 530, 3,
+                                                                         2, 1, 1))
+    assert wrong != sub
+    whole = cv2.imencode(".jpg", rgb, [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                                       cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420])[1].tobytes()
+    rgb_sub = _tiff(rgb, compression=7, encoder=lambda block: whole)
+    small = cv2.imencode(".jpg", rgb[:16])[1].tobytes()
+    short = _tiff(rgb, compression=7, photometric=6, tags={530: (3, [1, 1])},
+                  encoder=lambda block: small)
+    for data in (wrong, rgb_sub, short):
+        ref, got = _read_both(tmp_path, "r.tif", data)
+        assert ref is None and got is None
+        with pytest.raises(tiff.TiffError):
+            tiff.tiff_gray(data)
+
+
+@pytest.mark.parametrize("bits", [10, 12, 14])
+@pytest.mark.parametrize("case", ["strips", "big-endian tiles", "LZW", "alpha", "planar",
+                                  "gray + alpha"])
+def test_tiff_colour_10_to_14_bits(tmp_path, rng, bits, case):
+    """RGB samples of 10, 12 and 14 bits: cv2 weighs them as stored with
+    its 14-bit weights and shifts the gray up to 16 bits (uint16), exact;
+    separate planes (which cv2 reads past their strips) and gray with
+    alpha (which libtiff's RGBA check refuses) give None."""
+    a = rng.integers(0, 1 << bits, (37, 53, 4)).astype(np.uint16)
+    data = {"strips": lambda: _tiff(a[..., :3], bits=bits, rows_per_strip=9),
+            "big-endian tiles": lambda: _tiff(a[..., :3], bits=bits, tile=(16, 16), big=True),
+            "LZW": lambda: _tiff(a[..., :3], bits=bits, compression=5),
+            "alpha": lambda: _tiff(a, bits=bits, extra_samples=(2,)),
+            "planar": lambda: _tiff(a[..., :3], bits=bits, planar=2),
+            "gray + alpha": lambda: _tiff(a[..., :2], bits=bits, extra_samples=(2,))}[case]()
+    ref, got = _read_both(tmp_path, "c.tif", data)
+    if case == "planar":
+        assert ref is not None and got is None
+        return
+    if case == "gray + alpha":
+        assert ref is None and got is None
+        return
+    assert ref.dtype == np.uint16
+    _same(tmp_path, "c.tif", data)
+    w = a[..., :3].astype(np.int64)
+    want = ((4899 * w[..., 0] + 9617 * w[..., 1] + 1868 * w[..., 2] + 8192) >> 14) << (16 - bits)
+    np.testing.assert_array_equal(got, want)
+
+
+_REVERSE = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
+
+
+@pytest.mark.parametrize("compression", [1, 5, 8, 32773])
+@pytest.mark.parametrize("kind", ["u8", "u16"])
+def test_tiff_fill_order_2(tmp_path, rng, compression, kind):
+    """Fill order 2: libtiff reverses each byte's bits before it decodes a
+    strip (none, LZW, Deflate, PackBits), so a writer that reversed them
+    reads back as written."""
+    arr = _samples(rng, kind)
+    plain = _tiff(arr, compression=compression, rows_per_strip=10)
+    chunks = []
+
+    def reversed_chunk(block):
+        data = _tiff(block, compression=compression)
+        from cadx_tpu_torch.data import tiff
+
+        _, tags = tiff._ifd(data)
+        (off,), (cnt,) = tags[273], tags[279]
+        chunks.append(data[off:off + cnt])
+        return bytes(_REVERSE[np.frombuffer(chunks[-1], np.uint8)])
+
+    data = _tiff(arr, compression=compression, rows_per_strip=10, tags={266: (3, [2])},
+                 encoder=reversed_chunk)
+    ref, got = _read_both(tmp_path, "f.tif", data)
+    np.testing.assert_array_equal(got, _read_both(tmp_path, "p.tif", plain)[1])
+    _same(tmp_path, "f.tif", data)
+
+
+# ---- subsampled colour JPEG ---------------------------------------------------------
+
+def _adobe_rgb(jpeg: bytes) -> bytes:
+    """cv2's JFIF YCbCr stream relabelled as Adobe RGB (APP0 dropped, an
+    APP14 of transform 0 in its place): libjpeg then reads the same
+    subsampled components as R, G and B."""
+    assert jpeg[2:4] == b"\xff\xe0"
+    (n,) = struct.unpack(">H", jpeg[4:6])
+    return jpeg[:2] + b"\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00\x00\x00" + jpeg[4 + n:]
+
+
+@pytest.mark.parametrize("space", ["rgb", "cmyk", "ycck"])
+@pytest.mark.parametrize("sampling", ["2x1", "2x2"])
+@pytest.mark.parametrize("hw", [(67, 93), (17, 33), (1, 1), (2, 3)])
+def test_subsampled_colour_jpeg(tmp_path, rng, space, sampling, hw):
+    """RGB, CMYK and YCCK JPEGs with subsampled components (libjpeg-turbo's
+    fancy upsampling, then rgb_gray_convert or ycck_cmyk_convert and cv2's
+    CMYK gray), baseline and progressive, exact."""
+    gray, rgb = _scene(rng, *hw)
+    for progressive in (False, True):
+        if space == "rgb":
+            factor = {"2x1": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422,
+                      "2x2": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420}[sampling]
+            data = _adobe_rgb(cv2.imencode(".jpg", rgb, [
+                cv2.IMWRITE_JPEG_SAMPLING_FACTOR, factor,
+                cv2.IMWRITE_JPEG_PROGRESSIVE, int(progressive)])[1].tobytes())
+        else:
+            data = _pil_jpeg(np.dstack([rgb, gray[::-1]]), "CMYK", quality=80,
+                             subsampling={"2x1": 1, "2x2": 2}[sampling],
+                             progressive=progressive)
+            if space == "ycck":
+                data = _with_adobe_transform(data, 2)
+        frame = jpg._read_frame(data)[0]
+        assert frame.sampling[0] == {"2x1": (2, 1), "2x2": (2, 2)}[sampling]
+        assert jpg._colour_space(frame, False, 0 if space == "rgb" else
+                                 2 if space == "ycck" else None) == space
+        _same(tmp_path, "s.jpg", data)
+
+
+# ---- the front's fixtures -----------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["upload_lossy.webp", "upload_jpeg_ycbcr.tif",
+                                  "upload_g4.tif"])
+def test_front_fixtures(tmp_path, name):
+    """chip_smoke.py phase 9's uploads in the formats of this reader
+    (tests/data/make_upload_fixtures.py made them): the port's read equals
+    cv2's, and both equal the PNG committed beside the file, which is what
+    phase 9 holds the card's read to."""
+    from pathlib import Path
+
+    here = Path(__file__).parent / "data"
+    data = (here / name).read_bytes()
+    want = imageio.png_gray((here / (name + ".png")).read_bytes())
+    ref, got = _read_both(tmp_path, name, data)
+    np.testing.assert_array_equal(ref, want)
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == np.uint8 and got.shape == ((1024, 832) if "g4" in name else (512, 512))
