@@ -506,11 +506,12 @@ bool shape_ok(int H, int W) {
 
 // The pair form on B <= kMaxImages images (see cadx_watershed_pair): srow,
 // scol, d0, d1 and l1 are the images' planes of the scratch, l0 their
-// labels; adds its host synchronisations to *syncs.
+// labels; adds its host synchronisations to *syncs and the sweeps it
+// launched to *sweeps.
 int pair_images(const float* im, const int* markers, int* l0, uint8_t* boundary, float* srow,
                 float* scol, float* d0, float* d1, int* l1, int* flags, int* host, int* syncs,
-                int B, int H, int W, int max_iters, int win_row, int win_col, int tile_h,
-                int tile_w, int check_every, cudaStream_t st) {
+                int* sweeps, int B, int H, int W, int max_iters, int win_row, int win_col,
+                int tile_h, int tile_w, int check_every, cudaStream_t st) {
   const size_t total = static_cast<size_t>(B) * H * W;
   PairPlanes p{{d0, d1}, {l0, l1}, srow, scol, flags, B, H, W, win_row, win_col, st};
 
@@ -592,6 +593,7 @@ int pair_images(const float* im, const int* markers, int* l0, uint8_t* boundary,
     }
   }
   for (auto& e : ev) cudaEventDestroy(e);
+  *sweeps += launched;
   // a tiled sweep ends in the planes of parity (its index + 1) & 1; once a
   // sweep changed nothing, both parities hold the same planes
   if (tiled && (launched & 1))
@@ -606,8 +608,9 @@ int pair_images(const float* im, const int* markers, int* l0, uint8_t* boundary,
 // (B, H, W) bytes 0/1; scratch: five (B, H, W) planes of 4-byte words, in
 // order srow, scol, d0, d1 (float32) and l1 (int32); flags: max(max_iters,
 // 1) int32 on the device, one a sweep; host_flags: ceil(max_iters /
-// check_every) int32 of pinned host memory; host_syncs: an int the number
-// of host synchronisations is written to.
+// check_every) int32 of pinned host memory; host_syncs, host_sweeps: ints
+// the numbers of host synchronisations and of sweeps launched are written
+// to.
 //
 // Runs sweeps of the four passes (LR, RL, TB, BT) until one changes no
 // distance or max_iters sweeps ran; win_row / win_col are the scan windows
@@ -624,11 +627,13 @@ int pair_images(const float* im, const int* markers, int* l0, uint8_t* boundary,
 // call on all B.
 extern "C" int cadx_watershed_pair(const void* img, const void* markers, void* labels,
                                    void* boundary, void* scratch, void* flags, void* host_flags,
-                                   void* host_syncs, int B, int H, int W, int max_iters,
-                                   int win_row, int win_col, int tile_h, int tile_w,
-                                   int check_every, void* stream) {
+                                   void* host_syncs, void* host_sweeps, int B, int H, int W,
+                                   int max_iters, int win_row, int win_col, int tile_h,
+                                   int tile_w, int check_every, void* stream) {
   int* syncs = static_cast<int*>(host_syncs);
+  int* sweeps = static_cast<int*>(host_sweeps);
   *syncs = 0;
+  *sweeps = 0;
   if (B <= 0 || H <= 0 || W <= 0) return 0;
   if (!shape_ok(H, W) || check_every <= 0 || win_row < 1 || win_col < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -641,8 +646,8 @@ extern "C" int cadx_watershed_pair(const void* img, const void* markers, void* l
         static_cast<int*>(labels) + o, static_cast<uint8_t*>(boundary) + o, plane + o,
         plane + total + o, plane + 2 * total + o, plane + 3 * total + o,
         reinterpret_cast<int*>(plane + 4 * total) + o, static_cast<int*>(flags),
-        static_cast<int*>(host_flags), syncs, B - b0 < kMaxImages ? B - b0 : kMaxImages, H, W,
-        max_iters, win_row, win_col, tile_h, tile_w, check_every,
+        static_cast<int*>(host_flags), syncs, sweeps, B - b0 < kMaxImages ? B - b0 : kMaxImages,
+        H, W, max_iters, win_row, win_col, tile_h, tile_w, check_every,
         static_cast<cudaStream_t>(stream));
     if (rc != 0) return rc;
   }

@@ -50,8 +50,8 @@ _SIGNATURES = {
     "cadx_pectoral_tail": (_P,) * 8 + (_I,) * 9 + (_P,),
     "cadx_ccl": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "cadx_largest_component_mask": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "cadx_watershed_pair": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _I, _I, _I, _I, _P),
+    "cadx_watershed_pair": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _I, _P),
     "cadx_watershed_packed": (_P,) * 6 + (_I,) * 9 + (_P,),
     "cadx_conv_leaky": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "cadx_conv_leaky_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),

@@ -58,6 +58,7 @@ import torch
 
 from cadx_tpu_torch.kernels import _build
 from cadx_tpu_torch.ops.threshold import _trunc_table
+from cadx_tpu_torch.utils.profiling import host_sync
 
 SOURCE = "cadx_tpu_torch/csrc/cleaner_front.cu"
 REPLACES = "cadx_tpu/kernels/cleaner_front.py:122"
@@ -98,6 +99,7 @@ def _threshold_table(low_frac: float, device: torch.device) -> torch.Tensor:
         values = [int(low_frac)] * 256
     else:
         values = _trunc_table(float(low_frac), 256)
+    host_sync(device)   # a blocking copy, once a device
     return torch.as_tensor(values, dtype=torch.int32).to(device)
 
 

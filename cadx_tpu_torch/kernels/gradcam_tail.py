@@ -59,6 +59,7 @@ import torch
 from cadx_tpu_torch.kernels import _build
 from cadx_tpu_torch.kernels.overlay import jet_blend_reference, jet_lut_rgb
 from cadx_tpu_torch.ops.resize import _interp_matrix, resize_linear_mxu
+from cadx_tpu_torch.utils.profiling import host_sync
 
 SOURCE = "cadx_tpu_torch/csrc/gradcam_tail.cu"
 REPLACES = "cadx_tpu/kernels/nn_kernels.py:254"
@@ -129,6 +130,7 @@ def _sampling(oh: int, h: int, ow: int, w: int, device: torch.device):
         ks = np.flatnonzero(ct[:, j])
         idx[:len(ks), j] = ks
         val[:len(ks), j] = ct[ks, j]
+    host_sync(device, 3)   # three blocking copies, once a shape
     return r, torch.as_tensor(idx, device=device), torch.as_tensor(val, device=device)
 
 

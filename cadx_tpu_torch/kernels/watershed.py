@@ -49,7 +49,8 @@ the host copies every `CHECK_EVERY`-th flag to pinned memory, waits for
 it only after queuing the next `CHECK_EVERY` sweeps, and stops launching
 once one reads 0: ceil(max_iters / CHECK_EVERY) - 1 host
 synchronisations for a call that runs them all, one more when it stops
-early. `max_iters` caps the sweeps exactly. A relaxed pixel, halo or
+early. The wrapper adds them to the `host_syncs` counter and the sweeps
+launched to `pair_sweeps` (`utils/profiling.py`). `max_iters` caps the sweeps exactly. A relaxed pixel, halo or
 not, reads only pixels the previous pass left valid, so a distance that
 falls anywhere in a block falls in the sweep: the block's flag is exact.
 
@@ -119,6 +120,7 @@ import torch
 from cadx_tpu_torch.kernels import _build
 from cadx_tpu_torch.ops import geodesic_scan as G
 from cadx_tpu_torch.ops.watershed import marker_watershed_plain
+from cadx_tpu_torch.utils.profiling import count, host_sync
 
 SOURCE = "cadx_tpu_torch/csrc/watershed.cu"
 REPLACES = "cadx_tpu/kernels/watershed_kernel.py:83"
@@ -194,22 +196,22 @@ def marker_watershed(image: torch.Tensor, markers: torch.Tensor,
         flags = torch.empty((max(max_iters, 1),), dtype=torch.int32, device=dev)
         host_flags = torch.empty((max(-(-max_iters // CHECK_EVERY), 1),),
                                  dtype=torch.int32, pin_memory=True)
-        syncs = ctypes.c_int(0)
+        syncs, sweeps = ctypes.c_int(0), ctypes.c_int(0)
         rc = lib.cadx_watershed_pair(
             img.data_ptr(), mk.data_ptr(), labels.data_ptr(),
             boundary.data_ptr(), scratch.data_ptr(), flags.data_ptr(),
-            host_flags.data_ptr(), ctypes.addressof(syncs), b, h, w, max_iters,
-            _scan_window(w, max_scan), _scan_window(h, max_scan),
+            host_flags.data_ptr(), ctypes.addressof(syncs), ctypes.addressof(sweeps), b, h,
+            w, max_iters, _scan_window(w, max_scan), _scan_window(h, max_scan),
             *tile_for(b, h, w, torch.cuda.get_device_properties(dev).multi_processor_count),
             CHECK_EVERY, _build.stream_ptr(dev))
         _build.check(rc, "cadx_watershed_pair")
-        marker_watershed.host_syncs = syncs.value
+        host_sync(dev, syncs.value)
+        count("pair_sweeps", sweeps.value)
     marker_watershed.launches += 1
     return labels, boundary
 
 
 marker_watershed.launches = 0
-marker_watershed.host_syncs = 0   # host synchronisations of the last pair-form call
 
 
 def packed_tiles(b: int, h: int, w: int) -> int:

@@ -17,6 +17,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from cadx_tpu_torch.utils.profiling import host_sync
+
 
 def resize_linear(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     """Bilinear resize of (B, H, W) or channel-last (B, H, W, C) float."""
@@ -95,6 +97,7 @@ def _resample_axis(x: torch.Tensor, dim: int, n_out: int) -> torch.Tensor:
     idx, taps = _triangle_taps(x.shape[dim], n_out)
     idx_t = torch.as_tensor(idx, device=x.device)
     w_t = torch.as_tensor(taps, device=x.device)
+    host_sync(x.device, 2)   # two blocking copies from pageable memory
     shape = [1] * x.ndim
     shape[dim] = n_out
     out = None

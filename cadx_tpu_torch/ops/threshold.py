@@ -12,6 +12,8 @@ import functools
 import numpy as np
 import torch
 
+from cadx_tpu_torch.utils.profiling import host_sync
+
 
 def image_max(img: torch.Tensor) -> torch.Tensor:
     """Per-image max over (H, W); uint16 is widened, as torch has no
@@ -53,6 +55,7 @@ def relative_threshold_value(img: torch.Tensor, frac, mx: torch.Tensor | None = 
     if isinstance(frac, float) and img.dtype in (torch.uint8, torch.uint16):
         n = 1 << (8 * img.element_size())
         table = torch.as_tensor(_trunc_table(frac, n), device=img.device)
+        host_sync(img.device)   # a blocking copy from pageable memory
         return table[mx.to(torch.int64)]
     return torch.floor(mx.to(torch.float32) * frac).to(torch.int32)
 

@@ -26,6 +26,7 @@ from cadx_tpu_torch.models import cnn, unet
 from cadx_tpu_torch.ops.resize import resize_linear
 from cadx_tpu_torch.precision import full_fp32
 from cadx_tpu_torch.preprocess import cleaner
+from cadx_tpu_torch.utils.profiling import span
 from cadx_tpu_torch.xai.gradcam import conv_features, head_logits
 
 
@@ -83,29 +84,33 @@ def run_pipeline(params: PipelineParams, batch_u8: torch.Tensor,
                  config: PipelineConfig) -> PipelineOutput:
     """batch_u8: (B, H, W) uint8 at config.image_hw, on the device the
     params live on."""
-    with full_fp32(), torch.no_grad():
-        clean01 = cleaner.clean_boundary_gray(batch_u8) / 255.0
-        feats = unet.encoder_first_features(params.encoder, clean01[..., None])
-        feats = feats.to(_DTYPES[config.feature_dtype])
-        feats_small = resize_linear(feats.to(torch.float32), config.feature_hw)
-        probs = cnn.forward(params.classifier, feats_small)
-        predicted = probs.argmax(dim=-1)
+    with span("pipeline"), full_fp32(), torch.no_grad():
+        with span("pipeline.clean"):
+            clean01 = cleaner.clean_boundary_gray(batch_u8) / 255.0
+        with span("pipeline.encode"):
+            feats = unet.encoder_first_features(params.encoder, clean01[..., None])
+            feats = feats.to(_DTYPES[config.feature_dtype])
+            feats_small = resize_linear(feats.to(torch.float32), config.feature_hw)
+        with span("pipeline.classify"):
+            probs = cnn.forward(params.classifier, feats_small)
+            predicted = probs.argmax(dim=-1)
 
         overlays, heatmaps = [], []
         if config.classes_to_explain:
-            acts = conv_features(params.classifier, feats_small)
-            with torch.enable_grad():
-                acts = acts.detach().requires_grad_(True)
-                logits = head_logits(params.classifier, acts)
-                for i, class_idx in enumerate(config.classes_to_explain):
-                    seed = torch.zeros_like(logits)
-                    seed[:, class_idx] = 1.0
-                    (grads,) = torch.autograd.grad(
-                        logits, acts, grad_outputs=seed,
-                        retain_graph=i + 1 < len(config.classes_to_explain))
-                    ov, hm = _gradcam_tail(acts.detach(), grads, clean01, config)
-                    overlays.append(ov)
-                    heatmaps.append(hm)
+            with span("pipeline.explain"):
+                acts = conv_features(params.classifier, feats_small)
+                with torch.enable_grad():
+                    acts = acts.detach().requires_grad_(True)
+                    logits = head_logits(params.classifier, acts)
+                    for i, class_idx in enumerate(config.classes_to_explain):
+                        seed = torch.zeros_like(logits)
+                        seed[:, class_idx] = 1.0
+                        (grads,) = torch.autograd.grad(
+                            logits, acts, grad_outputs=seed,
+                            retain_graph=i + 1 < len(config.classes_to_explain))
+                        ov, hm = _gradcam_tail(acts.detach(), grads, clean01, config)
+                        overlays.append(ov)
+                        heatmaps.append(hm)
 
         b = batch_u8.shape[0]
         h, w = config.image_hw

@@ -31,6 +31,7 @@ from cadx_tpu_torch.ops.resize import resize_area
 from cadx_tpu_torch.ops.threshold import (binary_threshold, max_pix_val,
                                           relative_threshold_value, to_uint8)
 from cadx_tpu_torch.ops.watershed import marker_watershed
+from cadx_tpu_torch.utils.profiling import span
 
 
 def _where_mask(mask: torch.Tensor, value: int, dtype: torch.dtype) -> torch.Tensor:
@@ -122,38 +123,40 @@ def remove_pectoral(img: torch.Tensor, breast_mask: torch.Tensor,
     """Split the pectoral muscle from breast tissue with a watershed over
     markers 255 (eroded pectoral core), 128 (outside the dilated core) and
     64 (outside the breast mask)."""
-    maxval = max_pix_val(img.dtype)
-    img_equ = equalize_hist(img)
-    high_th = relative_threshold_value(img, high_int_threshold)
-    img_bin = binary_threshold(img_equ, high_th, maxval)
+    with span("cleaner.pectoral"):
+        maxval = max_pix_val(img.dtype)
+        img_equ = equalize_hist(img)
+        high_th = relative_threshold_value(img, high_int_threshold)
+        img_bin = binary_threshold(img_equ, high_th, maxval)
 
-    if (use_packed(img.shape[-2:], 3)
-            and (morph_kn_size % 2 == 1 or n_morph_op <= 1)):
-        _, boundary, mask_b = pectoral_tail(
-            img_equ, img_bin, breast_mask.to(torch.uint8), morph_kn_size,
-            n_morph_op, sm_kn_size)
-        breast_only_mask = _where_mask(mask_b, 255, torch.uint8)
+        if (use_packed(img.shape[-2:], 3)
+                and (morph_kn_size % 2 == 1 or n_morph_op <= 1)):
+            _, boundary, mask_b = pectoral_tail(
+                img_equ, img_bin, breast_mask.to(torch.uint8), morph_kn_size,
+                n_morph_op, sm_kn_size)
+            breast_only_mask = _where_mask(mask_b, 255, torch.uint8)
+            return PectoralResult(img_equ & breast_only_mask, img_equ, boundary,
+                                  breast_only_mask)
+
+        # the fused tail runs the packed watershed (sides <= 512), and its
+        # centred window does not anchor an even element with repeats as the
+        # composed erode/dilate do; every other case composes the ops, with
+        # the pair-form watershed beyond 512
+        pect_mask_init = select_largest_obj(img_bin, maxval, fill_holes_=True)
+        pect_eroded = erode(pect_mask_init, morph_kn_size, n_morph_op)
+        pect_dilated = dilate(pect_mask_init, morph_kn_size, n_morph_op)
+        markers = torch.zeros(img.shape, dtype=torch.int32, device=img.device)
+        markers = torch.where(pect_eroded > 0, 255, markers)
+        markers = torch.where(pect_dilated == 0, 128, markers)
+        markers = torch.where(breast_mask == 0, 64, markers)
+        with span("cleaner.watershed"):
+            labels, boundary = marker_watershed(img_equ, markers, max_scan=8,
+                                                marker_label_values=(255, 128, 64))
+        breast_only = torch.where(boundary, 0, labels)
+        breast_only_mask = _where_mask(breast_only == 128, 255, torch.uint8)
+        breast_only_mask = opening(breast_only_mask, sm_kn_size)
         return PectoralResult(img_equ & breast_only_mask, img_equ, boundary,
                               breast_only_mask)
-
-    # the fused tail runs the packed watershed (sides <= 512), and its
-    # centred window does not anchor an even element with repeats as the
-    # composed erode/dilate do; every other case composes the ops, with
-    # the pair-form watershed beyond 512
-    pect_mask_init = select_largest_obj(img_bin, maxval, fill_holes_=True)
-    pect_eroded = erode(pect_mask_init, morph_kn_size, n_morph_op)
-    pect_dilated = dilate(pect_mask_init, morph_kn_size, n_morph_op)
-    markers = torch.zeros(img.shape, dtype=torch.int32, device=img.device)
-    markers = torch.where(pect_eroded > 0, 255, markers)
-    markers = torch.where(pect_dilated == 0, 128, markers)
-    markers = torch.where(breast_mask == 0, 64, markers)
-    labels, boundary = marker_watershed(img_equ, markers, max_scan=8,
-                                        marker_label_values=(255, 128, 64))
-    breast_only = torch.where(boundary, 0, labels)
-    breast_only_mask = _where_mask(breast_only == 128, 255, torch.uint8)
-    breast_only_mask = opening(breast_only_mask, sm_kn_size)
-    return PectoralResult(img_equ & breast_only_mask, img_equ, boundary,
-                          breast_only_mask)
 
 
 def process(img: torch.Tensor, median_filtering: bool = True,
@@ -195,7 +198,8 @@ def clean_boundary_gray(img: torch.Tensor) -> torch.Tensor:
     segment_breast(0.05) -> remove_pectoral(0.8, 3, 7, 25) ->
     boundary-painted gray in [0, 255] float32, for a (B, H, W) batch. The
     suppress + segment front is one `cleaner_front` call."""
-    img_breast_only, breast_mask, _ = cleaner_front(to_uint8(img), 15, 0.05)
+    with span("cleaner.front"):
+        img_breast_only, breast_mask, _ = cleaner_front(to_uint8(img), 15, 0.05)
     res = remove_pectoral(img_breast_only, _where_mask(breast_mask, 255, torch.uint8),
                           0.8, 3, 7, 25)
     return boundary_image_gray(res)
@@ -207,5 +211,7 @@ def clean_for_unet(img: torch.Tensor) -> torch.Tensor:
     The divisor is a tensor: on the card a Python scalar divisor becomes a
     product with its float32 reciprocal, a tensor a true division, as on
     the CPU, so both devices give the same bits."""
-    gray = resize_area(clean_boundary_gray(img), (512, 512))
+    gray = clean_boundary_gray(img)
+    with span("cleaner.resize"):
+        gray = resize_area(gray, (512, 512))
     return gray / torch.full((), 255.0, device=gray.device)

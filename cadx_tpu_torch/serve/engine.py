@@ -51,6 +51,7 @@ from cadx_tpu_torch.models import cnn, resnet, unet
 from cadx_tpu_torch.ops.resize import resize_area, resize_linear
 from cadx_tpu_torch.precision import full_fp32
 from cadx_tpu_torch.preprocess import cleaner
+from cadx_tpu_torch.utils.profiling import host_sync, span
 from cadx_tpu_torch.xai import gradcam
 from cadx_tpu_torch.xai.roi import roi_dict_from_vals, roi_from_cam
 
@@ -138,6 +139,8 @@ def _fused_request(model: cnn.CNN, feats_in: torch.Tensor,
         pred = probs.argmax()
         classes = torch.cat([pred[None], torch.tensor(class_indices, dtype=torch.long,
                                                       device=x.device)])
+        if class_indices:   # a blocking copy from pageable memory
+            host_sync(x.device)
         seeds = F.one_hot(classes, n).to(torch.float32)[:, None]
         cams = gradcam.class_cams(model, x, seeds)[:, 0]
         with torch.no_grad():
@@ -222,24 +225,32 @@ class InferenceEngine:
         Oversized natives (long side > native_clean_max_side) are
         area-downscaled to a bucketed shape first. `cache_token` keeps the
         device copy of the features for a later classify/roi."""
-        x = torch.as_tensor(_host_image(img), device=self.device)
-        cap = self.config.native_clean_max_side
-        if cap and max(x.shape) > cap:
-            x = resize_area(x[None].to(torch.float32),
-                            bucket_clean_hw(*x.shape, cap))[0]
-        feats, clean_u8 = self._segment(x)
-        if cache_token is not None:
-            self._feats_cache_put(cache_token, feats)
-        return feats.cpu().numpy(), clean_u8.cpu().numpy()
+        with span("engine.segment"):
+            with span("engine.upload"):
+                x = torch.as_tensor(_host_image(img), device=self.device)
+                host_sync(self.device)   # a blocking copy from pageable memory
+            cap = self.config.native_clean_max_side
+            if cap and max(x.shape) > cap:
+                with span("engine.bucket"):
+                    x = resize_area(x[None].to(torch.float32),
+                                    bucket_clean_hw(*x.shape, cap))[0]
+            feats, clean_u8 = self._segment(x)
+            if cache_token is not None:
+                self._feats_cache_put(cache_token, feats)
+            with span("engine.fetch"):
+                host_sync(self.device, 2)
+                return feats.cpu().numpy(), clean_u8.cpu().numpy()
 
     def _segment(self, img: torch.Tensor):
         with full_fp32(), torch.no_grad():
-            gray = cleaner.clean_boundary_gray(img[None])
-            resized = resize_area(gray, self.config.segment_hw)
-            feats = unet.encoder_first_features(
-                self.encoder_params, (resized / 255.0)[..., None])[0]
-            clean_u8 = torch.clamp(torch.round(resized[0]), 0, 255).to(torch.uint8)
-            return feats.permute(2, 0, 1).contiguous(), clean_u8
+            with span("engine.clean"):
+                gray = cleaner.clean_boundary_gray(img[None])
+            with span("engine.encode"):
+                resized = resize_area(gray, self.config.segment_hw)
+                feats = unet.encoder_first_features(
+                    self.encoder_params, (resized / 255.0)[..., None])[0]
+                clean_u8 = torch.clamp(torch.round(resized[0]), 0, 255).to(torch.uint8)
+                return feats.permute(2, 0, 1).contiguous(), clean_u8
 
     def _put_locked(self, token, feats) -> None:
         lru = self._device_feats_lru
@@ -298,6 +309,7 @@ class InferenceEngine:
         dev = self._cached_device_features(features, cache_token)
         if dev is None:
             dev = torch.from_numpy(np.array(features, np.float32)).to(self.device)
+            host_sync(self.device)   # a blocking copy from pageable memory
         f = self._to_hwc(dev.to(torch.float32))
         if pipeline == "basic":
             return resize_linear(f[None], self.config.feature_resize)[0], self.basic_params
@@ -317,12 +329,16 @@ class InferenceEngine:
                          class_indices=(0, 1), cache_token=None):
         """classify + per-class CAM roiCoords: one device program, one host
         fetch."""
-        feats_in, model = self._prep_classifier_input(features, pipeline,
-                                                      cache_token)
-        self.dispatch_count += 1
-        vec = _fused_request(model, feats_in, tuple(class_indices))
-        self.fetch_count += 1
-        vec = vec.cpu().numpy()  # the single host fetch
+        with span("engine.roi"):
+            with span("engine.classify"):
+                feats_in, model = self._prep_classifier_input(features, pipeline,
+                                                              cache_token)
+                self.dispatch_count += 1
+                vec = _fused_request(model, feats_in, tuple(class_indices))
+            with span("engine.fetch"):
+                self.fetch_count += 1
+                host_sync(vec.device)
+                vec = vec.cpu().numpy()  # the single host fetch
         n = model.config.num_classes
         roi = roi_dict_from_vals(vec[n + 1:n + 5])
         coords = [roi_dict_from_vals(vec[n + 5 + 4 * i:n + 9 + 4 * i])

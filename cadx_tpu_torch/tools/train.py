@@ -67,12 +67,21 @@ def featurize(stem, img: np.ndarray, feature_hw, device) -> np.ndarray:
     from cadx_tpu_torch.ops.resize import resize_linear
     from cadx_tpu_torch.precision import full_fp32
     from cadx_tpu_torch.preprocess import cleaner
+    from cadx_tpu_torch.utils.profiling import host_sync, span
 
-    x = torch.from_numpy(np.asarray(img, np.float32)).to(device)[None]
-    with full_fp32(), torch.no_grad():
-        clean01 = cleaner.clean_for_unet(x)
-        feats = unet.encoder_first_features(stem, clean01[..., None])
-        return resize_linear(feats, feature_hw)[0].cpu().numpy()
+    dev = torch.device(device)
+    with span("featurize"), full_fp32(), torch.no_grad():
+        with span("featurize.upload"):
+            x = torch.from_numpy(np.asarray(img, np.float32)).to(dev)[None]
+            host_sync(dev)   # a blocking copy from pageable memory
+        with span("featurize.clean"):
+            clean01 = cleaner.clean_for_unet(x)
+        with span("featurize.encode"):
+            feats = resize_linear(unet.encoder_first_features(stem, clean01[..., None]),
+                                  feature_hw)[0]
+        with span("featurize.fetch"):
+            host_sync(dev)
+            return feats.cpu().numpy()
 
 
 def build_features(images, mode: str, resize_hw, feature_hw, encoder=None, device=None):

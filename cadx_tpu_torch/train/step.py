@@ -37,6 +37,7 @@ from cadx_tpu_torch.device import resolve
 from cadx_tpu_torch.models import cnn
 from cadx_tpu_torch.precision import full_fp32
 from cadx_tpu_torch.train import optim
+from cadx_tpu_torch.utils.profiling import span
 
 
 def masked_loss_fn(model: cnn.CNN, x, y_onehot, mask, *, training: bool,
@@ -63,9 +64,11 @@ def masked_loss_fn(model: cnn.CNN, x, y_onehot, mask, *, training: bool,
 def _loss_and_grads(model, x, y_onehot, mask, training, generator, compute_dtype=None):
     params = list(model.parameters())
     with torch.enable_grad(), full_fp32():
-        loss = masked_loss_fn(model, x, y_onehot, mask, training=training,
-                              generator=generator, compute_dtype=compute_dtype)
-        grads = torch.autograd.grad(loss, params)
+        with span("train.forward"):
+            loss = masked_loss_fn(model, x, y_onehot, mask, training=training,
+                                  generator=generator, compute_dtype=compute_dtype)
+        with span("train.backward"):
+            grads = torch.autograd.grad(loss, params)
     return params, list(grads), loss.detach()
 
 
@@ -75,9 +78,11 @@ def sgd_train_step(model: cnn.CNN, x, y_onehot, mask, lr: float,
                    compute_dtype: torch.dtype | None = None) -> torch.Tensor:
     """One basic-pipeline update in place: grads -> per-tensor clip(5.0)
     -> SGD. Returns the loss, a device scalar."""
-    params, grads, loss = _loss_and_grads(model, x, y_onehot, mask, training,
-                                          generator, compute_dtype)
-    optim.sgd_reference_update(params, grads, lr)
+    with span("train.step"):
+        params, grads, loss = _loss_and_grads(model, x, y_onehot, mask, training,
+                                              generator, compute_dtype)
+        with span("train.optimizer"):
+            optim.sgd_reference_update(params, grads, lr)
     return loss
 
 
@@ -87,9 +92,12 @@ def make_adam_train_step(tx: optim.Adam, compute_dtype: torch.dtype | None = Non
     in place and returns (opt_state, loss)."""
 
     def step(model, opt_state, x, y_onehot, mask, generator):
-        params, grads, loss = _loss_and_grads(model, x, y_onehot, mask, True,
-                                              generator, compute_dtype)
-        return tx.step(params, grads, opt_state), loss
+        with span("train.step"):
+            params, grads, loss = _loss_and_grads(model, x, y_onehot, mask, True,
+                                                  generator, compute_dtype)
+            with span("train.optimizer"):
+                opt_state = tx.step(params, grads, opt_state)
+        return opt_state, loss
 
     return step
 

@@ -1,71 +1,44 @@
 """Tracing and profiling utilities.
 
 Port of `cadx_tpu/utils/profiling.py` (the reference has none, only a
-wall-clock "Training Time" string):
+wall-clock "Training Time" string), with the port's own spans and
+counters:
 
-- StageTimer: per-stage wall times; each stage synchronises the card
-  before it reads the clock, so a stage owns the device work it queued.
 - trace(): a torch.profiler window (host and card) written as a Chrome
   trace, `trace_<pid>_<n>.json` under `log_dir`, which
   `tools/trace_summary.py` reads.
-- throughput(): calls queued back to back and one synchronisation at the
-  end, so the host's enqueue overlaps the card's work.
+- span(name): a stage of the program. While a torch.profiler session
+  records, it is a `record_function` range named "cadx.<name>" on the
+  profiler's own timeline (the clock of the card's records), and its host
+  seconds, self seconds (less its child spans) and the counts bumped
+  inside it add to per-name stats (`span_stats`); the calling thread's
+  open spans give each its parent. Otherwise it is one shared null
+  context: one `_profiler_enabled()` check and nothing more.
+- count(name, n): a program counter, always added to the process's
+  totals (`counts`) and, while spans record, to every open span's counts.
+  `host_sync(device, n)` counts `host_syncs`, the places where the port
+  blocks the host on the card, for a CUDA device only.
+- reset(): clears the stats and the totals.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import itertools
 import os
+import threading
 import time
-from typing import Callable
 
 import torch
 
 _TRACES = itertools.count()
-
-
-def _sync(value=None) -> None:
-    """Wait for the card: the devices of `value`'s CUDA tensors (a tensor
-    or a list, tuple or dict of them), or the current one when `value` is
-    None and CUDA is in use."""
-    if value is None:
-        if torch.cuda.is_available() and torch.cuda.is_initialized():
-            torch.cuda.synchronize()
-        return
-    stack = [value]
-    while stack:
-        v = stack.pop()
-        if isinstance(v, torch.Tensor):
-            if v.device.type == "cuda":
-                torch.cuda.synchronize(v.device)
-        elif isinstance(v, dict):
-            stack.extend(v.values())
-        elif isinstance(v, (list, tuple)):
-            stack.extend(v)
-
-
-class StageTimer:
-    """Collects {stage: seconds}; every stage's exit waits for the card."""
-
-    def __init__(self):
-        self.times: dict[str, float] = {}
-
-    @contextlib.contextmanager
-    def stage(self, name: str, sync_value=None):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            _sync(sync_value)
-            self.times[name] = self.times.get(name, 0.0) + time.perf_counter() - t0
-
-    def report(self) -> str:
-        total = sum(self.times.values())
-        lines = [f"{k}: {v*1000:.1f} ms ({v/max(total,1e-12)*100:.0f}%)"
-                 for k, v in sorted(self.times.items(), key=lambda kv: -kv[1])]
-        lines.append(f"total: {total*1000:.1f} ms")
-        return "\n".join(lines)
+SPAN_PREFIX = "cadx."
+_NULL = contextlib.nullcontext()
+_lock = threading.Lock()
+_local = threading.local()        # .stack: the thread's open spans, innermost last
+_totals: collections.Counter = collections.Counter()
+_stats: dict = {}                 # span name -> _Stats
 
 
 @contextlib.contextmanager
@@ -84,20 +57,105 @@ def trace(log_dir: str):
         try:
             yield prof
         finally:
-            _sync()
+            if torch.cuda.is_available() and torch.cuda.is_initialized():
+                torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}_{next(_TRACES)}.json"))
 
 
-def throughput(fn: Callable, *args, iters: int = 10, items_per_call: int = 1):
-    """(items/sec, sec/call): one warm call, then `iters` calls queued
-    back to back and one synchronisation at the end."""
-    _sync(fn(*args))
-    _sync()
-    t0 = time.perf_counter()
-    out = None
-    for _ in range(iters):
-        out = fn(*args)
-    _sync(out)
-    _sync()
-    per_call = (time.perf_counter() - t0) / iters
-    return items_per_call / per_call, per_call
+class _Stats:
+    __slots__ = ("calls", "total_s", "self_s", "counts", "parents")
+
+    def __init__(self):
+        self.calls = 0
+        self.total_s = 0.0
+        self.self_s = 0.0
+        self.counts: collections.Counter = collections.Counter()
+        self.parents: set = set()
+
+
+class _Span:
+    """One open span while the profiler records (see `span`)."""
+    __slots__ = ("name", "rf", "t0", "child_s", "counts")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.rf = torch.profiler.record_function(SPAN_PREFIX + self.name)
+        self.rf.__enter__()
+        self.child_s = 0.0
+        self.counts: collections.Counter = collections.Counter()
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        stack.append(self)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        total = time.perf_counter() - self.t0
+        stack = _local.stack
+        stack.pop()
+        parent = stack[-1] if stack else None
+        if parent is not None:
+            parent.child_s += total
+        with _lock:
+            s = _stats.get(self.name)
+            if s is None:
+                s = _stats[self.name] = _Stats()
+            s.calls += 1
+            s.total_s += total
+            s.self_s += total - self.child_s
+            s.counts.update(self.counts)
+            s.parents.add(parent.name if parent is not None else None)
+        self.rf.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """The program stage `name` as a context manager: a profiler range
+    "cadx.<name>" and per-name stats while a torch.profiler session
+    records, else a shared null context."""
+    if not torch.autograd._profiler_enabled():
+        return _NULL
+    return _Span(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to the counter `name`: to the process's totals, and to every
+    span open on this thread."""
+    with _lock:
+        _totals[name] += n
+    for s in getattr(_local, "stack", ()):
+        s.counts[name] += n
+
+
+def host_sync(device: torch.device, n: int = 1) -> None:
+    """Count n places where the host waits for the card (`host_syncs`):
+    a blocking copy between the card and pageable host memory, or a wait
+    on an event. Nothing for a device other than CUDA."""
+    if device.type == "cuda":
+        count("host_syncs", n)
+
+
+def counts() -> dict:
+    """The process's counter totals since the last `reset`."""
+    with _lock:
+        return dict(_totals)
+
+
+def span_stats() -> dict:
+    """{span name: {"calls", "total_s", "self_s", "counts" (the counts
+    bumped while it was open), "parents" (the names of the spans it was
+    opened inside; None at the top)}} of the spans recorded since the last
+    `reset`."""
+    with _lock:
+        return {k: {"calls": s.calls, "total_s": s.total_s, "self_s": s.self_s,
+                    "counts": dict(s.counts), "parents": set(s.parents)}
+                for k, s in _stats.items()}
+
+
+def reset() -> None:
+    with _lock:
+        _totals.clear()
+        _stats.clear()

@@ -24,6 +24,7 @@ from cadx_tpu_torch.preprocess import cleaner
 from cadx_tpu_torch.ops.threshold import binary_threshold, relative_threshold_value
 from cadx_tpu_torch.synthetic import (pectoral_tile_edge_inputs, synthetic_mammograms,
                                       synthetic_native_mammogram)
+from cadx_tpu_torch.utils import profiling as TProf
 
 pytestmark = pytest.mark.cuda
 
@@ -959,8 +960,9 @@ def test_pair_watershed_kernel_early_stop(dev, rng, hw, max_scan):
     img, mk = _ws_inputs(rng, 2, *hw, dev)
     n = TGS.sweeps_to_fixpoint(img, mk, 256, max_scan)
     assert n < 256
+    before = TProf.counts().get("host_syncs", 0)
     got = KW.marker_watershed(img, mk, max_scan=max_scan)
-    syncs = KW.marker_watershed.host_syncs
+    syncs = TProf.counts().get("host_syncs", 0) - before
     for a, b in zip(got, KW.marker_watershed_reference(img, mk, max_scan=max_scan)):
         _eq(a, b)
     assert syncs <= -(-n // KW.CHECK_EVERY) + 1
@@ -1405,3 +1407,63 @@ def test_reader_fixture_through_the_engine(dev, name):
     fc, cc = cpu_eng.process_single_image(img)
     assert np.array_equal(cg, cc)
     assert fg.shape == fc.shape and float(np.abs(fg - fc).max()) <= 1e-5
+
+
+# ---- the port's host_syncs counter against the trace -----------------------------
+
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaEventSynchronize", "cudaDeviceSynchronize",
+              "cudaMemcpy")
+
+
+def _pipeline_call(dev):
+    from cadx_tpu_torch.pipeline import fused
+
+    cfg = fused.PipelineConfig(image_hw=(256, 256))
+    params = fused.init_pipeline_params(torch.Generator().manual_seed(0), cfg, device=dev)
+    x = torch.from_numpy(synthetic_mammograms(16, 256, seed=5)).to(dev)
+    return "pipeline", lambda: fused.run_pipeline(params, x, cfg)
+
+
+def _featurize_call(dev):
+    from cadx_tpu_torch.models import unet
+    from cadx_tpu_torch.tools import train
+
+    stem = unet.init_resnet_stem(torch.Generator().manual_seed(0)).to(dev)
+    img = synthetic_native_mammogram(1024, 832, seed=4)
+    return "featurize", lambda: train.featurize(stem, img, (32, 32), dev)
+
+
+@pytest.mark.parametrize("make", [_pipeline_call, _featurize_call],
+                         ids=["run_pipeline", "featurize"])
+def test_host_syncs_match_the_trace(dev, make):
+    """`host_syncs` counted inside one traced call's top span equals the
+    synchronising runtime calls the profiler records inside its range
+    (featurize at 1024x832: the pair-form watershed's flag reads too), so
+    no site that blocks the host goes uncounted."""
+    import json
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    span, call = make(dev)
+    call()            # first calls: cached tables and library plans
+    torch.cuda.synchronize()
+    TProf.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh).get("traceEvents", [])
+    top = [e for e in events if e.get("cat") == "user_annotation"
+           and e.get("name") == "cadx." + span]
+    assert len(top) == 1, top
+    a, b = top[0]["ts"], top[0]["ts"] + top[0]["dur"]
+    waits = [e["name"] for e in events if e.get("cat") == "cuda_runtime"
+             and e.get("name") in SYNC_CALLS and a <= e["ts"] <= b]
+    counted = TProf.span_stats()[span]["counts"].get("host_syncs", 0)
+    TProf.reset()
+    assert counted == len(waits) > 0, waits
