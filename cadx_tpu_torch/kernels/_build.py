@@ -63,6 +63,7 @@ _SIGNATURES = {
     "cadx_cleaner_front": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "cadx_largest_component_seeded": (_P, _P, _P, _I, _I, _I, _I, _P),
     "cadx_flood_from": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "cadx_adam_step": (_P,) * 5 + (_I,) + (_F,) * 8 + (_P, _P),
 }
 _LEGACY_SIGNATURES = {
     "cadx_pectoral_tail_one_block": (_P,) * 7 + (_I,) * 7 + (_P,),

@@ -6,9 +6,9 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a):
     python3 chip_smoke.py
 
 Phases, each of which raises on failure (the script then exits nonzero):
-1. build the sixteen CUDA sources from `cadx_tpu_torch/csrc` (the
-   fifteen kernels and conv_leaky's bfloat16 form; one nvcc per source,
-   all at once);
+1. build the seventeen CUDA sources from `cadx_tpu_torch/csrc` (the
+   fifteen kernels, conv_leaky's bfloat16 form and Adam's update; one
+   nvcc per source, all at once);
 2. hold each kernel bit-exact against its plain PyTorch version on the
    card (the plain versions' CCLs run uncapped, max_iters = H*W, since
    those kernels run to the fixpoint; both watershed forms run JAX's
@@ -340,11 +340,20 @@ Phases, each of which raises on failure (the script then exits nonzero):
    steps' ms beside the non-dp calls' (CUDA events, in turns) with the
    card's name and power limit.
 
+`python3 chip_smoke.py --adam-times` (a fresh process, outside the
+phases above) times Adam's update at the advanced classifier's ten
+leaves: the fused kernel, held bit-exact to the plain version first,
+beside the plain version (the former `Adam.step` on the card),
+`torch.optim.Adam(fused=True)` as the library yardstick and the bound,
+28 bytes an element over the HBM rate.
+
 The last line of standard output is {"ok": true, "device": {...}}; the
 line before it is the per-kernel JSON record: the fifteen kernels, the
 packed watershed's form ("watershed_packed", its launches those of phase
-4b's path), which shares watershed.cu, and conv_leaky's bfloat16 form
-("conv_leaky_bf16", its launches those of phase 11's path). Imports
+4b's path), which shares watershed.cu, conv_leaky's bfloat16 form
+("conv_leaky_bf16", its launches those of phase 11's path) and Adam's
+update ("adam", held bit-exact in phase 2, timed by `--adam-times` in a
+fresh process, its launches those of the training path). Imports
 torch, numpy and the port only.
 """
 
@@ -1911,7 +1920,7 @@ def kernel_device_ms(fn, name_part: str, iters: int) -> float | None:
     hold name_part (the wrapper's weight transpose left out); None where
     the profiler kept none."""
     found = [v for k, v in device_ms_by_kernel(fn, iters).items() if name_part in k]
-    return sum(v["ms"] * v["calls"] for v in found) if found else None
+    return sum(v["ms"] for v in found) if found else None
 
 
 def bf16_conv_times() -> int:
@@ -1981,6 +1990,114 @@ def bf16_conv_times() -> int:
         print(json.dumps(row), flush=True)
         rows.append(row)
     print(json.dumps({"card": card, "conv_leaky_bf16": rows}), flush=True)
+    return 0
+
+
+def elementwise_groups_ms(fn, iters: int) -> dict:
+    """Device ms a call of fn by the groups of the training cell's
+    breakdown: PyTorch's vectorized and plain elementwise kernels, and the
+    rest; with the launches a call of each."""
+    groups: dict = {}
+    for e in device_kernels(fn, iters):
+        name = ("vectorized_elementwise_kernel" if "vectorized_elementwise_kernel" in e.key
+                else "elementwise_kernel" if "elementwise_kernel" in e.key else "other")
+        g = groups.setdefault(name, {"calls": 0.0, "ms": 0.0})
+        g["calls"] += e.count / iters
+        g["ms"] += e.self_device_time_total / 1e3 / iters
+    return groups
+
+
+ADAM_HYPER = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8)
+
+
+def advanced_adam_leaves(dev, seed: int):
+    """The advanced classifier's ten parameter tensors (67,179,234 float32)
+    with a gradient and both moments each, seeded on the card: (params,
+    grads, mu, nu)."""
+    from cadx_tpu_torch.models import cnn
+    from cadx_tpu_torch.tools.bench_train import ADVANCED
+
+    shapes = [tuple(p.shape) for p in
+              cnn.init_params(torch.Generator().manual_seed(0), ADVANCED).parameters()]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(shape, scale):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    return ([randn(s, 0.05) for s in shapes], [randn(s, 1e-2) for s in shapes],
+            [randn(s, 1e-3) for s in shapes], [randn(s, 1.0) ** 2 * 1e-5 for s in shapes])
+
+
+def adam_times() -> int:
+    """`--adam-times`: Adam's update at the advanced classifier's ten leaves
+    (67,179,234 float32 parameters, seeded on the card), in a fresh
+    process. First the fused kernel (`kernels/adam.py::adam_update`) and
+    the plain version (`adam_update_reference`, the former `Adam.step`)
+    take one step from the same state and must agree bit for bit; then
+    CUDA events in turns plain, library, kernel, kernel, library, plain
+    and profiler device time (a call's kernels summed, the library's own
+    kernels alone, and the plain version's by elementwise group), beside `torch.optim.Adam(fused=True)`, one
+    PyTorch call, as the library yardstick (the port never calls it), and
+    the bound: 28 bytes an element (p, g, mu, nu in; p, mu, nu out) over
+    the HBM rate. Prints one JSON line."""
+    if not torch.cuda.is_available():
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from cadx_tpu_torch.kernels import adam as KA
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    params, grads, mu, nu = advanced_adam_leaves(dev, 5)
+    n = sum(p.numel() for p in params)
+    hyper = ADAM_HYPER
+    copies = [[t.clone() for t in ts] for ts in (params, mu, nu)]
+    KA.adam_update(params, grads, mu, nu, 100, **hyper)
+    KA.adam_update_reference(copies[0], grads, copies[1], copies[2], 100, **hyper)
+    torch.cuda.synchronize()
+    for got, want in zip(params + mu + nu, copies[0] + copies[1] + copies[2]):
+        if not torch.equal(got, want):
+            raise AssertionError("the fused Adam kernel disagrees with its plain version")
+    del copies
+    lib_params = [p.clone().requires_grad_() for p in params]
+    for p, g in zip(lib_params, grads):
+        p.grad = g.clone()
+    library = torch.optim.Adam(lib_params, lr=1e-3, betas=(0.9, 0.999), eps=1e-8, fused=True)
+    step = [100]
+
+    def kernel():
+        step[0] += 1
+        KA.adam_update(params, grads, mu, nu, step[0], **hyper)
+
+    def plain():
+        step[0] += 1
+        KA.adam_update_reference(params, grads, mu, nu, step[0], **hyper)
+
+    k_ms, p_ms, l_ms, runs = turns_ms(kernel, plain, 20, 5, library.step, warmup=2)
+    # the library's kernels alone: its profiler record also holds the
+    # `Optimizer.step` annotation as a device range
+    def lib_ms():
+        return kernel_device_ms(library.step, "multi_tensor_apply_kernel", 10)
+
+    dv = [device_ms(plain, 5), lib_ms(), device_ms(kernel, 10), device_ms(kernel, 10),
+          lib_ms(), device_ms(plain, 5)]
+    launches = KA.adam_update.launches
+    kernel()
+    torch.cuda.synchronize()
+    bound_ms = 28 * n / HBM_BYTES_PER_S * 1e3
+    row = {"kernel": "adam", "shape": f"advanced classifier, {len(params)} leaves, {n} "
+           "parameters", "card": card, "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+           "device_ms": captured_mean(dv[2], dv[3]),
+           "plain_device_ms": captured_mean(dv[0], dv[5]),
+           "library_device_ms": captured_mean(dv[1], dv[4]),
+           "bound_ms": bound_ms, "bound_by": "bytes",
+           "launches_a_step": KA.adam_update.launches - launches,
+           "runs_ms": runs, "device_runs_ms": dv,
+           "device_ms_by_kernel": device_ms_by_kernel(kernel),
+           "plain_device_ms_by_group": elementwise_groups_ms(plain, 5),
+           "library_device_ms_by_kernel": device_ms_by_kernel(library.step)}
+    kd = row["device_ms"]
+    row["roofline_pct"] = None if kd is None else 100 * bound_ms / kd
+    print(json.dumps(row), flush=True)
     return 0
 
 
@@ -2650,6 +2767,7 @@ def gloo_rank(device: str) -> dict:
 
 def kernel_wrappers() -> dict:
     """Each kernel's wrapper (its `launches` counts), by the record's name."""
+    from cadx_tpu_torch.kernels import adam as KA
     from cadx_tpu_torch.kernels import batchnorm as KBN
     from cadx_tpu_torch.kernels import ccl as KC
     from cadx_tpu_torch.kernels import cleaner_front as KF
@@ -2674,7 +2792,7 @@ def kernel_wrappers() -> dict:
             "cleaner_front": KF.cleaner_front,
             "largest_component_seeded": KL.largest_component_seeded,
             "flood": KFl.flood_from, "watershed_packed": KW.packed_form,
-            "conv_leaky_bf16": KCL.conv_leaky_bf16}
+            "conv_leaky_bf16": KCL.conv_leaky_bf16, "adam": KA.adam_update}
 
 
 def counters(wrappers: dict):
@@ -2796,7 +2914,7 @@ def data_parallel_phase(dev, card: str, config, params, batch, eng, wrappers,
             model, state, d_losses = counted(
                 f"local mesh: dp {name} B={b}, 2 steps",
                 lambda: two_steps(cfg, batches, opt, lr, dev, update, init),
-                {"conv_leaky": 8, "pool": 8})
+                {"conv_leaky": 8, "pool": 8, "adam": 4 if opt == "adam" else 0})
             if opt == "sgd":
                 checks.append((f"{what}: parameters vs one device", params_err(model, single),
                                1e-5))
@@ -2977,6 +3095,7 @@ def main() -> int:
     from cadx_tpu_torch.data import dicom as TDicom
     from cadx_tpu_torch.data import imageio, native_loader
     from cadx_tpu_torch.kernels import _build
+    from cadx_tpu_torch.kernels import adam as KA
     from cadx_tpu_torch.kernels import batchnorm as KBN
     from cadx_tpu_torch.kernels import ccl as KC
     from cadx_tpu_torch.kernels import cleaner_front as KF
@@ -3028,6 +3147,7 @@ def main() -> int:
     sources["largest_component_seeded"] = (KL.SEEDED_SOURCE, KL.SEEDED_REPLACES)
     sources["watershed_packed"] = (KW.SOURCE, KW.REPLACES)
     sources["conv_leaky_bf16"] = (KCL.BF16_SOURCE, KCL.REPLACES)
+    sources["adam"] = (KA.SOURCE, KA.REPLACES)
     wrappers = kernel_wrappers()
     zero_counts, read_counts = counters(wrappers)
 
@@ -3662,6 +3782,17 @@ def main() -> int:
     agree_twice("gradcam_tail", lambda: KGT.gradcam_tail(*tail_in, (HW, HW)), tail_p,
                 f"B={BATCH} (6, 6, 64) -> {HW}x{HW}, {KGT.band_rows(BATCH, HW)} rows a band",
                 ("overlay", "heatmap"))
+    # Adam's update at the advanced classifier's ten leaves, one step (the
+    # 100th) from the same state, each tensor's elements end to end
+    a_params, a_grads, a_mu, a_nu = advanced_adam_leaves(dev, 7)
+    a_plain = [[t.clone() for t in ts] for ts in (a_params, a_mu, a_nu)]
+    KA.adam_update(a_params, a_grads, a_mu, a_nu, 100, **ADAM_HYPER)
+    KA.adam_update_reference(a_plain[0], a_grads, a_plain[1], a_plain[2], 100, **ADAM_HYPER)
+    for part, got, want in zip(("parameters", "mu", "nu"), (a_params, a_mu, a_nu), a_plain):
+        agree("adam", torch.cat([t.reshape(-1) for t in got]),
+              torch.cat([t.reshape(-1) for t in want]),
+              f"{part}, the advanced classifier's {len(got)} leaves, step 100")
+    del a_params, a_grads, a_mu, a_nu, a_plain
 
     phase_done("2")
 
@@ -3682,7 +3813,7 @@ def main() -> int:
                 "upsample": 0, "batchnorm": 0, "jet_blend": 0,
                 "gradcam_tail": 2 * N_MAIN_BATCHES, "cleaner_front": N_MAIN_BATCHES,
                 "largest_component_seeded": 0, "flood": 0, "watershed_packed": 0,
-                "conv_leaky_bf16": 0}
+                "conv_leaky_bf16": 0, "adam": 0}
     print(f"fused pipeline: {N_MAIN_BATCHES} batches of B={BATCH} at {HW}x{HW}, "
           f"launches {pipe_launches}", flush=True)
     if pipe_launches != expected:
@@ -3838,7 +3969,7 @@ def main() -> int:
                 "conv_leaky": 2 * stacks, "pool": 2 * stacks, "upsample": 0,
                 "batchnorm": 0, "jet_blend": 2 * 2, "gradcam_tail": 0, "cleaner_front": 4,
                 "largest_component_seeded": 0, "flood": 0, "watershed_packed": 0,
-                "conv_leaky_bf16": 0}
+                "conv_leaky_bf16": 0, "adam": 0}
     print(f"serving path: 3 uploads, 2 pipelines, {N_BATCHED} batched requests in "
           f"{n_flushes} flushes, classify_batch B={N_BATCHED}; launches {serve_launches}",
           flush=True)
@@ -4055,12 +4186,13 @@ def main() -> int:
     train_s = time.perf_counter() - t0
     # a forward is one conv stack of two conv blocks: per epoch, basic 64/8
     # steps + 1 test batch, advanced 64/32 + 1; the U-Net's forward has 3
-    # pools and 3 upsamples: 32/8 steps + 1 validation forward an epoch
+    # pools and 3 upsamples: 32/8 steps + 1 validation forward an epoch.
+    # One Adam launch a step of the advanced classifier and of the U-Net
     n_stacks = 2 * (8 + 1) + 2 * (2 + 1)
     n_unet = 2 * (4 + 1)
     expected = {name: 0 for name in wrappers}
     expected.update(conv_leaky=2 * n_stacks, pool=2 * n_stacks + 3 * n_unet,
-                    upsample=3 * n_unet)
+                    upsample=3 * n_unet, adam=2 * 2 + 2 * 4)
     print(f"training: basic SGD and advanced Adam 2 epochs on 64/16, U-Net 2 epochs on "
           f"32 images at {HW}x{HW}, {train_s:.1f} s; launches {train_launches}", flush=True)
     if train_launches != expected:
@@ -4721,6 +4853,22 @@ def main() -> int:
     times["watershed_packed"] = (wp["ms"], wp["plain_ms"], None)
     bounds["watershed_packed"] = (wp["bound_ms"], wp["bound_by"])
     dev_times["watershed_packed"] = (wp["device_ms"], None, None)
+    # Adam's update at the advanced classifier's leaves, from a fresh process
+    # (adam_times), beside torch.optim.Adam(fused=True) as the library
+    adam_run = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--adam-times"],
+                              capture_output=True, text=True, timeout=600)
+    if adam_run.returncode != 0:
+        raise AssertionError(f"the Adam timing run failed:\n{adam_run.stderr[-4000:]}")
+    ad = json.loads(adam_run.stdout.strip().splitlines()[-1])
+    times["adam"] = (ad["ms"], ad["plain_ms"], ad["library_ms"])
+    bounds["adam"] = (ad["bound_ms"], ad["bound_by"])
+    dev_times["adam"] = (ad["device_ms"], ad["plain_device_ms"], ad["library_device_ms"])
+    compared["adam"] = [ad]
+    print(f"time adam {ad['shape']}: device {ms_text(ad['device_ms'])} ms, events "
+          f"{ad['ms']:.4f} ({ad['launches_a_step']} launch); plain {ms_text(ad['plain_device_ms'])}"
+          f", events {ad['plain_ms']:.4f}; torch.optim.Adam(fused=True) "
+          f"{ms_text(ad['library_device_ms'])}, events {ad['library_ms']:.4f}; bound "
+          f"{ad['bound_ms']:.4f} by {ad['bound_by']} on {card}", flush=True)
     for row in pw["watershed_packed"]:
         old = (f", the rounds form to the fixpoint device {ms_text(row['old_device_ms'])}, "
                f"events {row['old_ms']:.4f} ({row['old_rounds']} rounds; its record "
@@ -5019,9 +5167,11 @@ def main() -> int:
           f"loss bf16 {loss_b}, float32 {loss_f} (apart after Adam's first update); one basic "
           f"SGD epoch (B=8): loss bf16 {basic_b} vs float32 {basic_f} (tolerance 2e-3); "
           f"launches of the bf16 Adam epoch {bf16_launches}", flush=True)
-    # a conv stack (two conv blocks) a step and one for the test batch
+    # a conv stack (two conv blocks) a step and one for the test batch; an
+    # Adam launch a step (parameters and moments stay float32)
     want11 = {name: 0 for name in wrappers}
-    want11.update(conv_leaky_bf16=2 * (n11 // 32), conv_leaky=2, pool=2 * (n11 // 32 + 1))
+    want11.update(conv_leaky_bf16=2 * (n11 // 32), conv_leaky=2, pool=2 * (n11 // 32 + 1),
+                  adam=n11 // 32)
     if bf16_launches != want11:
         raise AssertionError(f"bf16 training launches {bf16_launches}, expected {want11}")
     if not (abs(first_b - first_f) <= 1e-3 and logit_err <= 2e-2 * logit_top
@@ -5191,7 +5341,7 @@ def main() -> int:
                 "gradcam_tail": "pipeline", "cleaner_front": "training_cli",
                 "largest_component_seeded": "training_cli",
                 "watershed_packed": "even_kernel_process",
-                "conv_leaky_bf16": "training_bf16"}
+                "conv_leaky_bf16": "training_bf16", "adam": "training"}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1],
@@ -5227,4 +5377,6 @@ if __name__ == "__main__":
         sys.exit(bf16_conv_times())
     if sys.argv[1:] == ["--data-parallel"]:
         sys.exit(data_parallel_only())
+    if sys.argv[1:] == ["--adam-times"]:
+        sys.exit(adam_times())
     sys.exit(main())
