@@ -157,7 +157,12 @@ def convert_tiny_unet_params(params: dict, device=None) -> unet.TinyUNet:
 
 def convert_unet_params(params: dict, config: unet.UNetConfig,
                         device=None) -> unet.UNet:
-    """A JAX `init_unet` tree -> the port's UNet."""
+    """A JAX `init_unet` tree -> the port's UNet. The JAX package has no
+    up-convolution, so `config.up` must be "nearest"."""
+    if config.up != "nearest":
+        raise ValueError(f"the JAX package's U-Net upsamples by nearest neighbour; no JAX "
+                         f"tree holds the up-convolutions of up={config.up!r}")
+
     def double(p):
         return unet.DoubleConv(_conv(p["conv1"]), _conv(p["conv2"]))
 

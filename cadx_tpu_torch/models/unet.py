@@ -7,7 +7,12 @@ Port of `cadx_tpu/models/unet.py`:
   conv) -> 1x1 sigmoid, trained on MSE; its bottleneck is a feature
   extractor.
 - UNet: encoder-decoder with skip concatenations (BASELINE.json "U-Net
-  ROI segmentation"), trained by `train/segmentation.py`.
+  ROI segmentation"), trained by `train/segmentation.py`. Its decoder
+  upsamples by nearest neighbour and concatenates c + f channels, as
+  JAX's (`up="nearest"`), or, with `up="transpose"`, as Ronneberger et
+  al. (2015, arXiv:1505.04597, Fig. 1): a 2x2, stride-2 up-convolution
+  that halves the channels (2f -> f), concatenated with the skip (2f
+  channels). The JAX package has no up-convolution.
 - ResNetStem: conv1 of the resnet encoder, 7x7, stride 2, pad 3, no bias,
   1 -> 64 channels, the serving path's feature extractor
   (`encoder_first_features`); the rest of a converted or imported encoder
@@ -25,7 +30,10 @@ maximum's, as JAX's `reduce_window` VJP) and the upsamples through the
 upsample kernel. Weights are drawn on the CPU from a `torch.Generator`
 with the JAX package's distributions: glorot-uniform (Keras default) for
 the tiny U-Net and the U-Net's 1x1 head, He-normal for the U-Net's 3x3
-convs, zero biases.
+convs, zero biases. The up-convolutions, which JAX lacks, are He-normal
+over one output's incoming taps (std sqrt(2 / c): a 2x2 stride-2
+up-convolution gives each output one tap of c channels), zero biases,
+drawn after every other tensor so that a nearest U-Net draws as JAX's.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from torch import nn
 from cadx_tpu_torch.kernels.batchnorm import batchnorm
 from cadx_tpu_torch.ops.conv import conv2d
 from cadx_tpu_torch.ops.pool import max_pool_first, upsample_nearest
+from cadx_tpu_torch.utils.profiling import span
 
 RESNET34_LAYERS = (3, 4, 6, 3)
 RESNET34_WIDTHS = (64, 128, 256, 512)
@@ -212,6 +221,11 @@ class UNetConfig:
     out_channels: int = 1
     features: tuple[int, ...] = (16, 32, 64, 128)  # per encoder level
     final_activation: str = "sigmoid"  # "sigmoid" | "none"
+    up: str = "nearest"  # "nearest" (JAX's) | "transpose" (Ronneberger's)
+
+    def __post_init__(self):
+        if self.up not in ("nearest", "transpose"):
+            raise ValueError(f"UNetConfig.up must be 'nearest' or 'transpose', got {self.up!r}")
 
 
 class DoubleConv(nn.Module):
@@ -223,15 +237,31 @@ class DoubleConv(nn.Module):
         return torch.relu(self.conv2(torch.relu(self.conv1(x))))
 
 
+class UpConv(nn.Module):
+    """A 2x2, stride-2 transposed conv, weight (C, F, 2, 2), bias (F,)."""
+
+    def __init__(self, weight: torch.Tensor, bias: torch.Tensor):
+        super().__init__()
+        self.weight = nn.Parameter(weight)
+        self.bias = nn.Parameter(bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(x, self.weight, self.bias, stride=2)
+
+
 class UNet(nn.Module):
+    """`up`: the decoder's up-convolutions, one a level in `dec`'s order,
+    where `config.up` is "transpose"; none where it is "nearest"."""
+
     def __init__(self, config: UNetConfig, enc: list, bottleneck: DoubleConv,
-                 dec: list, head: Conv):
+                 dec: list, head: Conv, up: list | None = None):
         super().__init__()
         self.config = config
         self.enc = nn.ModuleList(enc)
         self.bottleneck = bottleneck
         self.dec = nn.ModuleList(dec)
         self.head = head
+        self.up = nn.ModuleList(up or [])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return unet_apply(self, x)
@@ -247,12 +277,16 @@ def init_unet(generator: torch.Generator, config: UNetConfig, device=None) -> UN
         cin = f
     bottleneck = double(cin, config.features[-1])
     cin = config.features[-1]
-    dec = []
+    transpose = config.up == "transpose"
+    dec, up_shapes = [], []
     for f in reversed(config.features[:-1]):
-        dec.append(double(cin + f, f))
+        dec.append(double(2 * f if transpose else cin + f, f))
+        up_shapes.append((cin, f))
         cin = f
     head = _glorot_conv(generator, 1, cin, config.out_channels)
-    return UNet(config, enc, bottleneck, dec, head).to(device)
+    up = [UpConv(torch.randn((c, f, 2, 2), generator=generator) * math.sqrt(2.0 / c),
+                 torch.zeros(f)) for c, f in up_shapes] if transpose else None
+    return UNet(config, enc, bottleneck, dec, head, up).to(device)
 
 
 def unet_apply(model: UNet, x: torch.Tensor) -> torch.Tensor:
@@ -260,14 +294,17 @@ def unet_apply(model: UNet, x: torch.Tensor) -> torch.Tensor:
     divisible by 2 ** (len(features) - 1)."""
     x = _nchw(x)
     skips = []
-    for enc in model.enc:
-        x = enc(x)
-        skips.append(x)
-        x = max_pool_first(x)
-    x = model.bottleneck(x)
-    for dec, skip in zip(model.dec, reversed(skips)):
-        x = dec(torch.cat([upsample_nearest(x, 2), skip], dim=1))
-    x = model.head(x)
-    if model.config.final_activation == "sigmoid":
-        x = torch.sigmoid(x)
+    with span("unet.encode"):
+        for enc in model.enc:
+            x = enc(x)
+            skips.append(x)
+            x = max_pool_first(x)
+        x = model.bottleneck(x)
+    with span("unet.decode"):
+        for i, (dec, skip) in enumerate(zip(model.dec, reversed(skips))):
+            up = model.up[i](x) if model.config.up == "transpose" else upsample_nearest(x, 2)
+            x = dec(torch.cat([up, skip], dim=1))
+        x = model.head(x)
+        if model.config.final_activation == "sigmoid":
+            x = torch.sigmoid(x)
     return _nhwc(x)

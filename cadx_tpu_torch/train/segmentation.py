@@ -3,7 +3,8 @@
 Port of `cadx_tpu/train/segmentation.py` (BASELINE.json "U-Net ROI
 segmentation"): Adam on Dice + BCE, batched, with IoU/Dice of the
 thresholded predictions on a validation set after every epoch. The
-forward runs the pool and upsample kernels on the card. With a mesh the
+forward runs the pool and upsample kernels on the card (a U-Net with
+`up="transpose"` upsamples by cuDNN's transposed conv instead). With a mesh the
 batches shard over its data axis (`parallel.data_parallel.dp_step`):
 each shard's loss is its share of the batch's, and the gradients are
 summed over the axis.
@@ -22,6 +23,7 @@ from cadx_tpu_torch.device import resolve
 from cadx_tpu_torch.models import unet
 from cadx_tpu_torch.precision import full_fp32
 from cadx_tpu_torch.train import optim
+from cadx_tpu_torch.utils.profiling import span
 
 
 def dice_bce_loss(model: unet.UNet, x: torch.Tensor, y: torch.Tensor,
@@ -57,8 +59,10 @@ def iou_dice(pred_mask: torch.Tensor, true_mask: torch.Tensor, eps: float = 1e-6
 
 def make_seg_train_step(tx: optim.Adam, mesh=None):
     """`step(model, opt_state, x, y)`: one Adam update of the Dice + BCE
-    loss in place; returns (opt_state, loss). With a mesh the batch's
-    rows shard over its data axis."""
+    loss in place; returns (opt_state, loss). Without a mesh it runs in the
+    spans `train.step` ⊃ `train.forward`, `.backward`, `.optimizer`, as
+    `train/step.py`'s steps do. With a mesh the batch's rows shard over its
+    data axis."""
     if mesh is not None:
         from cadx_tpu_torch.parallel import data_parallel as dp
         from cadx_tpu_torch.parallel.mesh import DATA_AXIS, row_slices
@@ -77,10 +81,15 @@ def make_seg_train_step(tx: optim.Adam, mesh=None):
 
     def step(model, opt_state, x, y):
         params = list(model.parameters())
-        with torch.enable_grad(), full_fp32():
-            loss = dice_bce_loss(model, x, y)
-            grads = torch.autograd.grad(loss, params)
-        return tx.step(params, grads, opt_state), loss.detach()
+        with span("train.step"):
+            with torch.enable_grad(), full_fp32():
+                with span("train.forward"):
+                    loss = dice_bce_loss(model, x, y)
+                with span("train.backward"):
+                    grads = torch.autograd.grad(loss, params)
+            with span("train.optimizer"):
+                opt_state = tx.step(params, grads, opt_state)
+        return opt_state, loss.detach()
 
     return step
 
