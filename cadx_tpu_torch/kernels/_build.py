@@ -56,6 +56,7 @@ _SIGNATURES = {
     "cadx_conv_leaky": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "cadx_conv_leaky_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "cadx_pool": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "cadx_pool_backward": (_P,) * 4 + (_I,) * 8 + (_L,) * 4 + (_P,),
     "cadx_upsample_nearest": (_P, _P, _I, _I, _I, _I, _I, _P),
     "cadx_batchnorm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     "cadx_jet_blend": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),

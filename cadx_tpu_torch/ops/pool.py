@@ -2,10 +2,14 @@
 
 Port of `cadx_tpu/ops/pool.py`, in the port's (B, C, H, W) layout (any
 leading dims; the window runs over the last two). The forwards run the
-hand-written kernels of `kernels/pool.py` and `kernels/upsample.py` (their
-plain versions on CPU tensors); the backwards are plain tensor ops, as
-JAX computes them in XLA. Windows are non-overlapping and trailing rows
-and columns that do not fill one are dropped; they get zero gradient.
+hand-written kernels of `kernels/pool.py` and `kernels/upsample.py`, and
+so does the max pools' backward (`pool_backward`); each takes its plain
+version on CPU tensors. The other backwards are plain tensor ops, as JAX
+computes them in XLA. Windows are non-overlapping and trailing rows and
+columns that do not fill one are dropped; they get zero gradient. The
+counter `pool_bwd_kernel` counts the max pools whose backward the graph
+records on the card with an input the backward kernel takes: a node
+recorded, to be one launch of that kernel if the loss reaches it.
 
 - `max_pool_ties`: the classifier's pool. Its backward gives the full
   upstream gradient to every element equal to its window max (the
@@ -20,45 +24,35 @@ from __future__ import annotations
 
 import torch
 
-from cadx_tpu_torch.kernels.pool import pool
+from cadx_tpu_torch.kernels.pool import (backward_routed, channels_last, pool, pool_backward,
+                                         unwindow, windows)
 from cadx_tpu_torch.kernels.upsample import upsample_nearest as _upsample_kernel
-
-
-def _windows(x: torch.Tensor, size: int) -> torch.Tensor:
-    """(..., H, W) -> (..., oh, ow, size * size), the cropped windows in
-    raster order."""
-    h, w = x.shape[-2:]
-    oh, ow = h // size, w // size
-    xr = x[..., :oh * size, :ow * size].reshape(*x.shape[:-2], oh, size, ow, size)
-    return xr.movedim(-3, -2).reshape(*x.shape[:-2], oh, ow, size * size)
-
-
-def _unwindow(core: torch.Tensor, like: torch.Tensor, size: int) -> torch.Tensor:
-    """Inverse of `_windows`, zero in the dropped rows and columns."""
-    *lead, oh, ow, _ = core.shape
-    core = core.reshape(*lead, oh, ow, size, size).movedim(-2, -3)
-    out = torch.zeros_like(like)
-    out[..., :oh * size, :ow * size] = core.reshape(*lead, oh * size, ow * size)
-    return out
+from cadx_tpu_torch.utils.profiling import count
 
 
 class _MaxPool(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, size: int, first: bool):
-        out = pool(x.contiguous(), size, "max")
-        ctx.save_for_backward(x, out)
+        xc = x.contiguous()
+        out = pool(xc, size, "max")
+        # a channels-last x is read as it is: its contiguous copy dies here
+        ctx.save_for_backward(x if channels_last(x) else xc, out)
         ctx.size, ctx.first = size, first
         return out
 
     @staticmethod
     def backward(ctx, g):
         x, out = ctx.saved_tensors
-        hit = _windows(x, ctx.size) == out[..., None]
-        if ctx.first:
-            hit = hit & (torch.cumsum(hit.to(torch.int32), dim=-1) == 1)
-        core = torch.where(hit, g[..., None], torch.zeros((), dtype=g.dtype,
-                                                          device=g.device))
-        return _unwindow(core.to(x.dtype), x, ctx.size), None, None
+        return pool_backward(x, out, g, ctx.size, ctx.first), None, None
+
+
+def _max_pool(x: torch.Tensor, size: int, first: bool) -> torch.Tensor:
+    # autograd runs a CUDA node's backward on its own thread, outside the
+    # caller's spans: count the kernel's backward here, where the graph
+    # records the node
+    if backward_routed(x) and x.requires_grad and torch.is_grad_enabled():
+        count("pool_bwd_kernel")
+    return _MaxPool.apply(x, size, first)
 
 
 class _AvgPool(torch.autograd.Function):
@@ -73,7 +67,7 @@ class _AvgPool(torch.autograd.Function):
         (x,) = ctx.saved_tensors
         n = ctx.size * ctx.size
         core = (g / n)[..., None].expand(*g.shape, n)
-        return _unwindow(core.to(x.dtype), x, ctx.size), None
+        return unwindow(core.to(x.dtype), x, ctx.size), None
 
 
 class _Upsample(torch.autograd.Function):
@@ -92,21 +86,21 @@ class _Upsample(torch.autograd.Function):
 def max_pool_ties(x: torch.Tensor, size: int = 2) -> torch.Tensor:
     """(..., H, W) -> (..., H // size, W // size) window max; the gradient
     goes in full to every tied maximum."""
-    return _MaxPool.apply(x, size, False)
+    return _max_pool(x, size, False)
 
 
 def max_pool_first(x: torch.Tensor, size: int = 2) -> torch.Tensor:
     """The same forward; the gradient goes to the first maximum of each
     window in raster order."""
-    return _MaxPool.apply(x, size, True)
+    return _max_pool(x, size, True)
 
 
 def max_pool_with_switches(x: torch.Tensor, size: int = 2):
     """(pooled, switches): switches has x's shape and is True at every
     element equal to its window max (False in the dropped remainder)."""
     out = pool(x.contiguous(), size, "max")
-    hit = _windows(x, size) == out[..., None]
-    return out, _unwindow(hit, torch.zeros_like(x, dtype=torch.bool), size)
+    hit = windows(x, size) == out[..., None]
+    return out, unwindow(hit, torch.zeros_like(x, dtype=torch.bool), size)
 
 
 def avg_pool(x: torch.Tensor, size: int = 3) -> torch.Tensor:

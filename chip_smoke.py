@@ -334,8 +334,8 @@ Phases, each of which raises on failure (the script then exits nonzero):
    2-rank gloo world spawned on cuda:0 (`run_world`, torch.multiprocessing;
    each rank loads the library phase 1 built and runs (a)'s dp pipeline
    and dp SGD checks, the ranks' replicas bit-identical), each world
-   with its own timeout. The launch counters of rows 2, 3, 8, 10, 11 and
-   12 of every run are printed and held to one set a shard (the record's
+   with its own timeout. The launch counters of rows 2, 3, 8, 10, 11, 12
+   and 17 of every run are printed and held to one set a shard (the record's
    "data_parallel" path: (a)'s windows); the dp pipeline's and the dp
    steps' ms beside the non-dp calls' (CUDA events, in turns) with the
    card's name and power limit.
@@ -345,16 +345,28 @@ phases above) times Adam's update at the advanced classifier's ten
 leaves: the fused kernel, held bit-exact to the plain version first,
 beside the plain version (the former `Adam.step` on the card),
 `torch.optim.Adam(fused=True)` as the library yardstick and the bound,
-28 bytes an element over the HBM rate.
+28 bytes an element over the HBM rate. `python3 chip_smoke.py
+--pool-bwd-times` (a fresh process, run by phase 8 too) holds the max
+pools' backward kernel bit-exact to its plain version at the training
+paths' six pools (the U-Net's four at B=8 512², level 0 also with the
+channels-last x a step hands it, the advanced classifier's two at B=32,
+the second also with the channels-last gradient its head gives it) and
+times it beside the plain version, F.max_pool2d's backward (first rule)
+and the bound.
 
 The last line of standard output is {"ok": true, "device": {...}}; the
 line before it is the per-kernel JSON record: the fifteen kernels, the
 packed watershed's form ("watershed_packed", its launches those of phase
 4b's path), which shares watershed.cu, conv_leaky's bfloat16 form
-("conv_leaky_bf16", its launches those of phase 11's path) and Adam's
+("conv_leaky_bf16", its launches those of phase 11's path), Adam's
 update ("adam", held bit-exact in phase 2, timed by `--adam-times` in a
-fresh process, its launches those of the training path). Imports
-torch, numpy and the port only.
+fresh process, its launches those of the training path) and the max
+pools' backward ("pool_backward", which shares pool.cu; held bit-exact
+and timed by `--pool-bwd-times`, its figures those of U-Net level 0 with
+a channels-last x, its launches those of the training path, held exactly
+on every counted path: one a max pool of a training step, none in a
+forward without a recorded graph). Imports torch, numpy and the port
+only.
 """
 
 from __future__ import annotations
@@ -2101,6 +2113,105 @@ def adam_times() -> int:
     return 0
 
 
+# the max pools whose backward a training step runs on the card: the U-Net's
+# four levels (first-maximum rule) at the segmentation cell's B=8, 512² (level
+# 0 also with its channels-last x, the skip as cuDNN hands it over), and the
+# advanced classifier's two (tie rule) at B=32, the second also with the
+# channels-last gradient that the head's (h, w, C) flatten hands it:
+# (name, first, shape, x channels-last, g channels-last)
+POOL_BWD_SHAPES = (("U-Net level 0, B=8", True, (8, 64, 512, 512), False, False),
+                   ("U-Net level 0, B=8", True, (8, 64, 512, 512), True, False),
+                   ("U-Net level 1, B=8", True, (8, 128, 256, 256), False, False),
+                   ("U-Net level 2, B=8", True, (8, 256, 128, 128), False, False),
+                   ("U-Net level 3, B=8", True, (8, 512, 64, 64), False, False),
+                   ("classifier pool 1, B=32", False, (32, 32, 256, 256), False, False),
+                   ("classifier pool 2, B=32", False, (32, 64, 128, 128), False, False),
+                   ("classifier pool 2, B=32", False, (32, 64, 128, 128), False, True))
+
+
+def pool_bwd_times() -> int:
+    """`--pool-bwd-times`: the max pools' backward kernel
+    (`kernels/pool.py::pool_backward`) at `POOL_BWD_SHAPES`, in a fresh
+    process. At each shape the kernel's dx is held bit for bit to the plain
+    version's (`pool_backward_reference`, the tensor ops the port ran
+    before); then CUDA events in turns plain, library, kernel, kernel,
+    library, plain, and profiler device time, beside the bound (x and dx
+    once, the max and g once, over the HBM rate) and, for the first rule
+    with a contiguous g, `max_pool2d_with_indices_backward` (the backward
+    of `F.max_pool2d`, its indices from its own forward) as the library
+    yardstick (the port never calls it). Prints a JSON line a shape, then
+    one with all rows."""
+    if not torch.cuda.is_available():
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch.nn.functional as F
+
+    from cadx_tpu_torch.kernels import pool as KPool
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rows = []
+    for name, first, shape, x_nhwc, g_nhwc in POOL_BWD_SHAPES:
+        x = torch.relu(torch.randn(shape, generator=gen, device=dev))  # ReLU zeros tie
+        if x_nhwc:
+            x = x.contiguous(memory_format=torch.channels_last)
+        out = KPool.pool(x.contiguous(), 2, "max")
+        b, c, oh, ow = out.shape
+        g = (torch.randn((b, oh, ow, c), generator=gen, device=dev).permute(0, 3, 1, 2)
+             if g_nhwc else torch.randn(out.shape, generator=gen, device=dev))
+        got = KPool.pool_backward(x, out, g, 2, first)
+        want = KPool.pool_backward_reference(x, out, g, 2, first)
+        torch.cuda.synchronize()
+        if got.stride() != x.stride() or not torch.equal(got.view(torch.int32),
+                                                         want.view(torch.int32)):
+            raise AssertionError(f"the pool backward kernel differs from its plain version at "
+                                 f"{name} {shape}")
+        del want
+
+        def kernel():
+            KPool.pool_backward(x, out, g, 2, first)
+
+        def plain():
+            KPool.pool_backward_reference(x, out, g, 2, first)
+
+        library = None
+        if first and not g_nhwc:
+            _, idx = F.max_pool2d(x, 2, return_indices=True)
+
+            def library():
+                torch.ops.aten.max_pool2d_with_indices_backward(g, x, [2, 2], [2, 2], [0, 0],
+                                                                [1, 1], False, idx)
+
+        k_ms, p_ms, l_ms, runs = turns_ms(kernel, plain, 20, 2, library)
+        dv = [device_ms(plain, 2), device_ms(library, 10) if library else None,
+              device_ms(kernel, 10), device_ms(kernel, 10),
+              device_ms(library, 10) if library else None, device_ms(plain, 2)]
+        bound_ms = (2 * nbytes(x) + nbytes(out) + nbytes(g)) / HBM_BYTES_PER_S * 1e3
+        kd = captured_mean(dv[2], dv[3])
+        row = {"kernel": "pool_backward", "shape": f"{name} {tuple(shape)} float32",
+               "rule": "first" if first else "ties",
+               "x_layout": "channels_last" if x_nhwc else "contiguous",
+               "g_layout": "channels_last" if g_nhwc else "contiguous", "card": card,
+               "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "device_ms": kd,
+               "plain_device_ms": captured_mean(dv[0], dv[5]),
+               "library_device_ms": captured_mean(dv[1], dv[4]),
+               "bound_ms": bound_ms, "bound_by": "bytes",
+               "roofline_pct": None if kd is None else 100 * bound_ms / kd,
+               "events_roofline_pct": 100 * bound_ms / k_ms, "max_abs_err": 0.0,
+               "bit_exact": True, "runs_ms": runs, "device_runs_ms": dv}
+        if library:
+            row["library_equal"] = bool(torch.equal(
+                got, torch.ops.aten.max_pool2d_with_indices_backward(
+                    g, x, [2, 2], [2, 2], [0, 0], [1, 1], False, idx)))
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del x, out, g, got
+        torch.cuda.empty_cache()
+    print(json.dumps({"pool_backward": rows}), flush=True)
+    return 0
+
+
 def bmp24_bytes(bgr: np.ndarray) -> bytes:
     """A bottom-up 24-bit BMP (BITMAPINFOHEADER) of (h, w, 3) BGR bytes."""
     h, w, _ = bgr.shape
@@ -2486,10 +2597,11 @@ def front_phase(uploads: dict, engine_p50: dict, zero_counts, read_counts, card:
     return front
 
 
-# phase 13: the kernels a data-parallel shard runs (rows 2, 3, 8, 10, 11
-# and 12 of PERF.md's table), and each's launches a shard of one
+# phase 13: the kernels a data-parallel shard runs (rows 2, 3, 8, 10, 11,
+# 12 and 17 of PERF.md's table), and each's launches a shard of one
 # run_pipeline batch with both classes explained (phase 3's counts)
-DP_ROWS = ("equalize", "pectoral_tail", "cleaner_front", "gradcam_tail", "conv_leaky", "pool")
+DP_ROWS = ("equalize", "pectoral_tail", "cleaner_front", "gradcam_tail", "conv_leaky", "pool",
+           "pool_backward")
 DP_PIPELINE_SHARD = {"equalize": 1, "pectoral_tail": 1, "cleaner_front": 1,
                      "gradcam_tail": 2, "conv_leaky": 4, "pool": 4}
 DP_WORLD_TIMEOUT = 300
@@ -2509,7 +2621,8 @@ def dp_wrappers() -> dict:
 
     return {"equalize": KE.equalize, "pectoral_tail": KP.pectoral_tail,
             "cleaner_front": KF.cleaner_front, "gradcam_tail": KGT.gradcam_tail,
-            "conv_leaky": KCL.conv_leaky, "pool": KPool.pool}
+            "conv_leaky": KCL.conv_leaky, "pool": KPool.pool,
+            "pool_backward": KPool.pool_backward}
 
 
 def jet_slope_of() -> int:
@@ -2792,7 +2905,8 @@ def kernel_wrappers() -> dict:
             "cleaner_front": KF.cleaner_front,
             "largest_component_seeded": KL.largest_component_seeded,
             "flood": KFl.flood_from, "watershed_packed": KW.packed_form,
-            "conv_leaky_bf16": KCL.conv_leaky_bf16, "adam": KA.adam_update}
+            "conv_leaky_bf16": KCL.conv_leaky_bf16, "adam": KA.adam_update,
+            "pool_backward": KPool.pool_backward}
 
 
 def counters(wrappers: dict):
@@ -2868,8 +2982,8 @@ def data_parallel_phase(dev, card: str, config, params, batch, eng, wrappers,
         return {k: counts[k] for k in DP_ROWS}
 
     def hold(what, counts, expect, exact=True):
-        print(f"data parallel [{what}]: launches of rows 2, 3, 8, 10, 11, 12 {rows(counts)}",
-              flush=True)
+        print(f"data parallel [{what}]: launches of rows 2, 3, 8, 10, 11, 12, 17 "
+              f"{rows(counts)}", flush=True)
         wrong = {k: (counts[k], v) for k, v in expect.items() if counts[k] != v}
         if exact:
             wrong.update({k: (v, 0) for k, v in counts.items() if k not in expect and v})
@@ -2914,7 +3028,8 @@ def data_parallel_phase(dev, card: str, config, params, batch, eng, wrappers,
             model, state, d_losses = counted(
                 f"local mesh: dp {name} B={b}, 2 steps",
                 lambda: two_steps(cfg, batches, opt, lr, dev, update, init),
-                {"conv_leaky": 8, "pool": 8, "adam": 4 if opt == "adam" else 0})
+                {"conv_leaky": 8, "pool": 8, "pool_backward": 8,
+                 "adam": 4 if opt == "adam" else 0})
             if opt == "sgd":
                 checks.append((f"{what}: parameters vs one device", params_err(model, single),
                                1e-5))
@@ -3050,7 +3165,7 @@ def data_parallel_phase(dev, card: str, config, params, batch, eng, wrappers,
             single, _, _ = two_steps(BT.BASIC, batches, "sgd", 0.01, dev)
             model, _, _ = counted("NCCL world of one: dp SGD B=8, 2 steps", lambda: two_steps(
                 BT.BASIC, batches, "sgd", 0.01, dev, DP.make_dp_sgd_update(BT.BASIC, world)),
-                {"conv_leaky": 4, "pool": 4}, record=False)
+                {"conv_leaky": 4, "pool": 4, "pool_backward": 4}, record=False)
         checks.append(("NCCL world of one dp SGD (dropout 0.3), 2 steps, vs sgd_train_step "
                        "(bit-exact)", params_err(model, single), 0))
         print(f"NCCL world of one: backend {dist.get_backend()}, mesh {world.shape}", flush=True)
@@ -3068,7 +3183,7 @@ def data_parallel_phase(dev, card: str, config, params, batch, eng, wrappers,
         hold(f"gloo rank {r['rank']}: make_dp_pipeline, its 32 rows", r["pipeline_counts"],
              DP_PIPELINE_SHARD)
         hold(f"gloo rank {r['rank']}: dp SGD B=8 (4 rows), 2 steps", r["sgd_counts"],
-             {"conv_leaky": 4, "pool": 4})
+             {"conv_leaky": 4, "pool": 4, "pool_backward": 4})
         checks += [(f"rank {r['rank']}: {n}", e, t) for n, e, t in r["checks"]]
         if not r["prebuilt"]:
             raise AssertionError(f"gloo rank {r['rank']} found no built library")
@@ -3148,6 +3263,7 @@ def main() -> int:
     sources["watershed_packed"] = (KW.SOURCE, KW.REPLACES)
     sources["conv_leaky_bf16"] = (KCL.BF16_SOURCE, KCL.REPLACES)
     sources["adam"] = (KA.SOURCE, KA.REPLACES)
+    sources["pool_backward"] = (KPool.SOURCE, None)   # JAX leaves the VJP to XLA
     wrappers = kernel_wrappers()
     zero_counts, read_counts = counters(wrappers)
 
@@ -3813,7 +3929,7 @@ def main() -> int:
                 "upsample": 0, "batchnorm": 0, "jet_blend": 0,
                 "gradcam_tail": 2 * N_MAIN_BATCHES, "cleaner_front": N_MAIN_BATCHES,
                 "largest_component_seeded": 0, "flood": 0, "watershed_packed": 0,
-                "conv_leaky_bf16": 0, "adam": 0}
+                "conv_leaky_bf16": 0, "adam": 0, "pool_backward": 0}
     print(f"fused pipeline: {N_MAIN_BATCHES} batches of B={BATCH} at {HW}x{HW}, "
           f"launches {pipe_launches}", flush=True)
     if pipe_launches != expected:
@@ -3969,7 +4085,7 @@ def main() -> int:
                 "conv_leaky": 2 * stacks, "pool": 2 * stacks, "upsample": 0,
                 "batchnorm": 0, "jet_blend": 2 * 2, "gradcam_tail": 0, "cleaner_front": 4,
                 "largest_component_seeded": 0, "flood": 0, "watershed_packed": 0,
-                "conv_leaky_bf16": 0, "adam": 0}
+                "conv_leaky_bf16": 0, "adam": 0, "pool_backward": 0}
     print(f"serving path: 3 uploads, 2 pipelines, {N_BATCHED} batched requests in "
           f"{n_flushes} flushes, classify_batch B={N_BATCHED}; launches {serve_launches}",
           flush=True)
@@ -4187,12 +4303,15 @@ def main() -> int:
     # a forward is one conv stack of two conv blocks: per epoch, basic 64/8
     # steps + 1 test batch, advanced 64/32 + 1; the U-Net's forward has 3
     # pools and 3 upsamples: 32/8 steps + 1 validation forward an epoch.
-    # One Adam launch a step of the advanced classifier and of the U-Net
+    # One Adam launch a step of the advanced classifier and of the U-Net;
+    # one pool backward a max pool of a step (none in a test or validation
+    # forward)
     n_stacks = 2 * (8 + 1) + 2 * (2 + 1)
     n_unet = 2 * (4 + 1)
     expected = {name: 0 for name in wrappers}
     expected.update(conv_leaky=2 * n_stacks, pool=2 * n_stacks + 3 * n_unet,
-                    upsample=3 * n_unet, adam=2 * 2 + 2 * 4)
+                    upsample=3 * n_unet, adam=2 * 2 + 2 * 4,
+                    pool_backward=2 * (2 * 8 + 2 * 2) + 3 * 2 * 4)
     print(f"training: basic SGD and advanced Adam 2 epochs on 64/16, U-Net 2 epochs on "
           f"32 images at {HW}x{HW}, {train_s:.1f} s; launches {train_launches}", flush=True)
     if train_launches != expected:
@@ -4364,7 +4483,8 @@ def main() -> int:
     cli_stacks = 2 * (-(-n_train // 8) + eval_batches) + eval_batches
     expected = {name: 0 for name in wrappers}
     expected.update(cleaner_front=N_CLI, equalize=N_CLI, largest_obj=N_CLI, watershed=N_CLI,
-                    conv_leaky=2 * cli_stacks, pool=2 * cli_stacks)
+                    conv_leaky=2 * cli_stacks, pool=2 * cli_stacks,
+                    pool_backward=2 * 2 * -(-n_train // 8))
     print(f"training CLI: {N_CLI} DICOMs at {CLI_SHAPES}, {' '.join(CLI_ARGS)}; "
           f"{n_train} train / {n_test} test, {cli_s:.1f} s wall on {card}; input shape "
           f"{cli_summary['dataset']['input_shape']}, device {cli_summary['training']['device']}, "
@@ -4869,6 +4989,28 @@ def main() -> int:
           f", events {ad['plain_ms']:.4f}; torch.optim.Adam(fused=True) "
           f"{ms_text(ad['library_device_ms'])}, events {ad['library_ms']:.4f}; bound "
           f"{ad['bound_ms']:.4f} by {ad['bound_by']} on {card}", flush=True)
+    # the max pools' backward kernel at the training paths' six pools, from a
+    # fresh process (pool_bwd_times); its launches are counted on the paths
+    # above. The record's figures are those of the largest, U-Net level 0
+    # with the channels-last x a step hands it
+    pb_run = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--pool-bwd-times"],
+                            capture_output=True, text=True, timeout=600)
+    if pb_run.returncode != 0:
+        raise AssertionError(f"the pool backward timing run failed:\n{pb_run.stderr[-4000:]}")
+    pb = json.loads(pb_run.stdout.strip().splitlines()[-1])["pool_backward"]
+    for row in pb:
+        print(f"time pool_backward {row['shape']} {row['rule']}, x {row['x_layout']}, g "
+              f"{row['g_layout']}: device {ms_text(row['device_ms'])} ms, events "
+              f"{row['ms']:.4f}; plain {ms_text(row['plain_device_ms'])}, events "
+              f"{row['plain_ms']:.4f}; max_pool2d_with_indices_backward "
+              f"{ms_text(row['library_device_ms'])}; bound {row['bound_ms']:.4f} by "
+              f"{row['bound_by']} on {card}", flush=True)
+    head = next(r for r in pb if r["x_layout"] == "channels_last")
+    times["pool_backward"] = (head["ms"], head["plain_ms"], head["library_ms"])
+    bounds["pool_backward"] = (head["bound_ms"], head["bound_by"])
+    dev_times["pool_backward"] = (head["device_ms"], head["plain_device_ms"],
+                                  head["library_device_ms"])
+    compared["pool_backward"] = pb
     for row in pw["watershed_packed"]:
         old = (f", the rounds form to the fixpoint device {ms_text(row['old_device_ms'])}, "
                f"events {row['old_ms']:.4f} ({row['old_rounds']} rounds; its record "
@@ -5171,7 +5313,7 @@ def main() -> int:
     # Adam launch a step (parameters and moments stay float32)
     want11 = {name: 0 for name in wrappers}
     want11.update(conv_leaky_bf16=2 * (n11 // 32), conv_leaky=2, pool=2 * (n11 // 32 + 1),
-                  adam=n11 // 32)
+                  adam=n11 // 32, pool_backward=2 * (n11 // 32))
     if bf16_launches != want11:
         raise AssertionError(f"bf16 training launches {bf16_launches}, expected {want11}")
     if not (abs(first_b - first_f) <= 1e-3 and logit_err <= 2e-2 * logit_top
@@ -5341,7 +5483,8 @@ def main() -> int:
                 "gradcam_tail": "pipeline", "cleaner_front": "training_cli",
                 "largest_component_seeded": "training_cli",
                 "watershed_packed": "even_kernel_process",
-                "conv_leaky_bf16": "training_bf16", "adam": "training"}
+                "conv_leaky_bf16": "training_bf16", "adam": "training",
+                "pool_backward": "training"}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1],
@@ -5379,4 +5522,6 @@ if __name__ == "__main__":
         sys.exit(data_parallel_only())
     if sys.argv[1:] == ["--adam-times"]:
         sys.exit(adam_times())
+    if sys.argv[1:] == ["--pool-bwd-times"]:
+        sys.exit(pool_bwd_times())
     sys.exit(main())

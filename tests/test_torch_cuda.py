@@ -339,17 +339,118 @@ def test_upsample_kernel(dev, rng, dtype):
         _eq(KUp.upsample_nearest(x, f), KUp.upsample_nearest_reference(x, f))
 
 
+def _pool_bwd_input(rng, shape, size):
+    """Small integers (windows tie), ReLU zeros, an all-equal block, a NaN
+    window, and windows whose maxima are -0.0 tied with +0.0."""
+    x = np.maximum(rng.integers(-2, 3, shape), 0).astype(np.float32)
+    planes = x.reshape(-1, *shape[-2:])
+    planes[0, :2 * size, :2 * size] = 1.0
+    planes[-1, 0, 0] = np.nan
+    if shape[-1] >= 2 * size:
+        planes[-1, :size, size:2 * size] = -np.abs(planes[-1, :size, size:2 * size]) - 1.0
+        planes[-1, 0, size:size + 2] = (-0.0, 0.0)
+        planes[-1, size - 1, size] = -0.0
+    return torch.from_numpy(x)
+
+
+def _pool_bwd_grads(rng, pooled, layout, dtype, dev):
+    """The same upstream gradient of shape `pooled` (one -0.0 in it) on the
+    CPU and on the card, in `layout`: contiguous, the last two dims
+    transposed, channels-last (4-D), or one value expanded (what
+    `.sum().backward()` hands a pool)."""
+    if layout == "expanded":
+        return [torch.tensor(-1.5, dtype=dtype, device=d).expand(pooled) for d in ("cpu", dev)]
+    order = {"contiguous": tuple(range(len(pooled))),
+             "transposed": (*range(len(pooled) - 2), len(pooled) - 1, len(pooled) - 2),
+             "channels_last": (0, 2, 3, 1)}[layout]
+    base = rng.standard_normal([pooled[i] for i in order]).astype(np.float32)
+    base.reshape(-1)[:1] = -0.0
+    back = [order.index(i) for i in range(len(pooled))]
+    return [torch.from_numpy(base).to(d, dtype).permute(back) for d in ("cpu", dev)]
+
+
+def _bits(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16).cpu()
+
+
 @pytest.mark.parametrize("rule", ["ties", "first"])
-def test_pool_backward_card_vs_cpu(dev, rng, rule):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,size,layout", [
+    ((2, 3, 9, 10), 2, "contiguous"),
+    ((2, 3, 7, 9), 2, "contiguous"), ((2, 3, 7, 9), 3, "contiguous"),
+    # widths of 2x2 windows around the 16-byte chunk (4 and 8 elements),
+    # odd heights (a dropped row)
+    ((2, 3, 33, 36), 2, "contiguous"), ((2, 3, 33, 40), 2, "contiguous"),
+    ((1, 2, 18, 44), 2, "contiguous"), ((1, 2, 18, 48), 3, "contiguous"),
+    # non-contiguous upstream gradients
+    ((2, 3, 16, 40), 2, "transposed"), ((2, 8, 16, 32), 2, "channels_last"),
+    ((2, 3, 16, 40), 2, "expanded"), ((2, 3, 15, 17), 3, "transposed"),
+    # leading dims of 0, 1 and 3
+    ((17, 32), 2, "contiguous"), ((3, 16, 24), 2, "transposed"),
+    ((2, 2, 3, 8, 16), 2, "contiguous"),
+    # the U-Net's levels at B=2, 128² (512² at 1/4 per side)
+    ((2, 64, 128, 128), 2, "contiguous"), ((2, 128, 64, 64), 2, "contiguous"),
+    ((2, 256, 32, 32), 2, "contiguous"), ((2, 512, 16, 16), 2, "contiguous"),
+    # a channels-last x (the U-Net's first skip), read as it is: level 0,
+    # an odd height in the 2x2 form (widths a multiple of 16), few channels,
+    # remainders and s=3 in the scalar form, and with a channels-last g too
+    ((2, 64, 128, 128), 2, "x_channels_last"), ((2, 40, 15, 32), 2, "x_channels_last"),
+    ((2, 3, 9, 10), 2, "x_channels_last"), ((2, 5, 7, 9), 3, "x_channels_last"),
+    ((2, 40, 15, 17), 2, "x_channels_last"), ((2, 8, 16, 32), 2, "x_and_g_channels_last"),
+])
+def test_pool_backward_card_vs_cpu(dev, rng, rule, dtype, shape, size, layout):
+    """The max pools' backward kernel: dx bit for bit the plain version's on
+    the card and the CPU autograd's, in x's layout; one launch a pool
+    backward, counted by `pool_bwd_kernel` when the forward recorded the
+    node."""
     fn = TPool.max_pool_ties if rule == "ties" else TPool.max_pool_first
-    x = torch.from_numpy(np.maximum(rng.integers(-2, 3, (2, 3, 9, 10)), 0).astype(np.float32))
-    g = torch.from_numpy(rng.standard_normal((2, 3, 4, 5)).astype(np.float32))
+    x = _pool_bwd_input(rng, shape, size).to(dtype)
+    x_nhwc = layout.startswith("x_")
+    if x_nhwc:
+        x = x.contiguous(memory_format=torch.channels_last)
+        layout = "channels_last" if layout == "x_and_g_channels_last" else "contiguous"
+    pooled = (*shape[:-2], shape[-2] // size, shape[-1] // size)
+    g, gd = _pool_bwd_grads(rng, pooled, layout, dtype, dev)
+    assert g.is_contiguous() == (layout == "contiguous") and gd.stride() == g.stride()
+    xd = x.to(dev)
+    assert KPool.channels_last(xd) == x_nhwc and xd.stride() == x.stride()
+    out = KPool.pool(xd.contiguous(), size, "max")
+    plain = KPool.pool_backward_reference(xd, out, gd, size, rule == "first")
+    counted = TProf.counts().get("pool_bwd_kernel", 0)
+    launched = KPool.pool_backward.launches
     grads = []
-    for d in ("cpu", dev):
+    for d, gg in (("cpu", g), (dev, gd)):
         t = x.detach().to(d).requires_grad_(True)
-        fn(t, 2).backward(g.to(d))
-        grads.append(t.grad.cpu())
-    assert torch.equal(*grads)
+        fn(t, size).backward(gg)
+        grads.append(t.grad)
+    assert KPool.pool_backward.launches - launched == 1
+    assert TProf.counts().get("pool_bwd_kernel", 0) - counted == 1
+    got = grads[1]
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(_bits(got), _bits(plain))
+    assert torch.equal(_bits(got), _bits(grads[0]))
+    # and the wrapper alone, on the kernel's own launch count, dx in x's
+    # layout
+    launched = KPool.pool_backward.launches
+    dx = KPool.pool_backward(xd, out, gd, size, rule == "first")
+    assert KPool.pool_backward.launches - launched == 1
+    assert dx.stride() == xd.stride() and torch.equal(_bits(dx), _bits(plain))
+
+
+def test_pool_backward_kernel_rejects(dev):
+    """No fallback on the card: an input the kernel does not take raises."""
+    x = torch.zeros((2, 3, 8, 8), device=dev)
+    out, g = KPool.pool(x, 2, "max"), torch.zeros((2, 3, 4, 4), device=dev)
+    for args in ((x.double(), out.double(), g.double()), (x.transpose(-1, -2), out, g),
+                 (x, out, g.half()), (x, out, torch.zeros((2, 3, 4, 5), device=dev)),
+                 (x, out.cpu(), g)):
+        with pytest.raises(ValueError):
+            KPool.pool_backward(*args, 2, True)
+    counted = TProf.counts().get("pool_bwd_kernel", 0)
+    with torch.no_grad():
+        TPool.max_pool_first(x.requires_grad_(True), 2)
+    TPool.max_pool_first(x.detach(), 2)
+    assert TProf.counts().get("pool_bwd_kernel", 0) == counted
 
 
 def test_conv_leaky_backward_card_vs_cpu(dev, rng):

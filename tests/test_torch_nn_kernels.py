@@ -172,6 +172,145 @@ def test_max_pool_first_matches_torch_max_pool(rng):
     assert torch.equal(x.grad, ref.grad)
 
 
+def _pool_grad_loop(x: np.ndarray, g: np.ndarray, size: int, first: bool) -> np.ndarray:
+    """dx of the max pool window by window in plain Python: g to each
+    element equal to its window max (a NaN window has a NaN max and so no
+    such element; -0.0 equals +0.0), or to the first in raster order; 0 in
+    the dropped rows and columns."""
+    h, w = x.shape[-2:]
+    xs, gs = x.reshape(-1, h, w), g.reshape(-1, h // size, w // size)
+    dx = np.zeros_like(xs)
+    for p in range(xs.shape[0]):
+        for oy in range(h // size):
+            for ox in range(w // size):
+                win = xs[p, oy * size:(oy + 1) * size, ox * size:(ox + 1) * size]
+                m = np.nan if np.isnan(win).any() else win.max()
+                taken = False
+                for i in range(size):
+                    for j in range(size):
+                        if win[i, j] == m and not (first and taken):
+                            dx[p, oy * size + i, ox * size + j] = gs[p, oy, ox]
+                            taken = True
+    return dx.reshape(x.shape)
+
+
+def _pool_grad_input(rng, shape, size):
+    """Ties, an all-equal window, a NaN window and a window whose maximum
+    is -0.0 tied with +0.0, in every plane."""
+    x = np.maximum(rng.integers(-2, 3, shape), 0).astype(np.float32)
+    planes = x.reshape(-1, *shape[-2:])
+    planes[:, :size, :size] = 1.0
+    planes[:, size, size] = np.nan
+    if shape[-1] >= 3 * size and shape[-2] >= size:
+        planes[:, :size, 2 * size:3 * size] = -1.0
+        planes[:, 0, 2 * size:2 * size + 2] = (-0.0, 0.0)
+        planes[:, size - 1, 2 * size] = -0.0
+    return x
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+@pytest.mark.parametrize("first", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,size", [((7, 9), 2), ((7, 9), 3), ((2, 7, 9), 2),
+                                        ((2, 3, 7, 9), 3), ((2, 3, 8, 12), 2),
+                                        ((2, 2, 3, 8, 10), 2)])
+def test_pool_backward_reference_matches_loop(rng, first, dtype, shape, size):
+    """The max pools' plain backward (what `pool_backward` runs on CPU
+    tensors, and what the card's kernel is held to bit for bit) against a
+    window-by-window loop, with ties, all-equal and NaN windows, ±0.0
+    ties, remainders and leading dims of 0 to 3; and autograd through the
+    op, with x non-contiguous."""
+    x = torch.from_numpy(_pool_grad_input(rng, shape, size)).to(_TORCH[dtype])
+    pooled = (*shape[:-2], shape[-2] // size, shape[-1] // size)
+    g = torch.from_numpy(rng.standard_normal(pooled).astype(np.float32)).to(_TORCH[dtype])
+    g.view(-1)[0] = -0.0
+    out = KPool.pool(x, size, "max")
+    want = torch.from_numpy(_pool_grad_loop(x.float().numpy(), g.float().numpy(), size,
+                                            first)).to(x.dtype)
+    got = KPool.pool_backward_reference(x, out, g, size, first)
+    assert got.dtype == x.dtype and got.shape == x.shape
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(KPool.pool_backward(x, out, g, size, first)), _bits(want))
+    fn = TPool.max_pool_first if first else TPool.max_pool_ties
+    t = x.transpose(-1, -2).detach().contiguous().transpose(-1, -2).requires_grad_(True)
+    assert not t.is_contiguous()
+    fn(t, size).backward(g)
+    assert torch.equal(_bits(t.grad.contiguous()), _bits(want))
+    if first and len(shape) in (3, 4):
+        # F.max_pool2d picks the first maximum too, where no window is NaN
+        # (its backward adds g to zeros: -0.0 comes back +0.0)
+        finite = torch.nan_to_num(x, nan=5.0).requires_grad_(True)
+        torch.nn.functional.max_pool2d(finite, size).backward(g)
+        no_nan = torch.from_numpy(_pool_grad_loop(finite.detach().float().numpy(),
+                                                  g.float().numpy(), size, True)).to(x.dtype)
+        assert torch.equal(finite.grad, no_nan)
+
+
+@pytest.mark.parametrize("cuda", [False, True])
+@pytest.mark.parametrize("requires_grad", [False, True])
+@pytest.mark.parametrize("grad_enabled", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_pool_bwd_kernel_counts_card_inputs_that_need_a_grad(monkeypatch, cuda,
+                                                              requires_grad, grad_enabled,
+                                                              dtype):
+    """`pool_bwd_kernel` counts a max pool at its forward, on the caller's
+    thread and spans, exactly when autograd records a node whose backward
+    the card's kernel will run: a CUDA float32 or bfloat16 input that
+    requires a grad, with grad mode on (float16, which the kernel refuses,
+    is not counted). (The op itself is stubbed: this machine has no card.)"""
+    from types import SimpleNamespace
+
+    from cadx_tpu_torch.utils import profiling as TProf
+
+    monkeypatch.setattr(TPool._MaxPool, "apply", lambda x, size, first: "pooled")
+    x = SimpleNamespace(device=torch.device("cuda" if cuda else "cpu"),
+                        requires_grad=requires_grad, dtype=getattr(torch, dtype))
+    before = TProf.counts().get("pool_bwd_kernel", 0)
+    with torch.set_grad_enabled(grad_enabled):
+        for fn in (TPool.max_pool_ties, TPool.max_pool_first):
+            assert fn(x, 2) == "pooled"
+    counted = TProf.counts().get("pool_bwd_kernel", 0) - before
+    routed = cuda and dtype != "float16"
+    assert counted == (2 if routed and requires_grad and grad_enabled else 0)
+
+
+@pytest.mark.parametrize("first", [False, True])
+@pytest.mark.parametrize("layout,shape", [("contiguous", (2, 3, 8, 10)),
+                                          ("channels_last", (2, 3, 8, 10)),
+                                          ("channels_last", (2, 5, 7, 9)),
+                                          ("transposed", (2, 3, 8, 10)),
+                                          ("contiguous", (3, 8, 10))])
+def test_max_pool_saves_the_input_the_backward_reads(rng, first, layout, shape):
+    """The max pool holds for its backward the caller's x where that is
+    channels-last (the backward kernel reads it so; the forward's
+    contiguous copy is then not kept), else the contiguous tensor it
+    pooled; dx keeps the saved input's layout and equals the plain
+    backward."""
+    x = torch.from_numpy(_pool_grad_input(rng, shape, 2))
+    if layout == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
+    elif layout == "transposed":
+        x = x.transpose(-1, -2).contiguous().transpose(-1, -2)
+    assert KPool.channels_last(x) == (layout == "channels_last")
+    t = x.detach().requires_grad_(True)
+    y = (TPool.max_pool_first if first else TPool.max_pool_ties)(t, 2)
+    saved, out = y.grad_fn.saved_tensors
+    if layout == "channels_last":
+        assert saved.data_ptr() == t.data_ptr() and saved.stride() == t.stride()
+    else:
+        assert saved.is_contiguous()
+        assert (saved.data_ptr() == t.data_ptr()) == (layout == "contiguous")
+    g = torch.from_numpy(rng.standard_normal(tuple(y.shape)).astype(np.float32))
+    y.backward(g)
+    want = KPool.pool_backward_reference(x.contiguous(), out, g, 2, first)
+    assert torch.equal(_bits(t.grad.contiguous()), _bits(want))
+    if layout == "channels_last":
+        assert t.grad.is_contiguous(memory_format=torch.channels_last)
+
+
 def test_switches_and_avg_upsample_gradients(rng):
     x = _tied(rng, (7, 9))
     out, sw = JPool.max_pool_with_switches(jnp.asarray(x), 2)

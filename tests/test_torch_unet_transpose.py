@@ -334,8 +334,9 @@ def seg_root(portbench_modules, tmp_path_factory):
 def test_seg_cell_runs_and_is_correct(portbench_modules, seg_root, trace):
     """Untraced: the end-to-end metrics. Traced: the metrics that read the
     host and the program (no card: `idle_share.seg` and
-    `program_idle_ms.seg` left out, `adam_fused_leaves.seg` 0, since the
-    CPU takes the plain Adam)."""
+    `program_idle_ms.seg` left out, `adam_fused_leaves.seg` and
+    `pool_bwd_kernel.seg` 0, since the CPU takes the plain Adam and the
+    plain pool backward)."""
     tiny, _, _ = portbench_modules
     TProf.reset()
     r = tiny.run_cell(seg_root, "unet-seg-tiny", seconds=1.0, trace=trace)
@@ -343,8 +344,10 @@ def test_seg_cell_runs_and_is_correct(portbench_modules, seg_root, trace):
     assert set(r["compared"]) == {"loss_rel_gap", "grad_norm_gap", "update_norm_gap"}
     assert r["attempted"] > 0 and r["failed"] == 0
     if trace:
-        assert set(r["metrics"]) == {"mfu.seg", "enqueue_ms.seg", "adam_fused_leaves.seg"}
+        assert set(r["metrics"]) == {"mfu.seg", "enqueue_ms.seg", "adam_fused_leaves.seg",
+                                     "pool_bwd_kernel.seg"}
         assert r["metrics"]["adam_fused_leaves.seg"]["value"] == 0
+        assert r["metrics"]["pool_bwd_kernel.seg"]["value"] == 0
         assert r["metrics"]["mfu.seg"]["value"] > 0
     else:
         assert set(r["metrics"]) == {"train_samples_per_s", "setup_s"}
