@@ -76,9 +76,7 @@ write_ridge(const int* __restrict__ pk, int* __restrict__ labels, uint8_t* __res
 // 8-byte aligned, kernels/pectoral.py::scratch_bytes; sweeps: a device
 // int32 that receives the watershed's sweeps, or null (then a slot of
 // scratch does). ws_max_iters and max_scan: the watershed's sweep cap and
-// scan window, as JAX's pectoral_tail_pallas takes them. steps: 1-4 runs
-// the plan up to and including that step (the outputs are whole only at
-// 4).
+// scan window, as JAX's pectoral_tail_pallas takes them.
 //
 // Scratch: B uint64 keys, four int32 (the sweeps' three changed flags and
 // the sweeps slot), four int32 planes (the CCL's labels and roots, then pk
@@ -87,8 +85,7 @@ write_ridge(const int* __restrict__ pk, int* __restrict__ labels, uint8_t* __res
 extern "C" int cadx_pectoral_tail(const void* equ, const void* bin, const void* breast,
                                   void* labels, void* boundary, void* mask, void* scratch,
                                   void* sweeps, int B, int H, int W, int morph_k, int n_morph,
-                                  int sm_k, int ws_max_iters, int max_scan, int steps,
-                                  void* stream) {
+                                  int sm_k, int ws_max_iters, int max_scan, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0) return 0;
   if (H > 512 || W > 512 || ws_max_iters < 0) return static_cast<int>(cudaErrorInvalidValue);
   const Tiles g = make_tiles(H, W);
@@ -109,7 +106,6 @@ extern "C" int cadx_pectoral_tail(const void* equ, const void* bin, const void* 
   cudaMemsetAsync(keys, 0, static_cast<size_t>(B) * sizeof(unsigned long long), s);
   select_largest<8>(static_cast<const uint8_t*>(bin), a, p);
   fill_holes(a, obj, p);
-  if (steps <= 1) return static_cast<int>(cudaGetLastError());
 
   // 2. eroded -> c, dilated -> obj (n_morph k x k steps compose into one
   // (k - 1) * n + 1 window), then the packed markers in lab
@@ -123,15 +119,14 @@ extern "C" int cadx_pectoral_tail(const void* equ, const void* bin, const void* 
   int* pk = lab;
   write_markers<<<grid, kTileThreads, 0, s>>>(c, obj, static_cast<const uint8_t*>(breast), pk,
                                               changed, g);
-  if (cudaError_t e = cudaGetLastError(); e != cudaSuccess || steps <= 2)
-    return static_cast<int>(e);
+  if (cudaError_t e = cudaGetLastError(); e != cudaSuccess) return static_cast<int>(e);
 
   // 3. the packed watershed's sweeps; the result in pk
   int* sweeps_at = sweeps ? static_cast<int*>(sweeps) : changed + 3;
   if (cudaError_t e = relax_capped(static_cast<const uint8_t*>(equ), pk, lab + n, lab + 2 * n,
                                    lab + 3 * n, changed, tile_fell, sweeps_at, B, H, W,
                                    ws_max_iters, max_scan, s);
-      e != cudaSuccess || steps <= 3)
+      e != cudaSuccess)
     return static_cast<int>(e);
 
   // 4. labels, the ridge and the kept breast label -> a; its opening -> mask

@@ -1,23 +1,18 @@
 """Build and load the port's CUDA kernels.
 
 Each of `csrc/*.cu` is compiled by its own nvcc process for sm_90a
-(Hopper), all at once, and the objects are linked into one shared
-library with a plain C interface, under `build/cadx_tpu_torch/` at the
-repository root, at first use (on an H100 host ~11 s for fifteen sources,
-the longest conv_leaky's template instances; one nvcc call over six
-sources took ~12.3 s). The library's
-name carries a hash of the sources and flags, so an edit rebuilds and an
-unchanged tree reuses it. It is loaded with ctypes; every pointer and the
-stream are passed as `c_void_p`, element strides as `c_longlong`, and
-every entry point returns `cudaGetLastError()`, which `check` turns into
-an error.
-
-`csrc/legacy/` holds the kernels that the redesigned ones replaced, for
-timings only (`chip_smoke.py --tail-device-times`, `--equalize-ccl-times`,
-`--mode-jet-times`, `--flood-seeded-times`, `--packed-watershed-times` and
-`--bf16-conv-times`);
-`load_legacy` builds them into a library of their own, and no path loads
-it.
+(Hopper), all at once, and the objects are linked into the one shared
+library of the port, with a plain C interface, under
+`build/cadx_tpu_torch/` at the repository root, at first use (on an H100
+host ~11 s for fifteen sources, the longest conv_leaky's template
+instances; one nvcc call over six sources took ~12.3 s). The headers
+`csrc/*.cuh` hold the device code that several sources share. The
+library's name carries a hash of the sources, the headers and the flags,
+so an edit rebuilds and an unchanged tree reuses it. It is loaded with
+ctypes; `_SIGNATURES` gives each entry point its argument types: every
+pointer and the stream `c_void_p`, element strides `c_longlong`. Every
+entry point returns `cudaGetLastError()`, which `check` turns into an
+error.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine without nvcc.
@@ -37,7 +32,6 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-LEGACY = CSRC / "legacy"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cadx_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
@@ -47,7 +41,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _SIGNATURES = {
     "cadx_equalize_hist": (_P, _P, _P, _I, _I, _I, _P),
     "cadx_largest_obj": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "cadx_pectoral_tail": (_P,) * 8 + (_I,) * 9 + (_P,),
+    "cadx_pectoral_tail": (_P,) * 8 + (_I,) * 8 + (_P,),
     "cadx_ccl": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "cadx_largest_component_mask": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "cadx_watershed_pair": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -66,18 +60,6 @@ _SIGNATURES = {
     "cadx_flood_from": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "cadx_adam_step": (_P,) * 5 + (_I,) + (_F,) * 8 + (_P, _P),
 }
-_LEGACY_SIGNATURES = {
-    "cadx_pectoral_tail_one_block": (_P,) * 7 + (_I,) * 7 + (_P,),
-    "cadx_gradcam_tail_one_block": (_P,) * 8 + (_I,) * 6 + (_L,) * 8 + (_I,) * 2 + (_F, _P),
-    "cadx_equalize_hist_one_block": (_P, _P, _I, _I, _I, _P),
-    "cadx_ccl_one_block": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "cadx_largest_component_mask_one_block": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "cadx_jet_blend_two_pass": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "cadx_flood_from_one_block": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "cadx_largest_component_seeded_one_block": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "cadx_watershed_packed_rounds": (_P,) * 6 + (_I,) * 7 + (_P,),
-    "cadx_conv_leaky_bf16_sync": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
-}
 
 
 def _nvcc() -> str:
@@ -90,16 +72,16 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _sources(src_dir: Path = CSRC) -> list[Path]:
-    return sorted(src_dir.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
-def library_path(src_dir: Path = CSRC, stem: str = "libcadx_kernels") -> Path:
+def library_path() -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources(src_dir):
+    for src in _sources():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    return BUILD_DIR / f"{stem}_{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libcadx_kernels_{digest.hexdigest()[:16]}.so"
 
 
 def _run(cmds: list[list[str]]) -> None:
@@ -114,10 +96,10 @@ def _run(cmds: list[list[str]]) -> None:
                                f"{' '.join(cmd)}\n{out}\n{err}")
 
 
-def build(src_dir: Path = CSRC, stem: str = "libcadx_kernels") -> Path:
-    """Compile the kernels of `src_dir` unless a library for these sources
-    exists: one nvcc per source, all started together, then one link."""
-    lib = library_path(src_dir, stem)
+def build() -> Path:
+    """Compile `csrc/*.cu` unless a library for these sources exists: one
+    nvcc per source, all started together, then one link."""
+    lib = library_path()
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -125,7 +107,7 @@ def build(src_dir: Path = CSRC, stem: str = "libcadx_kernels") -> Path:
     compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
         objs, cmds = [], []
-        for src in sorted(src_dir.glob("*.cu")):
+        for src in sorted(CSRC.glob("*.cu")):
             obj = os.path.join(tmpdir, src.stem + ".o")
             objs.append(obj)
             cmds.append([nvcc, *compile_flags, "-I", str(CSRC), "-c", "-o", obj,
@@ -137,25 +119,15 @@ def build(src_dir: Path = CSRC, stem: str = "libcadx_kernels") -> Path:
     return lib
 
 
-def _bind(path: Path, signatures: dict) -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(path))
-    for name, argtypes in signatures.items():
+@functools.cache
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use and loaded once."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
-
-
-@functools.cache
-def load() -> ctypes.CDLL:
-    """The kernel library, built on first use and loaded once."""
-    return _bind(build(), _SIGNATURES)
-
-
-@functools.cache
-def load_legacy() -> ctypes.CDLL:
-    """The replaced kernels of `csrc/legacy/`, for timings."""
-    return _bind(build(LEGACY, "libcadx_legacy"), _LEGACY_SIGNATURES)
 
 
 def check(rc: int, name: str) -> None:

@@ -27,9 +27,9 @@ the same kernel at one block an image in a plain launch, where a
 cluster's barriers cost more than its split saves. The wide form, for
 larger planes: a memset of the (B,) 64-bit keys and one (B, H, W) int32
 area plane, then two launches over chunks x images: the adds, with one
-64-bit atomicMax a block to the image's key, then the output. The one-block-an-image kernel it
-replaced (three int32 scratch planes, six dependent passes over them, on
-one SM an image) is kept in `csrc/legacy/mode_one_block.cu` for timings.
+64-bit atomicMax a block to the image's key, then the output. It
+replaced a kernel of one block an image (three int32 scratch planes, six
+dependent passes over them, on one SM an image; PERF.md section 6 row 5).
 
 Bound: bytes, the labels (4 a pixel) and the mask (1) read once and the
 output (1) written once; at the CAM shapes a launch's fixed cost is all

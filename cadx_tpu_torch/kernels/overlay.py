@@ -26,10 +26,10 @@ and writes its blends: the inputs are read once, with no memset or
 atomic. The wide form, for the rest: a memset of a (B,) int32 peak and
 two passes over chunks x images, the first taking each block's peak to
 the image's with an integer atomicMax (the blends are positive floats),
-the second reading the inputs again and writing the overlay. The
-three-launch kernel it replaced (a 2,048-pixel chunk a block, byte and
-scalar loads, both inputs read twice, three byte stores a pixel) is kept
-in `csrc/legacy/overlay_two_pass.cu` for timings. The 768-byte table sits
+the second reading the inputs again and writing the overlay. It
+replaced a three-launch kernel (a 2,048-pixel chunk a block, byte and
+scalar loads, both inputs read twice, three byte stores a pixel; PERF.md
+section 6 row 9). The 768-byte table sits
 in constant memory and each block copies it to shared memory. The kernel
 repeats the plain version's float operations on the card in order (add,
 then divide by the peak, then multiply by 255; CUDA's tensor / 255.0 is

@@ -79,7 +79,6 @@ from cadx_tpu_torch.ops.watershed import marker_watershed_plain
 SOURCE = "cadx_tpu_torch/csrc/pectoral.cu"
 REPLACES = "cadx_tpu/kernels/pectoral.py:124"
 TILE = 32             # the tile side of every step (csrc/tiled_components.cuh)
-STEPS = 4             # object, bands and markers, watershed, ridge and opening
 PLAN_LAUNCHES = 20    # kernel launches a call, the watershed's one included
 PLAN_BYTES = 103      # bytes a pixel the plan's launches move at the least, one sweep
 ONCE_OPS = 224        # operations a pixel the function does once, at the least
@@ -121,11 +120,9 @@ def pectoral_tail_reference(img_equ: torch.Tensor, img_bin: torch.Tensor,
 
 def run_plan(img_equ: torch.Tensor, img_bin: torch.Tensor, breast_mask: torch.Tensor,
              morph_k: int = 3, n_morph: int = 7, sm_k: int = 25, ws_max_iters: int = 256,
-             max_scan: int = 8, steps: int = STEPS, sweeps: torch.Tensor | None = None):
-    """The kernel's plan on CUDA tensors, up to `steps` of its steps (the
-    outputs are whole only with all four; fewer serve timings by step).
-    `sweeps`, a one-element int32 tensor on the same device, receives the
-    watershed's sweeps."""
+             max_scan: int = 8, sweeps: torch.Tensor | None = None):
+    """The kernel's plan on CUDA tensors. `sweeps`, a one-element int32
+    tensor on the same device, receives the watershed's sweeps."""
     for t, name in ((img_equ, "img_equ"), (img_bin, "img_bin"),
                     (breast_mask, "breast_mask")):
         _build.check_input(t, torch.uint8, f"pectoral_tail {name}")
@@ -152,7 +149,7 @@ def run_plan(img_equ: torch.Tensor, img_bin: torch.Tensor, breast_mask: torch.Te
         img_equ.data_ptr(), img_bin.data_ptr(), breast_mask.data_ptr(),
         labels.data_ptr(), boundary.data_ptr(), mask.data_ptr(), scratch.data_ptr(),
         None if sweeps is None else sweeps.data_ptr(), b, h, w, morph_k, n_morph, sm_k,
-        ws_max_iters, max_scan, steps, _build.stream_ptr(dev))
+        ws_max_iters, max_scan, _build.stream_ptr(dev))
     _build.check(rc, "cadx_pectoral_tail")
     pectoral_tail.launches += 1
     return labels, boundary, mask

@@ -105,10 +105,9 @@ labels and boundary once, 13 bytes a pixel (0.0010 ms at B=1 512² over
 3.35 TB/s). This design's own floor is `packed_floor_bytes`: the
 prologue 8 bytes a pixel (markers in, pk out), the prefix sums 12 (the
 image in, srow and scol out), a tiled sweep 16 (pk, srow and scol in, pk
-out), the epilogue 9 (pk in, labels and boundary out). The form it
-replaced, `csrc/legacy/watershed_packed_rounds.cu` (tiles relaxed to
-their local fixpoints in rounds until the global fixpoint, which ran past
-JAX's cap), is built only by `_build.load_legacy`, for timings.
+out), the epilogue 9 (pk in, labels and boundary out). It replaced a
+form that relaxed tiles to their local fixpoints in rounds until the
+global fixpoint, which ran past JAX's cap (PERF.md section 6 row 7).
 """
 
 from __future__ import annotations

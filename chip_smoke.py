@@ -187,48 +187,41 @@ Phases, each of which raises on failure (the script then exits nonzero):
    inputs need, counted by the plain sweeps; beside it the floor of one
    read and write of the planes a sweep, 24 bytes a pixel); the CLI's
    featurize p50 split by stage (cleaner_front, pectoral removal with its
-   equalize, largest_obj and watershed, the resizes, conv1); equalize at
-   every path shape and ccl at its serving shapes (both forms) and B=16
-   256² random masks beside the one-block kernels they replaced (kept in
-   `csrc/legacy/`; `python3 chip_smoke.py --equalize-ccl-times`, in a fresh
-   process: events and profiler device time in turns old, new, new, old,
-   equalize also on an all-zero and a random 3328x2560 image), and the
-   trace of one B=1 3328x2560 equalize call: a memset and two launches of
-   more than 132 blocks, no synchronising runtime call; mode (the serving
-   CAM shapes, B=16 256² random masks) and jet_blend (512² gray and RGB,
-   1024x832, the 1536x1280 cap, B=64 256², B=3 37x53, smooth heat) beside
-   the kernels they replaced and their other forms (`python3 chip_smoke.py
-   --mode-jet-times`, in a fresh process: events and profiler device time
-   in turns old, new, other forms, new, old) and the traces of one mode
-   call at B=3 62x62 and one jet_blend call at B=1 512²: one launch, no
-   memset, no synchronising runtime call; the flood (fill_holes' border
-   flood at B=64 256², B=1 1536x1280 and 3328x2560, serpentines into the
-   128-sweep cap; its sweeps a call and the time a sweep) and the seeded
-   component (phase 2's B=16 256² masks, 1536x1280 generated masks, B=16
-   256² random masks at density 0.45; beside ccl + mode and largest_obj)
-   beside the one-block kernels they replaced (`python3 chip_smoke.py
-   --flood-seeded-times`, in a fresh process: events and profiler device
-   time in turns old, new, other launches, new, old), and the traces of
-   one flood call at B=64 256² and at B=1 1536x1280 (one launch, at most
-   one memset, no synchronising runtime call) and of one seeded call (no
-   flood, every grid larger than the batch); the packed watershed beside
-   the rounds-to-the-fixpoint form it replaced and its plain version (B=1
-   512², B=8 512², B=16 256², cleaner markers; the record's row is B=1
-   512²) and on serpentines where the cap binds, with its sweeps beside
-   the plain version's, bound, design floor and the rounds form's records, the trace
-   of one B=1 512² call (three launches, no synchronising call), and
-   pectoral_tail at B=64 256² and B=1 512² beside its records from the rounds design
-   (`python3 chip_smoke.py --packed-watershed-times`, in a fresh
-   process); pectoral_tail and
-   gradcam_tail beside the one-block kernels they replaced (kept in
-   `csrc/legacy/`; `python3 chip_smoke.py --tail-device-times`, in a
-   fresh process): pectoral_tail by step (object, bands and markers,
-   watershed with its rounds, ridge and opening) at B=64 256², B=1 512²
-   and B=8 512², also beside its plain version, and its bound (its inputs
-   and outputs once against the ONCE_OPS operations a pixel it does once)
+   equalize, largest_obj and watershed, the resizes, conv1). Then the
+   phases that run alone, each in a fresh process (`fresh`; the profiler
+   keeps every record there), each kernel bit-exact against its plain
+   version and twice to the same bytes before it is timed beside it
+   (`timing_row`: CUDA events and profiler device time in turns kernel,
+   other forms or launches twice, kernel, the plain version before and
+   after): `--equalize-ccl-times`, equalize at every path shape (also an
+   all-zero and a random 3328x2560 image) and ccl at its serving shapes
+   (both forms) and B=16 256² random masks, and the trace of one B=1
+   3328x2560 equalize call: a memset and two launches of more than 132
+   blocks, no synchronising runtime call; `--mode-jet-times`, mode (the
+   serving CAM shapes, B=16 256² random masks) and jet_blend (512² gray
+   and RGB, 1024x832, the 1536x1280 cap, B=64 256², B=3 37x53, smooth
+   heat) in each of their forms, and the traces of one mode call at B=3
+   62x62 and one jet_blend call at B=1 512²: one launch, no memset, no
+   synchronising runtime call; `--flood-seeded-times`, the flood
+   (fill_holes' border flood at B=64 256², B=1 1536x1280 and 3328x2560,
+   serpentines into the 128-sweep cap; its sweeps a call and the time a
+   sweep) and the seeded component (phase 2's B=16 256² masks, 1536x1280
+   generated masks, B=16 256² random masks at density 0.45; beside ccl +
+   mode and largest_obj), and the traces of one flood call at B=64 256²
+   and at B=1 1536x1280 (one launch, at most one memset, no synchronising
+   runtime call) and of one seeded call (no flood, every grid larger than
+   the batch); `--packed-watershed-times`, the packed watershed (B=1 512²,
+   B=8 512², B=16 256², cleaner markers; the record's row is B=1 512²)
+   and on serpentines where the cap binds, with its sweeps beside the
+   plain version's, bound and design floor, and the trace of one B=1 512²
+   call (three launches, no synchronising call); `--tail-device-times`,
+   pectoral_tail at B=64 256², B=1 512² and B=8 512² and gradcam_tail at
+   the pipeline's shape, each bit-exact against its plain version
+   (pectoral_tail's uncapped) and timed beside it, with its device time
+   by kernel from the profiler; before it, pectoral_tail's bound (its inputs and
+   outputs once against the ONCE_OPS operations a pixel it does once)
    beside the floor of this design and, for information, the plain
-   version's sweep operations on its inputs; gradcam_tail's device time
-   beside the old kernel's; then times with CUDA
+   version's sweep operations on its inputs. Then times with CUDA
    events: each kernel beside its plain version (256²
    B=64 for the fused-pipeline kernels and gradcam_tail, the serving
    shapes for ccl, mode and watershed, the training shapes for
@@ -236,9 +229,7 @@ Phases, each of which raises on failure (the script then exits nonzero):
    upsample, fill_holes' border flood at 256² B=64 and 1536x1280 for the
    flood, the ResNet-50 stem for batchnorm, the
    512² display for jet_blend, 256² B=64, 1536x1280 and the training
-   CLI's native shapes for cleaner_front, also beside the old front it
-   replaces (suppress_artifacts + segment_breast_mask: two largest_obj
-   launches and the glue), phase 2's
+   CLI's native shapes for cleaner_front, phase 2's
    256² B=16 masks for the seeded component, also beside the ccl + mode
    pair) and, for conv_leaky (under full float32), pool, upsample and
    batchnorm, beside the one
@@ -303,8 +294,8 @@ Phases, each of which raises on failure (the script then exits nonzero):
    twice) and its times beside the plain version, cuDNN's bf16
    `F.conv2d` and the bound (bytes or dense bf16 operations); the rows
    of `python3 chip_smoke.py --bf16-conv-times`, a fresh process (the
-   kernel's device time, whole call and conv kernel alone, beside the
-   replaced design's in turns old, new, new, old and cuDNN's); the
+   kernel's device time, whole call and conv kernel alone, in turns with
+   cuDNN's); the
    training CLI with --bf16-compute for one epoch on 24 small DICOMs;
 12. the compat API on the card: `CNNModel` train, predict, save_model
    and `load_weights`, `ModelTrainer.cross_validate` (2 folds, 1 epoch),
@@ -424,6 +415,20 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def fresh(flag: str, timeout: float) -> dict:
+    """Run this file with `flag` in a fresh process (where the profiler
+    keeps every record), echo its output but the last line and return that
+    line, parsed."""
+    run = subprocess.run([sys.executable, str(Path(__file__).resolve()), flag],
+                         capture_output=True, text=True, timeout=timeout)
+    if run.returncode != 0:
+        raise AssertionError(f"chip_smoke.py {flag} failed:\n{run.stderr[-4000:]}")
+    lines = run.stdout.strip().splitlines()
+    if lines[:-1]:
+        print("\n".join(lines[:-1]), flush=True)
+    return json.loads(lines[-1])
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -825,7 +830,77 @@ def batchnorm_device_times() -> int:
 
 
 TAIL_ITERS, TAIL_WARMUP = 10, 5      # calls a timing of the tails, and before it
-TAIL_STEPS = ("object", "bands and markers", "watershed", "ridge and opening")
+TIMED_ITERS = 20       # most calls a timing of a kernel, after one
+TIMED_WINDOW_S = 0.25  # fewer calls where one takes longer than this / TIMED_ITERS
+PLAIN_ITERS = 3        # calls a timing of a plain version
+
+
+def same_bytes(a, b, what):
+    """Raise unless the tensors (or tuples of them) a and b are equal."""
+    torch.cuda.synchronize()
+    for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{what} disagrees")
+
+
+def cloned(out):
+    return tuple(t.clone() for t in out) if isinstance(out, tuple) else out.clone()
+
+
+def calls_for(fn):
+    """TIMED_ITERS calls, fewer where a call takes more than TIMED_WINDOW_S
+    / TIMED_ITERS, at least 3."""
+    return max(3, min(TIMED_ITERS, int(TIMED_WINDOW_S * 1e3 / max(cuda_ms(fn, 1), 1e-3))))
+
+
+def one_call_trace(fn) -> dict:
+    """Kernel launches (with grids), memsets and synchronising runtime calls
+    of one call of fn, from a torch.profiler trace."""
+    events = trace_events(fn)
+    return {"grids": [e["args"].get("grid") for e in events if e.get("cat") == "kernel"],
+            "names": [e.get("name", "")[:60] for e in events if e.get("cat") == "kernel"],
+            "memsets": sum(1 for e in events if e.get("cat") == "gpu_memset"),
+            "launch_calls": runtime_calls(events, ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                                                   "cudaLaunchCooperativeKernel")),
+            "sync_calls": runtime_calls(events, ("cudaEventSynchronize", "cudaStreamSynchronize",
+                                                 "cudaMemcpy"))}
+
+
+def timing_row(card, kernel, shape, inputs, new, plain, exact, others=(), extra=None,
+               ops_per_out: int = 1):
+    """Check new and others against `exact` (twice each), then time them in
+    turns (new, each other twice, new: CUDA events, then profiler device
+    time) and the plain version before and after; print and return the row.
+    Bound: inputs and outputs once over the HBM rate, at least
+    `ops_per_out` operations an output element."""
+    for name, fn in (("kernel", new),) + tuple(others):
+        same_bytes(cloned(fn()), exact, f"{kernel} [{name}, {shape}] against its plain version")
+        same_bytes(cloned(fn()), cloned(fn()), f"{kernel} [{name}, {shape}] on a second run")
+    out = new()
+    fns = [new] + [fn for _, fn in others for _ in (0, 1)] + [new]
+    iters = [calls_for(fn) for fn in fns]
+    p1 = cuda_ms(plain, PLAIN_ITERS)
+    ev = [cuda_ms(fn, n) for fn, n in zip(fns, iters)]
+    p2 = cuda_ms(plain, PLAIN_ITERS)
+    dv = [device_ms(fn, n) for fn, n in zip(fns, iters)]
+    b_ms, b_by = bound(nbytes(inputs) + nbytes(out),
+                       ops_per_out * numel(out[0] if isinstance(out, tuple) else out))
+    row = {"kernel": kernel, "shape": shape, "card": card,
+           "ms": (ev[0] + ev[-1]) / 2, "device_ms": captured_mean(dv[0], dv[-1]),
+           "plain_ms": (p1 + p2) / 2, "plain_runs_ms": [p1, p2], "runs_ms": ev,
+           "device_runs_ms": dv, "calls": iters, "bound_ms": b_ms, "bound_by": b_by,
+           "device_ms_by_kernel": device_ms_by_kernel(new)}
+    for i, (name, fn) in enumerate(others):
+        k = 1 + 2 * i
+        row[name] = {"ms": (ev[k] + ev[k + 1]) / 2,
+                     "device_ms": captured_mean(dv[k], dv[k + 1]),
+                     "device_ms_by_kernel": device_ms_by_kernel(fn)}
+    row.update(extra or {})
+    if row.get("sweeps"):
+        per = row["device_ms"] if row["device_ms"] is not None else row["ms"]
+        row["ms_a_sweep"] = per / row["sweeps"]
+    print(json.dumps(row), flush=True)
+    return row
 
 
 def pectoral_path_inputs(dev) -> dict:
@@ -854,75 +929,22 @@ def pectoral_path_inputs(dev) -> dict:
     return out
 
 
-def old_pectoral(lib, equ, high, breast, stop_after: int = 4):
-    """The replaced one-block pectoral kernel (`csrc/legacy/`), stopped after
-    `stop_after` steps, as a callable on preallocated outputs."""
-    from cadx_tpu_torch.kernels import _build
-
-    b, h, w = equ.shape
-    labels = torch.empty((b, h, w), dtype=torch.int32, device=equ.device)
-    boundary = torch.empty((b, h, w), dtype=torch.bool, device=equ.device)
-    mask = torch.empty_like(boundary)
-    scratch = torch.empty((b, 6, h, w), dtype=torch.int32, device=equ.device)
-
-    def run():
-        rc = lib.cadx_pectoral_tail_one_block(
-            equ.data_ptr(), high.data_ptr(), breast.data_ptr(), labels.data_ptr(),
-            boundary.data_ptr(), mask.data_ptr(), scratch.data_ptr(), b, h, w, 3, 7, 25,
-            stop_after, _build.stream_ptr(equ.device))
-        _build.check(rc, "cadx_pectoral_tail_one_block")
-        return labels, boundary, mask
-    return run
-
-
-def old_gradcam(lib, acts, grads, img01, out_hw):
-    """The replaced one-block Grad-CAM tail (`csrc/legacy/`) on preallocated
-    outputs, called as `gradcam_tail` calls its kernel."""
-    from cadx_tpu_torch.kernels import _build
-    from cadx_tpu_torch.kernels import gradcam_tail as KGT
-    from cadx_tpu_torch.ops.resize import _interp_matrix
-
-    b, h, w, f = acts.shape
-    oh, ow = out_hw
-    overlay = torch.empty((b, oh, ow, 3), dtype=torch.uint8, device=acts.device)
-    heat = torch.empty((b, oh, ow), dtype=torch.uint8, device=acts.device)
-    r = torch.as_tensor(_interp_matrix(oh, h), device=acts.device)
-    ct = torch.as_tensor(np.ascontiguousarray(_interp_matrix(ow, w).T), device=acts.device)
-    ny_gap = KGT._reduce_split(b * f, f, h * w)
-    ny_sum = KGT._reduce_split(b * h * w, h * w, f) if acts.stride(3) == h * w else 1
-    lut = KGT.jet_lut_rgb()
-
-    def run():
-        rc = lib.cadx_gradcam_tail_one_block(
-            acts.data_ptr(), grads.data_ptr(), img01.data_ptr(), r.data_ptr(), ct.data_ptr(),
-            lut.ctypes.data, overlay.data_ptr(), heat.data_ptr(), b, h, w, f, oh, ow,
-            *acts.stride(), *grads.stride(), ny_gap, ny_sum,
-            float(np.float32(b * f) / np.float32(b * f * h * w)), _build.stream_ptr(acts.device))
-        _build.check(rc, "cadx_gradcam_tail_one_block")
-        return overlay, heat
-    return run
-
-
 def tail_device_times() -> int:
-    """`--tail-device-times`: the pectoral tail and the Grad-CAM tail beside
-    the one-block kernels they replaced, kept in `csrc/legacy/` for this
-    and built apart (`_build.load_legacy`). Phase 8 runs it in a fresh
-    process, where the profiler keeps every record.
+    """`--tail-device-times`: the pectoral tail and the Grad-CAM tail at
+    their paths' shapes, in a fresh process, where the profiler keeps every
+    record; phase 8 runs it.
 
-    The pectoral tail at `pectoral_path_inputs`' three shapes: both kernels
-    bit-exact against the plain version uncapped; each prefix of the steps
-    (TAIL_STEPS; all four are the whole tail) in turns old, new, new, old,
-    TAIL_ITERS calls a timing after TAIL_WARMUP (CUDA events), each step's
-    time its prefix's less the one before; the plan's tile and blocks, its
-    watershed rounds; the plain version; device time by
-    kernel. The Grad-CAM tail at the pipeline's (64, 6, 6, 64) -> 256²:
-    bit-exact to its old kernel, CUDA events in turns old, new, new, old,
-    and each one's device time. Prints one JSON line a row, then one with
-    all of them."""
+    The pectoral tail at `pectoral_path_inputs`' three shapes, bit-exact
+    against the plain version uncapped, with the sweeps its watershed ran
+    and the sweep kernel's tile and tiles; the Grad-CAM tail at the
+    pipeline's (64, 6, 6, 64) -> 256², bit-exact against its plain
+    version. Each: CUDA events twice over TAIL_ITERS calls after
+    TAIL_WARMUP, the profiler's device time twice and by kernel, and the
+    plain version's events. Prints one JSON line a row, then one with all
+    of them."""
     if not torch.cuda.is_available():
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from cadx_tpu_torch.kernels import _build
     from cadx_tpu_torch.kernels import gradcam_tail as KGT
     from cadx_tpu_torch.kernels import pectoral as KP
     from cadx_tpu_torch.kernels import watershed as KW
@@ -930,47 +952,29 @@ def tail_device_times() -> int:
 
     dev = torch.device("cuda", 0)
     card = card_line()
-    legacy = _build.load_legacy()
 
-    def timed(fn):
-        return cuda_ms(fn, TAIL_ITERS, TAIL_WARMUP)
+    def row_of(kernel, shape, new, plain, exact, extra):
+        same_bytes(new(), exact, f"{kernel} [{shape}] against its plain version")
+        ev = [cuda_ms(new, TAIL_ITERS, TAIL_WARMUP) for _ in range(2)]
+        dv = [device_ms(new, TAIL_ITERS) for _ in range(2)]
+        row = {"kernel": kernel, "shape": shape, "card": card, "ms": sum(ev) / 2,
+               "runs_ms": ev, "device_ms": captured_mean(*dv), "device_runs_ms": dv,
+               "plain_ms": cuda_ms(plain, PLAIN_ITERS), **extra,
+               "device_ms_by_kernel": device_ms_by_kernel(new)}
+        print(json.dumps(row), flush=True)
+        return row
 
     rows = []
     for name, inputs in pectoral_path_inputs(dev).items():
         b, h, w = inputs[0].shape
-        plain = KP.pectoral_tail_reference(*inputs, max_iters=h * w)
-        for what, got in (("old one-block kernel", old_pectoral(legacy, *inputs)()),
-                          ("tiled plan", KP.run_plan(*inputs))):
-            torch.cuda.synchronize()
-            for part, a, c in zip(("labels", "boundary", "mask"), got, plain):
-                if not torch.equal(a, c):
-                    raise AssertionError(f"pectoral_tail [{part}, {what}, {name}] disagrees "
-                                         f"with its plain version")
         sweeps = torch.zeros(1, dtype=torch.int32, device=dev)
         KP.run_plan(*inputs, sweeps=sweeps)
         watershed = {"tile": KW.sweep_tile(b, h, w), "tiles": KW.sweep_tiles(b, h, w),
                      "sweeps": int(sweeps.item())}
-        runs = {"old": ([], []), "new": ([], [])}
-        for steps in range(1, len(TAIL_STEPS) + 1):
-            old = old_pectoral(legacy, *inputs, steps)
-
-            def new(steps=steps):
-                return KP.run_plan(*inputs, steps=steps)
-            runs["old"][0].append(timed(old))
-            runs["new"][0].append(timed(new))
-            runs["new"][1].append(timed(new))
-            runs["old"][1].append(timed(old))
-        prefix = {k: [(x + y) / 2 for x, y in zip(*v)] for k, v in runs.items()}
-        by_step = {k: {step: v[i] - (v[i - 1] if i else 0.0) for i, step in enumerate(TAIL_STEPS)}
-                   for k, v in prefix.items()}
-        row = {"kernel": "pectoral_tail", "shape": name, "card": card,
-               "ms": prefix["new"][-1], "old_ms": prefix["old"][-1],
-               "plain_ms": cuda_ms(lambda: KP.pectoral_tail_reference(*inputs), 3, 1),
-               "by_step_ms": by_step["new"], "old_by_step_ms": by_step["old"],
-               "runs_ms": runs, "watershed": watershed,
-               "device_ms_by_kernel": device_ms_by_kernel(lambda: KP.run_plan(*inputs))}
-        print(json.dumps(row), flush=True)
-        rows.append(row)
+        rows.append(row_of("pectoral_tail", name, lambda inputs=inputs: KP.run_plan(*inputs),
+                           lambda inputs=inputs: KP.pectoral_tail_reference(*inputs),
+                           KP.pectoral_tail_reference(*inputs, max_iters=h * w),
+                           {"watershed": watershed}))
 
     rng = np.random.default_rng(3)
     acts = torch.from_numpy(np.abs(rng.standard_normal((64, 64, 6, 6))).astype(np.float32))
@@ -978,22 +982,9 @@ def tail_device_times() -> int:
     grads = torch.from_numpy(rng.standard_normal((64, 6, 6, 64)).astype(np.float32)).to(dev)
     img01 = torch.from_numpy(synthetic_mammograms(64, 256, seed=3)).to(dev).float() / 255.0
     args = (acts, grads, img01, (256, 256))
-    old = old_gradcam(legacy, *args)
-
-    def new():
-        return KGT.gradcam_tail(*args)
-    for a, c in zip(new(), old()):
-        torch.cuda.synchronize()
-        if not torch.equal(a, c):
-            raise AssertionError("gradcam_tail disagrees with its one-block kernel")
-    o1, n1, n2, o2 = timed(old), timed(new), timed(new), timed(old)
-    row = {"kernel": "gradcam_tail", "shape": "B=64 (6, 6, 64) -> 256x256 (run_pipeline)",
-           "card": card, "ms": (n1 + n2) / 2, "old_ms": (o1 + o2) / 2,
-           "runs_ms": [o1, n1, n2, o2], "device_ms": device_ms(new, TAIL_ITERS),
-           "old_device_ms": device_ms(old, TAIL_ITERS), "band_rows": KGT.band_rows(64, 256),
-           "device_ms_by_kernel": device_ms_by_kernel(new),
-           "old_device_ms_by_kernel": device_ms_by_kernel(old)}
-    print(json.dumps(row), flush=True)
+    row = row_of("gradcam_tail", "B=64 (6, 6, 64) -> 256x256 (run_pipeline)",
+                 lambda: KGT.gradcam_tail(*args), lambda: KGT.gradcam_tail_reference(*args),
+                 KGT.gradcam_tail_reference(*args), {"band_rows": KGT.band_rows(64, 256)})
     print(json.dumps({"card": card, "pectoral_tail": rows, "gradcam_tail": row}), flush=True)
     return 0
 
@@ -1010,7 +1001,6 @@ EQ_SHAPES = (("B=64 256x256 (run_pipeline)", 64, 256, 256),
 CCL_SHAPES = (("B=3 62x62 CAM masks (advanced classify_and_roi)", 3, 62),
               ("B=1 6x6 CAM mask (basic classify)", 1, 6),
               ("B=16 256x256 random masks, density 0.45", 16, 256))
-EQ_ITERS = 20
 
 
 def equalize_path_input(b: int, h: int, w: int, dev) -> torch.Tensor:
@@ -1049,126 +1039,48 @@ def in_form(module, form: str, fn):
         module.form_for = shipped
 
 
-def old_equalize(lib, x):
-    """The replaced one-block equalize (`csrc/legacy/`) on a preallocated
-    output."""
-    from cadx_tpu_torch.kernels import _build
-
-    out = torch.empty_like(x)
-
-    def run():
-        rc = lib.cadx_equalize_hist_one_block(x.data_ptr(), out.data_ptr(), *x.shape,
-                                              _build.stream_ptr(x.device))
-        _build.check(rc, "cadx_equalize_hist_one_block")
-        return out
-    return run
-
-
-def old_ccl(lib, m, conn: int = 8):
-    """The replaced one-block CCL (`csrc/legacy/`) on preallocated planes."""
-    from cadx_tpu_torch.kernels import _build
-    from cadx_tpu_torch.ops.components import background_label
-
-    b, h, w = m.shape
-    labels = torch.empty((b, h, w), dtype=torch.int32, device=m.device)
-    scratch = torch.empty_like(labels)
-
-    def run():
-        rc = lib.cadx_ccl_one_block(m.data_ptr(), labels.data_ptr(), scratch.data_ptr(), b, h,
-                                    w, conn, background_label(h, w), _build.stream_ptr(m.device))
-        _build.check(rc, "cadx_ccl_one_block")
-        return labels
-    return run
-
-
 def equalize_ccl_times() -> int:
     """`--equalize-ccl-times`: equalize at every path shape (EQ_SHAPES) and
-    ccl at CCL_SHAPES beside the one-block kernels they replaced (kept in
-    `csrc/legacy/`, built apart by `_build.load_legacy`), in a fresh
-    process, where the profiler keeps every record. Each kernel and its old
-    one bit-exact against the plain version (ccl's uncapped) and twice to
-    the same bytes; then CUDA events in turns old, new, new, old (EQ_ITERS
-    calls a timing after one) and the device time of each (torch.profiler:
-    the memset and every launch of a call), each the mean of two windows in
-    the same turns. Equalize also on an all-zero and a uniform-random
+    ccl at CCL_SHAPES, in a fresh process, where the profiler keeps every
+    record. Each kernel (ccl where it takes its cluster form also in its
+    tiled form) bit-exact against the plain version (ccl's uncapped) and
+    twice to the same bytes, then timed beside the plain version
+    (`timing_row`). Equalize also on an all-zero and a uniform-random
     3328x2560 image (one hot bin against none) and a trace of one B=1
     3328x2560 call: its launches' grids, memsets and synchronising runtime
     calls. Each row's bound: its inputs and outputs once over the HBM rate
-    (one operation an output element, below it); equalize's design floor: 3
-    bytes a pixel (read, read again, write). Prints one JSON line a row,
+    (one operation an output element, below it); equalize's design floor:
+    3 bytes a pixel (read, read again, write). Prints one JSON line a row,
     then one with all of them."""
     if not torch.cuda.is_available():
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from cadx_tpu_torch.kernels import _build
     from cadx_tpu_torch.kernels import ccl as KC
     from cadx_tpu_torch.kernels import equalize as KE
 
     dev = torch.device("cuda", 0)
     card = card_line()
-    legacy = _build.load_legacy()
 
-    def same(a, b, what):
-        torch.cuda.synchronize()
-        if not torch.equal(a, b):
-            raise AssertionError(f"{what} disagrees")
-
-    def row_of(kernel, shape, x, new, old, plain, floor_bytes=None, other=None):
-        """new and old (and other, (its name, its call)) checked, then timed
-        in turns old, new, [other,] [other,] new, old."""
-        out = plain()
-        runs = (("new", new), ("old", old)) + ((other,) if other else ())
-        for name, fn in runs:
-            same(fn().clone(), out, f"{kernel} [{name}, {shape}] against its plain version")
-            same(fn().clone(), fn().clone(), f"{kernel} [{name}, {shape}] on a second run")
-        order = [old, new] + ([other[1]] * 2 if other else []) + [new, old]
-        ev = [cuda_ms(fn, EQ_ITERS) for fn in order]
-        dv = [device_ms(fn, EQ_ITERS) for fn in order]
-        b_ms, b_by = bound(nbytes(x) + nbytes(out), numel(out))
-        row = {"kernel": kernel, "shape": shape, "card": card, "ms": (ev[1] + ev[-2]) / 2,
-               "old_ms": (ev[0] + ev[-1]) / 2, "runs_ms": ev,
-               "device_ms": captured_mean(dv[1], dv[-2]),
-               "old_device_ms": captured_mean(dv[0], dv[-1]), "device_runs_ms": dv,
-               "bound_ms": b_ms, "bound_by": b_by,
-               "device_ms_by_kernel": device_ms_by_kernel(new)}
-        if other:
-            row[other[0]] = {"ms": (ev[2] + ev[3]) / 2, "device_ms": captured_mean(*dv[2:4]),
-                             "device_ms_by_kernel": device_ms_by_kernel(other[1])}
-        if floor_bytes is not None:
-            row["design_floor_ms"] = floor_bytes / HBM_BYTES_PER_S * 1e3
-        print(json.dumps(row), flush=True)
-        return row
+    def row_of(kernel, shape, x, new, plain, others=(), extra=None):
+        return timing_row(card, kernel, shape, (x,), new, plain, plain(), others, extra)
 
     # the trace first, while the profiler keeps every record of the process
     h, w = 3328, 2560
     x = equalize_path_input(1, h, w, dev)
     KE.equalize(x)
-    events = trace_events(lambda: KE.equalize(x))
-    trace = {"shape": f"B=1 {h}x{w}",
-             "grids": [e["args"]["grid"] for e in events
-                       if e.get("cat") == "kernel" and "grid" in e.get("args", {})],
-             "memsets": sum(1 for e in events if e.get("cat") == "gpu_memset"),
-             "launch_calls": runtime_calls(events, ("cudaLaunchKernel", "cudaLaunchKernelExC")),
-             "sync_calls": runtime_calls(events, ("cudaEventSynchronize",
-                                                  "cudaStreamSynchronize", "cudaMemcpy"))}
+    trace = {"shape": f"B=1 {h}x{w}", **one_call_trace(lambda: KE.equalize(x))}
     print(json.dumps({"equalize_trace": trace}), flush=True)
 
-    eq_rows = []
-    for shape, b, h, w in EQ_SHAPES:
-        x = equalize_path_input(b, h, w, dev)
-        eq_rows.append(row_of("equalize", shape, x, lambda x=x: KE.equalize(x),
-                              old_equalize(legacy, x), lambda x=x: KE.equalize_reference(x),
-                              3 * x.numel()))
-    h, w = 3328, 2560
     rng = np.random.default_rng(4)
-    for shape, x in (
-            (f"B=1 {h}x{w} all zero (every pixel in one bin)",
-             torch.zeros((1, h, w), dtype=torch.uint8, device=dev)),
-            (f"B=1 {h}x{w} uniform random bytes (no hot bin)",
-             torch.from_numpy(rng.integers(0, 256, (1, h, w), dtype=np.uint8)).to(dev))):
-        eq_rows.append(row_of("equalize", shape, x, lambda x=x: KE.equalize(x),
-                              old_equalize(legacy, x), lambda x=x: KE.equalize_reference(x),
-                              3 * x.numel()))
+    eq_in = [(shape, equalize_path_input(b, hh, ww, dev)) for shape, b, hh, ww in EQ_SHAPES]
+    eq_in += [(f"B=1 {h}x{w} all zero (every pixel in one bin)",
+               torch.zeros((1, h, w), dtype=torch.uint8, device=dev)),
+              (f"B=1 {h}x{w} uniform random bytes (no hot bin)",
+               torch.from_numpy(rng.integers(0, 256, (1, h, w), dtype=np.uint8)).to(dev))]
+    eq_rows = [row_of("equalize", shape, x, lambda x=x: KE.equalize(x),
+                      lambda x=x: KE.equalize_reference(x),
+                      extra={"design_floor_ms": 3 * x.numel() / HBM_BYTES_PER_S * 1e3})
+               for shape, x in eq_in]
 
     # ccl; where the cluster form runs, the tiled form too ("tiled_form")
     ccl_rows = []
@@ -1176,12 +1088,12 @@ def equalize_ccl_times() -> int:
     for shape, b, side in CCL_SHAPES:
         m = (torch.from_numpy(rng.random((b, side, side)) < 0.45).to(dev) if b == 16
              else cam_masks(rng, b, side, dev))
-        other = (("tiled_form", lambda m=m: in_form(KC, "tiled", lambda: KC.label_components(m, 8)))
-                 if KC.form_for(side, side) == "cluster" else None)
+        others = ((("tiled_form", lambda m=m: in_form(
+            KC, "tiled", lambda: KC.label_components(m, 8))),)
+            if KC.form_for(side, side) == "cluster" else ())
         ccl_rows.append(row_of("ccl", shape, m, lambda m=m: KC.label_components(m, 8),
-                               old_ccl(legacy, m),
                                lambda m=m: KC.label_components_reference(m, 8, m[0].numel()),
-                               other=other))
+                               others))
     print(json.dumps({"card": card, "equalize": eq_rows, "equalize_trace": trace,
                       "ccl": ccl_rows}), flush=True)
     return 0
@@ -1200,6 +1112,8 @@ JET_SHAPES = (("B=1 512x512 gray (the reference Grad-CAM display, segment_hw)", 
               ("B=1 1536x1280 gray (the display cap)", 1, 1536, 1280, False),
               ("B=64 256x256 gray (the pipeline's heatmaps)", 64, 256, 256, False),
               ("B=3 37x53 gray (images off 16-byte boundaries)", 3, 37, 53, False))
+
+
 def clean_stage_inputs(batch):
     """The inputs the cleaner hands each kernel (launches not counted):
     suppress-site and segment-site masks, the segmented image, its
@@ -1253,9 +1167,6 @@ def border_flood(masks):
     return inv.contiguous(), (edge & inv).contiguous()
 
 
-MJ_ITERS = 20
-
-
 def smooth_heat(rng, b: int, h: int, w: int) -> torch.Tensor:
     """Grad-CAM-like uint8 heatmaps on the CPU: 6x6 random maps resized
     bilinearly to (h, w), as the pipeline's CAMs are."""
@@ -1266,120 +1177,33 @@ def smooth_heat(rng, b: int, h: int, w: int) -> torch.Tensor:
     return (up[:, 0] * 255).to(torch.uint8).contiguous()
 
 
-def old_mode(lib, labels, m):
-    """The replaced one-block mode (`csrc/legacy/`) through the body of its
-    former wrapper: the same input checks and per-call allocations (the
-    output and three int32 scratch planes), so that CUDA events compare
-    wrapper with wrapper."""
-    from cadx_tpu_torch.kernels import _build
-
-    def run():
-        _build.check_input(labels, torch.int32, "largest_component_mask labels")
-        _build.check_input(m, torch.bool, "largest_component_mask mask")
-        b, h, w = labels.shape
-        out = torch.empty_like(m)
-        scratch = torch.empty((b, 3, h, w), dtype=torch.int32, device=m.device)
-        rc = lib.cadx_largest_component_mask_one_block(labels.data_ptr(), m.data_ptr(),
-                                                       out.data_ptr(), scratch.data_ptr(), b, h,
-                                                       w, _build.stream_ptr(m.device))
-        _build.check(rc, "cadx_largest_component_mask_one_block")
-        return out
-    return run
-
-
-def old_jet(lib, heat, img01):
-    """The replaced three-launch jet_blend (`csrc/legacy/`) through the body
-    of its former wrapper: the same input checks and per-call allocations
-    (the output and a (B,) int32 peak), so that CUDA events compare wrapper
-    with wrapper."""
-    from cadx_tpu_torch.kernels import _build
-    from cadx_tpu_torch.kernels import overlay as KOv
-
-    def run():
-        _build.check_input(heat, torch.uint8, "jet_blend heat")
-        rgb = img01.ndim == 4
-        _build.check_input(img01, torch.float32, "jet_blend image", ndim=4 if rgb else 3)
-        b, h, w = heat.shape
-        out = torch.empty((b, h, w, 3), dtype=torch.uint8, device=heat.device)
-        peak = torch.empty(b, dtype=torch.int32, device=heat.device)
-        rc = lib.cadx_jet_blend_two_pass(heat.data_ptr(), img01.data_ptr(),
-                                         KOv.jet_lut_rgb().ctypes.data, peak.data_ptr(),
-                                         out.data_ptr(), b, h, w, 3 if rgb else 1,
-                                         1 if rgb else 0, _build.stream_ptr(heat.device))
-        _build.check(rc, "cadx_jet_blend_two_pass")
-        return out
-    return run
-
-
-def one_call_trace(fn) -> dict:
-    """Kernel launches (with grids), memsets and synchronising runtime calls
-    of one call of fn, from a torch.profiler trace."""
-    events = trace_events(fn)
-    return {"grids": [e["args"].get("grid") for e in events if e.get("cat") == "kernel"],
-            "names": [e.get("name", "")[:60] for e in events if e.get("cat") == "kernel"],
-            "memsets": sum(1 for e in events if e.get("cat") == "gpu_memset"),
-            "launch_calls": runtime_calls(events, ("cudaLaunchKernel", "cudaLaunchKernelExC",
-                                                   "cudaLaunchCooperativeKernel")),
-            "sync_calls": runtime_calls(events, ("cudaEventSynchronize", "cudaStreamSynchronize",
-                                                 "cudaMemcpy"))}
-
-
 def mode_jet_times() -> int:
-    """`--mode-jet-times`: mode at MODE_SHAPES and jet_blend at JET_SHAPES
-    beside the kernels they replaced (kept in `csrc/legacy/`, built apart
-    by `_build.load_legacy`), in a fresh process, where the profiler keeps
-    every record. Each kernel, its old one and its other forms (mode at the
-    CAM shapes: the other two of the block, cluster and wide forms;
-    jet_blend where it takes the one-launch form: the wide form) bit-exact
-    against the plain version and twice to the same bytes; then CUDA events
-    in turns old, new, other forms twice, new, old (MJ_ITERS calls a timing
-    after one) and the device time of each (torch.profiler), the mean of the two
-    new and the two old windows. The heatmaps are smooth (6x6 maps resized
-    bilinearly, as the paths' CAMs), the images random bytes / 255. Each
-    row's bound: its inputs and outputs once over the HBM rate (mode one
-    operation, jet_blend 4, an output element). The trace of one mode
-    call at B=3 62x62 and one jet_blend call at B=1 512x512 gray must hold
-    one kernel launch, no memset and no synchronising runtime call. Prints
-    one JSON line a row, then one with all of them."""
+    """`--mode-jet-times`: mode at MODE_SHAPES and jet_blend at JET_SHAPES,
+    in a fresh process, where the profiler keeps every record. Each kernel
+    and its other forms (mode at the CAM shapes: the other two of the
+    block, cluster and wide forms; jet_blend where it takes the one-launch
+    form: the wide form) bit-exact against the plain version and twice to
+    the same bytes, then timed beside the plain version (`timing_row`).
+    The heatmaps are smooth (6x6 maps resized bilinearly, as the paths'
+    CAMs), the images random bytes / 255. Each row's bound: its inputs and
+    outputs once over the HBM rate (mode one operation, jet_blend 4, an
+    output element). The trace of one mode call at B=3 62x62 and one
+    jet_blend call at B=1 512x512 gray must hold one kernel launch, no
+    memset and no synchronising runtime call. Prints one JSON line a row,
+    then one with all of them."""
     if not torch.cuda.is_available():
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from cadx_tpu_torch.kernels import _build
     from cadx_tpu_torch.kernels import ccl as KC
     from cadx_tpu_torch.kernels import mode as KM
     from cadx_tpu_torch.kernels import overlay as KOv
 
     dev = torch.device("cuda", 0)
     card = card_line()
-    legacy = _build.load_legacy()
 
-    def same(a, b, what):
-        torch.cuda.synchronize()
-        if not torch.equal(a, b):
-            raise AssertionError(f"{what} disagrees")
-
-    def row_of(kernel, shape, inputs, new, old, plain, others, ops_per_out):
-        out = plain()
-        for name, fn in (("new", new), ("old", old)) + others:
-            same(fn().clone(), out, f"{kernel} [{name}, {shape}] against its plain version")
-            same(fn().clone(), fn().clone(), f"{kernel} [{name}, {shape}] on a second run")
-        order = [old, new] + [fn for _, fn in others for _ in (0, 1)] + [new, old]
-        ev = [cuda_ms(fn, MJ_ITERS) for fn in order]
-        dv = [device_ms(fn, MJ_ITERS) for fn in order]
-        b_ms, b_by = bound(nbytes(inputs) + nbytes(out), ops_per_out * numel(out))
-        row = {"kernel": kernel, "shape": shape, "card": card, "ms": (ev[1] + ev[-2]) / 2,
-               "old_ms": (ev[0] + ev[-1]) / 2, "runs_ms": ev,
-               "device_ms": captured_mean(dv[1], dv[-2]),
-               "old_device_ms": captured_mean(dv[0], dv[-1]), "device_runs_ms": dv,
-               "bound_ms": b_ms, "bound_by": b_by,
-               "device_ms_by_kernel": device_ms_by_kernel(new),
-               "old_device_ms_by_kernel": device_ms_by_kernel(old)}
-        for i, (name, fn) in enumerate(others):
-            row[name] = {"ms": (ev[2 + 2 * i] + ev[3 + 2 * i]) / 2,
-                         "device_ms": captured_mean(dv[2 + 2 * i], dv[3 + 2 * i]),
-                         "device_ms_by_kernel": device_ms_by_kernel(fn)}
-        print(json.dumps(row), flush=True)
-        return row
+    def row_of(kernel, shape, inputs, new, plain, others, ops_per_out):
+        return timing_row(card, kernel, shape, inputs, new, plain, plain(), others,
+                          ops_per_out=ops_per_out)
 
     rng = np.random.default_rng(11)
     mode_rows, traces = [], {}
@@ -1394,7 +1218,6 @@ def mode_jet_times() -> int:
             if form != shipped)
         mode_rows.append(row_of("mode", shape, (labels, m),
                                 lambda m=m, labels=labels: KM.largest_component_mask(labels, m),
-                                old_mode(legacy, labels, m),
                                 lambda m=m, labels=labels: KM.largest_component_mask_reference(
                                     labels, m), others, 1))
         if b == 3:
@@ -1410,7 +1233,6 @@ def mode_jet_times() -> int:
             if KOv.form_for(b, h, w) == "once" else ())
         jet_rows.append(row_of("jet_blend", shape, (heat, img),
                                lambda heat=heat, img=img: KOv.jet_blend(heat, img),
-                               old_jet(legacy, heat, img),
                                lambda heat=heat, img=img: KOv.jet_blend_reference(heat, img),
                                others, 4))
         if (b, h, w, rgb) == (1, 512, 512, False):
@@ -1426,116 +1248,9 @@ def mode_jet_times() -> int:
     return 0
 
 
-FS_ITERS = 20          # most calls a timing of a kernel, after one
-FS_WINDOW_S = 0.25     # fewer calls where one takes longer than this / FS_ITERS
-FS_PLAIN_ITERS = 3     # calls a timing of a plain version
-
-
-def old_flood(lib, mask, seed, max_iters: int, conn: int):
-    """The replaced one-block flood (`csrc/legacy/`) through the body of its
-    former wrapper: the same checks and per-call allocations (the output
-    and, where a block's planes pass 200 KB of shared memory, their global
-    scratch), so that CUDA events compare wrapper with wrapper."""
-    from cadx_tpu_torch.kernels import _build
-
-    def run():
-        _build.check_input(mask, torch.bool, "flood_from")
-        _build.check_input(seed, torch.bool, "flood_from")
-        b, h, w = mask.shape
-        out = torch.empty_like(mask)
-        words = 3 * h * (-(-w // 32) | 1) + 2 * w * (-(-h // 32) | 1)
-        scratch = (torch.empty(b * words, dtype=torch.int32, device=mask.device)
-                   if 4 * words > 200 * 1024 else None)
-        rc = lib.cadx_flood_from_one_block(mask.data_ptr(), seed.data_ptr(), out.data_ptr(),
-                                           None if scratch is None else scratch.data_ptr(), b,
-                                           h, w, max_iters, conn, _build.stream_ptr(mask.device))
-        _build.check(rc, "cadx_flood_from_one_block")
-        return out
-    return run
-
-
-def old_seeded(lib, masks, conn: int):
-    """The replaced one-block seeded component (`csrc/legacy/`) through the
-    body of its former wrapper: its checks, the output and a (B, 4, H, W)
-    int32 scratch."""
-    from cadx_tpu_torch.kernels import _build
-
-    def run():
-        _build.check_input(masks, torch.bool, "largest_component_seeded")
-        b, h, w = masks.shape
-        out = torch.empty_like(masks)
-        scratch = torch.empty((b, 4, h, w), dtype=torch.int32, device=masks.device)
-        rc = lib.cadx_largest_component_seeded_one_block(
-            masks.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, h, w, conn, 17,
-            _build.stream_ptr(masks.device))
-        _build.check(rc, "cadx_largest_component_seeded_one_block")
-        return out
-    return run
-
-
-def same_bytes(a, b, what):
-    """Raise unless the tensors (or tuples of them) a and b are equal."""
-    torch.cuda.synchronize()
-    for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
-        if not torch.equal(x, y):
-            raise AssertionError(f"{what} disagrees")
-
-
-def cloned(out):
-    return tuple(t.clone() for t in out) if isinstance(out, tuple) else out.clone()
-
-
-def calls_for(fn):
-    """FS_ITERS calls, fewer where a call takes more than FS_WINDOW_S /
-    FS_ITERS, at least 3."""
-    return max(3, min(FS_ITERS, int(FS_WINDOW_S * 1e3 / max(cuda_ms(fn, 1), 1e-3))))
-
-
-def timing_row(card, kernel, shape, inputs, new, old, plain, exact, others=(), extra=None):
-    """Check new, old and others against `exact` (twice each), then time
-    them in turns (old, new, each other twice, new, old: CUDA events, then
-    profiler device time) and the plain version before and after; print
-    and return the row. Bound: inputs and outputs once over the HBM rate,
-    at least one operation an output element."""
-    for name, fn in (("new", new),) + ((("old", old),) if old else ()) + others:
-        same_bytes(cloned(fn()), exact, f"{kernel} [{name}, {shape}] against its plain version")
-        same_bytes(cloned(fn()), cloned(fn()), f"{kernel} [{name}, {shape}] on a second run")
-    out = new()
-    fns = [fn for fn in (old, new) if fn] + [fn for _, fn in others for _ in (0, 1)] \
-        + [fn for fn in (new, old) if fn]
-    iters = [calls_for(fn) for fn in fns]
-    p1 = cuda_ms(plain, FS_PLAIN_ITERS)
-    ev = [cuda_ms(fn, n) for fn, n in zip(fns, iters)]
-    p2 = cuda_ms(plain, FS_PLAIN_ITERS)
-    dv = [device_ms(fn, n) for fn, n in zip(fns, iters)]
-    first, last = (1, -2) if old else (0, -1)
-    b_ms, b_by = bound(nbytes(inputs) + nbytes(out), numel(out[0] if isinstance(out, tuple)
-                                                        else out))
-    row = {"kernel": kernel, "shape": shape, "card": card,
-           "ms": (ev[first] + ev[last]) / 2, "device_ms": captured_mean(dv[first], dv[last]),
-           "plain_ms": (p1 + p2) / 2, "plain_runs_ms": [p1, p2], "runs_ms": ev,
-           "device_runs_ms": dv, "calls": iters, "bound_ms": b_ms, "bound_by": b_by,
-           "device_ms_by_kernel": device_ms_by_kernel(new)}
-    if old:
-        row.update(old_ms=(ev[0] + ev[-1]) / 2, old_device_ms=captured_mean(dv[0], dv[-1]),
-                   old_device_ms_by_kernel=device_ms_by_kernel(old))
-    for i, (name, _) in enumerate(others):
-        k = (2 if old else 1) + 2 * i
-        row[name] = {"ms": (ev[k] + ev[k + 1]) / 2,
-                     "device_ms": captured_mean(dv[k], dv[k + 1])}
-    row.update(extra or {})
-    if row.get("sweeps"):
-        per = row["device_ms"] if row["device_ms"] is not None else row["ms"]
-        row["ms_a_sweep"] = per / row["sweeps"]
-    print(json.dumps(row), flush=True)
-    return row
-
-
 def flood_seeded_times() -> int:
-    """`--flood-seeded-times`: the flood and the seeded component beside the
-    one-block kernels they replaced (kept in `csrc/legacy/`, built apart by
-    `_build.load_legacy`), in a fresh process, where the profiler keeps
-    every record.
+    """`--flood-seeded-times`: the flood and the seeded component, in a
+    fresh process, where the profiler keeps every record.
 
     - flood, 4-connected: fill_holes' border flood of suppress-site
       backgrounds (run_pipeline's B=64 256² batch; B=1 1536x1280 and
@@ -1547,20 +1262,19 @@ def flood_seeded_times() -> int:
       masks at 1536x1280, random masks at density 0.45 (B=16 256²), also
       beside ccl + mode and largest_obj without fill or opening.
 
-    Each kernel, and its old one, bit-exact against the plain version (the
-    seeded component uncapped) and twice to the same bytes; CUDA events and
-    profiler device time in turns old, new, other launches twice, new, old,
-    up to FS_ITERS calls a timing after one; the plain version
-    FS_PLAIN_ITERS calls before and after (`timing_row`). Traces of one
-    call: the flood at B=1 1536x1280 and B=64
-    256² must be one launch, at most one memset, no synchronising runtime
+    Each kernel bit-exact against the plain version (the seeded component
+    uncapped) and twice to the same bytes; CUDA events and profiler device
+    time in turns kernel, other launches twice, kernel, up to TIMED_ITERS
+    calls a timing after one; the plain version PLAIN_ITERS calls before
+    and after (`timing_row`). Traces of one call: the flood at B=1
+    1536x1280 and B=64 256² must be one launch, at most one memset, no
+    synchronising runtime
     call; the seeded component at B=16 256² launches no flood and nothing
     of one block an image (every grid holds more blocks than images). Prints
     one JSON line a row, then one with all of them."""
     if not torch.cuda.is_available():
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from cadx_tpu_torch.kernels import _build
     from cadx_tpu_torch.kernels import ccl as KC
     from cadx_tpu_torch.kernels import flood as KFl
     from cadx_tpu_torch.kernels import largest_obj as KL
@@ -1570,7 +1284,6 @@ def flood_seeded_times() -> int:
 
     dev = torch.device("cuda", 0)
     card = card_line()
-    legacy = _build.load_legacy()
 
     def row_of(*args, **kwargs):
         return timing_row(card, *args, **kwargs)
@@ -1600,7 +1313,6 @@ def flood_seeded_times() -> int:
         n = int(sweeps.item())
         row = row_of("flood", shape, (m, seed),
                      lambda m=m, seed=seed: KFl.flood_from(m, seed, 128, 4),
-                     old_flood(legacy, m, seed, 128, 4),
                      lambda m=m, seed=seed: KFl.flood_from_reference(m, seed, 128, 4), exact,
                      extra={"sweeps": n})
         flood_rows.append(row)
@@ -1624,7 +1336,7 @@ def flood_seeded_times() -> int:
         exact = TC.largest_component_plain(m, 8, m.shape[1] * m.shape[2])
         seeded_rows.append(row_of(
             "largest_component_seeded", shape, (m,),
-            lambda m=m: KL.largest_component_seeded(m, 8), old_seeded(legacy, m, 8),
+            lambda m=m: KL.largest_component_seeded(m, 8),
             lambda m=m: KL.largest_component_seeded_reference(m, 8), exact,
             (("ccl_mode", lambda m=m: KM.largest_component_mask(KC.label_components(m, 8), m)),
              ("largest_obj", lambda m=m: KL.largest_obj(m, 8)))))
@@ -1655,12 +1367,6 @@ PACKED_SIDES = ((1, 1), (31, 33), (32, 32), (33, 31), (63, 65), (200, 136), (511
                 (512, 512))
 # serpentine sides where JAX's 256-sweep cap binds (phase 10 and the timings)
 SERPENTINE_SIDES = (128, 512)
-# the packed form's and pectoral_tail's times before the sweeps were held
-# to JAX's cap (PERF.md rows 3 and 7, the rounds design's last records; NVIDIA H100
-# 80GB HBM3, 700 W): device time from the profiler, in ms
-PACKED_RECORDS_MS = {(1, 512, 512): 0.0978, (8, 512, 512): 0.1736, (16, 256, 256): 0.1469}
-PECTORAL_RECORDS_MS = {"B=64 256x256 (run_pipeline)": (0.7071, 0.7302),
-                       "B=1 512x512 (the 512x512 upload)": (0.2624, 0.2910)}
 
 
 def packed_inputs(rng, b: int, h: int, w: int, n_values: int, case: str, dev):
@@ -1720,73 +1426,35 @@ def plain_packed_sweeps(img, mk, values, max_iters: int, max_scan: int) -> int:
     return max_iters
 
 
-def old_packed(lib, img, mk, values):
-    """The replaced packed form that relaxed tiles to the fixpoint in
-    rounds (`csrc/legacy/watershed_packed_rounds.cu`) on preallocated
-    outputs, as its wrapper called it; `run.rounds` holds its rounds."""
-    from cadx_tpu_torch.kernels import _build
-
-    b, h, w = img.shape
-    labels = torch.empty((b, h, w), dtype=torch.int32, device=img.device)
-    boundary = torch.empty((b, h, w), dtype=torch.bool, device=img.device)
-    tiles = b * -(-h // 32) * -(-w // 32)
-    scratch = torch.empty((8 * b * h * w + 16 + 2 * tiles,), dtype=torch.uint8,
-                          device=img.device)
-    rounds = torch.zeros(1, dtype=torch.int32, device=img.device)
-    v = values + (0,) * (3 - len(values))
-
-    def run():
-        rc = lib.cadx_watershed_packed_rounds(
-            img.data_ptr(), mk.data_ptr(), labels.data_ptr(), boundary.data_ptr(),
-            scratch.data_ptr(), rounds.data_ptr(), b, h, w, v[0], v[1], v[2], len(values),
-            _build.stream_ptr(img.device))
-        _build.check(rc, "cadx_watershed_packed_rounds")
-        return labels, boundary
-    run.rounds = rounds
-    return run
-
-
 def packed_watershed_times() -> int:
     """`--packed-watershed-times`: the packed marker watershed, its sweeps
-    held to JAX's cap, beside the form it replaced that relaxed tiles to
-    the fixpoint in rounds (`csrc/legacy/watershed_packed_rounds.cu`, built
-    apart by `_build.load_legacy`) and beside its plain version, and
-    pectoral_tail, which runs the same sweeps, beside its records; in a
-    fresh process, where the profiler keeps every record.
+    held to JAX's cap, beside its plain version, in a fresh process, where
+    the profiler keeps every record.
 
-    - the packed watershed on the equalized images and cleaner markers of
-      synthetic mammograms at PACKED_TIMED (seed 30), as the cleaner's
-      composed branch calls it (max_scan 8, 256 sweeps at most): new and
-      old bit-exact against the plain version at that cap and twice to the
-      same bytes, then CUDA events and profiler device time in turns old,
-      new, new, old (`timing_row`), the plain version before and after; the
-      sweeps the kernel ran beside the plain version's and the old form's
-      rounds, the bound (13 bytes a pixel: image and markers in, labels and
-      boundary out), this design's floor (`packed_floor_bytes` over the HBM
-      rate) and the rounds design's record (PACKED_RECORDS_MS);
+    - on the equalized images and cleaner markers of synthetic mammograms
+      at PACKED_TIMED (seed 30), as the cleaner's composed branch calls it
+      (max_scan 8, 256 sweeps at most): bit-exact against the plain
+      version at that cap and twice to the same bytes, then timed beside
+      the plain version (`timing_row`); the sweeps the kernel ran beside
+      the plain version's, the bound (13 bytes a pixel: image and markers
+      in, labels and boundary out) and this design's floor
+      (`packed_floor_bytes` over the HBM rate);
     - the serpentines at SERPENTINE_SIDES, where the cap binds: bit-exact
       against the plain version at 256 sweeps (max_scan 8), the sweeps run
-      and the times (the old form's fixpoint differs from them);
+      and the times;
     - a trace of one call at B=1 512²: three launches (prologue, the
       cooperative sweeps, epilogue), none of one block an image, no
-      synchronising runtime call;
-    - pectoral_tail at `pectoral_path_inputs`' B=64 256² and B=1 512²:
-      bit-exact to its plain version at its 256-sweep cap, its sweeps,
-      CUDA events and device time over TAIL_ITERS calls after TAIL_WARMUP,
-      beside PECTORAL_RECORDS_MS.
+      synchronising runtime call.
 
     Prints one JSON line a row, then one with all of them."""
     if not torch.cuda.is_available():
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from cadx_tpu_torch.kernels import _build
-    from cadx_tpu_torch.kernels import pectoral as KP
     from cadx_tpu_torch.kernels import watershed as KW
     from cadx_tpu_torch.synthetic import synthetic_mammograms
 
     dev = torch.device("cuda", 0)
     card = card_line()
-    legacy = _build.load_legacy()
     values = (255, 128, 64)
     packed_in = {}
     for b, h, w in PACKED_TIMED:
@@ -1812,20 +1480,17 @@ def packed_watershed_times() -> int:
         capped = KW.marker_watershed_reference(img, mk, max_iters=256, max_scan=8,
                                                marker_label_values=values)
         n_sweeps = kernel_sweeps(img, mk)
-        old = old_packed(legacy, img, mk, values)
-        old()
         floor_ms = KW.packed_floor_bytes(b, h, w, n_sweeps) / HBM_BYTES_PER_S * 1e3
         rows.append(timing_row(
             card, "watershed_packed", f"B={b} {h}x{w} cleaner markers", (img, mk),
             lambda img=img, mk=mk: KW.marker_watershed(img, mk, max_scan=8,
                                                        marker_label_values=values),
-            old, lambda img=img, mk=mk: KW.marker_watershed_reference(
+            lambda img=img, mk=mk: KW.marker_watershed_reference(
                 img, mk, max_scan=8, marker_label_values=values), capped,
             extra={"sweeps": n_sweeps,
                    "plain_sweeps": plain_packed_sweeps(img, mk, values, 256, 8),
-                   "old_rounds": int(old.rounds.item()), "tiles": KW.sweep_tiles(b, h, w),
-                   "floor_ms": floor_ms, "floor_bytes_a_pixel": 29 + 16 * n_sweeps,
-                   "record_device_ms": PACKED_RECORDS_MS[(b, h, w)]}))
+                   "tiles": KW.sweep_tiles(b, h, w), "floor_ms": floor_ms,
+                   "floor_bytes_a_pixel": 29 + 16 * n_sweeps}))
     for side in SERPENTINE_SIDES:
         img, mk = watershed_serpentine(side, dev)
         capped = KW.marker_watershed_reference(img, mk, max_iters=256, max_scan=8,
@@ -1833,7 +1498,7 @@ def packed_watershed_times() -> int:
         rows.append(timing_row(
             card, "watershed_packed", f"B=1 {side}x{side} serpentine (the 256-sweep cap binds)",
             (img, mk), lambda img=img, mk=mk: KW.marker_watershed(
-                img, mk, max_scan=8, marker_label_values=values), None,
+                img, mk, max_scan=8, marker_label_values=values),
             lambda img=img, mk=mk: KW.marker_watershed_reference(
                 img, mk, max_scan=8, marker_label_values=values), capped,
             extra={"sweeps": kernel_sweeps(img, mk),
@@ -1843,31 +1508,7 @@ def packed_watershed_times() -> int:
             or any(g[0] * g[1] * g[2] <= trace["images"] for g in trace["grids"])):
         raise AssertionError(f"the packed watershed's call is not three launches over tiles "
                              f"x images without a synchronising call: {trace}")
-
-    tail_rows = []
-    for name, inputs in pectoral_path_inputs(dev).items():
-        if name not in PECTORAL_RECORDS_MS:
-            continue
-        h, w = inputs[0].shape[1:]
-        plain = KP.pectoral_tail_reference(*inputs, max_iters=h * w)
-        same_bytes(KP.run_plan(*inputs), plain, f"pectoral_tail [{name}]")
-        sweeps = torch.zeros(1, dtype=torch.int32, device=dev)
-        KP.run_plan(*inputs, sweeps=sweeps)
-
-        def plan(inputs=inputs):
-            return KP.run_plan(*inputs)
-        ev = [cuda_ms(plan, TAIL_ITERS, TAIL_WARMUP) for _ in range(2)]
-        dv = [device_ms(plan, TAIL_ITERS) for _ in range(2)]
-        rec_device, rec_ms = PECTORAL_RECORDS_MS[name]
-        row = {"kernel": "pectoral_tail", "shape": name, "card": card,
-               "ms": sum(ev) / 2, "runs_ms": ev, "device_ms": captured_mean(*dv),
-               "device_runs_ms": dv, "sweeps": int(sweeps.item()),
-               "record_device_ms": rec_device, "record_ms": rec_ms,
-               "device_ms_by_kernel": device_ms_by_kernel(plan)}
-        print(json.dumps(row), flush=True)
-        tail_rows.append(row)
-    print(json.dumps({"card": card, "watershed_packed": rows, "trace": trace,
-                      "pectoral_tail": tail_rows}), flush=True)
+    print(json.dumps({"card": card, "watershed_packed": rows, "trace": trace}), flush=True)
     return 0
 
 
@@ -1905,28 +1546,6 @@ def bf16_conv_inputs(dev) -> list:
     return out
 
 
-def old_conv_bf16(lib, x, w, b, pad: int):
-    """The bf16 conv form before its redesign (`csrc/legacy/
-    conv_leaky_bf16_sync.cu`) through its former wrapper's transpose and
-    allocation."""
-    from cadx_tpu_torch.kernels import _build
-    from cadx_tpu_torch.kernels import conv_leaky as KCL
-
-    bsz, c, h, wd = x.shape
-    f, _, k, _ = w.shape
-    layout = KCL._layout(x)
-
-    def run():
-        wt = w.permute(2, 3, 0, 1).contiguous()
-        out = torch.empty((bsz, f, h + 2 * pad - k + 1, wd + 2 * pad - k + 1),
-                          dtype=torch.bfloat16, device=x.device)
-        _build.check(lib.cadx_conv_leaky_bf16_sync(
-            x.data_ptr(), wt.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, c, h, wd, f, k, pad,
-            layout, 0.01, _build.stream_ptr(x.device)), "cadx_conv_leaky_bf16_sync")
-        return out
-    return run
-
-
 def kernel_device_ms(fn, name_part: str, iters: int) -> float | None:
     """Device milliseconds a call of fn spends in the kernels whose names
     hold name_part (the wrapper's weight transpose left out); None where
@@ -1936,68 +1555,53 @@ def kernel_device_ms(fn, name_part: str, iters: int) -> float | None:
 
 
 def bf16_conv_times() -> int:
-    """`--bf16-conv-times`: conv_leaky's bf16 form beside the design it
-    replaced (`csrc/legacy/conv_leaky_bf16_sync.cu`, built apart by
-    `_build.load_legacy`) at phase 11's shapes, in a fresh process, where
-    the profiler keeps every record. Each shape: new and old held to the
-    plain version within 2^-6 of its largest output (the tolerance of
-    phase 11), the new kernel twice to the same bytes; then CUDA events
-    and profiler device time in turns old, new, new, old (`calls_for`
-    calls a timing), each call's device time whole (the wrapper's weight
-    transpose included) and the conv kernel's alone; cuDNN's bf16
-    F.conv2d on the same tensors (events and device time); the bound
-    (bytes or dense bf16 operations). Prints one JSON line a row, then
-    one with all of them."""
+    """`--bf16-conv-times`: conv_leaky's bf16 form at phase 11's shapes
+    beside cuDNN's bf16 F.conv2d, in a fresh process, where the profiler
+    keeps every record. Each shape: the kernel held to the plain version
+    within 2^-6 of its largest output (the tolerance of phase 11) and
+    twice to the same bytes; then CUDA events and profiler device time in
+    turns kernel, F.conv2d, kernel (`calls_for` calls a timing), the
+    kernel's device time whole (the wrapper's weight transpose included)
+    and the conv kernel's alone; the bound (bytes or dense bf16
+    operations). Prints one JSON line a row, then one with all of them."""
     if not torch.cuda.is_available():
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import torch.nn.functional as F
 
-    from cadx_tpu_torch.kernels import _build
     from cadx_tpu_torch.kernels import conv_leaky as KCL
 
     dev = torch.device("cuda", 0)
     card = card_line()
-    legacy = _build.load_legacy()
     rows = []
     for what, x, w, b, pad, ops in bf16_conv_inputs(dev):
         new = (lambda x=x, w=w, b=b, pad=pad: KCL.conv_leaky_bf16(x, w, b, 0.01, pad))
-        old = old_conv_bf16(legacy, x, w, b, pad)
         lib = (lambda x=x, w=w, pad=pad: F.conv2d(x, w, padding=pad))
         want = KCL.conv_leaky_bf16_reference(x, w, b, 0.01, pad)
         tol = 2.0 ** -6 * float(want.float().abs().max())
-        errs = {}
-        for name, fn in (("new", new), ("old", old)):
-            got = fn()
-            torch.cuda.synchronize()
-            errs[name] = max_abs_err(got.float(), want.float())
-            if errs[name] > tol or got.dtype != torch.bfloat16 or got.shape != want.shape:
-                raise AssertionError(f"conv_leaky_bf16 [{name}, {what}] disagrees with its "
-                                     f"plain version: {errs[name]} > {tol}")
+        got = new()
+        torch.cuda.synchronize()
+        err = max_abs_err(got.float(), want.float())
+        if err > tol or got.dtype != torch.bfloat16 or got.shape != want.shape:
+            raise AssertionError(f"conv_leaky_bf16 [{what}] disagrees with its plain version: "
+                                 f"{err} > {tol}")
         same_bytes(new(), new(), f"conv_leaky_bf16 [{what}] on a second run")
-        fns = [old, new, new, old]
-        iters = [calls_for(fn) for fn in fns]
-        ev = [cuda_ms(fn, n) for fn, n in zip(fns, iters)]
-        l_ev = cuda_ms(lib, iters[1])
-        dv = [device_ms(fn, n) for fn, n in zip(fns, iters)]
-        kdv = [kernel_device_ms(fn, part, n) for fn, n, part in
-               zip(fns, iters, ("conv_bf16_kernel", "conv_bf16_persistent",
-                                "conv_bf16_persistent", "conv_bf16_kernel"))]
-        l_dv = device_ms(lib, iters[1])
+        n = calls_for(new)
+        fns = [new, lib, new]
+        ev = [cuda_ms(fn, n) for fn in fns]
+        dv = [device_ms(fn, n) for fn in fns]
+        kdv = [kernel_device_ms(new, "conv_bf16_persistent", n) for _ in range(2)]
         t_bytes = (nbytes((x, w, b)) + nbytes(want)) / HBM_BYTES_PER_S
         t_ops = ops / BF16_OPS_PER_S
         row = {"kernel": "conv_leaky_bf16", "shape": what, "card": card,
-               "ms": (ev[1] + ev[2]) / 2, "old_ms": (ev[0] + ev[3]) / 2,
-               "device_ms": captured_mean(dv[1], dv[2]),
-               "old_device_ms": captured_mean(dv[0], dv[3]),
-               "kernel_device_ms": captured_mean(kdv[1], kdv[2]),
-               "old_kernel_device_ms": captured_mean(kdv[0], kdv[3]),
-               "library_ms": l_ev, "library_device_ms": l_dv,
+               "ms": (ev[0] + ev[2]) / 2, "device_ms": captured_mean(dv[0], dv[2]),
+               "kernel_device_ms": captured_mean(*kdv),
+               "library_ms": ev[1], "library_device_ms": dv[1],
                "bound_ms": max(t_bytes, t_ops) * 1e3,
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "max_abs_err": errs["new"], "old_max_abs_err": errs["old"], "tolerance": tol,
+               "max_abs_err": err, "tolerance": tol,
                "runs_ms": ev, "device_runs_ms": dv, "kernel_device_runs_ms": kdv,
-               "calls": iters, "device_ms_by_kernel": device_ms_by_kernel(new),
+               "calls": n, "device_ms_by_kernel": device_ms_by_kernel(new),
                "library_device_ms_by_kernel": device_ms_by_kernel(lib)}
         print(json.dumps(row), flush=True)
         rows.append(row)
@@ -4554,12 +4158,6 @@ def main() -> int:
     raw8_64 = to_uint8(big_batch)
     raw8_big = to_uint8(serving_inputs[token])
 
-    def old_front(raw8):
-        """The front clean_boundary_gray ran before cleaner_front: two
-        largest_obj launches and the plain glue around them."""
-        sup, mask = cleaner.suppress_artifacts(raw8, 0.05, 15)
-        return cleaner.segment_breast_mask(sup, 0.05), mask
-
     def ccl_mode(m):
         return KM.largest_component_mask(KC.label_components(m, 8), m)
 
@@ -4693,25 +4291,18 @@ def main() -> int:
     compared = {}
     # batchnorm at every distinct input shape of one ResNet-50 forward at the
     # display: device times from a fresh process (batchnorm_device_times)
-    bn_run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                             "--batchnorm-device-times"], capture_output=True, text=True,
-                            timeout=600)
-    if bn_run.returncode != 0:
-        raise AssertionError(f"the batchnorm device-time run failed:\n{bn_run.stderr[-4000:]}")
-    bn_lines = bn_run.stdout.strip().splitlines()
-    print("\n".join(bn_lines[:-1]), flush=True)
-    bn_table = json.loads(bn_lines[-1])
+    bn_table = fresh("--batchnorm-device-times", 600)
     compared["batchnorm"] = bn_table["rows"] + [{"shape": f"sum over the ResNet-50 forward's "
                                                           f"{bn_table['launches']} launches",
                                                  **bn_table["sums"]}]
 
-    # cleaner_front and the seeded component, each beside its plain version
-    # and the launches it replaces on the same inputs, in turns plain,
-    # other, kernel, kernel, other, plain; a kernel's first row is its
-    # record's
-    def kernel_rows(name, fn, plain_fn, other, other_fn):
+    # cleaner_front beside its plain version, and the seeded component also
+    # beside the launches it replaces on the same inputs (ccl + mode), in
+    # turns plain, [other,] kernel, kernel, [other,] plain; a kernel's first
+    # row is its record's
+    def kernel_rows(name, fn, plain_fn, other=None, other_fn=None):
         return [(name, shape, (x,), iters, lambda x=x: fn(x), lambda x=x: plain_fn(x), other,
-                 lambda x=x: other_fn(x)) for shape, x, iters in cases[name]]
+                 other_fn and (lambda x=x: other_fn(x))) for shape, x, iters in cases[name]]
 
     # (shape, input, calls a timing of the kernel and of the launches it
     # replaces; 3 of the plain version)
@@ -4725,26 +4316,27 @@ def main() -> int:
                   10),
                  (f"B=16 {HW}x{HW} random masks, density 0.45", rand_masks, 10)]}
     for name, shape, inputs, iters, kernel_fn, plain_fn, other, other_fn in (
-            kernel_rows("cleaner_front", KF.cleaner_front, KF.cleaner_front_reference,
-                        "old front", old_front)
+            kernel_rows("cleaner_front", KF.cleaner_front, KF.cleaner_front_reference)
             + kernel_rows("largest_component_seeded", KL.largest_component_seeded,
                           KL.largest_component_seeded_reference, "ccl + mode", ccl_mode)):
         outputs = kernel_fn()
         b_ms, b_by = bound(nbytes(inputs) + nbytes(outputs), numel(outputs))
         k, p, o, runs = turns_ms(kernel_fn, plain_fn, iters, 3, other_fn)
-        dk, dp, do = (device_ms(kernel_fn, iters), device_ms(plain_fn, 3),
-                      device_ms(other_fn, iters))
+        dk, dp = device_ms(kernel_fn, iters), device_ms(plain_fn, 3)
+        do = device_ms(other_fn, iters) if other_fn else None
         if name not in compared:
             times[name], bounds[name], dev_times[name] = (k, p, None), (b_ms, b_by), (dk, dp, None)
         compared.setdefault(name, []).append({
             "shape": shape, "ms": k, "plain_ms": p, "bound_ms": b_ms, "bound_by": b_by,
-            "other": other, "other_ms": o, "device_ms": dk, "plain_device_ms": dp,
-            "other_device_ms": do})
+            "device_ms": dk, "plain_device_ms": dp,
+            **({"other": other, "other_ms": o, "other_device_ms": do} if other else {})})
+        other_ms = (f", {other} {o:.4f} ms (runs {runs[4]:.4f}, {runs[5]:.4f})" if other
+                    else "")
+        other_dev = f", {other} {ms_text(do)}" if other else ""
         print(f"time {name} {shape}: kernel {k:.4f} ms (runs {runs[0]:.4f}, {runs[1]:.4f}), "
-              f"plain {p:.4f} ms (runs {runs[2]:.4f}, {runs[3]:.4f}), {other} {o:.4f} ms (runs "
-              f"{runs[4]:.4f}, {runs[5]:.4f}), bound {b_ms:.4f} ms by {b_by}; device time "
-              f"(profiler) kernel {ms_text(dk)}, plain {ms_text(dp)}, {other} {ms_text(do)} ms "
-              f"on {card}", flush=True)
+              f"plain {p:.4f} ms (runs {runs[2]:.4f}, {runs[3]:.4f}){other_ms}, bound "
+              f"{b_ms:.4f} ms by {b_by}; device time (profiler) kernel {ms_text(dk)}, plain "
+              f"{ms_text(dp)}{other_dev} ms on {card}", flush=True)
 
     # the pectoral branch's two kernels where a B=1 image runs them: the
     # select at every shape beyond 512 (serving and CLI), the watershed at
@@ -4871,9 +4463,8 @@ def main() -> int:
               flush=True)
     # pectoral_tail's bound (its I/O once against the operations it does
     # once) beside its design's floor and, for information, the plain
-    # version's sweeps on these inputs; then both redesigned tails by step
-    # and beside the one-block kernels they replaced, from a fresh process
-    # (tail_device_times)
+    # version's sweeps on these inputs; then both tails at their paths'
+    # shapes, device time by kernel, from a fresh process (tail_device_times)
     floor_ms = KP.PLAN_BYTES * equ.numel() / HBM_BYTES_PER_S * 1e3
     sweep_ops = pectoral_sweep_ops(equ, high, breast)
     print(f"pectoral_tail B={BATCH} {HW}x{HW}: bound {bounds['pectoral_tail'][0]:.4f} ms by "
@@ -4881,29 +4472,23 @@ def main() -> int:
           f"design, {KP.PLAN_BYTES} bytes a pixel, {floor_ms:.4f} ms; the plain version's "
           f"sweeps on these inputs, information only: {sweep_ops} operations, "
           f"{sweep_ops / FP32_OPS_PER_S * 1e3:.4f} ms at the float32 peak, on {card}", flush=True)
-    tail_run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                               "--tail-device-times"], capture_output=True, text=True,
-                              timeout=600)
-    if tail_run.returncode != 0:
-        raise AssertionError(f"the tails' device-time run failed:\n{tail_run.stderr[-4000:]}")
-    tail_lines = tail_run.stdout.strip().splitlines()
-    print("\n".join(tail_lines[:-1]), flush=True)
-    tails = json.loads(tail_lines[-1])
+    tails = fresh("--tail-device-times", 600)
     compared["pectoral_tail"] = [{"design_floor_ms": floor_ms,
                                   "plain_sweep_ops": sweep_ops}] + tails["pectoral_tail"]
     compared["gradcam_tail"] = [tails["gradcam_tail"]]
-    # equalize and ccl at every path shape beside the one-block kernels they
-    # replaced, from a fresh process (equalize_ccl_times); one B=1 3328x2560
-    # equalize call's trace: its launches cover more than the card's 132
-    # SMs, with one memset and no synchronising runtime call
-    eqccl_run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                                "--equalize-ccl-times"], capture_output=True, text=True,
-                               timeout=600)
-    if eqccl_run.returncode != 0:
-        raise AssertionError(f"the equalize/ccl timing run failed:\n{eqccl_run.stderr[-4000:]}")
-    eqccl_lines = eqccl_run.stdout.strip().splitlines()
-    print("\n".join(eqccl_lines[:-1]), flush=True)
-    eqccl = json.loads(eqccl_lines[-1])
+    for row in tails["pectoral_tail"] + [tails["gradcam_tail"]]:
+        by_kernel = sorted(row["device_ms_by_kernel"].items(), key=lambda kv: -kv[1]["ms"])
+        sweeps = (f", {row['watershed']['sweeps']} sweeps" if "watershed" in row else "")
+        print(f"time {row['kernel']} {row['shape']} (fresh process{sweeps}): device "
+              f"{ms_text(row['device_ms'])} ms, events {row['ms']:.4f}, plain "
+              f"{row['plain_ms']:.4f}; by kernel "
+              + ", ".join(f"{k} x{v['calls']:g} {v['ms']:.4f}" for k, v in by_kernel)
+              + f" on {card}", flush=True)
+    # equalize and ccl at every path shape, from a fresh process
+    # (equalize_ccl_times); one B=1 3328x2560 equalize call's trace: its
+    # launches cover more than the card's 132 SMs, with one memset and no
+    # synchronising runtime call
+    eqccl = fresh("--equalize-ccl-times", 600)
     compared["equalize"] = eqccl["equalize"] + [{"trace": eqccl["equalize_trace"]}]
     compared["ccl"] = eqccl["ccl"]
     trace = eqccl["equalize_trace"]
@@ -4914,36 +4499,22 @@ def main() -> int:
             or any(g[0] * g[1] * g[2] <= 132 for g in trace["grids"])):
         raise AssertionError(f"equalize's trace at {trace['shape']} is not a memset and two "
                              f"launches of more than 132 blocks with no host sync: {trace}")
-    # mode and jet_blend beside the kernels they replaced, from a fresh
-    # process (mode_jet_times), which also asserts that one mode call at
-    # B=3 62x62 and one jet_blend call at B=1 512x512 are one launch each
-    # with no memset and no synchronising runtime call
-    mj_run = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--mode-jet-times"],
-                            capture_output=True, text=True, timeout=600)
-    if mj_run.returncode != 0:
-        raise AssertionError(f"the mode/jet_blend timing run failed:\n{mj_run.stderr[-4000:]}")
-    mj_lines = mj_run.stdout.strip().splitlines()
-    print("\n".join(mj_lines[:-1]), flush=True)
-    mj = json.loads(mj_lines[-1])
+    # mode and jet_blend in each of their forms, from a fresh process
+    # (mode_jet_times), which also asserts that one mode call at B=3 62x62
+    # and one jet_blend call at B=1 512x512 are one launch each with no
+    # memset and no synchronising runtime call
+    mj = fresh("--mode-jet-times", 600)
     compared["mode"] = mj["mode"] + [{"trace": mj["traces"]["mode"]}]
     compared["jet_blend"] = mj["jet_blend"] + [{"trace": mj["traces"]["jet_blend"]}]
     for name, trace in mj["traces"].items():
         print(f"{name} at {trace['shape']}: the trace holds {len(trace['grids'])} kernel launch "
               f"with grid {trace['grids']}, {trace['memsets']} memsets and {trace['sync_calls']} "
               f"synchronising runtime calls", flush=True)
-    # the flood and the seeded component beside the one-block kernels they
-    # replaced, from a fresh process (flood_seeded_times), which also
-    # asserts that one flood call is one launch with no synchronising call
-    # and that the seeded component launches no flood and nothing of one
-    # block an image
-    fs_run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                             "--flood-seeded-times"], capture_output=True, text=True,
-                            timeout=900)
-    if fs_run.returncode != 0:
-        raise AssertionError(f"the flood/seeded timing run failed:\n{fs_run.stderr[-4000:]}")
-    fs_lines = fs_run.stdout.strip().splitlines()
-    print("\n".join(fs_lines[:-1]), flush=True)
-    fs = json.loads(fs_lines[-1])
+    # the flood and the seeded component, from a fresh process
+    # (flood_seeded_times), which also asserts that one flood call is one
+    # launch with no synchronising call and that the seeded component
+    # launches no flood and nothing of one block an image
+    fs = fresh("--flood-seeded-times", 900)
     compared.setdefault("flood", []).extend(fs["flood"])
     compared["flood"].append({"traces": {k: v for k, v in fs["traces"].items()
                                          if k.startswith("flood")}})
@@ -4953,33 +4524,19 @@ def main() -> int:
         print(f"{name} at {trace['shape']}: the trace holds {len(trace['grids'])} kernel "
               f"launches with grids {trace['grids']}, {trace['memsets']} memsets and "
               f"{trace['sync_calls']} synchronising runtime calls", flush=True)
-    # the packed watershed beside its one-block kernel and its plain version,
-    # and pectoral_tail beside its records, from a fresh process
+    # the packed watershed beside its plain version, from a fresh process
     # (packed_watershed_times), which also asserts that a B=1 512x512 call
     # is three launches over tiles x images with no synchronising call; the
     # packed form's record row is its first (B=1 512x512)
-    pw_run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                             "--packed-watershed-times"], capture_output=True, text=True,
-                            timeout=900)
-    if pw_run.returncode != 0:
-        raise AssertionError(f"the packed watershed timing run failed:\n"
-                             f"{pw_run.stderr[-4000:]}")
-    pw_lines = pw_run.stdout.strip().splitlines()
-    print("\n".join(pw_lines[:-1]), flush=True)
-    pw = json.loads(pw_lines[-1])
+    pw = fresh("--packed-watershed-times", 900)
     compared["watershed_packed"] = pw["watershed_packed"] + [{"trace": pw["trace"]}]
-    compared.setdefault("pectoral_tail", []).extend(pw["pectoral_tail"])
     wp = pw["watershed_packed"][0]
     times["watershed_packed"] = (wp["ms"], wp["plain_ms"], None)
     bounds["watershed_packed"] = (wp["bound_ms"], wp["bound_by"])
     dev_times["watershed_packed"] = (wp["device_ms"], None, None)
     # Adam's update at the advanced classifier's leaves, from a fresh process
     # (adam_times), beside torch.optim.Adam(fused=True) as the library
-    adam_run = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--adam-times"],
-                              capture_output=True, text=True, timeout=600)
-    if adam_run.returncode != 0:
-        raise AssertionError(f"the Adam timing run failed:\n{adam_run.stderr[-4000:]}")
-    ad = json.loads(adam_run.stdout.strip().splitlines()[-1])
+    ad = fresh("--adam-times", 600)
     times["adam"] = (ad["ms"], ad["plain_ms"], ad["library_ms"])
     bounds["adam"] = (ad["bound_ms"], ad["bound_by"])
     dev_times["adam"] = (ad["device_ms"], ad["plain_device_ms"], ad["library_device_ms"])
@@ -4993,11 +4550,7 @@ def main() -> int:
     # fresh process (pool_bwd_times); its launches are counted on the paths
     # above. The record's figures are those of the largest, U-Net level 0
     # with the channels-last x a step hands it
-    pb_run = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--pool-bwd-times"],
-                            capture_output=True, text=True, timeout=600)
-    if pb_run.returncode != 0:
-        raise AssertionError(f"the pool backward timing run failed:\n{pb_run.stderr[-4000:]}")
-    pb = json.loads(pb_run.stdout.strip().splitlines()[-1])["pool_backward"]
+    pb = fresh("--pool-bwd-times", 600)["pool_backward"]
     for row in pb:
         print(f"time pool_backward {row['shape']} {row['rule']}, x {row['x_layout']}, g "
               f"{row['g_layout']}: device {ms_text(row['device_ms'])} ms, events "
@@ -5012,18 +4565,11 @@ def main() -> int:
                                   head["library_device_ms"])
     compared["pool_backward"] = pb
     for row in pw["watershed_packed"]:
-        old = (f", the rounds form to the fixpoint device {ms_text(row['old_device_ms'])}, "
-               f"events {row['old_ms']:.4f} ({row['old_rounds']} rounds; its record "
-               f"{row['record_device_ms']})" if "old_ms" in row else "")
         floor = f", floor {row['floor_ms']:.4f}" if "floor_ms" in row else ""
         print(f"time watershed_packed {row['shape']}: device {ms_text(row['device_ms'])} ms, "
-              f"events {row['ms']:.4f}{old}, plain {row['plain_ms']:.4f}; {row['sweeps']} "
+              f"events {row['ms']:.4f}, plain {row['plain_ms']:.4f}; {row['sweeps']} "
               f"sweeps (plain {row['plain_sweeps']}), bound {row['bound_ms']:.4f} "
               f"({row['bound_by']}){floor} on {card}", flush=True)
-    for row in pw["pectoral_tail"]:
-        print(f"time pectoral_tail {row['shape']} with JAX's sweeps ({row['sweeps']}): device "
-              f"{ms_text(row['device_ms'])} ms (rounds design {row['record_device_ms']}), events "
-              f"{row['ms']:.4f} (rounds design {row['record_ms']}) on {card}", flush=True)
     cam6 = torch.from_numpy(rng.random((1, 6, 6)).astype(np.float32)).to(dev)
     hot6 = cam6 >= 0.6 * cam6.amax(dim=(1, 2), keepdim=True)
     lab6 = KC.label_components(hot6, 8)
@@ -5357,20 +4903,13 @@ def main() -> int:
               f"plain {p_ms:.4f}, F.conv2d bf16 {l_ms:.4f} (device "
               f"{ms_text(row['library_device_ms'])}), bound {row['bound_ms']:.4f} by "
               f"{row['bound_by']} on {card}", flush=True)
-    # the kernel's device time beside cuDNN's and the replaced design's, in
-    # turns, from a fresh process (bf16_conv_times), where the profiler
-    # keeps every record
-    bc_run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                             "--bf16-conv-times"], capture_output=True, text=True, timeout=600)
-    if bc_run.returncode != 0:
-        raise AssertionError(f"the bf16 conv timing run failed:\n{bc_run.stderr[-4000:]}")
-    bc = json.loads(bc_run.stdout.strip().splitlines()[-1])["conv_leaky_bf16"]
+    # the kernel's device time beside cuDNN's, in turns, from a fresh
+    # process (bf16_conv_times), where the profiler keeps every record
+    bc = fresh("--bf16-conv-times", 600)["conv_leaky_bf16"]
     for row in bc:
         print(f"time conv_leaky_bf16 {row['shape']} (fresh process, in turns): device "
               f"{ms_text(row['device_ms'])} ms (the conv kernel "
-              f"{ms_text(row['kernel_device_ms'])}), events {row['ms']:.4f}; the replaced "
-              f"design device {ms_text(row['old_device_ms'])} (kernel "
-              f"{ms_text(row['old_kernel_device_ms'])}), events {row['old_ms']:.4f}; F.conv2d "
+              f"{ms_text(row['kernel_device_ms'])}), events {row['ms']:.4f}; F.conv2d "
               f"bf16 device {ms_text(row['library_device_ms'])}, events "
               f"{row['library_ms']:.4f}; bound {row['bound_ms']:.4f} by {row['bound_by']} on "
               f"{row['card']}", flush=True)
@@ -5503,25 +5042,18 @@ def main() -> int:
     return 0
 
 
+# the phases a flag runs alone, each in a process of its own
+FLAGS = {"--batchnorm-device-times": batchnorm_device_times,
+         "--tail-device-times": tail_device_times,
+         "--equalize-ccl-times": equalize_ccl_times,
+         "--mode-jet-times": mode_jet_times,
+         "--flood-seeded-times": flood_seeded_times,
+         "--packed-watershed-times": packed_watershed_times,
+         "--bf16-conv-times": bf16_conv_times,
+         "--data-parallel": data_parallel_only,
+         "--adam-times": adam_times,
+         "--pool-bwd-times": pool_bwd_times}
+
+
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--batchnorm-device-times"]:
-        sys.exit(batchnorm_device_times())
-    if sys.argv[1:] == ["--tail-device-times"]:
-        sys.exit(tail_device_times())
-    if sys.argv[1:] == ["--equalize-ccl-times"]:
-        sys.exit(equalize_ccl_times())
-    if sys.argv[1:] == ["--mode-jet-times"]:
-        sys.exit(mode_jet_times())
-    if sys.argv[1:] == ["--flood-seeded-times"]:
-        sys.exit(flood_seeded_times())
-    if sys.argv[1:] == ["--packed-watershed-times"]:
-        sys.exit(packed_watershed_times())
-    if sys.argv[1:] == ["--bf16-conv-times"]:
-        sys.exit(bf16_conv_times())
-    if sys.argv[1:] == ["--data-parallel"]:
-        sys.exit(data_parallel_only())
-    if sys.argv[1:] == ["--adam-times"]:
-        sys.exit(adam_times())
-    if sys.argv[1:] == ["--pool-bwd-times"]:
-        sys.exit(pool_bwd_times())
-    sys.exit(main())
+    sys.exit(FLAGS.get(" ".join(sys.argv[1:]), main)())
