@@ -90,18 +90,23 @@ def _triangle_taps(n_in: int, n_out: int) -> tuple[np.ndarray, np.ndarray]:
     return idx.astype(np.int64), taps.astype(f32)
 
 
+@functools.lru_cache(maxsize=64)
+def _device_taps(n_in: int, n_out: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """`_triangle_taps(n_in, n_out)` as tensors on `device`, once a shape."""
+    idx, taps = _triangle_taps(n_in, n_out)
+    host_sync(device, 2)   # two blocking copies from pageable memory, once a shape
+    return torch.as_tensor(idx, device=device), torch.as_tensor(taps, device=device)
+
+
 def _resample_axis(x: torch.Tensor, dim: int, n_out: int) -> torch.Tensor:
     """sum_t w[:, t] * x[idx[:, t]] along `dim`, tap by tap, with separate
     multiplies and adds in a fixed order, so any device gives the same
     bits."""
-    idx, taps = _triangle_taps(x.shape[dim], n_out)
-    idx_t = torch.as_tensor(idx, device=x.device)
-    w_t = torch.as_tensor(taps, device=x.device)
-    host_sync(x.device, 2)   # two blocking copies from pageable memory
+    idx_t, w_t = _device_taps(x.shape[dim], n_out, x.device)
     shape = [1] * x.ndim
     shape[dim] = n_out
     out = None
-    for t in range(idx.shape[1]):
+    for t in range(idx_t.shape[1]):
         term = torch.index_select(x, dim, idx_t[:, t]) * w_t[:, t].view(shape)
         out = term if out is None else out + term
     return out

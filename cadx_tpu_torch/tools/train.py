@@ -62,18 +62,24 @@ def load_images(csv_path: str):
 
 def featurize(stem, img: np.ndarray, feature_hw, device) -> np.ndarray:
     """One image at its native shape -> (fh, fw, 64) float32: the cleaned
-    512² gray in [0, 1], the encoder's conv1, a bilinear resize."""
+    512² gray in [0, 1], the encoder's conv1, a bilinear resize. A uint16
+    scan goes to the card as its own bytes through a page-locked buffer
+    (`utils.staging.upload_u16`); anything else is widened on the host."""
     from cadx_tpu_torch.models import unet
     from cadx_tpu_torch.ops.resize import resize_linear
     from cadx_tpu_torch.precision import full_fp32
     from cadx_tpu_torch.preprocess import cleaner
     from cadx_tpu_torch.utils.profiling import host_sync, span
+    from cadx_tpu_torch.utils.staging import upload_u16
 
     dev = torch.device(device)
     with span("featurize"), full_fp32(), torch.no_grad():
         with span("featurize.upload"):
-            x = torch.from_numpy(np.asarray(img, np.float32)).to(dev)[None]
-            host_sync(dev)   # a blocking copy from pageable memory
+            if dev.type == "cuda" and img.dtype == np.uint16:
+                x = upload_u16(img, dev)[None]
+            else:
+                x = torch.from_numpy(np.asarray(img, np.float32)).to(dev)[None]
+                host_sync(dev)   # a blocking copy from pageable memory
         with span("featurize.clean"):
             clean01 = cleaner.clean_for_unet(x)
         with span("featurize.encode"):

@@ -1568,3 +1568,77 @@ def test_host_syncs_match_the_trace(dev, make):
     counted = TProf.span_stats()[span]["counts"].get("host_syncs", 0)
     TProf.reset()
     assert counted == len(waits) > 0, waits
+
+
+# ---- featurize's staged uint16 upload ----------------------------------------------
+
+def _u16_scan(h, w, seed):
+    """A native scan with pixels at 0, 32767, 32768 and 65535: either side
+    of the int16 sign bit the staged copy carries them through."""
+    img = synthetic_native_mammogram(h, w, seed=seed)
+    img[h // 2, :4] = (0, 32767, 32768, 65535)
+    return img
+
+
+@pytest.mark.parametrize("hw", [(1024, 832), (3328, 2560)])
+def test_staged_upload_same_bits_as_the_pageable_path(dev, hw):
+    """The staged u16 upload gives `x` the bits of the host's float32
+    widening, and featurize the same features as the pageable path (the
+    scan handed over as float32 takes it)."""
+    from cadx_tpu_torch.models import unet
+    from cadx_tpu_torch.tools import train
+    from cadx_tpu_torch.utils.staging import upload_u16
+
+    img = _u16_scan(*hw, seed=6)
+    want = torch.from_numpy(np.asarray(img, np.float32))
+    got = upload_u16(img, dev)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    _eq(got.view(torch.int32), want.view(torch.int32))
+    stem = unet.init_resnet_stem(torch.Generator().manual_seed(0)).to(dev)
+    staged = train.featurize(stem, img, (32, 32), dev)
+    pageable = train.featurize(stem, img.astype(np.float32), (32, 32), dev)
+    np.testing.assert_array_equal(staged, pageable)
+
+
+def test_staged_upload_waits_for_a_pending_copy(dev):
+    """Two scans of one shape back to back, the first copy queued behind a
+    long kernel: the second waits for it (one counted host sync) before it
+    overwrites the page-locked buffer, and each scan arrives as itself;
+    featurize's calls each get their own features."""
+    from cadx_tpu_torch.models import unet
+    from cadx_tpu_torch.tools import train
+    from cadx_tpu_torch.utils.staging import upload_u16
+
+    a, b = _u16_scan(1024, 832, seed=7), _u16_scan(1024, 832, seed=8)
+    upload_u16(a, dev)
+    torch.cuda.synchronize()
+    TProf.reset()
+    torch.cuda._sleep(100_000_000)
+    got_a = upload_u16(a, dev)
+    got_b = upload_u16(b, dev)
+    assert TProf.counts().get("host_syncs", 0) == 1
+    _eq(got_a, torch.from_numpy(a.astype(np.float32)))
+    _eq(got_b, torch.from_numpy(b.astype(np.float32)))
+    stem = unet.init_resnet_stem(torch.Generator().manual_seed(0)).to(dev)
+    fa, fb = (train.featurize(stem, im, (32, 32), dev) for im in (a, b))
+    np.testing.assert_array_equal(fa, train.featurize(stem, a.astype(np.float32), (32, 32), dev))
+    np.testing.assert_array_equal(fb, train.featurize(stem, b.astype(np.float32), (32, 32), dev))
+    assert not np.array_equal(fa, fb)
+    TProf.reset()
+
+
+def test_featurize_counts_one_staged_upload_a_call(dev):
+    """`staged_uploads` counts 1 a uint16 scan on the card, 0 for a float32
+    one (the pageable path)."""
+    from cadx_tpu_torch.models import unet
+    from cadx_tpu_torch.tools import train
+
+    stem = unet.init_resnet_stem(torch.Generator().manual_seed(0)).to(dev)
+    img = synthetic_native_mammogram(640, 544, seed=9)
+    TProf.reset()
+    for _ in range(3):
+        train.featurize(stem, img, (32, 32), dev)
+    assert TProf.counts().get("staged_uploads", 0) == 3
+    train.featurize(stem, img.astype(np.float32), (32, 32), dev)
+    assert TProf.counts().get("staged_uploads", 0) == 3
+    TProf.reset()

@@ -145,6 +145,74 @@ def test_resize_linear_mxu(rng, n_in, n_out):
                                rtol=1e-5, atol=1e-6)
 
 
+def _resample_fresh_tables(x, dim, n_out):
+    """`_resample_axis`'s arithmetic on tap tables made anew for the call."""
+    idx, taps = TR._triangle_taps(x.shape[dim], n_out)
+    idx_t, w_t = torch.as_tensor(idx.copy()), torch.as_tensor(taps.copy())
+    shape = [1] * x.ndim
+    shape[dim] = n_out
+    out = None
+    for t in range(idx.shape[1]):
+        term = torch.index_select(x, dim, idx_t[:, t]) * w_t[:, t].view(shape)
+        out = term if out is None else out + term
+    return out
+
+
+@pytest.mark.parametrize("n_in,n_out", [(3328, 512), (2560, 512), (4608, 512), (2656, 512),
+                                        (40, 17), (30, 45), (7, 7)])
+@pytest.mark.parametrize("dim", [1, 2])
+def test_resample_axis_cached_tables_same_bits(rng, n_in, n_out, dim):
+    """The cached tap tables give the bits of tables made for each call,
+    on every axis, down (the cleaner's 512² area resize) and up."""
+    shape = (2, n_in, 3) if dim == 1 else (2, 3, n_in)
+    x = torch.from_numpy((rng.random(shape) * 255).astype(np.float32))
+    want = _resample_fresh_tables(x, dim, n_out)
+    for _ in range(2):                     # a miss, then a hit
+        got = TR._resample_axis(x, dim, n_out)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_resample_axis_reuses_cached_tables():
+    """A second call of a shape hands back the same tensors, made once."""
+    TR._device_taps.cache_clear()
+    x = torch.rand(1, 3328, 4)
+    TR._resample_axis(x, 1, 512)
+    first = TR._device_taps(3328, 512, x.device)
+    TR._resample_axis(x, 1, 512)
+    info = TR._device_taps.cache_info()
+    assert (info.misses, info.hits, info.currsize) == (1, 2, 1)
+    assert all(a is b for a, b in zip(TR._device_taps(3328, 512, x.device), first))
+
+
+def test_resample_axis_cache_is_bounded():
+    """The tables of at most 64 shapes are kept, the least recent dropped."""
+    TR._device_taps.cache_clear()
+    for n_in in range(20, 100):
+        TR._resample_axis(torch.rand(1, n_in, 1), 1, 11)
+    info = TR._device_taps.cache_info()
+    assert info.maxsize == 64 and info.currsize == 64 and info.misses == 80
+    TR._device_taps.cache_clear()
+
+
+def test_featurize_on_the_cpu_takes_the_host_path():
+    """On the CPU a uint16 scan is widened on the host, as before: nothing
+    is staged or pinned, and the features equal the float32 scan's."""
+    from cadx_tpu_torch.models import unet
+    from cadx_tpu_torch.synthetic import synthetic_native_mammogram
+    from cadx_tpu_torch.tools import train
+    from cadx_tpu_torch.utils import profiling, staging
+
+    stem = unet.init_resnet_stem(torch.Generator().manual_seed(0))
+    img = synthetic_native_mammogram(96, 80, seed=3)
+    assert img.dtype == np.uint16
+    profiling.reset()
+    got = train.featurize(stem, img, (8, 8), "cpu")
+    assert "staged_uploads" not in profiling.counts()
+    assert staging._stage.cache_info().currsize == 0
+    np.testing.assert_array_equal(got, train.featurize(stem, img.astype(np.float32), (8, 8),
+                                                       "cpu"))
+
+
 def test_max_pool_forward_crops_remainders(rng):
     x = rng.standard_normal((2, 7, 9, 3)).astype(np.float32)
     x[0, 0, 0, 0] = x[0, 0, 1, 0] = 5.0          # a tie in one window

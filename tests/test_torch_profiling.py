@@ -261,7 +261,7 @@ def tiny_checkout(tmp_path_factory):
 PROGRAM_METRICS = {
     "basic-bulk-tiny": {"host_syncs.bulk"},
     "advanced-featurize-tiny": {"host_syncs.featurize", "featurize_upload_ms.featurize",
-                                "pair_sweeps.featurize"},
+                                "pair_sweeps.featurize", "staged_uploads.featurize"},
     "advanced-train-tiny": set(),
 }
 
@@ -269,15 +269,16 @@ PROGRAM_METRICS = {
 @pytest.mark.parametrize("cell", sorted(PROGRAM_METRICS))
 def test_benchmark_reads_program_spans(tiny_checkout, cell):
     """A traced run of a tiny cell on the CPU reads the port's spans and
-    counters (no host syncs and no pair sweeps there: 0) and leaves
-    `program_idle_ms.*` out, as the card's records are missing."""
+    counters (no host syncs, no pair sweeps and no staged uploads there:
+    0) and leaves `program_idle_ms.*` out, as the card's records are
+    missing."""
     mod, root = tiny_checkout
     TProf.reset()
     r = mod.run_cell(root, cell, trace=1)
     assert r["correct"]
     got = {k: v["value"] for k, v in r["metrics"].items()
            if k.startswith(("host_syncs", "featurize_upload_ms", "pair_sweeps",
-                            "program_idle_ms"))}
+                            "staged_uploads", "program_idle_ms"))}
     assert set(got) == PROGRAM_METRICS[cell]
     assert all(v == 0 for k, v in got.items() if not k.startswith("featurize_upload_ms"))
     assert all(v > 0 for k, v in got.items() if k.startswith("featurize_upload_ms"))
