@@ -53,6 +53,8 @@ _SIGNATURES = {
     "cadx_pool_backward": (_P,) * 4 + (_I,) * 8 + (_L,) * 4 + (_P,),
     "cadx_upsample_nearest": (_P, _P, _I, _I, _I, _I, _I, _P),
     "cadx_batchnorm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    "cadx_batchnorm_train": (_P,) * 10 + (_I,) * 6 + (_P,),
+    "cadx_batchnorm_train_backward": (_P,) * 11 + (_I,) * 6 + (_P,),
     "cadx_jet_blend": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "cadx_gradcam_tail": (_P,) * 10 + (_I,) * 7 + (_L,) * 8 + (_I,) * 3 + (_F, _P),
     "cadx_cleaner_front": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

@@ -11,12 +11,22 @@ supplies their own `.pth` gets the reference's feature values back.
 downsample.0/1, fc), so importing a torchvision state dict is
 `load_state_dict`, and an smp one the same after stripping its `encoder.`
 prefix. Convolutions are F.conv2d in full float32 (the JAX package leaves
-them to XLA); every batch norm goes through the batchnorm kernel
-(`models/unet.py::bn_apply`), 53 of them in a ResNet-50. The stage
-functions take and return channel-last (B, H, W, C) tensors, as JAX's do,
-and run channel-first inside. They are inference only (no autograd graph:
-the batchnorm kernel has no backward); Grad-CAM differentiates the head
-alone (`head_logits`).
+them to XLA). The public functions take channel-last (B, H, W, C) tensors,
+as JAX's do, and run channel-first inside. Two paths:
+
+- inference (`stage_features`, `layer4_features`, `head_logits`,
+  `forward`): every batch norm applies the running statistics through the
+  inference batchnorm kernel (`models/unet.py::bn_apply`), 53 of them in a
+  ResNet-50, under `torch.no_grad` (that kernel records no autograd
+  graph); Grad-CAM differentiates the head alone (`head_logits`);
+- training (`train_logits`, bottleneck blocks): autograd records the
+  whole network, every batch norm normalises with its batch's statistics
+  and updates its running statistics in place through the training kernels
+  (`kernels/batchnorm.py::batchnorm_train`, the ReLU after it fused), the
+  stem's 3x3/2 max pool is `F.max_pool2d` (the pool kernel has no padded
+  overlapping form; JAX too leaves that pool to XLA), and the head is the
+  global average pool and fc. Spans `resnet.stem`, `resnet.layer1` ..
+  `resnet.layer4`, `resnet.head`.
 """
 
 from __future__ import annotations
@@ -30,8 +40,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cadx_tpu_torch.kernels.batchnorm import batchnorm_train
 from cadx_tpu_torch.models.unet import BatchNorm, bn_apply, max_pool_plain
 from cadx_tpu_torch.precision import full_fp32
+from cadx_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -217,6 +229,52 @@ def forward(model: ResNet, x: torch.Tensor) -> torch.Tensor:
     (B, H, W, C) -> (B, num_classes) logits, inference only."""
     with torch.no_grad():
         return head_logits(model, layer4_features(model, x))
+
+
+# ---------------------------------------------------------------------------
+# training forward
+# ---------------------------------------------------------------------------
+
+def _bn_train(bn: BatchNorm, x: torch.Tensor, relu: bool) -> torch.Tensor:
+    """BatchNorm2d in training mode (momentum 0.1, eps 1e-5), then the ReLU
+    where `relu`, through the training kernels."""
+    return batchnorm_train(x, bn.weight, bn.bias, bn.running_mean, bn.running_var,
+                           bn.num_batches_tracked, relu=relu)
+
+
+def _bottleneck_block_train(p: Block, x: torch.Tensor, stride: int) -> torch.Tensor:
+    identity = x
+    out = _bn_train(p.bn1, _conv(x, p.conv1, 1, 0), True)
+    out = _bn_train(p.bn2, _conv(out, p.conv2, stride, 1), True)
+    out = _bn_train(p.bn3, _conv(out, p.conv3, 1, 0), False)
+    if p.downsample is not None:
+        identity = _bn_train(p.downsample[1], _conv(x, p.downsample[0], stride, 0), False)
+    return torch.relu(out + identity)
+
+
+def train_logits(model: ResNet, x: torch.Tensor) -> torch.Tensor:
+    """The bottleneck classifier's training forward: (B, H, W, C) -> (B,
+    num_classes) logits, recorded by autograd (under the caller's grad
+    mode), with every batch norm on its batch's statistics and its running
+    statistics updated in place; float32 with TF32 off."""
+    if model.config.block != "bottleneck":
+        raise ValueError(f"train_logits trains bottleneck ResNets, not {model.config.block!r}")
+    with full_fp32():
+        with span("resnet.stem"):
+            # NCHW strides even for one channel, whose permuted view is also
+            # channels-last: cuDNN would answer it in channels-last, which
+            # the batch-norm kernels do not take
+            x = x.to(torch.float32).permute(0, 3, 1, 2).clone(
+                memory_format=torch.contiguous_format)
+            x = _bn_train(model.bn1, _conv(x, model.conv1, 2, 3), True)
+            x = F.max_pool2d(x, 3, 2, 1)
+        for si, stage in enumerate(model.stages()):
+            with span(f"resnet.layer{si + 1}"):
+                for bi, block in enumerate(stage):
+                    x = _bottleneck_block_train(block, x,
+                                                (1 if si == 0 else 2) if bi == 0 else 1)
+        with span("resnet.head"):
+            return x.mean(dim=(2, 3)) @ model.fc.weight.T + model.fc.bias
 
 
 # ---------------------------------------------------------------------------

@@ -329,7 +329,14 @@ Phases, each of which raises on failure (the script then exits nonzero):
    and 17 of every run are printed and held to one set a shard (the record's
    "data_parallel" path: (a)'s windows); the dp pipeline's and the dp
    steps' ms beside the non-dp calls' (CUDA events, in turns) with the
-   card's name and power limit.
+   card's name and power limit;
+14. ResNet-50 training at the resnet cell's shapes (1152x896, one gray
+   channel, 2 classes, B=16): two `make_resnet_train_step` steps of
+   seeded weights, each step's launches held exactly (53 training batch
+   norm forwards and 53 backwards, 3 Adam launches for its 161 leaves,
+   none of any other kernel; the record's "resnet_training" path) and
+   its `bn_train_kernel` count inside `train.step` (106); the losses
+   finite and every batch norm's running statistics moved.
 
 `python3 chip_smoke.py --adam-times` (a fresh process, outside the
 phases above) times Adam's update at the advanced classifier's ten
@@ -343,7 +350,14 @@ paths' six pools (the U-Net's four at B=8 512², level 0 also with the
 channels-last x a step hands it, the advanced classifier's two at B=32,
 the second also with the channels-last gradient its head gives it) and
 times it beside the plain version, F.max_pool2d's backward (first rule)
-and the bound.
+and the bound. `python3 chip_smoke.py --bn-train-times` (a fresh process,
+run by phase 8 too) holds the training batch norm's elementwise passes
+bit-exact to their plain version, given the kernels' statistics and sums,
+and the statistics, running statistics and sums within BN_STAT_RTOL of
+the plain version's, at ResNet-50's stem, layer1 and layer4 shapes of the
+resnet cell (1152x896, B=16), and times its forward and backward beside
+the plain version, `F.batch_norm`'s and `native_batch_norm_backward`'s
+kernels and the bound.
 
 The last line of standard output is {"ok": true, "device": {...}}; the
 line before it is the per-kernel JSON record: the fifteen kernels, the
@@ -356,8 +370,12 @@ pools' backward ("pool_backward", which shares pool.cu; held bit-exact
 and timed by `--pool-bwd-times`, its figures those of U-Net level 0 with
 a channels-last x, its launches those of the training path, held exactly
 on every counted path: one a max pool of a training step, none in a
-forward without a recorded graph). Imports torch, numpy and the port
-only.
+forward without a recorded graph) and the training batch norm's forward
+and backward ("batchnorm_train_forward", "batchnorm_train_backward",
+which share batchnorm.cu; held and timed by `--bn-train-times`, their
+figures those of the stem's batch norm, their launches those of phase
+14, held exactly on every counted path: none outside ResNet training).
+Imports torch, numpy and the port only.
 """
 
 from __future__ import annotations
@@ -1816,6 +1834,126 @@ def pool_bwd_times() -> int:
     return 0
 
 
+# the training batch norms of ResNet-50 at the resnet cell's 1152x896, B=16:
+# (name, shape, ReLU fused); the stem and layer1's reduce fuse their ReLU,
+# the expands (bn3, before the residual add) do not
+BN_TRAIN_SHAPES = (("stem bn1", (16, 64, 576, 448), True),
+                   ("layer1 bn1", (16, 64, 288, 224), True),
+                   ("layer1 bn3", (16, 256, 288, 224), False),
+                   ("layer4 bn2", (16, 512, 36, 28), True),
+                   ("layer4 bn3", (16, 2048, 36, 28), False))
+# the statistics and sums against the plain version's, relative: 1e-5 is
+# ~170 float32 ulps (2^-24), the rounding of chains of a few hundred
+# sequential operations, which neither side's reductions exceed at these
+# n (at most 4.1 M values a channel). Against: the mean and the running
+# mean, |mean| + std; the variances and invstd, themselves; a sum, the sum
+# of its terms' magnitudes (as tests/test_torch_cuda.py's card test)
+BN_STAT_RTOL = 1e-5
+
+
+def bn_train_times() -> int:
+    """`--bn-train-times`: the training batch norm's kernels
+    (`kernels/batchnorm.py::batchnorm_train_forward` and `_backward`) at
+    `BN_TRAIN_SHAPES`, in a fresh process. At each shape the elementwise
+    passes are held bit for bit to the plain version's given the kernels'
+    own statistics and sums, and the statistics (mean, invstd), the
+    running statistics and the sums (dweight, dbias) to the plain
+    version's within BN_STAT_RTOL; then CUDA events in turns plain, library,
+    kernel, kernel, library, plain, and profiler device time, each way,
+    beside the bound (forward x in and y out, backward dy and x in and dx
+    out, over the HBM rate) and, as the library yardstick (the port never
+    calls it), `F.batch_norm(training=True)` forward (the ReLU left out)
+    and `aten.native_batch_norm_backward`. Prints a JSON line a shape and
+    way, then one with all rows."""
+    if not torch.cuda.is_available():
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch.nn.functional as F
+
+    from cadx_tpu_torch.kernels import batchnorm as KBN
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    gen = torch.Generator(device=dev).manual_seed(12)
+    rows = []
+    for name, shape, relu in BN_TRAIN_SHAPES:
+        c = shape[1]
+        x = torch.randn(shape, generator=gen, device=dev) * 2 + 0.5
+        dy = torch.randn(shape, generator=gen, device=dev)
+        w = torch.rand(c, generator=gen, device=dev) + 0.5
+        b = torch.randn(c, generator=gen, device=dev) * 0.2
+        rm = torch.randn(c, generator=gen, device=dev)
+        rv = torch.rand(c, generator=gen, device=dev) + 0.5
+        rm_p, rv_p = rm.clone(), rv.clone()
+        nbt, nbt_p = (torch.zeros((), dtype=torch.int64, device=dev) for _ in range(2))
+        y, mean, invstd = KBN.batchnorm_train_forward(x, w, b, rm, rv, nbt, relu=relu)
+        dx, dw, db = KBN.batchnorm_train_backward(dy, x, mean, invstd, w, b, relu)
+        exact = (torch.equal(y, KBN.batchnorm_train_apply_reference(x, mean, invstd, w, b, relu))
+                 and torch.equal(dx, KBN.batchnorm_train_dx_reference(dy, x, mean, invstd, w, b,
+                                                                      dw, db, relu)))
+        torch.cuda.synchronize()
+        if not exact:
+            raise AssertionError(f"the training batch norm differs from its plain version at "
+                                 f"{name} {shape}")
+        _, mean_p, invstd_p = KBN.batchnorm_train_reference(x, w, b, rm_p, rv_p, nbt_p,
+                                                            relu=relu)
+        _, dw_p, db_p = KBN.batchnorm_train_backward_reference(dy, x, mean, invstd, w, b, relu)
+        xh, g = KBN._masked(dy, x, mean, invstd, w, b, relu)
+        std = torch.var_mean(x, dim=(0, 2, 3), correction=0)[0].sqrt()
+        stat_err = {
+            "mean": float(((mean - mean_p).abs() / (mean_p.abs() + std)).max()),
+            "invstd": float(((invstd - invstd_p).abs() / invstd_p).max()),
+            "running_mean": float(((rm - rm_p).abs() / (rm_p.abs() + std)).max()),
+            "running_var": float(((rv - rv_p).abs() / rv_p).max()),
+            "dweight": float(((dw - dw_p).abs()
+                              / (g * xh).abs().sum(dim=(0, 2, 3)).clamp_min(1e-30)).max()),
+            "dbias": float(((db - db_p).abs()
+                            / g.abs().sum(dim=(0, 2, 3)).clamp_min(1e-30)).max())}
+        del xh, g
+        print(f"check batchnorm_train [{name} {shape}, ReLU {relu}]: elementwise bit-exact; "
+              f"statistics and sums, relative {stat_err} (tolerance {BN_STAT_RTOL}); "
+              f"num_batches_tracked {int(nbt)} (plain {int(nbt_p)})", flush=True)
+        if max(stat_err.values()) > BN_STAT_RTOL or not int(nbt) == int(nbt_p) == 1:
+            raise AssertionError(f"the training batch norm's statistics or sums differ from "
+                                 f"the plain version's at {name} {shape}: {stat_err}")
+        _, lib_mean, lib_invstd = torch.ops.aten.native_batch_norm(x, w, b, rm.clone(),
+                                                                   rv.clone(), True, 0.1, 1e-5)
+        ways = {
+            "forward": (lambda: KBN.batchnorm_train_forward(x, w, b, rm, rv, nbt, relu=relu),
+                        lambda: KBN.batchnorm_train_reference(x, w, b, rm, rv, nbt, relu=relu),
+                        lambda: F.batch_norm(x, rm, rv, w, b, training=True),
+                        nbytes(x) + nbytes(y)),
+            "backward": (lambda: KBN.batchnorm_train_backward(dy, x, mean, invstd, w, b, relu),
+                         lambda: KBN.batchnorm_train_backward_reference(dy, x, mean, invstd, w,
+                                                                        b, relu),
+                         lambda: torch.ops.aten.native_batch_norm_backward(
+                             dy, x, w, rm, rv, lib_mean, lib_invstd, True, 1e-5,
+                             [True, True, True]),
+                         nbytes(dy) + nbytes(x) + nbytes(dx)),
+        }
+        for way, (kernel, plain, library, moved) in ways.items():
+            k_ms, p_ms, l_ms, runs = turns_ms(kernel, plain, 10, 3, library)
+            dv = [device_ms(plain, 3), device_ms(library, 10), device_ms(kernel, 10),
+                  device_ms(kernel, 10), device_ms(library, 10), device_ms(plain, 3)]
+            bound_ms = moved / HBM_BYTES_PER_S * 1e3
+            kd = captured_mean(dv[2], dv[3])
+            row = {"kernel": f"batchnorm_train_{way}", "shape": f"{name} {tuple(shape)} float32",
+                   "relu": relu, "card": card, "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                   "device_ms": kd, "plain_device_ms": captured_mean(dv[0], dv[5]),
+                   "library_device_ms": captured_mean(dv[1], dv[4]),
+                   "bound_ms": bound_ms, "bound_by": "bytes",
+                   "roofline_pct": None if kd is None else 100 * bound_ms / kd,
+                   "elementwise_bit_exact": True, "stat_rel_err": stat_err,
+                   "stat_rtol": BN_STAT_RTOL, "runs_ms": runs, "device_runs_ms": dv,
+                   "device_ms_by_kernel": device_ms_by_kernel(kernel)}
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+        del x, dy, y, dx
+        torch.cuda.empty_cache()
+    print(json.dumps({"batchnorm_train": rows}), flush=True)
+    return 0
+
+
 def bmp24_bytes(bgr: np.ndarray) -> bytes:
     """A bottom-up 24-bit BMP (BITMAPINFOHEADER) of (h, w, 3) BGR bytes."""
     h, w, _ = bgr.shape
@@ -2510,7 +2648,9 @@ def kernel_wrappers() -> dict:
             "largest_component_seeded": KL.largest_component_seeded,
             "flood": KFl.flood_from, "watershed_packed": KW.packed_form,
             "conv_leaky_bf16": KCL.conv_leaky_bf16, "adam": KA.adam_update,
-            "pool_backward": KPool.pool_backward}
+            "pool_backward": KPool.pool_backward,
+            "batchnorm_train_forward": KBN.batchnorm_train_forward,
+            "batchnorm_train_backward": KBN.batchnorm_train_backward}
 
 
 def counters(wrappers: dict):
@@ -2802,6 +2942,73 @@ def data_parallel_phase(dev, card: str, config, params, batch, eng, wrappers,
     return {"launches": total, "times": times}
 
 
+# phase 14: the resnet cell's network and batch (portbench's resnet50-mammo
+# under resnet50-mammo-train-b16): ResNet-50, one gray channel, 2 classes
+RESNET_CFG = dict(block="bottleneck", layers=(3, 4, 6, 3), widths=(64, 128, 256, 512),
+                  in_channels=1, num_classes=2)
+RESNET_HW = (1152, 896)
+RESNET_BATCH = 16
+ADAM_LEAVES_A_LAUNCH = 64   # csrc/adam.cu's tensors a launch
+
+
+def resnet_train_phase(dev, card: str, zero_counts, read_counts) -> dict:
+    """Phase 14 (see the module's docstring). Returns the launches of its
+    second step (the record's "resnet_training" path)."""
+    from cadx_tpu_torch.models import resnet as TR
+    from cadx_tpu_torch.train import classifier, optim
+    from cadx_tpu_torch.utils import profiling as TProf
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = TR.init_resnet(torch.Generator().manual_seed(27), TR.ResNetConfig(**RESNET_CFG))
+    model = model.to(dev)
+    n_bn = sum(1 for n, _ in model.named_buffers() if n.endswith("running_mean"))
+    n_leaves = len(list(model.parameters()))
+    if (n_bn, n_leaves) != (53, 161):
+        raise AssertionError(f"ResNet-50 has {n_bn} batch norms and {n_leaves} parameter "
+                             f"tensors, not 53 and 161")
+    stats0 = {n: b.clone() for n, b in model.named_buffers() if "running" in n}
+    tx = optim.adam(1e-3)
+    state = tx.init(model.parameters())
+    step = classifier.make_resnet_train_step(tx)
+    gen = torch.Generator(device=dev).manual_seed(27)
+    expected = None
+    for i in range(2):
+        x = torch.rand((RESNET_BATCH, *RESNET_HW, 1), generator=gen, device=dev)
+        y = torch.randint(0, 2, (RESNET_BATCH,), generator=gen, device=dev)
+        torch.cuda.synchronize()
+        TProf.reset()
+        zero_counts()
+        t0 = time.perf_counter()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            state, loss = step(model, state, x, y)
+            launches = read_counts()
+        step_s = time.perf_counter() - t0
+        counted = TProf.span_stats()["train.step"]["counts"].get("bn_train_kernel", 0)
+        TProf.reset()
+        expected = {name: 0 for name in launches}
+        expected.update(batchnorm_train_forward=n_bn, batchnorm_train_backward=n_bn,
+                        adam=-(-n_leaves // ADAM_LEAVES_A_LAUNCH))
+        print(f"ResNet-50 training step {i + 1}: B={RESNET_BATCH} at {RESNET_HW[0]}x"
+              f"{RESNET_HW[1]}, loss {float(loss)}, {step_s:.3f} s wall (step 1 includes "
+              f"cuDNN's plans; CPU profiler on); launches {launches}; bn_train_kernel in "
+              f"train.step {counted} on {card}", flush=True)
+        if launches != expected or counted != 2 * n_bn or not np.isfinite(float(loss)):
+            raise AssertionError(f"ResNet-50 step {i + 1}: launches {launches}, expected "
+                                 f"{expected}; bn_train_kernel {counted}, expected {2 * n_bn}; "
+                                 f"loss {float(loss)}")
+    stale = [n for n, b in model.named_buffers() if "running" in n and torch.equal(b, stats0[n])]
+    tracked = {int(b) for n, b in model.named_buffers() if n.endswith("num_batches_tracked")}
+    print(f"ResNet-50 training: peak {torch.cuda.max_memory_allocated()} B allocated; running "
+          f"statistics left unchanged {stale}; num_batches_tracked {tracked}", flush=True)
+    if stale or tracked != {2}:
+        raise AssertionError(f"ResNet-50 training left running statistics {stale} unchanged "
+                             f"or counted batches {tracked}")
+    del model, state, x, y, loss, stats0
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2868,6 +3075,9 @@ def main() -> int:
     sources["conv_leaky_bf16"] = (KCL.BF16_SOURCE, KCL.REPLACES)
     sources["adam"] = (KA.SOURCE, KA.REPLACES)
     sources["pool_backward"] = (KPool.SOURCE, None)   # JAX leaves the VJP to XLA
+    # the JAX package trains no network with batch norms
+    sources["batchnorm_train_forward"] = (KBN.SOURCE, None)
+    sources["batchnorm_train_backward"] = (KBN.SOURCE, None)
     wrappers = kernel_wrappers()
     zero_counts, read_counts = counters(wrappers)
 
@@ -3533,7 +3743,8 @@ def main() -> int:
                 "upsample": 0, "batchnorm": 0, "jet_blend": 0,
                 "gradcam_tail": 2 * N_MAIN_BATCHES, "cleaner_front": N_MAIN_BATCHES,
                 "largest_component_seeded": 0, "flood": 0, "watershed_packed": 0,
-                "conv_leaky_bf16": 0, "adam": 0, "pool_backward": 0}
+                "conv_leaky_bf16": 0, "adam": 0, "pool_backward": 0,
+                "batchnorm_train_forward": 0, "batchnorm_train_backward": 0}
     print(f"fused pipeline: {N_MAIN_BATCHES} batches of B={BATCH} at {HW}x{HW}, "
           f"launches {pipe_launches}", flush=True)
     if pipe_launches != expected:
@@ -3689,7 +3900,8 @@ def main() -> int:
                 "conv_leaky": 2 * stacks, "pool": 2 * stacks, "upsample": 0,
                 "batchnorm": 0, "jet_blend": 2 * 2, "gradcam_tail": 0, "cleaner_front": 4,
                 "largest_component_seeded": 0, "flood": 0, "watershed_packed": 0,
-                "conv_leaky_bf16": 0, "adam": 0, "pool_backward": 0}
+                "conv_leaky_bf16": 0, "adam": 0, "pool_backward": 0,
+                "batchnorm_train_forward": 0, "batchnorm_train_backward": 0}
     print(f"serving path: 3 uploads, 2 pipelines, {N_BATCHED} batched requests in "
           f"{n_flushes} flushes, classify_batch B={N_BATCHED}; launches {serve_launches}",
           flush=True)
@@ -4564,6 +4776,25 @@ def main() -> int:
     dev_times["pool_backward"] = (head["device_ms"], head["plain_device_ms"],
                                   head["library_device_ms"])
     compared["pool_backward"] = pb
+    # the training batch norm at the resnet cell's shapes, from a fresh
+    # process (bn_train_times); its launches are counted in phase 14. The
+    # record's figures are those of the stem's batch norm, the largest
+    bt = fresh("--bn-train-times", 900)["batchnorm_train"]
+    for row in bt:
+        print(f"time {row['kernel']} {row['shape']}, ReLU {row['relu']}: device "
+              f"{ms_text(row['device_ms'])} ms, events {row['ms']:.4f}; plain "
+              f"{ms_text(row['plain_device_ms'])}, events {row['plain_ms']:.4f}; library "
+              f"{ms_text(row['library_device_ms'])}; bound {row['bound_ms']:.4f} by "
+              f"{row['bound_by']}; statistics and sums within {row['stat_rtol']} "
+              f"{row['stat_rel_err']} on {card}", flush=True)
+    for way in ("forward", "backward"):
+        name = f"batchnorm_train_{way}"
+        head = next(r for r in bt if r["kernel"] == name)
+        times[name] = (head["ms"], head["plain_ms"], head["library_ms"])
+        bounds[name] = (head["bound_ms"], head["bound_by"])
+        dev_times[name] = (head["device_ms"], head["plain_device_ms"],
+                           head["library_device_ms"])
+        compared[name] = [r for r in bt if r["kernel"] == name]
     for row in pw["watershed_packed"]:
         floor = f", floor {row['floor_ms']:.4f}" if "floor_ms" in row else ""
         print(f"time watershed_packed {row['shape']}: device {ms_text(row['device_ms'])} ms, "
@@ -5011,11 +5242,15 @@ def main() -> int:
     dp13 = data_parallel_phase(dev, card, config, params, batches[0], eng, wrappers,
                                zero_counts, read_counts)
     phase_done("13")
+
+    # ---- 14. ResNet-50 training at the resnet cell's shapes ---------------------------
+    resnet_launches = resnet_train_phase(dev, card, zero_counts, read_counts)
+    phase_done("14")
     by_path = {"pipeline": pipe_launches, "serving": serve_launches,
                "reference_gradcam": ref_launches, "training": train_launches,
                "training_cli": cli_launches, "front": front_launches,
                "even_kernel_process": even_launches, "training_bf16": bf16_launches,
-               "data_parallel": dp13["launches"]}
+               "data_parallel": dp13["launches"], "resnet_training": resnet_launches}
     # the seeded component lies on no path (as in JAX): 0 on each
     own_path = {"conv_leaky": "training", "pool": "training", "upsample": "training",
                 "batchnorm": "reference_gradcam", "jet_blend": "reference_gradcam",
@@ -5023,7 +5258,8 @@ def main() -> int:
                 "largest_component_seeded": "training_cli",
                 "watershed_packed": "even_kernel_process",
                 "conv_leaky_bf16": "training_bf16", "adam": "training",
-                "pool_backward": "training"}
+                "pool_backward": "training", "batchnorm_train_forward": "resnet_training",
+                "batchnorm_train_backward": "resnet_training"}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1],
@@ -5052,7 +5288,8 @@ FLAGS = {"--batchnorm-device-times": batchnorm_device_times,
          "--bf16-conv-times": bf16_conv_times,
          "--data-parallel": data_parallel_only,
          "--adam-times": adam_times,
-         "--pool-bwd-times": pool_bwd_times}
+         "--pool-bwd-times": pool_bwd_times,
+         "--bn-train-times": bn_train_times}
 
 
 if __name__ == "__main__":

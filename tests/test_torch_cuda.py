@@ -674,6 +674,133 @@ def test_resnet_card_vs_cpu(dev, rng):
         assert float((a.cpu() - c).abs().max()) <= 1e-4 * max(float(c.abs().max()), 1.0)
 
 
+# ---- the training batch norm (ResNet training) --------------------------------
+
+from cadx_tpu_torch.models import unet as TU         # noqa: E402
+from cadx_tpu_torch.train import classifier as TCls  # noqa: E402
+from cadx_tpu_torch.train import optim as TOpt       # noqa: E402
+
+# ResNet-50 at the cell's 1152x896, B=16: the stem, a layer1 bottleneck's
+# 1x1 reduce and its expand, layer4's expand; small and ragged shapes (the
+# scalar path, one block a channel, n = 2)
+BN_TRAIN_SHAPES = [(16, 64, 576, 448), (16, 64, 288, 224), (16, 256, 288, 224),
+                   (16, 2048, 36, 28), (3, 5, 7, 9), (2, 3, 1, 1), (4, 6, 33, 65)]
+# The statistics and the backward's sums are float32 reductions of n values
+# in another order than torch's (`var_mean`, `sum`): relative 1e-5 is ~170
+# float32 ulps (2^-24), the rounding of chains of a few hundred sequential
+# operations, which neither side's reductions exceed at these n (at most
+# 4.1 M values a channel). Measured against: the mean, |mean| + std; the
+# variance and invstd, themselves; a sum, the sum of its terms' magnitudes.
+BN_STAT_RTOL = 1e-5
+
+
+def _bn_train_inputs(gen, shape, dev, aligned=True):
+    c = shape[1]
+    n = int(np.prod(shape))
+    flat = torch.randn(n + 1, generator=gen, device=dev) * 2.0 + 0.5
+    x = (flat[:n] if aligned else flat[1:]).view(shape)
+    w = torch.rand(c, generator=gen, device=dev) + 0.5
+    b = torch.randn(c, generator=gen, device=dev) * 0.2
+    dy = torch.randn(shape, generator=gen, device=dev)
+    return x, w, b, dy
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("shape", BN_TRAIN_SHAPES)
+def test_batchnorm_train_kernels(dev, shape, relu):
+    """Forward and backward against the plain version on the card: the
+    elementwise passes bit for bit given the kernels' own statistics and
+    sums, the statistics, running statistics and sums within
+    BN_STAT_RTOL, num_batches_tracked + 1, one launch each way."""
+    gen = torch.Generator(device=dev).manual_seed(sum(shape) + relu)
+    for aligned in ((True, False) if np.prod(shape) < 1e6 else (True,)):
+        x, w, b, dy = _bn_train_inputs(gen, shape, dev, aligned)
+        c = shape[1]
+        rm = torch.randn(c, generator=gen, device=dev)
+        rv = torch.rand(c, generator=gen, device=dev) + 0.5
+        rm_p, rv_p = rm.clone(), rv.clone()
+        nbt, nbt_p = (torch.zeros((), dtype=torch.int64, device=dev) for _ in range(2))
+        launched = (KBN.batchnorm_train_forward.launches, KBN.batchnorm_train_backward.launches)
+        y, mean, invstd = KBN.batchnorm_train_forward(x, w, b, rm, rv, nbt, relu=relu)
+        _, mean_p, invstd_p = KBN.batchnorm_train_reference(x, w, b, rm_p, rv_p, nbt_p,
+                                                            relu=relu)
+        _eq(y, KBN.batchnorm_train_apply_reference(x, mean, invstd, w, b, relu))
+        var_p, _ = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+        assert float(((mean - mean_p).abs() / (mean_p.abs() + var_p.sqrt())).max()) <= \
+            BN_STAT_RTOL
+        assert float(((invstd - invstd_p).abs() / invstd_p).max()) <= BN_STAT_RTOL
+        assert float(((rm - rm_p).abs() / (rm_p.abs() + var_p.sqrt())).max()) <= BN_STAT_RTOL
+        assert float(((rv - rv_p).abs() / rv_p).max()) <= BN_STAT_RTOL
+        assert int(nbt) == int(nbt_p) == 1
+        dx, dw, db = KBN.batchnorm_train_backward(dy, x, mean, invstd, w, b, relu)
+        _eq(dx, KBN.batchnorm_train_dx_reference(dy, x, mean, invstd, w, b, dw, db, relu))
+        _, dw_p, db_p = KBN.batchnorm_train_backward_reference(dy, x, mean, invstd, w, b, relu)
+        xh, g = KBN._masked(dy, x, mean, invstd, w, b, relu)
+        assert float(((db - db_p).abs() / g.abs().sum(dim=(0, 2, 3)).clamp_min(1e-30)).max()) \
+            <= BN_STAT_RTOL
+        assert float(((dw - dw_p).abs() / (g * xh).abs().sum(dim=(0, 2, 3)).clamp_min(1e-30))
+                     .max()) <= BN_STAT_RTOL
+        assert (KBN.batchnorm_train_forward.launches - launched[0],
+                KBN.batchnorm_train_backward.launches - launched[1]) == (1, 1)
+        del x, dy, y, dx, xh, g
+        torch.cuda.empty_cache()
+
+
+def test_batchnorm_train_kernels_reject_wrong_inputs(dev):
+    x = torch.zeros((2, 4, 8, 8), device=dev)
+    w, b = torch.ones(4, device=dev), torch.zeros(4, device=dev)
+    rm, rv = torch.zeros(4, device=dev), torch.ones(4, device=dev)
+    nbt = torch.zeros((), dtype=torch.int64, device=dev)
+    before = KBN.batchnorm_train_forward.launches
+    for bad in (x.to(memory_format=torch.channels_last), x.double(), x[0], x[:1, :, :1, :1]):
+        with pytest.raises(ValueError):
+            KBN.batchnorm_train_forward(bad, w, b, rm, rv, nbt)
+    with pytest.raises(ValueError):
+        KBN.batchnorm_train_forward(x, w[:3], b, rm, rv, nbt)
+    with pytest.raises(ValueError):
+        KBN.batchnorm_train_forward(x, w, b, rm, rv.cpu(), nbt)
+    with pytest.raises(ValueError):
+        KBN.batchnorm_train_forward(x, w, b, rm, rv, torch.zeros((), device=dev))
+    assert KBN.batchnorm_train_forward.launches == before
+
+
+def test_resnet_train_step_card_vs_cpu(dev):
+    """A small bottleneck ResNet's training step on the card against the
+    same step on the CPU (the plain versions): loss relative 1e-5, each
+    gradient max |d| / max |ref| 1e-4 (cuDNN's float32 convs and the
+    kernels' sums against the CPU's), the running statistics 1e-5; every
+    batch norm through the training kernels, `bn_train_kernel` counted at
+    each launch, forward and backward."""
+    cfg = TR.ResNetConfig("bottleneck", (1, 1, 1, 1), (8, 16, 32, 64), 1, 2)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.rand((4, 64, 48, 1), generator=gen)
+    y = torch.tensor([0, 1, 1, 0])
+    out = []
+    for d in ("cpu", dev):
+        model = TR.init_resnet(torch.Generator().manual_seed(1), cfg).to(d)
+        tx = TOpt.adam(1e-3)
+        counted = TProf.counts().get("bn_train_kernel", 0)
+        launched = KBN.batchnorm_train_backward.launches
+        state, loss = TCls.make_resnet_train_step(tx)(model, tx.init(model.parameters()),
+                                                       x.to(d), y.to(d))
+        torch.cuda.synchronize()
+        n_bn = sum(isinstance(m, TU.BatchNorm) for m in model.modules())
+        assert TProf.counts().get("bn_train_kernel", 0) - counted == (0 if d == "cpu"
+                                                                      else 2 * n_bn)
+        assert KBN.batchnorm_train_backward.launches - launched == (0 if d == "cpu" else n_bn)
+        out.append((float(loss), [m.cpu() / 0.1 for m in state.mu],
+                    {k: v.cpu() for k, v in model.state_dict().items()}))
+    (l_c, g_c, sd_c), (l_d, g_d, sd_d) = out
+    assert abs(l_d - l_c) / l_c <= 1e-5
+    for a, r in zip(g_d, g_c):
+        assert float((a - r).abs().max() / r.abs().max()) <= 1e-4
+    for k in sd_c:
+        if "running" in k:
+            assert float((sd_d[k] - sd_c[k]).abs().max() / sd_c[k].abs().max()) <= 1e-5, k
+        elif k.endswith("num_batches_tracked"):
+            assert int(sd_d[k]) == int(sd_c[k]) == 1
+
+
 # ---- the last two TPU kernels: cleaner_front and the seeded component ---------
 
 from cadx_tpu_torch.synthetic import synthetic_native_mammogram, tile_edge_cases  # noqa: E402

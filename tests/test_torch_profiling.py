@@ -197,6 +197,19 @@ def _adam_step():
     return lambda: fn(model, state, x, y, torch.ones(4), None)
 
 
+def _resnet_step():
+    from cadx_tpu_torch.models import resnet
+    from cadx_tpu_torch.train import classifier, optim
+
+    cfg = resnet.ResNetConfig("bottleneck", (1, 1, 1, 1), (4, 8, 8, 16), 1, 2)
+    model = resnet.init_resnet(torch.Generator().manual_seed(0), cfg)
+    tx = optim.adam(1e-3)
+    state = tx.init(model.parameters())
+    x = torch.rand((2, 48, 40, 1), generator=torch.Generator().manual_seed(1))
+    fn = classifier.make_resnet_train_step(tx)
+    return lambda: fn(model, state, x, torch.tensor([0, 1]))
+
+
 # path -> (its call, {span: parents})
 SPAN_TREES = {
     "run_pipeline": (_run_pipeline, {
@@ -211,6 +224,12 @@ SPAN_TREES = {
     "adam_step": (_adam_step, {
         "train.step": {None}, "train.forward": {"train.step"},
         "train.backward": {"train.step"}, "train.optimizer": {"train.step"}}),
+    "resnet_step": (_resnet_step, {
+        "train.step": {None}, "train.forward": {"train.step"},
+        "train.backward": {"train.step"}, "train.optimizer": {"train.step"},
+        "resnet.stem": {"train.forward"}, "resnet.layer1": {"train.forward"},
+        "resnet.layer2": {"train.forward"}, "resnet.layer3": {"train.forward"},
+        "resnet.layer4": {"train.forward"}, "resnet.head": {"train.forward"}}),
 }
 
 
@@ -238,6 +257,51 @@ def test_spans_under_the_profiler(path, tmp_path):
         outer = ranges["caller" if parents == {None} else "cadx." + next(iter(parents))]
         inner = ranges["cadx." + name]
         assert outer[0] <= inner[0] and inner[1] <= outer[1], name
+    TProf.reset()
+
+
+@pytest.mark.parametrize("routed", [False, True])
+def test_resnet_step_counts_its_training_batch_norms(routed, monkeypatch):
+    """`bn_train_kernel` inside `train.step`: each of the net's 17 batch
+    norms once at its forward's launch (in `train.forward`) and once for
+    its backward's (in `train.backward`, counted on the caller's thread
+    after autograd returns): 106 for ResNet-50's 53; a forward that records
+    no backward once each; none on the CPU's plain path."""
+    from cadx_tpu_torch.kernels import batchnorm
+
+    if routed:   # the card's launches, simulated over the plain versions
+        plain_fwd, plain_bwd = batchnorm.batchnorm_train_forward, batchnorm.batchnorm_train_backward
+
+        def forward(*args, **kw):
+            out = plain_fwd(*args, **kw)
+            forward.launches += 1
+            TProf.count("bn_train_kernel")
+            return out
+
+        def backward(*args, **kw):
+            out = plain_bwd(*args, **kw)
+            backward.launches += 1
+            return out
+
+        forward.launches = backward.launches = 0
+        monkeypatch.setattr(batchnorm, "batchnorm_train_forward", forward)
+        monkeypatch.setattr(batchnorm, "batchnorm_train_backward", backward)
+    call = _resnet_step()
+    TProf.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        call()
+        with torch.no_grad():    # a forward that records no backward: once each
+            with TProf.span("probe"):
+                from cadx_tpu_torch.models import resnet
+                resnet.train_logits(resnet.init_resnet(
+                    torch.Generator().manual_seed(2),
+                    resnet.ResNetConfig("bottleneck", (1, 1, 1, 1), (4, 8, 8, 16), 1, 2)),
+                    torch.rand((2, 48, 40, 1)))
+    stats = TProf.span_stats()
+    assert stats["train.step"]["counts"].get("bn_train_kernel", 0) == (34 if routed else 0)
+    assert stats["train.forward"]["counts"].get("bn_train_kernel", 0) == (17 if routed else 0)
+    assert stats["train.backward"]["counts"].get("bn_train_kernel", 0) == (17 if routed else 0)
+    assert stats["probe"]["counts"].get("bn_train_kernel", 0) == (17 if routed else 0)
     TProf.reset()
 
 
